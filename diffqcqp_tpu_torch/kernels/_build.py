@@ -1,0 +1,107 @@
+"""Build and load the hand-written CUDA kernels under ``kernels/csrc``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
+library, compiled with ``nvcc`` at first use and loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas=-v -I csrc -o _build/<name>-<hash>.so csrc/<name>.cu
+
+The output goes to ``diffqcqp_tpu_torch/_build/`` (listed in .gitignore),
+keyed by a hash of the flags, the source and every header in ``csrc``, so an
+edited source rebuilds and an unchanged one is reused. ``-Xptxas=-v``'s
+report (registers, shared memory, spills) is kept beside the library as
+``<name>-<hash>.log``. Nothing here runs at import: importing the package,
+or collecting its tests, needs no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build", "load", "library_path"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA kernels "
+        "are compiled from diffqcqp_tpu_torch/kernels/csrc at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` is built, keyed by content."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str]) -> dict[str, float]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together. Returns seconds per name
+    built (0.0 for one already there). Raises on a failed compile with the
+    compiler's output."""
+    todo = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in todo.items() if not p.exists()}
+    out = {n: 0.0 for n in names}
+    if not todo:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, path)
+    errors = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        out[name] = time.perf_counter() - t0
+        path.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)      # atomic: a concurrent loader sees all or none
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib
