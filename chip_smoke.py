@@ -3,9 +3,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``diffqcqp_tpu_torch/kernels/csrc`` and
-drives the port's main path: the friction-cone QCQP forward solve at B=4096,
-N=24 (12 contacts) with the benchmark generator and configuration (seed 0).
-Phases, each of which fails the run if its check fails:
+drives the port's main path: the friction-cone QCQP forward solve and the
+forward+backward step (bench.py's value_and_grad of sum(l^2) with gradients
+for P, q, l_n and mu) at B=4096, N=24 (12 contacts) with the benchmark
+generator and configuration (seed 0). Phases, each of which fails the run if
+its check fails:
 
   1. the card: name and power limit (nvidia-smi), kernel build time;
   2. kernel K1 (``admm_solve_cuda``) against its plain PyTorch version
@@ -14,15 +16,38 @@ Phases, each of which fails the run if its check fails:
      max_iter and warm_start_dual branches at B=256, N=12, and at N=96,
      B=512 (three warps per block). Bars: max |dl| <= 2e-5, per-problem
      |d iterations| <= 1, equal ``converged``;
+  2b. kernel K2 (``qcqp_kkt_bwd_fused_cuda``) against its plain version
+     (``qcqp_kkt_bwd_fused_plain``) on the same card inputs, with l from K1
+     and the cotangents g = 2 l and a random g: at the flagship point, at
+     B=256, N=12 with 30 % zero radii and 30 % of the radii 50 times wider
+     (inactive contacts), and at B=512, N=96. Bars, on the problems whose
+     strict mask agrees: per problem max |d dl| <= 5e-5 max(1, |dl|_inf);
+     max |d dgamma| <= 2e-4 max(1, |dgamma|_inf) over the batch (the JAX
+     suite's K2 bars), and per problem <= 2e-3 max(1, |dgamma|_inf), since
+     float32 rounding in the worst-conditioned KKT systems moves a few
+     problems' dgamma past 2e-4 of their own scale in the plain version
+     too, as the printed comparison with its float64 run shows; max |d
+     gamma| <= 1e-4; all finite; the mask may differ on at most 0.1 % of the
+     contacts;
   3. the slice through ``solve_qcqp_with_stats`` (launch counters zeroed
      just before, read just after): K1 launched, every problem converged,
      every contact feasible, and max |dl| <= 1e-4 against the plain version
      in float64 on the card at eps=1e-10 (the accuracy referee);
-  4. timing at the flagship point: K1 and the entry point per call over
-     back-to-back calls with CUDA events (warm-up, median of samples; K1's
-     is the ``ms`` reported), K1's device time per launch from
-     torch.profiler (and its set-up alone, max_iter=0), and the plain
-     version;
+  3b. the forward+backward step through ``solve_qcqp`` and
+     ``torch.autograd.grad`` (counters zeroed just before, read just after):
+     K1 and K2 launched, every gradient finite; the gradients held to a
+     float64 referee (the plain K1 at eps=1e-10, then the assembled KKT
+     system by ``torch.linalg.solve``, a route that shares none of K2's
+     Schur arithmetic), per-problem relative error median <= 1e-3 and max
+     <= 2e-3; a float64 central difference on 4 problems; ``QCQPFn2`` in the
+     (B, N, 1) layout against the entry point;
+  4. timing at the flagship point: K1, K2, the forward entry point and the
+     forward+backward step per call over back-to-back calls with CUDA events
+     (warm-up, median of samples; K1's and K2's are the ``ms`` reported),
+     device times per launch from torch.profiler (K1's set-up alone,
+     max_iter=0) and the step's device time by kernel, the plain versions,
+     and the library call beside K2 (``torch.linalg.solve`` of the
+     assembled float32 system);
   5. one JSON line of every ported kernel, then as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -90,7 +115,8 @@ def time_cuda(fn, reps, calls=1):
     events around ``calls`` back-to-back calls each. With several calls the
     device queue stays full, so a fast kernel is not timed as the host's
     enqueue latency (one call per sample times the wrapper's Python work)."""
-    fn()
+    for _ in range(calls):
+        fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
@@ -103,24 +129,6 @@ def time_cuda(fn, reps, calls=1):
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b) / calls)
     return float(np.median(ts)), ts
-
-
-def kernel_device_ms(fn, kernel, calls=10):
-    """Mean device time per launch of the kernel whose name contains
-    ``kernel``, from torch.profiler's CUDA activity; None when the trace
-    holds no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            return ev.device_time_total / 1e3 / ev.count
-    return None
 
 
 def k1_bound_ms(B, n, nc, iters, power_iters):
@@ -140,17 +148,111 @@ def k1_bound_ms(B, n, nc, iters, power_iters):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bytes_, flops
 
 
+def k2_bound_ms(B, n, nc, active):
+    """Least time for K2 on an H100 SXM: bytes of P, q, l, g and radius read
+    once and dgamma, dl and gamma written once, against the FLOPs this run's
+    data needs: per problem P l + q (2 n^2), the Cholesky of D (n^3 / 3),
+    the g solve (2 n^2), C^T W for M and y (4 n (nc + 1)), the QR of the
+    nc x (nc + 1) system (4 nc^3 / 3), the back substitution (nc^2) and dl
+    (2 n nc); per strictly active contact c its solve, whose forward sweep
+    starts at row 2c ((n - 2c)^2 + n^2). ``active`` is the (B, nc) mask."""
+    bytes_ = 4 * (B * n * n + 3 * B * n + B * nc) + 4 * (B * n + 2 * B * nc)
+    c = torch.arange(nc, dtype=torch.float64, device=active.device)
+    solves = float((active.double() * ((n - 2 * c) ** 2 + n * n)).sum())
+    per_prob = 4 * n * n + n ** 3 / 3 + 4 * n * (nc + 1) + 4 * nc ** 3 / 3 + nc * nc + 2 * n * nc
+    flops = B * per_prob + solves
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bytes_, flops
+
+
+def compare_k2(name, out_k, out_p, out_64):
+    """K2 against its plain version; fails on the bars, returns max |d dl|.
+    dgamma is exactly 0 where the strict mask am is 0 and almost surely not
+    elsewhere, so its zero pattern shows each side's mask. ``out_64`` is the
+    plain version in float64 on the same inputs, printed to show how far
+    float32 rounding alone moves each side's dgamma."""
+    (dgk, dlk, gk), (dgp, dlp, gp), dg64 = out_k, out_p, out_64[0]
+    flip = (dgk == 0) != (dgp == 0)
+    agree = ~flip.any(dim=-1)
+    agree64 = agree & ~((dgp == 0) != (dg64 == 0)).any(dim=-1)
+
+    def per_problem(x, ref, rows=agree):
+        """Each problem's max error against its own scale, max(1, |ref|_inf)."""
+        ref = ref.double()
+        return ((x.double() - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1.0))[rows]
+
+    e_dl = float((dlk - dlp)[agree].abs().max())
+    e_dg = float((dgk - dgp)[agree].abs().max())
+    e_g = float((gk - gp)[agree].abs().max())
+    bar_dg = 2e-4 * max(1.0, float(dgp.abs().max()))
+    s_dl, s_dg = float(per_problem(dlk, dlp).max()), per_problem(dgk, dgp)
+    s_k64, s_p64 = (float(per_problem(x, dg64, agree64).max()) for x in (dgk, dgp))
+    finite = all(bool(torch.isfinite(x).all()) for x in out_k)
+    n_flip = int(flip.sum())
+    log(f"  {name}: max|d dl|={e_dl:.3e}, per problem /max(1,|dl|_inf) {s_dl:.3e} (bar 5e-5); "
+        f"max|d dgamma|={e_dg:.3e} (bar {bar_dg:.3e}), per problem /max(1,|dgamma|_inf) "
+        f"{float(s_dg.max()):.3e} (bar 2e-3; over 2e-4 on {int((s_dg > 2e-4).sum())}/"
+        f"{s_dg.numel()} problems; against the float64 plain version, on the "
+        f"{int(agree64.sum())} problems whose mask it shares: kernel {s_k64:.3e}, "
+        f"plain {s_p64:.3e}); max|d gamma|={e_g:.3e} (bar 1e-4) "
+        f"finite={finite} contacts whose mask differs: {n_flip}/{flip.numel()} "
+        f"strictly active: {float((dgp != 0).double().mean()):.4f}")
+    if not (finite and n_flip <= 1e-3 * flip.numel() and s_dl <= 5e-5 and e_dg <= bar_dg
+            and float(s_dg.max()) <= 2e-3 and e_g <= 1e-4):
+        raise AssertionError(f"K2 disagrees with its plain version: {name}")
+    return e_dl
+
+
+def rel_err(got, ref, floor=None):
+    """Per-problem ||got - ref|| / max(||ref||, floor) over the flattened
+    trailing dimensions."""
+    d = (got.double() - ref).flatten(1).norm(dim=1)
+    den = ref.flatten(1).norm(dim=1)
+    return d / (den if floor is None else torch.maximum(den, floor))
+
+
+def device_time_by_kernel(fn, calls=10):
+    """[(kernel name, ms per call, launches per call)] of the CUDA kernels
+    that ``fn`` runs, from torch.profiler, largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.device_time_total / 1e3 / calls, ev.count / calls)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def per_launch_ms(rows, kernel):
+    """Device ms per launch of the kernel whose name contains ``kernel``, from
+    ``device_time_by_kernel``'s rows; None when the trace holds no such kernel."""
+    return next((ms / cnt for name, ms, cnt in rows if kernel in name), None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 2
     import diffqcqp_tpu_torch as dqt
+    from diffqcqp_tpu_torch.api import _grad_P
+    from diffqcqp_tpu_torch.diff import kkt
     from diffqcqp_tpu_torch.kernels import _build
     from diffqcqp_tpu_torch.kernels.admm_cuda import (
         PROX_BOX, PROX_DISK, PROX_NONNEG, PROX_SIGNED_BOX,
         admm_solve_cuda, admm_solve_plain,
     )
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import (
+        qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_plain,
+    )
+    from diffqcqp_tpu_torch.torch_autograd import QCQPFn2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -227,6 +329,33 @@ def main() -> int:
     a = (Pb, qb, torch.zeros_like(qb), PROX_DISK, ((lnb * mub).contiguous(),),
          cfg, True, False)
     compare("disk B=512 N=96 (3 warps)", admm_solve_cuda(*a), admm_solve_plain(*a))
+    l96 = admm_solve_cuda(*a)[0]
+
+    # ---- phase 2b: K2 against its plain version on the card
+    log("phase 2b: K2 against qcqp_kkt_bwd_fused_plain on the card")
+    f32_ulps = 8.0 * torch.finfo(torch.float32).eps
+    rand_g = lambda l: cuda(np.random.default_rng(3).standard_normal(  # noqa: E731
+        tuple(l.shape)).astype(np.float32))[0]
+    P2, q2, ln2, mu2 = build_problems(256, 6, seed=4)
+    rng = np.random.default_rng(4)
+    ln2 = np.where(rng.random(ln2.shape) < 0.3, 50.0 * ln2, ln2)   # strictly inside: inactive
+    ln2 = np.where(rng.random(ln2.shape) < 0.3, 0.0, ln2).astype(np.float32)
+    P2, q2, ln2, mu2 = cuda(P2, q2, ln2, mu2)
+    rad2 = (ln2 * mu2).contiguous()
+    l2 = admm_solve_cuda(P2, q2, torch.zeros_like(q2), PROX_DISK, (rad2,), cfg, True, False)[0]
+    errs_k2 = []     # the first is the flagship with the main path's g = 2 l
+    for name, (Pc, qc, lc, rc) in [
+        ("flagship B=4096 N=24", (P, q, out_k[0], radius)),
+        (f"B=256 N=12, {int((rad2 == 0).sum())} zero radii", (P2, q2, l2, rad2)),
+        ("B=512 N=96 (3 warps)", (Pb, qb, l96, (lnb * mub).contiguous())),
+    ]:
+        for gname, g in (("g=2l", 2.0 * lc), ("random g", rand_g(lc))):
+            a2 = (Pc, qc, lc, g.contiguous(), rc, cfg.eps, cfg.act_eps, f32_ulps)
+            a64 = tuple(x.double() for x in a2[:5]) + a2[5:]
+            errs_k2.append(compare_k2(f"{name} {gname}", qcqp_kkt_bwd_fused_cuda(*a2),
+                                      qcqp_kkt_bwd_fused_plain(*a2),
+                                      qcqp_kkt_bwd_fused_plain(*a64)))
+    torch.cuda.synchronize()
 
     # ---- phase 3: the slice through the public entry point
     log("phase 3: solve_qcqp_with_stats at B=4096 N=24")
@@ -239,10 +368,9 @@ def main() -> int:
     norms = l.reshape(B_FLAG, NC_FLAG, 2).norm(dim=-1)
     viol = float((norms - (radius * (1 + 1e-5) + 1e-7)).max())
     ref_cfg = cfg.replace(eps=1e-10, max_iter=5000)
-    l64, st64 = admm_solve_plain(
-        P.double(), q.double(), ws.double(), PROX_DISK, (radius.double(),),
-        ref_cfg, True, False,
-    )
+    P64, q64, ln64, mu64 = (x.double() for x in (P, q, l_n, mu))
+    r64 = ln64 * mu64
+    l64, st64 = admm_solve_plain(P64, q64, ws.double(), PROX_DISK, (r64,), ref_cfg, True, False)
     err_ref = float((l.double() - l64).abs().max())
     log(f"  K1 launches={launches} converged_frac={conv_frac} "
         f"mean_iters={mean_iters:.4f} (JAX package r04 anchor {ITER_ANCHOR}) "
@@ -257,13 +385,101 @@ def main() -> int:
     if not bool(st64.converged.all()):
         raise AssertionError("float64 referee did not converge")
 
+    # ---- phase 3b: the forward+backward step through the public entry point
+    log("phase 3b: forward+backward step, solve_qcqp + autograd at B=4096 N=24")
+    W = rand_g(q)
+    leaves = [x.clone().requires_grad_() for x in (P, q, l_n, mu)]
+
+    def step(linear=False, config=cfg, xs=leaves, solve=dqt.solve_qcqp):
+        lx = solve(*xs, config=config)
+        v = (lx * lx).sum() + ((W.reshape(lx.shape) * lx).sum() if linear else 0.0)
+        return lx, torch.autograd.grad(v, xs)
+
+    admm_solve_cuda.launches = qcqp_kkt_bwd_fused_cuda.launches = 0
+    l_sq, g_sq = step()
+    torch.cuda.synchronize()
+    launches_k1, launches_k2 = admm_solve_cuda.launches, qcqp_kkt_bwd_fused_cuda.launches
+    _, g_lin = step(linear=True)
+    finite = all(bool(torch.isfinite(x).all()) for x in g_sq + g_lin)
+    log(f"  launches in the step: K1 {launches_k1}, K2 {launches_k2}; gradients finite: {finite}")
+    if launches_k1 < 1 or launches_k2 < 1 or not finite:
+        raise AssertionError("the forward+backward step did not run through K1 and K2")
+
+    # float64 referee: the plain K1 at eps=1e-10 (l64 above, solved with the
+    # float64 radius, as its strict mask at float64's floor needs), then the
+    # assembled KKT system solved by torch.linalg.solve
+
+    def referee(g64):
+        duals = kkt.qcqp_dual(P64, q64, r64, l64, cfg)
+        rv = kkt.qcqp_vjp(P64, q64, r64, l64, g64, cfg, duals=duals)
+        e1, e2 = kkt.qcqp_radius_factors(ln64, mu64, rv.gamma)
+        return _grad_P(rv.dl, l64), -rv.dl, e2 * rv.dgamma, e1 * rv.dgamma
+
+    # sum(l^2) is flat in P and q where every contact binds (|l_c| = r_c):
+    # those two gradients are zero up to rounding, so their error is taken
+    # against the cotangent's scale (|g| for q, |g| |l| for P) instead
+    gn = (2.0 * l64).norm(dim=1)
+    floors = {"sum(l^2)": (gn * l64.norm(dim=1), gn, None, None),
+              "sum(l^2) + <w, l>": (None,) * 4}
+    worst = worst_max = 0.0
+    for loss, got, ref in (("sum(l^2)", g_sq, referee(2.0 * l64)),
+                           ("sum(l^2) + <w, l>", g_lin, referee(2.0 * l64 + W.double()))):
+        for gname, a, b, fl in zip(("P", "q", "l_n", "mu"), got, ref, floors[loss]):
+            e = rel_err(a, b, fl)
+            med, mx = float(e.median()), float(e.max())
+            worst, worst_max = max(worst, med), max(worst_max, mx)
+            log(f"  {loss} grad {gname}: per-problem relative error vs f64 referee "
+                f"median {med:.3e} max {mx:.3e} (|ref|_max {float(b.abs().max()):.3e})")
+    if not (worst <= 1e-3 and worst_max <= 2e-3):
+        raise AssertionError("gradients disagree with the float64 referee")
+
+    # central differences in float64 on 4 problems, the plain K1 at eps=1e-12
+    fd_cfg = cfg.replace(eps=1e-12, max_iter=20000)
+    base = [x[:4].double() for x in (P, q, l_n, mu)]
+    W4, h = W[:4].double(), 1e-5
+    jobs = []
+    for pi in (1, 2, 3):
+        an = g_lin[pi][:4].double()
+        for flat in torch.topk(an.abs().flatten(), 5).indices.tolist():
+            b_, c_ = divmod(flat, an.shape[1])
+            jobs += [(pi, b_, c_, s_, float(an[b_, c_])) for s_ in (h, -h)]
+    xs = [torch.stack([x[j[1]] for j in jobs]).clone() for x in base]
+    for k_, (pi, _, c_, s_, _) in enumerate(jobs):
+        xs[pi][k_, c_] += s_
+    lf, stf = admm_solve_plain(xs[0], xs[1], torch.zeros_like(xs[1]), PROX_DISK,
+                               ((xs[2] * xs[3]).contiguous(),), fd_cfg, True, False)
+    Wj = torch.stack([W4[j[1]] for j in jobs])
+    f = ((lf * lf).sum(1) + (Wj * lf).sum(1)).tolist()
+    fd_rel = {1: [], 2: [], 3: []}
+    for k_ in range(0, len(jobs), 2):
+        pi, fd = jobs[k_][0], (f[k_] - f[k_ + 1]) / (2 * h)
+        fd_rel[pi].append(abs(fd - jobs[k_][4]) / max(abs(fd), 1e-30))
+    fd_med = {n_: float(np.median(fd_rel[pi])) for n_, pi in (("q", 1), ("l_n", 2), ("mu", 3))}
+    log(f"  central differences (f64, h={h}, 4 problems, 5 largest coordinates each; "
+        f"FD solves converged: {bool(stf.converged.all())}): median relative error "
+        + ", ".join(f"{k}: {v:.3e}" for k, v in fd_med.items()))
+    if not (bool(stf.converged.all()) and max(fd_med.values()) < 1e-3):
+        raise AssertionError("central differences disagree with the gradients")
+
+    # QCQPFn2 in the reference's (B, N, 1) layout against the entry point
+    dcfg = dqt.QCQP_DEFAULTS.replace(eps=cfg.eps, max_iter=cfg.max_iter)
+    col = [x.clone().requires_grad_() for x in (P, q[..., None], l_n[..., None], mu[..., None])]
+    fn2 = lambda *a, config: QCQPFn2.apply(*a, torch.zeros_like(a[1]), config.eps,  # noqa: E731
+                                           config.max_iter)
+    _, g_fn2 = step(True, dcfg, col, fn2)
+    _, g_api = step(True, dcfg, [x.clone().requires_grad_() for x in (P, q, l_n, mu)])
+    e_fn2 = max(float((a.reshape(b.shape) - b).abs().max()) for a, b in zip(g_fn2, g_api))
+    log(f"  QCQPFn2 (B, N, 1) vs solve_qcqp gradients: max|d| = {e_fn2:.3e}")
+    if not e_fn2 <= 1e-6:
+        raise AssertionError("QCQPFn2 disagrees with the entry point")
+
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
     k1 = lambda: admm_solve_cuda(*args)            # noqa: E731
     k1_setup = lambda: admm_solve_cuda(*args0)     # noqa: E731 (set-up only)
     api = lambda: dqt.solve_qcqp_with_stats(P, q, l_n, mu, config=cfg)  # noqa: E731
-    dev_k = kernel_device_ms(k1, "admm_kernel")
-    dev_setup = kernel_device_ms(k1_setup, "admm_kernel")
+    dev_k = per_launch_ms(device_time_by_kernel(k1), "admm_kernel")
+    dev_setup = per_launch_ms(device_time_by_kernel(k1_setup), "admm_kernel")
     ev_k, ts_k = time_cuda(k1, reps=5, calls=20)
     ev_k1, _ = time_cuda(k1, reps=20, calls=1)
     ev_api, _ = time_cuda(api, reps=5, calls=20)
@@ -281,19 +497,73 @@ def main() -> int:
         f"  bound {bound:.5f} ms ({bound_by}: {nbytes} bytes, {nflops:.4g} FLOP); "
         f"K1 'ms' below is the back-to-back CUDA-event time")
 
+    # K2 at the flagship point with the main path's cotangent g = 2 l
+    lk = out_k[0]
+    k2_args = (P, q, lk, (2.0 * lk).contiguous(), radius, cfg.eps, cfg.act_eps, f32_ulps)
+    k2 = lambda: qcqp_kkt_bwd_fused_cuda(*k2_args)   # noqa: E731
+    dev_k2 = per_launch_ms(device_time_by_kernel(k2), "qcqp_bwd_kernel")
+    ev_k2, ts_k2 = time_cuda(k2, reps=5, calls=20)
+    ms_p2, ts_p2 = time_cuda(lambda: qcqp_kkt_bwd_fused_plain(*k2_args), reps=3)
+    active = k2()[0] != 0
+    bound2, bound2_by, nbytes2, nflops2 = k2_bound_ms(B_FLAG, 2 * NC_FLAG, NC_FLAG, active)
+    # the library call: the same adjoint solve, assembled in float32 and
+    # solved by torch.linalg.solve (the dual recovery not included)
+    duals = kkt.qcqp_dual(P, q, radius, lk, cfg)
+    s_, am_ = kkt.qcqp_strict_active(lk, radius, duals.gamma, cfg)
+    am_ = am_.float()
+    Ct, Bt, D = kkt._qcqp_kkt_blocks(P, lk, duals.gamma, am_, NC_FLAG, 2 * NC_FLAG)
+    ST = torch.cat([torch.cat([torch.diag_embed(s_ * am_ + (1.0 - am_)), Ct], -1),
+                    torch.cat([Bt, D], -1)], -2).contiguous()
+    rhs = torch.cat([torch.zeros_like(radius), 2.0 * lk], -1)[..., None].contiguous()
+    ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(ST, rhs), reps=5, calls=20)
+
+    # the forward+backward step, as bench.py times it, and its device time
+    ev_step, ts_step = time_cuda(step, reps=5, calls=20)
+    by_kernel = device_time_by_kernel(step)
+    dev_total = sum(r_[1] for r_ in by_kernel)
+    dev_k1s = sum(r_[1] for r_ in by_kernel if "admm_kernel" in r_[0])
+    dev_k2s = sum(r_[1] for r_ in by_kernel if "qcqp_bwd_kernel" in r_[0])
+    log(f"  K2 device time per launch (torch.profiler): {fmt(dev_k2)}\n"
+        f"  K2 per call, 20 back-to-back calls (CUDA events): {ev_k2:.4f} ms "
+        f"(samples {[round(t, 4) for t in ts_k2]})\n"
+        f"  K2 plain version: {ms_p2:.2f} ms (samples {[round(t, 2) for t in ts_p2]})\n"
+        f"  K2 bound {bound2:.5f} ms ({bound2_by}: {nbytes2} bytes, {nflops2:.4g} FLOP; "
+        f"{int(active.sum())} strictly active contacts)\n"
+        f"  library call torch.linalg.solve, assembled float32 (B, 36, 36): "
+        f"{ms_lib:.4f} ms (samples {[round(t, 4) for t in ts_lib]})\n"
+        f"  forward+backward step per call, 20 back-to-back (CUDA events): {ev_step:.4f} ms "
+        f"(samples {[round(t, 4) for t in ts_step]}) = {B_FLAG / ev_step * 1e3:.1f} problems/s\n"
+        f"  step device time by kernel (torch.profiler, ms per step): total {dev_total:.4f}, "
+        f"K1 {dev_k1s:.4f}, K2 {dev_k2s:.4f}, other kernels {dev_total - dev_k1s - dev_k2s:.4f}, "
+        f"device idle {ev_step - dev_total:.4f}")
+    for name_, ms_, cnt in by_kernel[:10]:
+        log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
+
     # ---- phase 5: the kernels line, then the result
     print(json.dumps({"kernels": [{
         "name": "admm_solve_cuda (K1, with the K3 LDL^T helpers inlined)",
         "route": "cuda",
         "source": "diffqcqp_tpu_torch/kernels/csrc/admm.cu",
         "replaces": "diffqcqp_tpu/kernels/admm_pallas.py:78",
-        "launches": launches,
+        "launches": launches_k1,
         "max_abs_err": err_flag,
         "ms": ev_k,
         "plain_ms": ms_p,
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "qcqp_kkt_bwd_fused_cuda (K2, with the K3 LDL^T helpers inlined)",
+        "route": "cuda",
+        "source": "diffqcqp_tpu_torch/kernels/csrc/qcqp_bwd.cu",
+        "replaces": "diffqcqp_tpu/kernels/qcqp_bwd_pallas.py:200",
+        "launches": launches_k2,
+        "max_abs_err": errs_k2[0],
+        "ms": ev_k2,
+        "plain_ms": ms_p2,
+        "bound_ms": bound2,
+        "bound_by": bound2_by,
+        "library_ms": ms_lib,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,21 @@
-"""Public solver API of the port: the friction-cone QCQP forward solve.
+"""Public solver API of the port: the differentiable friction-cone QCQP.
 
 ``solve_qcqp`` / ``solve_qcqp_with_stats`` take the JAX package's signature
 plus ``device``. They run on the card by default (``device="cuda"``): the
-batch goes through the fused ADMM kernel K1 (``kernels/csrc/admm.cu``) in
-float32, as the JAX kernel path computes in float32, and the results are
-cast back to the input dtype. ``device="cpu"`` runs K1's plain PyTorch
-version in the input dtype. Without CUDA the default raises; it never runs
-on the CPU by itself.
+forward goes through the fused ADMM kernel K1 (``kernels/csrc/admm.cu``) and
+the backward through the fused KKT adjoint K2 (``kernels/csrc/qcqp_bwd.cu``),
+both in float32, as the JAX kernel path computes in float32, with the
+results cast back to the input dtype. ``device="cpu"`` runs the kernels'
+plain PyTorch versions in the input dtype. Without CUDA the default raises;
+it never runs on the CPU by itself.
 
-Forward only so far: the backward (kernel K2) is the next slice, so a call
-whose inputs require a gradient raises rather than return a detached result.
-The QP-family entry points, duals, Jacobians, ``verify``, ``parallel`` and
+Gradients flow to P, q, l_n and mu through a ``torch.autograd.Function``
+(the JAX package's ``jax.custom_vjp``): it saves the caller's P, q, l_n, mu
+(before equilibration) and the mapped-back solution l, and its backward is
+``diff/kkt.py::qcqp_vjp`` plus the radius chain rule. The warm start gets a
+zero gradient. The backward is not itself differentiable.
+
+The QP-family entry points, Jacobians, ``verify``, ``parallel`` and
 ``models`` are not ported yet (ROADMAP Queue 1).
 """
 
@@ -19,8 +24,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .config import QCQP_DEFAULTS, SolverConfig, check_supported
+from .diff.kkt import qcqp_radius_factors, qcqp_vjp
 from .kernels.admm_cuda import PROX_DISK, admm_solve_cuda
 from .ops.equilibrate import isotropize, ruiz_diag, scale_problem
 from .solvers.admm import SolveStats
@@ -67,13 +74,6 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _refuse_grad(*xs) -> None:
-    if torch.is_grad_enabled() and any(
-        isinstance(x, torch.Tensor) and x.requires_grad for x in xs
-    ):
-        raise NotImplementedError("QCQP backward (kernel K2) is the next slice")
-
-
 def _forward_disk(P, q, ws, radius, cfg: SolverConfig):
     """K1 with the disk prox and the QCQP stopping rule; float32 on CUDA."""
     if q.device.type == "cuda":
@@ -106,6 +106,43 @@ def _qcqp(P, q, l_n, mu, ws, cfg: SolverConfig):
     return (l * d if d is not None else l), stats
 
 
+def _grad_P(dl: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """Symmetrised grad_P = -(dl l^T + l dl^T) / 2, the exact VJP of a solver
+    that sees only the symmetric part of P."""
+    return -0.5 * (dl[:, :, None] * l[:, None, :] + l[:, :, None] * dl[:, None, :])
+
+
+def _qcqp_grads(P, q, l_n, mu, l, g, cfg: SolverConfig):
+    """(grad P, grad q, grad l_n, grad mu) of <g, l> at the solution l."""
+    r = qcqp_vjp(P, q, l_n * mu, l, g, cfg)
+    e1, e2 = qcqp_radius_factors(l_n, mu, r.gamma)
+    return _grad_P(r.dl, l), -r.dl, e2 * r.dgamma, e1 * r.dgamma
+
+
+class _QCQP(torch.autograd.Function):
+    """``_qcqp`` with the KKT adjoint as its backward; outputs (l, *stats)."""
+
+    @staticmethod
+    def forward(ctx, P, q, l_n, mu, ws, cfg):
+        l, stats = _qcqp(P, q, l_n, mu, ws, cfg)
+        ctx.save_for_backward(P, q, l_n, mu, l)
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(*stats)
+        return (l, *stats)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, *_):
+        P, q, l_n, mu, l = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = _qcqp_grads(P, q, l_n, mu, l, g, ctx.cfg)
+        return (
+            *(x if want else None for x, want in zip(grads, need)),
+            torch.zeros_like(l) if need[4] else None,
+            None,
+        )
+
+
 def _stats_restore(stats: SolveStats, batched: bool) -> SolveStats:
     if batched:
         return stats
@@ -136,7 +173,6 @@ def solve_qcqp_with_stats(
     """``solve_qcqp`` plus per-problem ``SolveStats``."""
     cfg = _build_cfg(QCQP_DEFAULTS, config, eps, mu_prox, max_iter, adaptive_rho, axis_name)
     dev = _device(device)
-    _refuse_grad(P, q, l_n, mu, warm_start)
     c = canon_problem(P, q, device=dev)
     if c.P.ndim != 3:
         raise NotImplementedError(
@@ -151,5 +187,5 @@ def solve_qcqp_with_stats(
         if warm_start is None
         else canon_like(warm_start, c, "warm_start", width=n)
     )
-    l, stats = _qcqp(c.P, c.q, ln, m, ws, cfg)
-    return c.restore(l), _stats_restore(stats, c.batched)
+    l, *stats = _QCQP.apply(c.P, c.q, ln, m, ws, cfg)
+    return c.restore(l), _stats_restore(SolveStats(*stats), c.batched)

@@ -12,6 +12,10 @@ edited source rebuilds and an unchanged one is reused. ``-Xptxas=-v``'s
 report (registers, shared memory, spills) is kept beside the library as
 ``<name>-<hash>.log``. Nothing here runs at import: importing the package,
 or collecting its tests, needs no ``nvcc``.
+
+``check_launch`` and ``check_rc`` are the checks every kernel wrapper makes
+around a launch: inputs, shared memory and block size before it, the
+kernel's ``cudaGetLastError()`` code after it.
 """
 
 from __future__ import annotations
@@ -25,7 +29,11 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "library_path"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "build", "load", "library_path", "check_launch", "check_rc"]
+
+MAX_THREADS = 256   # __launch_bounds__ of every kernel: one thread per row, n <= 256
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -103,5 +111,37 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
+            lib.dq_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.dq_cuda_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
         return lib
+
+
+def check_launch(tensors, smem: int, n: int) -> torch.device:
+    """Raise unless every tensor is a contiguous float32 on one CUDA device,
+    a block's ``smem`` bytes of dynamic shared memory fit what this card
+    lets a block opt into, and the n threads of a block fit the kernels'
+    bound. Returns the device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"all inputs must lie on one CUDA device, got {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors")
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit or n > MAX_THREADS:
+        raise ValueError(
+            f"n={n} needs {smem} bytes of shared memory per block; this card "
+            f"allows {limit} (and the kernel at most {MAX_THREADS} threads)"
+        )
+    return dev
+
+
+def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {lib.dq_cuda_error_string(rc).decode()}"
+        )

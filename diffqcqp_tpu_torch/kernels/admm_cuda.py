@@ -32,6 +32,7 @@ import torch
 from ..config import SolverConfig
 from ..ops.prox import prox_box, prox_disk, prox_nonneg, prox_signed_box
 from ..solvers.admm import SolveStats
+from . import _build
 from .ldl import TINY, chol_factor, chol_to_unit, ldl_solve
 
 __all__ = [
@@ -224,8 +225,6 @@ _F32_EPS = 1.1920929e-7   # the kernel works in float32 whatever the caller's dt
 
 
 def _lib():
-    from . import _build
-
     lib = _build.load("admm")
     if not getattr(lib, "_dq_typed", False):
         vp = ctypes.c_void_p
@@ -233,8 +232,6 @@ def _lib():
             ctypes.c_int, ctypes.POINTER(_Params), vp,
         ]
         lib.dq_admm_solve_f32.restype = ctypes.c_int
-        lib.dq_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.dq_cuda_error_string.restype = ctypes.c_char_p
         lib._dq_typed = True
     return lib
 
@@ -292,22 +289,8 @@ def admm_solve_cuda(
         return admm_solve_plain(
             P, q, warm_start, prox_kind, prox_args, cfg, qcqp_stopping, damp_both
         )
-    dev = q.device
-    for t in tensors:
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"all inputs must lie on one CUDA device, got {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernel takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA kernel takes contiguous tensors")
     B, n = q.shape
-    smem = smem_bytes(n)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit or n > 256:
-        raise ValueError(
-            f"n={n} needs {smem} bytes of shared memory per block; this card "
-            f"allows {limit} (and the kernel at most 256 threads)"
-        )
+    dev = _build.check_launch(tensors, smem_bytes(n), n)
 
     lib = _lib()
     prm = _Params(
@@ -338,11 +321,7 @@ def admm_solve_cuda(
             ptr(l2), ptr(iters), ptr(resp), ptr(resd), ptr(rho), ptr(conv),
             ptr(stall), B, ctypes.byref(prm), stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"admm kernel launch failed: {lib.dq_cuda_error_string(rc).decode()} "
-            f"(B={B}, n={n})"
-        )
+    _build.check_rc(lib, rc, f"admm (B={B}, n={n})")
     admm_solve_cuda.launches += 1
     return l2, SolveStats(iters, resp, resd, rho, conv, stall)
 

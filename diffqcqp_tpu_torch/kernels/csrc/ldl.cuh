@@ -55,6 +55,9 @@ __device__ __forceinline__ float bcast(const Blk& k, float v, int src, float* sl
 // sP (row-major, stride ld). Left-looking standard Cholesky columns with the
 // pivot floored at kTiny, then the in-place conversion Lh[r][j] = L[r][j] /
 // L_jj (r > j). Returns this thread's dinv = 1 / L_rr^2.
+// `shift` is read only by the thread whose row is the pivot (r == j), so each
+// thread may pass its own value: K1 passes one rho + mu for all rows, K2 its
+// row's 2 gamma, which factors P + diag(shift_r) with no change here.
 // Scratch: s_piv[n] (pivot broadcast slots), s_rd[n] (reciprocal diagonal).
 __device__ float chol_factor(const Blk& k, const float* sP, float* sL, float shift,
                              float* s_piv, float* s_rd) {

@@ -30,16 +30,17 @@ TINY = 1e-30
 
 
 def chol_factor(P: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """Standard lower Cholesky factor of P + diag(shift), shift (B,), by
-    left-looking columns with the kernel's pivot floor: column j is
-    s = P[:, j] + shift e_j - sum_{k<j} L[:, k] L[j, k], then
-    s / sqrt(max(s_j, TINY)) on rows >= j."""
+    """Standard lower Cholesky factor of P + diag(shift), by left-looking
+    columns with the kernel's pivot floor: column j is
+    s = P[:, j] + shift_j e_j - sum_{k<j} L[:, k] L[j, k], then
+    s / sqrt(max(s_j, TINY)) on rows >= j. ``shift`` is (B,), one shift
+    for every row (K1's rho + mu), or (B, n), one per row (K2's 2 gamma)."""
     B, n, _ = P.shape
     L = torch.zeros_like(P)
     rows = torch.arange(n, device=P.device)
     for j in range(n):
         s = P[:, :, j].clone()
-        s[:, j] = s[:, j] + shift
+        s[:, j] = s[:, j] + (shift[:, j] if shift.ndim == 2 else shift)
         for k in range(j):
             s = s - L[:, :, k] * L[:, j, k : k + 1]
         d = torch.clamp_min(s[:, j : j + 1], TINY)

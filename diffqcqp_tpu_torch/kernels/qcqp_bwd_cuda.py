@@ -1,0 +1,195 @@
+"""Fused QCQP backward: the CUDA kernel K2 and its plain version.
+
+``qcqp_kkt_bwd_fused_cuda`` replaces ``diffqcqp_tpu/kernels/qcqp_bwd_pallas.py::
+qcqp_kkt_bwd_fused`` (kernel ``_qcqp_bwd_fused_kernel`` -> ``_schur_core``):
+the closed-form dual recovery and the Schur-complement KKT adjoint of the
+friction-cone QCQP in one launch. On a CUDA tensor it launches
+``kernels/csrc/qcqp_bwd.cu`` (one thread block per problem; see the note at
+the top of that file) or raises; on a CPU tensor it runs
+``qcqp_kkt_bwd_fused_plain``. There is no fallback from one to the other.
+
+``qcqp_kkt_bwd_fused_plain`` repeats the kernel's arithmetic on whole
+batches in eager PyTorch, in any dtype: P l + q accumulated over columns,
+the per-contact duals and strict mask, the LDL^T factor of
+D = P + diag(2 gamma_raw) (``kernels/ldl.py``), the nc + 1 solves (column c
+of C starting at row 2c), M and y, the column-oriented Householder QR and
+back substitution, and dl. The CPU path and the tests use it;
+``chip_smoke.py`` holds the kernel against it on the card.
+
+Layout: reference order, contact c owns coordinates 2c and 2c + 1; n = 2 nc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ldl import TINY, chol_factor, chol_to_unit, ldl_solve
+
+__all__ = ["qcqp_kkt_bwd_fused_cuda", "qcqp_kkt_bwd_fused_plain", "smem_bytes"]
+
+
+def _ct(l: torch.Tensor, z: torch.Tensor, am: torch.Tensor) -> torch.Tensor:
+    """(C^T z)_c = 2 (l_2c z_2c + l_2c+1 z_2c+1) am_c, (B, nc)."""
+    t = l * z
+    return 2.0 * (t[:, 0::2] + t[:, 1::2]) * am
+
+
+def qcqp_kkt_bwd_fused_plain(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    l: torch.Tensor,
+    g: torch.Tensor,
+    radius: torch.Tensor,
+    eps: float,
+    act_eps: float,
+    stall_ulps: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's plain PyTorch version over a whole batch, in the inputs' dtype
+    and on their device. Returns (dgamma (B, nc), dl (B, n), gamma (B, nc)),
+    gamma being the raw recovered duals."""
+    B, n = l.shape
+    nc = n // 2
+
+    plq = q
+    for k in range(n):
+        plq = plq + P[:, :, k] * l[:, k : k + 1]
+
+    la, lb = l[:, 0::2], l[:, 1::2]
+    sq = la * la + lb * lb
+    act = (radius - torch.sqrt(sq) <= eps) & (radius >= eps)
+    num = torch.clamp_min(-2.0 * (la * plq[:, 0::2] + lb * plq[:, 1::2]), 0.0)
+    gam_raw = torch.where(act, num / torch.clamp_min(4.0 * sq, TINY), torch.zeros_like(num))
+    rr = radius * radius
+    s = sq - rr
+    s_tol = torch.clamp_min(stall_ulps * (sq + rr), act_eps)
+    am = ((s > -s_tol) & (radius > act_eps) & (gam_raw > act_eps)).to(l.dtype)
+    gam = gam_raw * am
+    sigma = torch.where(am > 0, s, torch.ones_like(s))
+
+    Lh, dinv = chol_to_unit(chol_factor(P, torch.repeat_interleave(2.0 * gam_raw, 2, dim=-1)))
+    Wg = ldl_solve(Lh, dinv, g)
+    Wc = []
+    for c in range(nc):
+        rhs = torch.zeros_like(l)
+        rhs[:, 2 * c : 2 * c + 2] = 2.0 * l[:, 2 * c : 2 * c + 2] * am[:, c : c + 1]
+        Wc.append(ldl_solve(Lh, dinv, rhs, start=2 * c))
+
+    # [M | y], (B, nc rows, nc + 1 columns)
+    eye = torch.eye(nc, dtype=torch.bool, device=l.device)
+    cols = [
+        torch.where(eye[c], sigma, torch.zeros_like(sigma)) - _ct(l, Wc[c], am) * gam[:, c : c + 1]
+        for c in range(nc)
+    ]
+    A = torch.stack(cols + [-_ct(l, Wg, am)], dim=-1)
+
+    # Householder QR applied to y, one column of [M | y] at a time
+    for k in range(nc):
+        ck = A[:, k:, k]
+        akk = ck[:, 0]
+        alpha = torch.where(akk < 0, 1.0, -1.0).to(l.dtype) * torch.sqrt(torch.sum(ck * ck, dim=-1))
+        v = ck.clone()
+        v[:, 0] = akk - alpha
+        vsq = torch.sum(v * v, dim=-1)
+        beta = torch.where(vsq > TINY, 2.0 / torch.clamp_min(vsq, TINY), torch.zeros_like(vsq))
+        rest = A[:, k:, k + 1 :]
+        wd = torch.sum(v[:, :, None] * rest, dim=1)
+        A[:, k:, k + 1 :] = rest - (beta[:, None] * wd)[:, None, :] * v[:, :, None]
+        A[:, k, k] = alpha
+
+    bvec = A[:, :, nc].clone()
+    dg = torch.zeros_like(gam)
+    for k in reversed(range(nc)):
+        d = A[:, k, k]
+        dg[:, k] = bvec[:, k] / torch.where(d.abs() > TINY, d, torch.full_like(d, TINY))
+        bvec[:, :k] = bvec[:, :k] - A[:, :k, k] * dg[:, k : k + 1]
+    dgamma = dg * am
+
+    dl = Wg
+    for c in range(nc):
+        dl = dl - Wc[c] * (gam[:, c : c + 1] * dgamma[:, c : c + 1])
+    return dgamma, dl, gam_raw
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel binding
+# ---------------------------------------------------------------------------
+
+def _lib():
+    lib = _build.load("qcqp_bwd")
+    if not getattr(lib, "_dq_typed", False):
+        vp, f = ctypes.c_void_p, ctypes.c_float
+        lib.dq_qcqp_bwd_f32.argtypes = [vp] * 8 + [ctypes.c_int] * 2 + [f] * 3 + [vp]
+        lib.dq_qcqp_bwd_f32.restype = ctypes.c_int
+        lib._dq_typed = True
+    return lib
+
+
+def smem_bytes(n: int) -> int:
+    """Dynamic shared memory of one block at problem size n (as
+    ``smem_bytes`` in csrc/qcqp_bwd.cu computes it): P and the factor
+    (n x (n|1) each), W (n x (nc+1)), [M | y] ((nc|1) x (nc+1)), five
+    n-vectors and three nc-vectors of slots."""
+    nc = n // 2
+    return 4 * (2 * n * (n | 1) + (nc + 1) * n + (nc + 1) * (nc | 1) + 5 * n + 3 * nc)
+
+
+def _check(P, q, l, g, radius):
+    if l.ndim != 2 or l.shape[-1] % 2:
+        raise ValueError(f"l must be (B, 2 nc), got {tuple(l.shape)}")
+    B, n = l.shape
+    if tuple(P.shape) != (B, n, n):
+        raise ValueError(f"P must be (B, n, n) = {(B, n, n)}, got {tuple(P.shape)}")
+    for name, t in (("q", q), ("g", g)):
+        if tuple(t.shape) != (B, n):
+            raise ValueError(f"{name} must be {(B, n)}, got {tuple(t.shape)}")
+    if tuple(radius.shape) != (B, n // 2):
+        raise ValueError(f"radius must be {(B, n // 2)}, got {tuple(radius.shape)}")
+    dtypes = {t.dtype for t in (P, q, l, g, radius)}
+    if len(dtypes) != 1 or not l.dtype.is_floating_point:
+        raise TypeError(f"inputs must share one floating dtype, got {sorted(map(str, dtypes))}")
+
+
+def qcqp_kkt_bwd_fused_cuda(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    l: torch.Tensor,
+    g: torch.Tensor,
+    radius: torch.Tensor,
+    eps: float,
+    act_eps: float,
+    stall_ulps: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2: the whole QCQP backward of a batch in one launch. Returns
+    (dgamma (B, nc), dl (B, n), gamma (B, nc)).
+
+    CPU tensors go to ``qcqp_kkt_bwd_fused_plain``. CUDA tensors must be
+    contiguous float32 on one device; the kernel is launched on the current
+    stream (no synchronisation) or this raises. ``qcqp_kkt_bwd_fused_cuda.
+    launches`` counts the launches.
+    """
+    tensors = (P, q, l, g, radius)
+    _check(*tensors)
+    if all(t.device.type == "cpu" for t in tensors):
+        return qcqp_kkt_bwd_fused_plain(P, q, l, g, radius, eps, act_eps, stall_ulps)
+    B, n = l.shape
+    dev = _build.check_launch(tensors, smem_bytes(n), n)
+
+    lib = _lib()
+    dgamma = torch.empty_like(radius)
+    dl = torch.empty_like(l)
+    gamma = torch.empty_like(radius)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dq_qcqp_bwd_f32(
+            *(t.data_ptr() for t in tensors), dgamma.data_ptr(), dl.data_ptr(),
+            gamma.data_ptr(), B, n, eps, act_eps, stall_ulps, stream,
+        )
+    _build.check_rc(lib, rc, f"qcqp_bwd (B={B}, n={n})")
+    qcqp_kkt_bwd_fused_cuda.launches += 1
+    return dgamma, dl, gamma
+
+
+qcqp_kkt_bwd_fused_cuda.launches = 0

@@ -106,14 +106,22 @@ def test_default_device_raises_without_cuda(problems, monkeypatch):
 
 
 @pytest.mark.parametrize("which", ["P", "q", "l_n", "mu"])
-def test_requires_grad_raises(problems, which):
-    args = [torch.from_numpy(x) for x in problems]
+def test_requires_grad_gives_gradients(problems, which):
+    """One input requiring a gradient gets a finite one of its shape, and
+    only it; under torch.no_grad() the same call just solves."""
+    args = [torch.from_numpy(x.copy()) for x in problems]
     i = ["P", "q", "l_n", "mu"].index(which)
     args[i].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K2"):
-        dqt.solve_qcqp(*args, device="cpu")
-    with torch.no_grad():                   # no graph wanted: the forward runs
-        assert dqt.solve_qcqp(*args, device="cpu").shape == (B, 2 * NC)
+    cfg = _port_cfg(BENCH_CFG)
+    l = dqt.solve_qcqp(*args, config=cfg, device="cpu")
+    assert l.requires_grad
+    (l * l).sum().backward()
+    g = args[i].grad
+    assert g is not None and g.shape == args[i].shape and torch.isfinite(g).all()
+    assert all(a.grad is None for j, a in enumerate(args) if j != i)
+    with torch.no_grad():
+        l0 = dqt.solve_qcqp(*args, config=cfg, device="cpu")
+    assert not l0.requires_grad and torch.equal(l0, l.detach())
 
 
 def test_diagonal_P_raises():
