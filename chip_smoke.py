@@ -3,11 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``diffqcqp_tpu_torch/kernels/csrc`` and
-drives the port's main path: the friction-cone QCQP forward solve and the
+drives the port's paths: the friction-cone QCQP forward solve and the
 forward+backward step (bench.py's value_and_grad of sum(l^2) with gradients
 for P, q, l_n and mu) at B=4096, N=24 (12 contacts) with the benchmark
-generator and configuration (seed 0). Phases, each of which fails the run if
-its check fails:
+generator and configuration (seed 0); and the forward+backward steps of the
+QP family at the JAX package's benchmark points (benchmarks/
+run_benchmarks.py): the non-negative QP at B=4096, N=24 (config 10, seed 10)
+and the box and signed-box QP at B=2048, N=24 (config 9, seed 9). Phases,
+each of which fails the run if its check fails:
 
   1. the card: name and power limit (nvidia-smi), kernel build time;
   2. kernel K1 (``admm_solve_cuda``) against its plain PyTorch version
@@ -29,6 +32,17 @@ its check fails:
      too, as the printed comparison with its float64 run shows; max |d
      gamma| <= 1e-4; all finite; the mask may differ on at most 0.1 % of the
      contacts;
+  2c. kernel K4 (``coord_kkt_bwd_fused_cuda``) against its plain version
+     (``coord_kkt_bwd_fused_plain``) on the same card inputs, l from K1, g =
+     2 l and a random g: the three classes at their benchmark points; tight
+     boxes at B=256, N=12 (30 % of the coordinates with l_min = l_max, v with
+     20 % zeros); the three at B=512, N=96. Bars, on the problems whose
+     strict mask agrees (the zero pattern of dgamma, or of dl for the QP):
+     per problem max |d dl| <= 5e-5 max(1, |dl|_inf); max |d dgamma| <=
+     2e-4 max(1, |dgamma|_inf) over the batch and <= 2e-3 max(1,
+     |dgamma|_inf) per problem; max |d gamma| <= 5e-5; all finite; the mask
+     may differ on at most 0.1 % of the slots. The float64 plain version is
+     printed beside them;
   3. the slice through ``solve_qcqp_with_stats`` (launch counters zeroed
      just before, read just after): K1 launched, every problem converged,
      every contact feasible, and max |dl| <= 1e-4 against the plain version
@@ -40,6 +54,18 @@ its check fails:
      system by ``torch.linalg.solve``, a route that shares none of K2's
      Schur arithmetic), per-problem relative error median <= 1e-3 and max
      <= 2e-3; a float64 central difference on 4 problems; ``QCQPFn2`` in the
+     (B, N, 1) layout against the entry point. Phase 3 also shows that the
+     entry point's K1 launch gives the bits of a direct launch;
+  3c. for each QP-family class, the forward+backward step of sum(l^2) +
+     <w, l> through ``solve_qp`` / ``solve_box_qp`` / ``solve_signed_box_qp``
+     (``*_with_stats``) and ``torch.autograd.grad`` (counters zeroed just
+     before, read just after): K1 and K4 launched, every problem converged,
+     feasible to 1e-6, max |l - l_f64| <= 1e-4 against the plain K1 in
+     float64 at eps=1e-10; the gradients against a float64 referee (that l,
+     then the assembled KKT system by ``torch.linalg.solve``), per-problem
+     relative error median <= 1e-3 and max <= 2e-3 on the problems whose
+     strict mask the referee shares; float64 central differences on 4
+     problems for q and the bounds; the class's ``*Fn2`` binding in the
      (B, N, 1) layout against the entry point;
   4. timing at the flagship point: K1, K2, the forward entry point and the
      forward+backward step per call over back-to-back calls with CUDA events
@@ -47,7 +73,12 @@ its check fails:
      device times per launch from torch.profiler (K1's set-up alone,
      max_iter=0) and the step's device time by kernel, the plain versions,
      and the library call beside K2 (``torch.linalg.solve`` of the
-     assembled float32 system);
+     assembled float32 system); then at each QP-family point K4 (CUDA events
+     over 20 back-to-back calls and torch.profiler), its plain version, its
+     bound, ``torch.linalg.solve`` of the assembled float32 system and the
+     class's step with its device time by kernel. K4's ``ms`` is its device
+     time per launch from torch.profiler: back to back, its wrapper's host
+     work outlasts the kernel, so the CUDA-event time measures the host;
   5. one JSON line of every ported kernel, then as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -166,6 +197,13 @@ def k2_bound_ms(B, n, nc, active):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bytes_, flops
 
 
+def per_problem(x, ref, rows):
+    """Each problem's max error against its own scale, max(1, |ref|_inf), on
+    the problems ``rows`` selects."""
+    ref = ref.double()
+    return ((x.double() - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1.0))[rows]
+
+
 def compare_k2(name, out_k, out_p, out_64):
     """K2 against its plain version; fails on the bars, returns max |d dl|.
     dgamma is exactly 0 where the strict mask am is 0 and almost surely not
@@ -176,17 +214,11 @@ def compare_k2(name, out_k, out_p, out_64):
     flip = (dgk == 0) != (dgp == 0)
     agree = ~flip.any(dim=-1)
     agree64 = agree & ~((dgp == 0) != (dg64 == 0)).any(dim=-1)
-
-    def per_problem(x, ref, rows=agree):
-        """Each problem's max error against its own scale, max(1, |ref|_inf)."""
-        ref = ref.double()
-        return ((x.double() - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1.0))[rows]
-
     e_dl = float((dlk - dlp)[agree].abs().max())
     e_dg = float((dgk - dgp)[agree].abs().max())
     e_g = float((gk - gp)[agree].abs().max())
     bar_dg = 2e-4 * max(1.0, float(dgp.abs().max()))
-    s_dl, s_dg = float(per_problem(dlk, dlp).max()), per_problem(dgk, dgp)
+    s_dl, s_dg = float(per_problem(dlk, dlp, agree).max()), per_problem(dgk, dgp, agree)
     s_k64, s_p64 = (float(per_problem(x, dg64, agree64).max()) for x in (dgk, dgp))
     finite = all(bool(torch.isfinite(x).all()) for x in out_k)
     n_flip = int(flip.sum())
@@ -236,11 +268,331 @@ def per_launch_ms(rows, kernel):
     return next((ms / cnt for name, ms, cnt in rows if kernel in name), None)
 
 
+# ---------------------------------------------------------------------------
+# The QP family: non-negative, box and signed-box QP (forward K1, backward K4)
+# ---------------------------------------------------------------------------
+
+def spd_problems(b, n, seed):
+    """The JAX package's QP-family benchmark generator
+    (benchmarks/run_benchmarks.py::_spd, then q ~ N(0, 1)): (rng, P, q) with
+    P and q float32; the box rows draw their bounds from the same rng next."""
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((b, n, n)).astype(np.float32) / np.sqrt(n)
+    P = (s @ s.transpose(0, 2, 1) + 0.1 * np.eye(n, dtype=np.float32)).astype(np.float32)
+    return rng, P, rng.standard_normal((b, n)).astype(np.float32)
+
+
+def box_bounds(rng, b, n):
+    """The box rows' l_min = -(U 0.9 + 0.1), l_max = U 0.9 + 0.1 and
+    v ~ N(0, 1), float32 (run_benchmarks.py config 9)."""
+    lo = -(rng.random((b, n)) * 0.9 + 0.1).astype(np.float32)
+    hi = (rng.random((b, n)) * 0.9 + 0.1).astype(np.float32)
+    return lo, hi, rng.standard_normal((b, n)).astype(np.float32)
+
+
+def qp_class(name, P, q, cfg, lo=None, hi=None, v=None):
+    """One QP-family class on given card tensors: its entry point's extra
+    inputs (``params``), K1's prox kind and arguments, K4's kind and bounds."""
+    from types import SimpleNamespace
+
+    from diffqcqp_tpu_torch.kernels import admm_cuda as a1, coord_bwd_cuda as a4
+
+    vs = None if v is None else torch.sign(v).contiguous()
+    spec = {
+        "qp": (a1.PROX_NONNEG, a4.KIND_QP, (), (), (None, None, None)),
+        "box_qp": (a1.PROX_BOX, a4.KIND_BOX, (lo, hi), (lo, hi), (lo, hi, None)),
+        "signed_box_qp": (a1.PROX_SIGNED_BOX, a4.KIND_SIGNED_BOX, (lo, hi, v),
+                          (lo, hi, vs), (lo, hi, vs)),
+    }[name]
+    return SimpleNamespace(name=name, P=P, q=q, cfg=cfg, prox=spec[0], kind=spec[1],
+                           params=spec[2], prox_args=spec[3], bounds=spec[4])
+
+
+def k4_mask(kind, out):
+    """(B, slots) strict mask of a K4 output: dgamma != 0 for the box kinds;
+    for the QP dl == 0 (exactly 0 at the strictly active coordinates and
+    almost surely not elsewhere)."""
+    return out[0] == 0 if kind == 0 else out[1] != 0
+
+
+def _max(t):
+    return float(t.max()) if t.numel() else float("nan")
+
+
+def compare_k4(name, kind, out_k, out_p, out_64):
+    """K4 against its plain version; fails on the bars, returns max |d dl|.
+    ``out_64`` is the plain version in float64 on the same inputs, printed to
+    show how far float32 rounding alone moves each side."""
+    mk, mp, m64 = (k4_mask(kind, o) for o in (out_k, out_p, out_64))
+    flip = mk != mp
+    agree = ~flip.any(dim=-1)
+    agree64 = agree & ~(mp != m64).any(dim=-1)
+    (dlk, *rest_k), (dlp, *rest_p) = out_k, out_p
+    e_dl = _max((dlk - dlp)[agree].abs())
+    s_dl = _max(per_problem(dlk, dlp, agree))
+    finite = all(bool(torch.isfinite(x).all()) for x in out_k)
+    n_flip = int(flip.sum())
+    ok = finite and n_flip <= 1e-3 * flip.numel() and s_dl <= 5e-5
+    msg = (f"  {name}: max|d dl|={e_dl:.3e}, per problem /max(1,|dl|_inf) {s_dl:.3e} "
+           f"(bar 5e-5; against the float64 plain version: kernel "
+           f"{_max(per_problem(dlk, out_64[0], agree64)):.3e}, plain "
+           f"{_max(per_problem(dlp, out_64[0], agree64)):.3e})")
+    if rest_k:
+        (dgk, gk), (dgp, gp), dg64 = rest_k, rest_p, out_64[1]
+        e_dg = _max((dgk - dgp)[agree].abs())
+        e_g = _max((gk - gp)[agree].abs())
+        bar_dg = 2e-4 * max(1.0, float(dgp.abs().max()))
+        s_dg = per_problem(dgk, dgp, agree)
+        msg += (f"; max|d dgamma|={e_dg:.3e} (bar {bar_dg:.3e}), per problem "
+                f"/max(1,|dgamma|_inf) {_max(s_dg):.3e} (bar 2e-3; over 2e-4 on "
+                f"{int((s_dg > 2e-4).sum())}/{s_dg.numel()} problems; against the float64 "
+                f"plain version: kernel {_max(per_problem(dgk, dg64, agree64)):.3e}, plain "
+                f"{_max(per_problem(dgp, dg64, agree64)):.3e}); max|d gamma|={e_g:.3e} "
+                f"(bar 5e-5)")
+        ok = ok and e_dg <= bar_dg and _max(s_dg) <= 2e-3 and e_g <= 5e-5
+    log(msg + f"; finite={finite} slots whose mask differs: {n_flip}/{flip.numel()} "
+        f"(problems {int((~agree).sum())}) strictly active: {float(mp.double().mean()):.4f}")
+    if not ok:
+        raise AssertionError(f"K4 disagrees with its plain version: {name}")
+    return e_dl
+
+
+def phase_2c(cases, rand_g):
+    """K4 against its plain version on the card, l from K1, g = 2 l and a
+    random g. Returns the first case's max |d dl| with g = 2 l."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import admm_solve_cuda
+    from diffqcqp_tpu_torch.kernels.coord_bwd_cuda import (
+        coord_kkt_bwd_fused_cuda, coord_kkt_bwd_fused_plain,
+    )
+
+    errs = []
+    for label, c in cases:
+        l, st = admm_solve_cuda(c.P, c.q, torch.zeros_like(c.q), c.prox, c.prox_args, c.cfg)
+        if not bool(st.converged.all()):
+            raise AssertionError(f"K1 did not converge on {label}")
+        for gname, g in (("g=2l", 2.0 * l), ("random g", rand_g(l))):
+            a = (c.P, c.q, l, g.contiguous(), *c.bounds, c.kind, c.cfg.eps, c.cfg.act_eps)
+            a64 = tuple(None if x is None else x.double() for x in a[:7]) + a[7:]
+            errs.append(compare_k4(f"{label} {gname}", c.kind, coord_kkt_bwd_fused_cuda(*a),
+                                   coord_kkt_bwd_fused_plain(*a), coord_kkt_bwd_fused_plain(*a64)))
+    return errs[0]
+
+
+def feasibility_excess(c, l):
+    """Largest violation of the class's constraints past a 1e-6 slack (<= 0
+    when feasible)."""
+    ex = [-l - 1e-6] if c.name == "qp" else [c.params[0] - l - 1e-6, l - c.params[1] - 1e-6]
+    if c.name == "signed_box_qp":
+        ex.append(torch.sign(c.params[2]) * l - 1e-6)
+    return max(float(x.max()) for x in ex)
+
+
+def class_referee(c, xs64, rest64, l64, g64):
+    """float64 gradients of <g64, l> from the assembled KKT system solved by
+    torch.linalg.solve, and its (B, slots) strict mask."""
+    from diffqcqp_tpu_torch.api import _bound_grads, _grad_P
+    from diffqcqp_tpu_torch.diff import kkt
+
+    P, q, *bnd = xs64
+    if c.name == "qp":
+        am = kkt._qp_kkt_system(P, q, l64, g64, c.cfg)[2] == 0
+        dl = kkt._qp_assembled_vjp(P, q, l64, g64, c.cfg)
+        return (_grad_P(dl, l64), -dl), am
+    if c.name == "box_qp":
+        duals = kkt.box_dual(P, q, *bnd, l64, c.cfg)
+        am = kkt._box_kkt_system(P, l64, g64, duals, c.cfg)[2] > 0
+        r = kkt.box_vjp(P, q, *bnd, l64, g64, c.cfg, duals=duals)
+    else:
+        am = kkt._signed_box_kkt_system(P, q, *bnd, *rest64, l64, g64, c.cfg)[2] > 0
+        r = kkt._signed_box_assembled_vjp(P, q, *bnd, *rest64, l64, g64, c.cfg)
+    return (_grad_P(r.dl, l64), -r.dl, *_bound_grads(r, l64.shape[-1])), am
+
+
+def phase_3c(dqt, c, w):
+    """The class's forward+backward step through its entry point and
+    torch.autograd.grad, with the launch counters zeroed just before and read
+    just after; then the checks against a float64 referee, central
+    differences and the class's ``*Fn2`` binding. Returns (launches of K1,
+    launches of K4, the step as a closure for the timing)."""
+    from diffqcqp_tpu_torch import torch_autograd as ta
+    from diffqcqp_tpu_torch.kernels.admm_cuda import admm_solve_cuda, admm_solve_plain
+    from diffqcqp_tpu_torch.kernels.coord_bwd_cuda import coord_kkt_bwd_fused_cuda
+
+    solve = getattr(dqt, f"solve_{c.name}_with_stats")
+    diff = (c.P, c.q) + (c.params[:2] if c.params else ())
+    rest = c.params[2:]
+    leaves = [x.clone().requires_grad_() for x in diff]
+
+    def step(xs=leaves, config=c.cfg, fn=solve, extra=rest):
+        lx = fn(*xs, *extra, config=config)
+        lx = lx[0] if isinstance(lx, tuple) else lx
+        return lx, torch.autograd.grad((lx * lx).sum() + (w.reshape(lx.shape) * lx).sum(), xs)
+
+    admm_solve_cuda.launches = coord_kkt_bwd_fused_cuda.launches = 0
+    l, st = solve(*leaves, *rest, config=c.cfg)
+    grads = torch.autograd.grad((l * l).sum() + (w * l).sum(), leaves)
+    torch.cuda.synchronize()
+    n_k1, n_k4 = admm_solve_cuda.launches, coord_kkt_bwd_fused_cuda.launches
+    l = l.detach()
+    finite = all(bool(torch.isfinite(x).all()) for x in grads)
+    conv = float(st.converged.float().mean())
+    excess = feasibility_excess(c, l)
+
+    # float64 referee: the plain K1 at eps=1e-10, then the assembled system
+    xs64, rest64 = [x.double() for x in diff], [x.double() for x in rest]
+    pa64 = tuple(x.double() for x in c.prox_args)
+    ref_cfg = c.cfg.replace(eps=1e-10, max_iter=5000)
+    l64, st64 = admm_solve_plain(xs64[0], xs64[1], torch.zeros_like(xs64[1]), c.prox, pa64, ref_cfg)
+    err_l = float((l.double() - l64).abs().max())
+    g64 = 2.0 * l64 + w.double()
+    ref, am_ref = class_referee(c, xs64, rest64, l64, g64)
+    out_k4 = coord_kkt_bwd_fused_cuda(c.P, c.q, l, (2.0 * l + w).contiguous(), *c.bounds,
+                                      c.kind, c.cfg.eps, c.cfg.act_eps)
+    shared = ~(k4_mask(c.kind, out_k4) != am_ref).any(dim=-1)
+    log(f"  {c.name}: launches K1 {n_k1}, K4 {n_k4}; converged_frac={conv} "
+        f"mean_iters={float(st.iterations.float().mean()):.4f} "
+        f"max_iters={int(st.iterations.max())} stalled={float(st.stalled.float().mean()):.4f} "
+        f"max feasibility excess={excess:.3e} max|l - l_f64 referee|={err_l:.3e} "
+        f"(referee converged {bool(st64.converged.all())}, mean_iters "
+        f"{float(st64.iterations.float().mean()):.2f}); gradients finite {finite}; strictly "
+        f"active slots {float(am_ref.double().mean()):.4f}; problems whose strict mask the "
+        f"referee does not share: {int((~shared).sum())}/{shared.numel()}")
+    if n_k1 < 1 or n_k4 < 1 or not finite:
+        raise AssertionError(f"the {c.name} step did not run through K1 and K4")
+    if conv != 1.0 or excess > 0 or not err_l <= 1e-4 or not bool(st64.converged.all()):
+        raise AssertionError(f"{c.name} forward check failed")
+    worst = worst_max = 0.0
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        e = rel_err(a, b, b.new_tensor(1e-30))     # a problem with no strict slot: 0 / 0
+        med, mx = float(e.median()), _max(e[shared])
+        worst, worst_max = max(worst, med), max(worst_max, mx)
+        log(f"    grad {('P', 'q', 'l_min', 'l_max')[i]}: per-problem relative error vs f64 "
+            f"referee median {med:.3e} max {mx:.3e} (|ref|_max {float(b.abs().max()):.3e})")
+    if not (worst <= 1e-3 and worst_max <= 2e-3):
+        raise AssertionError(f"{c.name} gradients disagree with the float64 referee")
+
+    # central differences in float64 on 4 problems, the plain K1 at eps=1e-12
+    fd_cfg = c.cfg.replace(eps=1e-12, max_iter=20000)
+    base = [x[:4] for x in xs64]
+    h, w4 = 1e-5, w[:4].double()
+    jobs = []
+    for pi in range(1, len(base)):
+        an = grads[pi][:4].double()
+        for flat in torch.topk(an.abs().flatten(), 5).indices.tolist():
+            b_, j_ = divmod(flat, an.shape[1])
+            jobs += [(pi, b_, j_, s_, float(an[b_, j_])) for s_ in (h, -h)]
+    xs = [torch.stack([x[j[1]] for j in jobs]).clone() for x in base]
+    for k_, (pi, _, j_, s_, _) in enumerate(jobs):
+        xs[pi][k_, j_] += s_
+    signs = tuple(torch.stack([x[j[1]] for j in jobs]) for x in pa64[2:])   # sign(v), signed box
+    lf, stf = admm_solve_plain(xs[0], xs[1], torch.zeros_like(xs[1]), c.prox,
+                               tuple(xs[2:]) + signs, fd_cfg)
+    wj = torch.stack([w4[j[1]] for j in jobs])
+    f = ((lf * lf).sum(1) + (wj * lf).sum(1)).tolist()
+    fd_rel = {}
+    for k_ in range(0, len(jobs), 2):
+        pi, fd = jobs[k_][0], (f[k_] - f[k_ + 1]) / (2 * h)
+        fd_rel.setdefault(("P", "q", "l_min", "l_max")[pi], []).append(
+            abs(fd - jobs[k_][4]) / max(abs(fd), 1e-30))
+    fd_med = {k: float(np.median(v)) for k, v in fd_rel.items()}
+    log(f"    central differences (f64, h={h}, 4 problems, 5 largest coordinates each; FD "
+        f"solves converged: {bool(stf.converged.all())}): median relative error "
+        + ", ".join(f"{k}: {v:.3e}" for k, v in fd_med.items()))
+    if not (bool(stf.converged.all()) and max(fd_med.values()) < 1e-3):
+        raise AssertionError(f"{c.name} central differences disagree with the gradients")
+
+    # the reference binding in the (B, N, 1) layout against the entry point
+    fn2 = getattr(ta, {"qp": "QPFn2", "box_qp": "BoxQPFn2",
+                       "signed_box_qp": "SignedBoxQPFn2"}[c.name])
+    dcfg = dqt.QP_DEFAULTS.replace(eps=c.cfg.eps, max_iter=c.cfg.max_iter)
+    col = [diff[0].clone().requires_grad_()] + [x[..., None].clone().requires_grad_()
+                                                for x in diff[1:]]
+    _, g_fn2 = step(col, dcfg, lambda *a, config: fn2.apply(
+        *a, torch.zeros_like(a[1]), config.eps, config.max_iter), [x[..., None] for x in rest])
+    _, g_api = step([x.clone().requires_grad_() for x in diff], dcfg)
+    e_fn2 = max(float((a.reshape(b.shape) - b).abs().max()) for a, b in zip(g_fn2, g_api))
+    log(f"    {fn2.__name__} (B, N, 1) vs solve_{c.name} gradients: max|d| = {e_fn2:.3e}")
+    if not e_fn2 <= 1e-6:
+        raise AssertionError(f"{fn2.__name__} disagrees with the entry point")
+    return n_k1, n_k4, step
+
+
+def k4_bound_ms(B, n, slots, n_bounds):
+    """Least time for K4 on an H100 SXM: bytes of P, q, l, g and the class's
+    ``n_bounds`` bound vectors read once and dl (and, for the box kinds,
+    dgamma and gamma of ``slots`` n entries each) written once, against the
+    FLOPs per problem: 2 n^2 for P l + q, n^3 / 3 for the factor, 2 n^2 for
+    the solve, and 2 n^2 for the box kinds' residual."""
+    bytes_ = 4 * B * (n * n + (3 + n_bounds) * n) + 4 * B * n * (1 + 2 * slots)
+    flops = B * (4 * n * n + n ** 3 / 3 + (2 * n * n if slots else 0))
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bytes_, flops
+
+
+def phase_4c(c, step, smi):
+    """K4, its plain version, its bound, the library call and the class's
+    forward+backward step, timed at the class's point. Returns K4's numbers
+    for the kernels line."""
+    from diffqcqp_tpu_torch.diff import kkt
+    from diffqcqp_tpu_torch.kernels.admm_cuda import admm_solve_cuda
+    from diffqcqp_tpu_torch.kernels.coord_bwd_cuda import (
+        coord_kkt_bwd_fused_cuda, coord_kkt_bwd_fused_plain,
+    )
+
+    B, n = c.q.shape
+    l = admm_solve_cuda(c.P, c.q, torch.zeros_like(c.q), c.prox, c.prox_args, c.cfg)[0]
+    a = (c.P, c.q, l, (2.0 * l).contiguous(), *c.bounds, c.kind, c.cfg.eps, c.cfg.act_eps)
+    k4 = lambda: coord_kkt_bwd_fused_cuda(*a)   # noqa: E731
+    dev_k4 = per_launch_ms(device_time_by_kernel(k4), "coord_bwd_kernel")
+    ev_k4, ts_k4 = time_cuda(k4, reps=5, calls=20)
+    ms_p, ts_p = time_cuda(lambda: coord_kkt_bwd_fused_plain(*a), reps=3)
+    slots = len(c.params[:2]) + (1 if c.name == "signed_box_qp" else 0)
+    bound, bound_by, nbytes, nflops = k4_bound_ms(B, n, slots, slots)
+    # the library call: the same adjoint solve, assembled in float32 and
+    # solved by torch.linalg.solve (the dual recovery not included)
+    g = a[3]
+    if c.name == "qp":
+        A, rhs, _ = kkt._qp_kkt_system(c.P, c.q, l, g, c.cfg)
+    elif c.name == "box_qp":
+        duals = kkt.box_dual(c.P, c.q, *c.params, l, c.cfg)
+        A, rhs, _ = kkt._box_kkt_system(c.P, l, g, duals, c.cfg)
+    else:
+        A, rhs, *_ = kkt._signed_box_kkt_system(c.P, c.q, *c.params, l, g, c.cfg)
+    A, rhs = A.contiguous(), rhs[..., None].contiguous()
+    ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(A, rhs), reps=5, calls=20)
+    ev_step, ts_step = time_cuda(step, reps=5, calls=20)
+    by_kernel = device_time_by_kernel(step)
+    dev_total = sum(r_[1] for r_ in by_kernel)
+    dev_k1 = sum(r_[1] for r_ in by_kernel if "admm_kernel" in r_[0])
+    dev_k4s = sum(r_[1] for r_ in by_kernel if "coord_bwd_kernel" in r_[0])
+    fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
+    log(f"  {c.name} at B={B} N={n} ({smi}):\n"
+        f"    K4 device time per launch (torch.profiler): {fmt(dev_k4)}\n"
+        f"    K4 per call, 20 back-to-back calls (CUDA events): {ev_k4:.4f} ms "
+        f"(samples {[round(t, 4) for t in ts_k4]})\n"
+        f"    K4 plain version: {ms_p:.2f} ms (samples {[round(t, 2) for t in ts_p]})\n"
+        f"    K4 bound {bound:.5f} ms ({bound_by}: {nbytes} bytes, {nflops:.4g} FLOP)\n"
+        f"    library call torch.linalg.solve, assembled float32 {tuple(A.shape)}: "
+        f"{ms_lib:.4f} ms (samples {[round(t, 4) for t in ts_lib]})\n"
+        f"    forward+backward step per call, 20 back-to-back (CUDA events): {ev_step:.4f} ms "
+        f"(samples {[round(t, 4) for t in ts_step]}) = {B / ev_step * 1e3:.1f} problems/s\n"
+        f"    step device time by kernel (torch.profiler, ms per step): total {dev_total:.4f}, "
+        f"K1 {dev_k1:.4f}, K4 {dev_k4s:.4f}, other kernels {dev_total - dev_k1 - dev_k4s:.4f}, "
+        f"device idle {ev_step - dev_total:.4f} ({(ev_step - dev_total) / ev_step:.1%})")
+    for name_, ms_, cnt in by_kernel[:8]:
+        log(f"      {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
+    # the device time: back to back, the wrapper's host work outlasts K4
+    ms = dev_k4 if dev_k4 is not None else ev_k4
+    return dict(ms=ms, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by, library_ms=ms_lib)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import diffqcqp_tpu_torch as dqt
     from diffqcqp_tpu_torch.api import _grad_P
     from diffqcqp_tpu_torch.diff import kkt
@@ -253,6 +605,7 @@ def main() -> int:
         qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_plain,
     )
     from diffqcqp_tpu_torch.torch_autograd import QCQPFn2
+    from diffqcqp_tpu_torch.utils.shapes import canon_problem
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -357,6 +710,46 @@ def main() -> int:
                                       qcqp_kkt_bwd_fused_plain(*a64)))
     torch.cuda.synchronize()
 
+    # ---- phase 2c: K4 against its plain version on the card
+    log("phase 2c: K4 against coord_kkt_bwd_fused_plain on the card")
+    qp_cfg10 = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0,
+                                       rho_update_period=24, power_iters=10)
+    box_cfg9 = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=2000)
+    _, P10, q10 = spd_problems(4096, 24, seed=10)
+    rng9, P9, q9 = spd_problems(2048, 24, seed=9)
+    lo9, hi9, v9 = cuda(*box_bounds(rng9, *q9.shape))
+    P10, q10, P9, q9 = cuda(P10, q10, P9, q9)
+    families = {                # the three classes at their benchmark points
+        "qp": qp_class("qp", P10, q10, qp_cfg10),
+        "box_qp": qp_class("box_qp", P9, q9, box_cfg9, lo9, hi9),
+        "signed_box_qp": qp_class("signed_box_qp", P9, q9, box_cfg9, lo9, hi9, v9),
+    }
+    # tight boxes at B=256, N=12: spread 0.05, l_min = l_max on 30 % of the
+    # coordinates (pinned where the sign constraint allows), v 20 % zeros
+    rng, Pt, qt = spd_problems(256, 12, seed=12)
+    lot = -(rng.random(qt.shape) * 0.05 + 0.02)
+    hit = rng.random(qt.shape) * 0.05 + 0.02
+    vt = np.where(rng.random(qt.shape) < 0.2, 0.0, rng.standard_normal(qt.shape))
+    pin = rng.random(qt.shape) < 0.3
+    at = np.where(vt < 0, hit, lot)
+    lot, hit = np.where(pin, at, lot), np.where(pin, at, hit)
+    Pt, qt, lot, hit, vt = cuda(*(x.astype(np.float32) for x in (Pt, qt, lot, hit, vt)))
+    rng, P96, q96 = spd_problems(512, 96, seed=11)
+    lo96, hi96, v96 = cuda(*box_bounds(rng, *q96.shape))
+    P96, q96 = cuda(P96, q96)
+    err_k4 = phase_2c([
+        ("qp B=4096 N=24 (config 10)", families["qp"]),
+        ("box B=2048 N=24 (config 9)", families["box_qp"]),
+        ("signed box B=2048 N=24 (config 9)", families["signed_box_qp"]),
+        ("box B=256 N=12 tight", qp_class("box_qp", Pt, qt, box_cfg9, lot, hit)),
+        ("signed box B=256 N=12 tight, v 20 % zeros",
+         qp_class("signed_box_qp", Pt, qt, box_cfg9, lot, hit, vt)),
+        ("qp B=512 N=96 (3 warps)", qp_class("qp", P96, q96, qp_cfg10)),
+        ("box B=512 N=96", qp_class("box_qp", P96, q96, box_cfg9, lo96, hi96)),
+        ("signed box B=512 N=96", qp_class("signed_box_qp", P96, q96, box_cfg9, lo96, hi96, v96)),
+    ], rand_g)
+    torch.cuda.synchronize()
+
     # ---- phase 3: the slice through the public entry point
     log("phase 3: solve_qcqp_with_stats at B=4096 N=24")
     admm_solve_cuda.launches = 0
@@ -372,6 +765,12 @@ def main() -> int:
     r64 = ln64 * mu64
     l64, st64 = admm_solve_plain(P64, q64, ws.double(), PROX_DISK, (r64,), ref_cfg, True, False)
     err_ref = float((l.double() - l64).abs().max())
+    # the entry point hands K1 the arguments of a direct launch on the
+    # canonical (symmetrised) problem, so the two give the same bits
+    P_c = canon_problem(P, q).P.contiguous()
+    l_dir, st_dir = admm_solve_cuda(P_c, q, ws, PROX_DISK, (radius,), cfg, True, False)
+    bitwise = torch.equal(l, l_dir) and torch.equal(st.iterations, st_dir.iterations)
+    log(f"  entry point's l and iterations equal a direct K1 launch bit for bit: {bitwise}")
     log(f"  K1 launches={launches} converged_frac={conv_frac} "
         f"mean_iters={mean_iters:.4f} (JAX package r04 anchor {ITER_ANCHOR}) "
         f"max_iters={int(st.iterations.max())} "
@@ -380,7 +779,7 @@ def main() -> int:
         f"mean_iters={float(st64.iterations.float().mean()):.2f})")
     if launches < 1:
         raise AssertionError("the main path did not launch K1")
-    if conv_frac != 1.0 or viol > 0 or not (err_ref <= 1e-4):
+    if conv_frac != 1.0 or viol > 0 or not (err_ref <= 1e-4) or not bitwise:
         raise AssertionError("slice check failed")
     if not bool(st64.converged.all()):
         raise AssertionError("float64 referee did not converge")
@@ -473,6 +872,15 @@ def main() -> int:
     if not e_fn2 <= 1e-6:
         raise AssertionError("QCQPFn2 disagrees with the entry point")
 
+    # ---- phase 3c: the QP family's forward+backward steps through their
+    # entry points (config 10 for the QP, config 9 for the box classes)
+    log("phase 3c: forward+backward steps, solve_qp / solve_box_qp / solve_signed_box_qp "
+        "+ autograd")
+    steps = {}
+    for name_, c in families.items():
+        n_k1, n_k4, step_c = phase_3c(dqt, c, rand_g(c.q))
+        steps[name_] = (n_k4, step_c)
+
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
     k1 = lambda: admm_solve_cuda(*args)            # noqa: E731
@@ -538,8 +946,10 @@ def main() -> int:
         f"device idle {ev_step - dev_total:.4f}")
     for name_, ms_, cnt in by_kernel[:10]:
         log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
+    k4_times = {name_: phase_4c(c, steps[name_][1], smi) for name_, c in families.items()}
 
     # ---- phase 5: the kernels line, then the result
+    log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "admm_solve_cuda (K1, with the K3 LDL^T helpers inlined)",
         "route": "cuda",
@@ -564,6 +974,15 @@ def main() -> int:
         "bound_ms": bound2,
         "bound_by": bound2_by,
         "library_ms": ms_lib,
+    }, {
+        "name": "coord_kkt_bwd_fused_cuda (K4, with the K3 LDL^T helpers inlined; "
+                "numbers at the QP point, B=4096 N=24)",
+        "route": "cuda",
+        "source": "diffqcqp_tpu_torch/kernels/csrc/coord_bwd.cu",
+        "replaces": "diffqcqp_tpu/kernels/coord_bwd_pallas.py:55",
+        "launches": steps["qp"][0],
+        "max_abs_err": err_k4,
+        **k4_times["qp"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

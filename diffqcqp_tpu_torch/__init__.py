@@ -1,30 +1,71 @@
 """diffqcqp_tpu_torch: the PyTorch / CUDA port of diffqcqp_tpu.
 
-A batched, differentiable ADMM solver for friction-cone QCQPs whose forward
-solve and backward (KKT adjoint) each run in one hand-written CUDA kernel per
-batch (``kernels/csrc/admm.cu``, ``kernels/csrc/qcqp_bwd.cu``) on an NVIDIA
-Hopper card. The port imports torch and never jax, and nothing of the JAX
-package, which stays beside it as the reference.
+Batched, differentiable ADMM solvers for the non-negative QP, the box QP,
+the signed-box QP and the friction-cone QCQP, whose forward solve and
+backward (KKT adjoint) each run in one hand-written CUDA kernel per batch on
+an NVIDIA Hopper card: ``kernels/csrc/admm.cu`` forward, and
+``kernels/csrc/coord_bwd.cu`` (QP family) or ``kernels/csrc/qcqp_bwd.cu``
+(QCQP) backward. The port imports torch and never jax, and nothing of the
+JAX package, which stays beside it as the reference.
 
     import diffqcqp_tpu_torch as dqt
     l, stats = dqt.solve_qcqp_with_stats(P, q, l_n, mu, config=cfg)   # on the card
     (l * l).sum().backward()                                           # grads of P, q, l_n, mu
-    l = dqt.solve_qcqp(P, q, l_n, mu, device="cpu")                    # plain version
+    l = dqt.solve_box_qp(P, q, l_min, l_max, device="cpu")             # plain version
 """
 
-from .api import solve_qcqp, solve_qcqp_with_stats
+from .api import (
+    solve_box_qp,
+    solve_box_qp_with_stats,
+    solve_qcqp,
+    solve_qcqp_with_stats,
+    solve_qp,
+    solve_qp_with_stats,
+    solve_signed_box_qp,
+    solve_signed_box_qp_with_stats,
+)
 from .config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig
-from .duals import QCQPDerivatives, qcqp_derivatives, recover_qcqp_duals
+from .duals import (
+    BoxDualRecovery,
+    BoxQPDerivatives,
+    QCQPDerivatives,
+    SignedBoxDualRecovery,
+    SignedBoxQPDerivatives,
+    box_qp_derivatives,
+    qcqp_derivatives,
+    qp_derivatives,
+    recover_box_qp_duals,
+    recover_qcqp_duals,
+    recover_qp_duals,
+    recover_signed_box_qp_duals,
+    signed_box_qp_derivatives,
+)
 from .solvers.admm import SolveStats
 
 __all__ = [
-    "solve_qcqp",
-    "solve_qcqp_with_stats",
-    "recover_qcqp_duals",
-    "qcqp_derivatives",
-    "QCQPDerivatives",
     "SolverConfig",
+    "SolveStats",
     "QP_DEFAULTS",
     "QCQP_DEFAULTS",
-    "SolveStats",
+    "solve_qp",
+    "solve_box_qp",
+    "solve_signed_box_qp",
+    "solve_qcqp",
+    "solve_qp_with_stats",
+    "solve_box_qp_with_stats",
+    "solve_signed_box_qp_with_stats",
+    "solve_qcqp_with_stats",
+    "recover_qp_duals",
+    "recover_box_qp_duals",
+    "recover_signed_box_qp_duals",
+    "recover_qcqp_duals",
+    "qp_derivatives",
+    "box_qp_derivatives",
+    "signed_box_qp_derivatives",
+    "qcqp_derivatives",
+    "BoxDualRecovery",
+    "SignedBoxDualRecovery",
+    "BoxQPDerivatives",
+    "SignedBoxQPDerivatives",
+    "QCQPDerivatives",
 ]

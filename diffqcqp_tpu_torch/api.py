@@ -1,22 +1,29 @@
-"""Public solver API of the port: the differentiable friction-cone QCQP.
+"""Public solver API of the port: the four differentiable problem classes.
 
-``solve_qcqp`` / ``solve_qcqp_with_stats`` take the JAX package's signature
-plus ``device``. They run on the card by default (``device="cuda"``): the
-forward goes through the fused ADMM kernel K1 (``kernels/csrc/admm.cu``) and
-the backward through the fused KKT adjoint K2 (``kernels/csrc/qcqp_bwd.cu``),
-both in float32, as the JAX kernel path computes in float32, with the
-results cast back to the input dtype. ``device="cpu"`` runs the kernels'
-plain PyTorch versions in the input dtype. Without CUDA the default raises;
-it never runs on the CPU by itself.
+``solve_qp``, ``solve_box_qp``, ``solve_signed_box_qp`` and ``solve_qcqp``,
+each with its ``*_with_stats`` form, take the JAX package's signatures plus
+``device``. They run on the card by default (``device="cuda"``): the forward
+goes through the fused ADMM kernel K1 (``kernels/csrc/admm.cu``) with the
+class's prox, the backward through the class's fused KKT adjoint, K4
+(``kernels/csrc/coord_bwd.cu``) for the QP family and K2
+(``kernels/csrc/qcqp_bwd.cu``) for the QCQP, all in float32, as the JAX
+kernel path computes in float32, with the results cast back to the input
+dtype. ``device="cpu"`` runs the kernels' plain PyTorch versions in the
+input dtype. Without CUDA the default raises; it never runs on the CPU by
+itself.
 
-Gradients flow to P, q, l_n and mu through a ``torch.autograd.Function``
-(the JAX package's ``jax.custom_vjp``): it saves the caller's P, q, l_n, mu
-(before equilibration) and the mapped-back solution l, and its backward is
-``diff/kkt.py::qcqp_vjp`` plus the radius chain rule. The warm start gets a
-zero gradient. The backward is not itself differentiable.
+Gradients flow through one ``torch.autograd.Function``, ``_Solve`` (the JAX
+package's ``jax.custom_vjp``s): it saves the caller's inputs (before
+equilibration) and the mapped-back solution l, and its backward is the
+class's adjoint in ``diff/kkt.py`` with the JAX package's gradient assembly:
+grad_P = -(dl l^T + l dl^T) / 2, grad_q = -dl, grad_l_min = -gamma_lo
+dgamma_lo, grad_l_max = gamma_hi dgamma_hi, and the radius chain rule for
+l_n and mu. The warm start and the signed box's v get zero gradients. The
+backward is not itself differentiable.
 
-The QP-family entry points, Jacobians, ``verify``, ``parallel`` and
-``models`` are not ported yet (ROADMAP Queue 1).
+Diagonal P raises (the kernel path takes dense P, as the JAX kernel path
+does). ``which_backend`` waits for a second forward engine, and Jacobians,
+``verify``, ``parallel`` and ``models`` are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -26,14 +33,29 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
-from .config import QCQP_DEFAULTS, SolverConfig, check_supported
-from .diff.kkt import qcqp_radius_factors, qcqp_vjp
-from .kernels.admm_cuda import PROX_DISK, admm_solve_cuda
+from .config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig, check_supported
+from .diff.kkt import box_vjp, qcqp_radius_factors, qcqp_vjp, qp_vjp, signed_box_vjp
+from .kernels.admm_cuda import (
+    PROX_BOX,
+    PROX_DISK,
+    PROX_NONNEG,
+    PROX_SIGNED_BOX,
+    admm_solve_cuda,
+)
 from .ops.equilibrate import isotropize, ruiz_diag, scale_problem
 from .solvers.admm import SolveStats
-from .utils.shapes import canon_like, canon_problem
+from .utils.shapes import Canon, canon_like, canon_problem
 
-__all__ = ["solve_qcqp", "solve_qcqp_with_stats"]
+__all__ = [
+    "solve_qp",
+    "solve_qp_with_stats",
+    "solve_box_qp",
+    "solve_box_qp_with_stats",
+    "solve_signed_box_qp",
+    "solve_signed_box_qp_with_stats",
+    "solve_qcqp",
+    "solve_qcqp_with_stats",
+]
 
 
 def _build_cfg(
@@ -74,37 +96,77 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _forward_disk(P, q, ws, radius, cfg: SolverConfig):
-    """K1 with the disk prox and the QCQP stopping rule; float32 on CUDA."""
-    if q.device.type == "cuda":
-        dtype = q.dtype
-        f32 = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
-        l, st = admm_solve_cuda(
-            f32(P), f32(q), f32(ws), PROX_DISK, (f32(radius),), cfg,
-            qcqp_stopping=True, damp_both=False,
-        )
-        return l.to(dtype), SolveStats(
-            st.iterations, st.res_prim.to(dtype), st.res_dual.to(dtype),
-            st.rho.to(dtype), st.converged, st.stalled,
-        )
-    return admm_solve_cuda(
-        P.contiguous(), q.contiguous(), ws.contiguous(), PROX_DISK,
-        (radius.contiguous(),), cfg, qcqp_stopping=True, damp_both=False,
+# --------------------------------------------------------------------------
+# Forward: Ruiz equilibration around one K1 launch
+# --------------------------------------------------------------------------
+
+def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, damp_both):
+    """K1 with the given prox and stopping rule: float32 on CUDA tensors
+    (the results cast back to q's dtype), q's dtype on CPU tensors."""
+    dtype = q.dtype
+    work = torch.float32 if q.device.type == "cuda" else dtype
+    c = lambda x: x.to(work).contiguous()  # noqa: E731
+    l, st = admm_solve_cuda(
+        c(P), c(q), c(ws), prox_kind, tuple(map(c, prox_args)), cfg,
+        qcqp_stopping=qcqp_stopping, damp_both=damp_both,
     )
+    return l.to(dtype), SolveStats(
+        st.iterations, st.res_prim.to(dtype), st.res_dual.to(dtype),
+        st.rho.to(dtype), st.converged, st.stalled,
+    )
+
+
+def _equilibrate(P, q, ws, cfg: SolverConfig, isotropic: bool = False):
+    """(P, q, ws, d) of the Ruiz-rescaled problem, solved for l_eq = l / d;
+    d is None when ``cfg.equilibrate`` is off. ``isotropic`` gives both
+    coordinates of a contact one scale, so a disk stays a disk."""
+    if not cfg.equilibrate:
+        return P, q, ws, None
+    d = ruiz_diag(P, cfg.ruiz_iters)
+    if isotropic:
+        d = isotropize(d)
+    P, q = scale_problem(P, q, d)
+    return P, q, ws / d, d
+
+
+def _map_back(out, d):
+    l, stats = out
+    return (l * d if d is not None else l), stats
+
+
+def _qp(P, q, ws, cfg: SolverConfig):
+    # d > 0 preserves l >= 0
+    P, q, ws, d = _equilibrate(P, q, ws, cfg)
+    return _map_back(_forward(P, q, ws, PROX_NONNEG, (), cfg, False, True), d)
+
+
+def _box_qp(P, q, l_min, l_max, ws, cfg: SolverConfig):
+    P, q, ws, d = _equilibrate(P, q, ws, cfg)
+    if d is not None:
+        l_min, l_max = l_min / d, l_max / d
+    return _map_back(_forward(P, q, ws, PROX_BOX, (l_min, l_max), cfg, False, True), d)
+
+
+def _signed_box_qp(P, q, l_min, l_max, v, ws, cfg: SolverConfig):
+    # sign(v * l) is invariant under the positive rescaling
+    P, q, ws, d = _equilibrate(P, q, ws, cfg)
+    if d is not None:
+        l_min, l_max = l_min / d, l_max / d
+    prox_args = (l_min, l_max, torch.sign(v))
+    return _map_back(_forward(P, q, ws, PROX_SIGNED_BOX, prox_args, cfg, False, True), d)
 
 
 def _qcqp(P, q, l_n, mu, ws, cfg: SolverConfig):
     radius = l_n * mu
-    d = None
-    if cfg.equilibrate:
-        # both coordinates of a contact share one scale, so a disk stays a disk
-        d = isotropize(ruiz_diag(P, cfg.ruiz_iters))
-        P, q = scale_problem(P, q, d)
-        ws = ws / d
+    P, q, ws, d = _equilibrate(P, q, ws, cfg, isotropic=True)
+    if d is not None:
         radius = radius / d[:, ::2]
-    l, stats = _forward_disk(P, q, ws, radius, cfg)
-    return (l * d if d is not None else l), stats
+    return _map_back(_forward(P, q, ws, PROX_DISK, (radius,), cfg, True, False), d)
 
+
+# --------------------------------------------------------------------------
+# Backward: each class's gradients of <g, l> at the solution l
+# --------------------------------------------------------------------------
 
 def _grad_P(dl: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     """Symmetrised grad_P = -(dl l^T + l dl^T) / 2, the exact VJP of a solver
@@ -112,41 +174,172 @@ def _grad_P(dl: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     return -0.5 * (dl[:, :, None] * l[:, None, :] + l[:, :, None] * dl[:, None, :])
 
 
+def _bound_grads(r, n: int):
+    """(grad l_min, grad l_max) = (-gamma_lo dgamma_lo, gamma_hi dgamma_hi)."""
+    return (
+        -r.gamma[:, :n] * r.dgamma[:, :n],
+        r.gamma[:, n : 2 * n] * r.dgamma[:, n : 2 * n],
+    )
+
+
+def _qp_grads(P, q, l, g, cfg: SolverConfig):
+    dl = qp_vjp(P, q, l, g, cfg)
+    return _grad_P(dl, l), -dl
+
+
+def _box_qp_grads(P, q, l_min, l_max, l, g, cfg: SolverConfig):
+    r = box_vjp(P, q, l_min, l_max, l, g, cfg)
+    return (_grad_P(r.dl, l), -r.dl, *_bound_grads(r, l.shape[-1]))
+
+
+def _signed_box_qp_grads(P, q, l_min, l_max, v, l, g, cfg: SolverConfig):
+    r = signed_box_vjp(P, q, l_min, l_max, v, l, g, cfg)
+    # v enters only through sign(v): zero gradient almost everywhere
+    return (_grad_P(r.dl, l), -r.dl, *_bound_grads(r, l.shape[-1]), torch.zeros_like(v))
+
+
 def _qcqp_grads(P, q, l_n, mu, l, g, cfg: SolverConfig):
-    """(grad P, grad q, grad l_n, grad mu) of <g, l> at the solution l."""
     r = qcqp_vjp(P, q, l_n * mu, l, g, cfg)
     e1, e2 = qcqp_radius_factors(l_n, mu, r.gamma)
     return _grad_P(r.dl, l), -r.dl, e2 * r.dgamma, e1 * r.dgamma
 
 
-class _QCQP(torch.autograd.Function):
-    """``_qcqp`` with the KKT adjoint as its backward; outputs (l, *stats)."""
+# per class: (forward, gradients); the inputs are (P, q, *params, ws)
+_CLASSES = {
+    "qp": (_qp, _qp_grads),
+    "box_qp": (_box_qp, _box_qp_grads),
+    "signed_box_qp": (_signed_box_qp, _signed_box_qp_grads),
+    "qcqp": (_qcqp, _qcqp_grads),
+}
+
+
+class _Solve(torch.autograd.Function):
+    """One class's solve with its KKT adjoint as the backward:
+    ``_Solve.apply(kind, cfg, P, q, *params, ws)`` -> (l, *stats)."""
 
     @staticmethod
-    def forward(ctx, P, q, l_n, mu, ws, cfg):
-        l, stats = _qcqp(P, q, l_n, mu, ws, cfg)
-        ctx.save_for_backward(P, q, l_n, mu, l)
-        ctx.cfg = cfg
+    def forward(ctx, kind, cfg, *xs):
+        l, stats = _CLASSES[kind][0](*xs, cfg)
+        ctx.save_for_backward(*xs[:-1], l)
+        ctx.kind, ctx.cfg = kind, cfg
         ctx.mark_non_differentiable(*stats)
         return (l, *stats)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g, *_):
-        P, q, l_n, mu, l = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        grads = _qcqp_grads(P, q, l_n, mu, l, g, ctx.cfg)
+        *xs, l = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        grads = _CLASSES[ctx.kind][1](*xs, l, g, ctx.cfg)
         return (
+            None, None,
             *(x if want else None for x, want in zip(grads, need)),
-            torch.zeros_like(l) if need[4] else None,
-            None,
+            torch.zeros_like(l) if need[-1] else None,
         )
 
 
-def _stats_restore(stats: SolveStats, batched: bool) -> SolveStats:
-    if batched:
-        return stats
-    return SolveStats(*(x[0] for x in stats))
+# --------------------------------------------------------------------------
+# Public wrappers
+# --------------------------------------------------------------------------
+
+def _problem(P, q, device) -> Canon:
+    """The canonical batched problem on ``device``; diagonal P raises."""
+    c = canon_problem(P, q, device=_device(device))
+    if c.P.ndim != 3:
+        raise NotImplementedError(
+            "diagonal P on the forward path: the fused kernel takes dense "
+            "(B, N, N) P (diag_embed it), as the JAX kernel path does"
+        )
+    return c
+
+
+def _solve(kind: str, cfg: SolverConfig, c: Canon, params, warm_start):
+    n = c.q.shape[-1]
+    ws = (
+        torch.zeros_like(c.q)
+        if warm_start is None
+        else canon_like(warm_start, c, "warm_start", width=n)
+    )
+    l, *stats = _Solve.apply(kind, cfg, c.P, c.q, *params, ws)
+    stats = SolveStats(*stats)
+    return c.restore(l), (stats if c.batched else SolveStats(*(x[0] for x in stats)))
+
+
+def solve_qp(
+    P, q, warm_start=None, *, eps=None, mu_prox=None, max_iter=None,
+    adaptive_rho=None, config=None, axis_name=None, device="cuda",
+) -> torch.Tensor:
+    """Solve min 1/2 l'Pl + q'l subject to l >= 0, batched and
+    differentiable in (P, q). Layouts as in ``utils/shapes``; l comes back in
+    the layout of q."""
+    l, _ = solve_qp_with_stats(
+        P, q, warm_start, eps=eps, mu_prox=mu_prox, max_iter=max_iter,
+        adaptive_rho=adaptive_rho, config=config, axis_name=axis_name, device=device,
+    )
+    return l
+
+
+def solve_qp_with_stats(
+    P, q, warm_start=None, *, eps=None, mu_prox=None, max_iter=None,
+    adaptive_rho=None, config=None, axis_name=None, device="cuda",
+):
+    """``solve_qp`` plus per-problem ``SolveStats``."""
+    cfg = _build_cfg(QP_DEFAULTS, config, eps, mu_prox, max_iter, adaptive_rho, axis_name)
+    c = _problem(P, q, device)
+    return _solve("qp", cfg, c, (), warm_start)
+
+
+def solve_box_qp(
+    P, q, l_min, l_max, warm_start=None, *, eps=None, mu_prox=None,
+    max_iter=None, adaptive_rho=None, config=None, axis_name=None, device="cuda",
+) -> torch.Tensor:
+    """Solve min 1/2 l'Pl + q'l subject to l_min <= l <= l_max;
+    differentiable in (P, q, l_min, l_max)."""
+    l, _ = solve_box_qp_with_stats(
+        P, q, l_min, l_max, warm_start, eps=eps, mu_prox=mu_prox, max_iter=max_iter,
+        adaptive_rho=adaptive_rho, config=config, axis_name=axis_name, device=device,
+    )
+    return l
+
+
+def solve_box_qp_with_stats(
+    P, q, l_min, l_max, warm_start=None, *, eps=None, mu_prox=None,
+    max_iter=None, adaptive_rho=None, config=None, axis_name=None, device="cuda",
+):
+    """``solve_box_qp`` plus per-problem ``SolveStats``."""
+    cfg = _build_cfg(QP_DEFAULTS, config, eps, mu_prox, max_iter, adaptive_rho, axis_name)
+    c = _problem(P, q, device)
+    n = c.q.shape[-1]
+    bounds = (canon_like(l_min, c, "l_min", width=n), canon_like(l_max, c, "l_max", width=n))
+    return _solve("box_qp", cfg, c, bounds, warm_start)
+
+
+def solve_signed_box_qp(
+    P, q, l_min, l_max, v, warm_start=None, *, eps=None, mu_prox=None,
+    max_iter=None, adaptive_rho=None, config=None, axis_name=None, device="cuda",
+) -> torch.Tensor:
+    """The box QP with the added sign constraint sign(v) * l <= 0;
+    differentiable in (P, q, l_min, l_max), with a zero gradient for v (it
+    enters only through its sign)."""
+    l, _ = solve_signed_box_qp_with_stats(
+        P, q, l_min, l_max, v, warm_start, eps=eps, mu_prox=mu_prox,
+        max_iter=max_iter, adaptive_rho=adaptive_rho, config=config,
+        axis_name=axis_name, device=device,
+    )
+    return l
+
+
+def solve_signed_box_qp_with_stats(
+    P, q, l_min, l_max, v, warm_start=None, *, eps=None, mu_prox=None,
+    max_iter=None, adaptive_rho=None, config=None, axis_name=None, device="cuda",
+):
+    """``solve_signed_box_qp`` plus per-problem ``SolveStats``."""
+    cfg = _build_cfg(QP_DEFAULTS, config, eps, mu_prox, max_iter, adaptive_rho, axis_name)
+    c = _problem(P, q, device)
+    n = c.q.shape[-1]
+    params = tuple(canon_like(x, c, name, width=n)
+                   for x, name in ((l_min, "l_min"), (l_max, "l_max"), (v, "v")))
+    return _solve("signed_box_qp", cfg, c, params, warm_start)
 
 
 def solve_qcqp(
@@ -172,20 +365,7 @@ def solve_qcqp_with_stats(
 ):
     """``solve_qcqp`` plus per-problem ``SolveStats``."""
     cfg = _build_cfg(QCQP_DEFAULTS, config, eps, mu_prox, max_iter, adaptive_rho, axis_name)
-    dev = _device(device)
-    c = canon_problem(P, q, device=dev)
-    if c.P.ndim != 3:
-        raise NotImplementedError(
-            "diagonal P on the QCQP forward path: the fused kernel takes dense "
-            "(B, N, N) P (diag_embed it), as the JAX kernel path does"
-        )
-    n = c.q.shape[-1]
-    ln = canon_like(l_n, c, "l_n", width=n // 2)
-    m = canon_like(mu, c, "mu", width=n // 2)
-    ws = (
-        torch.zeros_like(c.q)
-        if warm_start is None
-        else canon_like(warm_start, c, "warm_start", width=n)
-    )
-    l, *stats = _QCQP.apply(c.P, c.q, ln, m, ws, cfg)
-    return c.restore(l), _stats_restore(SolveStats(*stats), c.batched)
+    c = _problem(P, q, device)
+    nc = c.q.shape[-1] // 2
+    params = (canon_like(l_n, c, "l_n", width=nc), canon_like(mu, c, "mu", width=nc))
+    return _solve("qcqp", cfg, c, params, warm_start)

@@ -1,5 +1,30 @@
-"""Implicit differentiation of the friction-cone QCQP's KKT conditions (port
-of the QCQP part of diff/kkt.py).
+"""Implicit differentiation of the KKT conditions (port of diff/kkt.py): dual
+recovery and the adjoint (VJP) solves of the four problem classes.
+
+Sign conventions as in the JAX package: stationarity P l + q + J^T gamma = 0
+with gamma >= 0 the standard multipliers of constraints c(l) <= 0, except
+the plain QP's recovery, which returns the reference's NEGATED multiplier
+gamma = -(Pl+q) (its activity test is gamma < -act_eps).
+
+The QP family (non-negative, box, signed box): every constraint touches one
+coordinate, so the differentiated KKT system decouples. Two routes, as in
+the JAX package:
+
+  * dense P and no duals: the fused backward K4
+    (``kernels/coord_bwd_cuda.py``), dual recovery plus the masked SPD solve
+    in one launch on a CUDA tensor, its plain version on a CPU tensor;
+  * the assembled fixed-shape system (the JAX generic path's counterpart),
+    solved by ``torch.linalg.solve``: K = fm P fm + diag(am) for the QP, and
+    S^T x = [0; g] with S^T = [[I_inact, J^T], [J diag(gamma am), P]] over
+    all 2n or 3n slots for the box kinds. It is reached through
+    ``box_vjp(..., duals=)`` and the private ``_qp_assembled_vjp`` /
+    ``_signed_box_assembled_vjp``; the tests and ``chip_smoke.py`` use it as
+    a referee that shares none of K4's arithmetic. Where two slots of one
+    coordinate are strictly active (a signed box with l_min = 0 and v < 0,
+    whose sign constraint repeats the lower bound) it is singular, and K4
+    splits the residual at minimal norm instead, as the JAX kernel does.
+
+The friction-cone QCQP:
 
     min 1/2 l^T P l + q^T l   s.t.  ||l_(i)|| <= r_i = mu_i l_n_i
 
@@ -23,10 +48,12 @@ Two routes, as in the JAX package:
     the main path: the tests and ``chip_smoke.py`` use it as a referee that
     does not share K2's Schur arithmetic.
 
-Not ported yet (ROADMAP): the diagonal-P closed form (the port's forward
-takes dense P only) and ``_qcqp_schur_vjp`` (the JAX generic path above
-nc + n = 88, which needs ``ops/linalg.py``'s Newton-Schulz inverse); the
-assembled branch here solves any size directly.
+Not ported yet (ROADMAP): the diagonal-P closed forms
+(``_diag_coord_adjoint`` and the QCQP's; the port's forward takes dense P
+only), ``_solve_direct``'s QR-kernel (K5) and Newton-Schulz routes, and
+``_qcqp_schur_vjp`` (the JAX generic path above nc + n = 88, which needs
+``ops/linalg.py``'s Newton-Schulz inverse); the assembled branches here solve
+any size directly.
 """
 
 from __future__ import annotations
@@ -36,9 +63,25 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import SolverConfig
+from ..kernels.coord_bwd_cuda import (
+    KIND_BOX,
+    KIND_QP,
+    KIND_SIGNED_BOX,
+    coord_kkt_bwd_fused_cuda,
+)
 from ..kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_fused_cuda
 
 __all__ = [
+    "qp_dual",
+    "qp_vjp",
+    "BoxDuals",
+    "BoxVJP",
+    "box_dual",
+    "box_vjp",
+    "SignedBoxDuals",
+    "SignedBoxVJP",
+    "signed_box_dual",
+    "signed_box_vjp",
     "QCQPDuals",
     "QCQPVJP",
     "qcqp_dual",
@@ -62,6 +105,264 @@ class QCQPVJP(NamedTuple):
 def _pl_plus_q(P: torch.Tensor, l: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.sum(P * l[:, None, :], dim=-1) + q
 
+
+def _require_dense(P: torch.Tensor) -> None:
+    if P.ndim != 3:
+        raise NotImplementedError(
+            "diagonal P: the closed-form adjoint is not ported yet (the "
+            "port's forward takes dense P only; diag_embed it)"
+        )
+
+
+def _kernel_args(l: torch.Tensor, *xs: Optional[torch.Tensor]):
+    """The fused kernels' inputs: float32 on a CUDA tensor (cast back by
+    the caller), l's dtype on a CPU tensor, contiguous; None stays None."""
+    work = torch.float32 if l.device.type == "cuda" else l.dtype
+    return tuple(None if x is None else x.to(work).contiguous() for x in xs)
+
+
+def _solve_assembled(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.solve(A, rhs[..., None])[..., 0]
+
+
+# --------------------------------------------------------------------------
+# Non-negative QP:  min 1/2 l^T P l + q^T l  s.t.  l >= 0
+# --------------------------------------------------------------------------
+
+def qp_dual(
+    P: torch.Tensor, q: torch.Tensor, l: torch.Tensor, cfg: SolverConfig, eps=None
+) -> torch.Tensor:
+    """Dual recovery, reference convention: gamma = -(Pl+q), zeroed where
+    l > eps (so gamma <= 0 at active constraints). ``eps`` (a scalar or a
+    broadcastable tensor) overrides ``cfg.eps``."""
+    e = cfg.eps if eps is None else eps
+    return torch.where(l > e, torch.zeros_like(l), -_pl_plus_q(P, l, q))
+
+
+def _qp_kkt_system(P, q, l, g, cfg: SolverConfig):
+    """(K, g fm, fm) with K = fm P fm + diag(am), am = gamma < -act_eps:
+    symmetric positive definite, its active rows decoupled unit rows."""
+    am = (qp_dual(P, q, l, cfg) < -cfg.act_eps).to(l.dtype)
+    fm = 1.0 - am
+    K = P * fm[:, :, None] * fm[:, None, :] + torch.diag_embed(am)
+    return K, g * fm, fm
+
+
+def _qp_assembled_vjp(P, q, l, g, cfg: SolverConfig) -> torch.Tensor:
+    """K x = g fm assembled and solved by ``torch.linalg.solve``; dl = x fm."""
+    K, rhs, fm = _qp_kkt_system(P, q, l, g, cfg)
+    return _solve_assembled(K, rhs) * fm
+
+
+def qp_vjp(
+    P: torch.Tensor, q: torch.Tensor, l: torch.Tensor, g: torch.Tensor, cfg: SolverConfig
+) -> torch.Tensor:
+    """Adjoint dl of the QP solution map (zeros on the strictly active set),
+    by K4 (``coord_kkt_bwd_fused_cuda``): float32 on a CUDA tensor (cast
+    back), l's dtype on a CPU tensor."""
+    _require_dense(P)
+    (dl,) = coord_kkt_bwd_fused_cuda(
+        *_kernel_args(l, P, q, l, g, None, None, None), KIND_QP, cfg.eps, cfg.act_eps,
+    )
+    return dl.to(l.dtype)
+
+
+# --------------------------------------------------------------------------
+# Box QP:  min 1/2 l^T P l + q^T l  s.t.  l_min <= l <= l_max
+# --------------------------------------------------------------------------
+
+class BoxDuals(NamedTuple):
+    gamma: torch.Tensor      # (B, 2n): [gamma_lo | gamma_hi], zeros at inactive slots
+    act_lo: torch.Tensor     # (B, n) bool
+    act_hi: torch.Tensor     # (B, n) bool
+
+
+class BoxVJP(NamedTuple):
+    dl: torch.Tensor         # (B, n)
+    dgamma: torch.Tensor     # (B, 2n)
+    gamma: torch.Tensor      # (B, 2n)
+
+
+def _box_activity(l, l_min, l_max, eps):
+    """Lower active iff l - l_min <= eps, upper iff l - l_max >= -eps."""
+    return (l - l_min) <= eps, (l - l_max) >= -eps
+
+
+def _box_selector(act_lo: torch.Tensor, act_hi: torch.Tensor, dtype) -> torch.Tensor:
+    """Masked signed selector J (B, n, 2n): column i = -e_i if lower slot i
+    is active, column n + i = +e_i if upper slot i is, zero otherwise."""
+    eye = torch.eye(act_lo.shape[-1], dtype=dtype, device=act_lo.device)
+    return torch.cat(
+        [-eye * act_lo.to(dtype)[:, None, :], eye * act_hi.to(dtype)[:, None, :]], dim=-1
+    )
+
+
+def _box_selector_T(act_lo: torch.Tensor, act_hi: torch.Tensor, dtype) -> torch.Tensor:
+    """J^T (B, 2n, n), assembled directly (the masks on the row side)."""
+    eye = torch.eye(act_lo.shape[-1], dtype=dtype, device=act_lo.device)
+    return torch.cat(
+        [-eye * act_lo.to(dtype)[:, :, None], eye * act_hi.to(dtype)[:, :, None]], dim=-2
+    )
+
+
+def box_dual(P, q, l_min, l_max, l, cfg: SolverConfig, eps=None) -> BoxDuals:
+    """Minimal-norm least-squares duals of J gamma = -(Pl+q), closed form per
+    coordinate (J's rows touch disjoint columns, so J J^T is diagonal):
+    gamma_slot = coef * rhs / max(#active, 1). ``eps`` overrides ``cfg.eps``."""
+    act_lo, act_hi = _box_activity(l, l_min, l_max, cfg.eps if eps is None else eps)
+    rhs = -_pl_plus_q(P, l, q)
+    alo, ahi = act_lo.to(l.dtype), act_hi.to(l.dtype)
+    denom = torch.clamp_min(alo + ahi, 1.0)
+    gamma = torch.cat([-alo * rhs / denom, ahi * rhs / denom], dim=-1)
+    return BoxDuals(gamma=gamma, act_lo=act_lo, act_hi=act_hi)
+
+
+def _selector_kkt_system(P, g, J, Jt, gamma, am):
+    """(S^T, [0; g]) with S^T = [[I_inact, J^T], [J diag(gamma am), P]]."""
+    B, m = am.shape
+    top = torch.cat([torch.diag_embed(1.0 - am), Jt], dim=-1)
+    bot = torch.cat([J * (gamma * am)[:, None, :], P], dim=-1)
+    rhs = torch.cat([torch.zeros(B, m, dtype=g.dtype, device=g.device), g], dim=-1)
+    return torch.cat([top, bot], dim=-2), rhs
+
+
+def _box_kkt_system(P, l, g, duals: BoxDuals, cfg: SolverConfig):
+    """(S^T, rhs, am) of the box QP's adjoint; am the (B, 2n) strict mask."""
+    n = l.shape[-1]
+    act = torch.cat([duals.act_lo, duals.act_hi], dim=-1) & (duals.gamma > cfg.act_eps)
+    am = act.to(l.dtype)
+    J = _box_selector(act[:, :n], act[:, n:], l.dtype)
+    Jt = _box_selector_T(act[:, :n], act[:, n:], l.dtype)
+    return (*_selector_kkt_system(P, g, J, Jt, duals.gamma, am), am)
+
+
+def box_vjp(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    l_min: torch.Tensor,
+    l_max: torch.Tensor,
+    l: torch.Tensor,
+    g: torch.Tensor,
+    cfg: SolverConfig,
+    duals: Optional[BoxDuals] = None,
+) -> BoxVJP:
+    """Adjoint of the box-QP solution map: (dl, dgamma, gamma) for the
+    cotangent g. Without ``duals``: K4, which recovers the duals itself
+    (float32 on a CUDA tensor, cast back; l's dtype on a CPU tensor). With
+    ``duals``: the assembled system, solved by ``torch.linalg.solve``."""
+    _require_dense(P)
+    if duals is not None:
+        ST, rhs, am = _box_kkt_system(P, l, g, duals, cfg)
+        x = _solve_assembled(ST, rhs)
+        m = am.shape[-1]
+        return BoxVJP(dl=x[:, m:], dgamma=x[:, :m] * am, gamma=duals.gamma)
+    out = coord_kkt_bwd_fused_cuda(
+        *_kernel_args(l, P, q, l, g, l_min, l_max, None), KIND_BOX, cfg.eps, cfg.act_eps,
+    )
+    return BoxVJP(*(x.to(l.dtype) for x in out))
+
+
+# --------------------------------------------------------------------------
+# Signed box QP: the box plus sign(v) * l <= 0
+# --------------------------------------------------------------------------
+
+class SignedBoxDuals(NamedTuple):
+    gamma: torch.Tensor      # (B, 3n): [lo | hi | sign]
+    act_lo: torch.Tensor
+    act_hi: torch.Tensor
+    act_sg: torch.Tensor
+
+
+class SignedBoxVJP(NamedTuple):
+    dl: torch.Tensor
+    dgamma: torch.Tensor     # (B, 3n)
+    gamma: torch.Tensor      # (B, 3n)
+
+
+def _signed_selector(act_lo, act_hi, act_sg, v_sign) -> torch.Tensor:
+    """J (B, n, 3n): the box selector plus third block column i = v_i e_i
+    when the sign constraint i is active."""
+    dtype = v_sign.dtype
+    eye = torch.eye(act_lo.shape[-1], dtype=dtype, device=v_sign.device)
+    return torch.cat([
+        -eye * act_lo.to(dtype)[:, None, :],
+        eye * act_hi.to(dtype)[:, None, :],
+        eye * (act_sg.to(dtype) * v_sign)[:, None, :],
+    ], dim=-1)
+
+
+def _signed_selector_T(act_lo, act_hi, act_sg, v_sign) -> torch.Tensor:
+    """J^T (B, 3n, n), assembled directly (the masks on the row side)."""
+    dtype = v_sign.dtype
+    eye = torch.eye(act_lo.shape[-1], dtype=dtype, device=v_sign.device)
+    return torch.cat([
+        -eye * act_lo.to(dtype)[:, :, None],
+        eye * act_hi.to(dtype)[:, :, None],
+        eye * (act_sg.to(dtype) * v_sign)[:, :, None],
+    ], dim=-2)
+
+
+def signed_box_dual(P, q, l_min, l_max, v, l, cfg: SolverConfig, eps=None) -> SignedBoxDuals:
+    """3n-dual recovery: the sign constraint is active iff sign(v) l >= -eps.
+    J's row i touches columns (i, n + i, 2n + i) with entries (-1, +1, v_i),
+    v_i in {-1, 0, +1}, so the minimal-norm dual is closed form per
+    coordinate. ``eps`` overrides ``cfg.eps``."""
+    e = cfg.eps if eps is None else eps
+    v_sign = torch.sign(v)
+    act_lo, act_hi = _box_activity(l, l_min, l_max, e)
+    act_sg = v_sign * l >= -e
+    rhs = -_pl_plus_q(P, l, q)
+    alo, ahi, asg = (a.to(l.dtype) for a in (act_lo, act_hi, act_sg))
+    denom = torch.clamp_min(alo + ahi + asg * v_sign * v_sign, 1.0)
+    gamma = torch.cat([-alo * rhs / denom, ahi * rhs / denom, asg * v_sign * rhs / denom], dim=-1)
+    return SignedBoxDuals(gamma, act_lo, act_hi, act_sg)
+
+
+def _signed_box_kkt_system(P, q, l_min, l_max, v, l, g, cfg: SolverConfig):
+    """(S^T, rhs, am, gamma) of the signed-box QP's adjoint; am (B, 3n)."""
+    n = l.shape[-1]
+    duals = signed_box_dual(P, q, l_min, l_max, v, l, cfg)
+    act = torch.cat([duals.act_lo, duals.act_hi, duals.act_sg], dim=-1) & (
+        duals.gamma > cfg.act_eps
+    )
+    am = act.to(l.dtype)
+    blocks = (act[:, :n], act[:, n : 2 * n], act[:, 2 * n :], torch.sign(v))
+    J, Jt = _signed_selector(*blocks), _signed_selector_T(*blocks)
+    return (*_selector_kkt_system(P, g, J, Jt, duals.gamma, am), am, duals.gamma)
+
+
+def _signed_box_assembled_vjp(P, q, l_min, l_max, v, l, g, cfg: SolverConfig) -> SignedBoxVJP:
+    """S^T x = [0; g] assembled and solved by ``torch.linalg.solve``."""
+    ST, rhs, am, gamma = _signed_box_kkt_system(P, q, l_min, l_max, v, l, g, cfg)
+    x = _solve_assembled(ST, rhs)
+    m = am.shape[-1]
+    return SignedBoxVJP(dl=x[:, m:], dgamma=x[:, :m] * am, gamma=gamma)
+
+
+def signed_box_vjp(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    l_min: torch.Tensor,
+    l_max: torch.Tensor,
+    v: torch.Tensor,
+    l: torch.Tensor,
+    g: torch.Tensor,
+    cfg: SolverConfig,
+) -> SignedBoxVJP:
+    """Adjoint of the signed-box solution map, the sign constraint's dual
+    included, by K4 (float32 on a CUDA tensor, cast back; l's dtype on a CPU
+    tensor). v enters only through sign(v)."""
+    _require_dense(P)
+    out = coord_kkt_bwd_fused_cuda(
+        *_kernel_args(l, P, q, l, g, l_min, l_max, torch.sign(v)),
+        KIND_SIGNED_BOX, cfg.eps, cfg.act_eps,
+    )
+    return SignedBoxVJP(*(x.to(l.dtype) for x in out))
+
+
+# --------------------------------------------------------------------------
+# Friction-cone QCQP
+# --------------------------------------------------------------------------
 
 def qcqp_dual(
     P: torch.Tensor, q: torch.Tensor, radius: torch.Tensor, l: torch.Tensor,
@@ -126,7 +427,7 @@ def _qcqp_assembled_vjp(P, radius, l, g, duals: QCQPDuals, cfg: SolverConfig) ->
     top = torch.cat([torch.diag_embed(s * am + (1.0 - am)), Ct], dim=-1)
     ST = torch.cat([top, torch.cat([Bt, D], dim=-1)], dim=-2)
     rhs = torch.cat([torch.zeros(B, nc, dtype=l.dtype, device=l.device), g], dim=-1)
-    x = torch.linalg.solve(ST, rhs[..., None])[..., 0]
+    x = _solve_assembled(ST, rhs)
     return QCQPVJP(dl=x[:, nc:], dgamma=x[:, :nc] * am, gamma=duals.gamma)
 
 
@@ -147,17 +448,12 @@ def qcqp_vjp(
     (cast back on return), with float32's 8-ulp slack floor; on a CPU tensor
     its plain version runs in l's dtype, with that dtype's floor (the JAX
     generic path's at float64). With ``duals``: the assembled system."""
-    if P.ndim != 3:
-        raise NotImplementedError(
-            "diagonal P: the closed-form QCQP adjoint is not ported yet "
-            "(the port's forward takes dense P only; diag_embed it)"
-        )
+    _require_dense(P)
     if duals is not None:
         return _qcqp_assembled_vjp(P, radius, l, g, duals, cfg)
-    work = torch.float32 if l.device.type == "cuda" else l.dtype
+    args = _kernel_args(l, P, q, l, g, radius)
     dgamma, dl, gamma = qcqp_kkt_bwd_fused_cuda(
-        *(x.to(work).contiguous() for x in (P, q, l, g, radius)),
-        cfg.eps, cfg.act_eps, 8.0 * torch.finfo(work).eps,
+        *args, cfg.eps, cfg.act_eps, 8.0 * torch.finfo(args[0].dtype).eps,
     )
     return QCQPVJP(dl=dl.to(l.dtype), dgamma=dgamma.to(l.dtype), gamma=gamma.to(l.dtype))
 

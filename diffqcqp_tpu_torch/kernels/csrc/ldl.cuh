@@ -58,14 +58,19 @@ __device__ __forceinline__ float bcast(const Blk& k, float v, int src, float* sl
 // `shift` is read only by the thread whose row is the pivot (r == j), so each
 // thread may pass its own value: K1 passes one rho + mu for all rows, K2 its
 // row's 2 gamma, which factors P + diag(shift_r) with no change here.
+// With kMasked (K4) the factor is of fm P fm + diag(shift): `s_fm` holds a
+// 0 / 1 mask per row in shared memory and each element of P is masked as it
+// is read, so sP keeps the unmasked P for later use.
 // Scratch: s_piv[n] (pivot broadcast slots), s_rd[n] (reciprocal diagonal).
+template <bool kMasked = false>
 __device__ float chol_factor(const Blk& k, const float* sP, float* sL, float shift,
-                             float* s_piv, float* s_rd) {
+                             float* s_piv, float* s_rd, const float* s_fm = nullptr) {
   const int n = k.n, ld = k.ld, r = k.r;
   for (int j = 0; j < n; ++j) {
     float s = 0.f;
     if (k.real) {
       s = sP[r * ld + j];
+      if constexpr (kMasked) s = s * s_fm[r] * s_fm[j];
       if (r == j) s = s + shift;
       for (int c = 0; c < j; ++c) s = s - sL[c * ld + r] * sL[c * ld + j];
     }

@@ -34,7 +34,8 @@ def chol_factor(P: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     columns with the kernel's pivot floor: column j is
     s = P[:, j] + shift_j e_j - sum_{k<j} L[:, k] L[j, k], then
     s / sqrt(max(s_j, TINY)) on rows >= j. ``shift`` is (B,), one shift
-    for every row (K1's rho + mu), or (B, n), one per row (K2's 2 gamma)."""
+    for every row (K1's rho + mu), or (B, n), one per row (K2's 2 gamma,
+    K4's am)."""
     B, n, _ = P.shape
     L = torch.zeros_like(P)
     rows = torch.arange(n, device=P.device)

@@ -1,0 +1,268 @@
+"""The QP family's backward in the port against the JAX package, module by
+module.
+
+  * K4's plain version (``coord_kkt_bwd_fused_plain``) against the JAX kernel
+    ``coord_kkt_bwd_fused(interpret=True)`` in float32, for the three kinds at
+    B = 12 and n = 6, 8, 11, with tests/test_coord_bwd_kernel.py's bars (dl
+    atol 5e-5; dgamma atol 2e-4, rtol 2e-3; gamma atol 5e-5) and the same
+    strict mask. At n = 8 the box is tight (spread 0.05), and 30 % of the
+    coordinates have l_min = l_max (box: both slots active, the dual split
+    between them) or l_min = 0 (signed box: with v < 0 the sign constraint
+    repeats the lower bound, two slots of one coordinate are strictly active
+    and the residual splits at minimal norm); v has a zero column (a no-op
+    sign slot).
+  * The same plain version in float64, and the port's assembled branch,
+    against the JAX generic path (``qp_vjp`` / ``box_vjp`` /
+    ``signed_box_vjp`` with backend="xla"): atol 1e-8 max(1, |.|_inf), on all
+    cases but the tight signed box (two strict slots on one coordinate make
+    the assembled system singular).
+  * ``qp_dual`` / ``box_dual`` / ``signed_box_dual`` against the JAX package's
+    in float64 (atol 1e-12), the masked factor against a dense solve of K,
+    and K4's wrapper: its CPU dispatch and its input checks.
+
+Each problem is solved by the JAX package at eps=1e-8; both sides get the
+same numpy l and cotangent g.
+"""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import diffqcqp_tpu as dq
+import diffqcqp_tpu.diff.kkt as K
+from diffqcqp_tpu.kernels.coord_bwd_pallas import coord_kkt_bwd_fused
+import diffqcqp_tpu_torch as dqt
+from diffqcqp_tpu_torch.diff import kkt as TK
+from diffqcqp_tpu_torch.kernels import coord_bwd_cuda as tk
+from diffqcqp_tpu_torch.kernels.ldl import chol_factor, chol_to_unit, ldl_solve
+
+CFG = dq.SolverConfig(eps=1e-8, backend="xla")
+TCFG = dqt.SolverConfig.from_dict(dataclasses.asdict(CFG))
+KINDS = {"qp": tk.KIND_QP, "box": tk.KIND_BOX, "signed_box": tk.KIND_SIGNED_BOX}
+CASES = [f"{kind}_n{n}" for kind in KINDS for n in (6, 8, 11)]
+# the cases with no coordinate whose two slots are strictly active
+F64_CASES = [c for c in CASES if c != "signed_box_n8"]
+
+
+@functools.lru_cache(maxsize=None)
+def _problem(name):
+    """Random SPD problem of the named case, solved by the JAX package; the
+    box kinds' n = 8 case is tight, with l_min = l_max (box) or l_min = 0
+    (signed box) on 30 % of the coordinates. Returns (P, q, l, g, l_min, l_max, v) in float32 numpy,
+    None for what the kind does not take."""
+    kind, n = name.rsplit("_n", 1)
+    n = int(n)
+    b = 12
+    rng = np.random.default_rng(n + 10 * KINDS[kind])
+    S = rng.standard_normal((b, n, n)) / np.sqrt(n)
+    P = (S @ S.transpose(0, 2, 1) + 0.1 * np.eye(n)).astype(np.float32)
+    q = (rng.standard_normal((b, n)) * 0.8).astype(np.float32)
+    cfg = CFG.replace(max_iter=5000)
+    lo = hi = v = None
+    if kind == "qp":
+        l = dq.solve_qp(P, q, config=cfg)
+    else:
+        spread = 0.05 if n == 8 else 0.4
+        lo = -(rng.random((b, n)) * spread + 0.02).astype(np.float32)
+        hi = (rng.random((b, n)) * spread + 0.02).astype(np.float32)
+        pin = rng.random((b, n)) < 0.3
+        if n == 8 and kind == "box":
+            hi = np.where(pin, lo, hi).astype(np.float32)
+        elif n == 8:
+            lo = np.where(pin, 0.0, lo).astype(np.float32)
+        if kind == "box":
+            l = dq.solve_box_qp(P, q, lo, hi, config=cfg)
+        else:
+            v = rng.standard_normal((b, n)).astype(np.float32)
+            v[:, 0] = 0.0
+            l = dq.solve_signed_box_qp(P, q, lo, hi, v, config=cfg)
+    l = np.asarray(l).astype(np.float32)
+    g = rng.standard_normal((b, n)).astype(np.float32)
+    return KINDS[kind], (P, q, l, g, lo, hi, v)
+
+
+@pytest.fixture(scope="module", params=CASES, ids=CASES)
+def case(request):
+    return request.param, *_problem(request.param)
+
+
+def _t(*xs):
+    return tuple(None if x is None else torch.from_numpy(np.ascontiguousarray(x)) for x in xs)
+
+
+def _kernel_inputs(arrs):
+    P, q, l, g, lo, hi, v = arrs
+    return P, q, l, g, lo, hi, None if v is None else np.sign(v)
+
+
+@pytest.fixture(scope="module")
+def jax_kernel(case):
+    _, kind, arrs = case
+    out = coord_kkt_bwd_fused(
+        *(None if x is None else jnp.asarray(x) for x in _kernel_inputs(arrs)),
+        kind, eps=CFG.eps, act_eps=CFG.act_eps, interpret=True,
+    )
+    return tuple(np.asarray(x) for x in out)
+
+
+def test_cases_exercise_the_masks(case, jax_kernel):
+    name, kind, (_, _, _, _, lo, hi, v) = case
+    dl = jax_kernel[0]
+    assert (dl == 0).any() and (dl != 0).any()     # pinned and free coordinates
+    if kind != tk.KIND_QP:
+        dg = jax_kernel[1]
+        n = dl.shape[-1]
+        assert (dg[:, :n] != 0).any() and (dg[:, n : 2 * n] != 0).any()
+        gam = jax_kernel[2]
+        if name == "box_n8":          # l_min = l_max: the dual split over both slots
+            tight = lo == hi
+            assert tight.any() and (dl[tight] == 0).all()
+            np.testing.assert_array_equal(gam[:, :n][tight], -gam[:, n:][tight])
+        if name == "signed_box_n8":   # l_min = 0, v < 0: two strict slots
+            both = (dg[:, :n] != 0) & (dg[:, 2 * n :] != 0)
+            assert both.any() and (lo[both] == 0).all() and (v[both] < 0).all()
+
+
+def test_plain_k4_matches_jax_kernel_f32(case, jax_kernel):
+    _, kind, arrs = case
+    out = tk.coord_kkt_bwd_fused_plain(*_t(*_kernel_inputs(arrs)), kind, CFG.eps, CFG.act_eps)
+    assert len(out) == len(jax_kernel) and out[0].dtype == torch.float32
+    np.testing.assert_allclose(out[0].numpy(), jax_kernel[0], atol=5e-5, rtol=0)
+    np.testing.assert_array_equal(out[0].numpy() == 0, jax_kernel[0] == 0)
+    if kind != tk.KIND_QP:
+        dg, gam = out[1].numpy(), out[2].numpy()
+        np.testing.assert_array_equal(dg == 0, jax_kernel[1] == 0)   # same strict mask
+        np.testing.assert_allclose(dg, jax_kernel[1], atol=2e-4, rtol=2e-3)
+        np.testing.assert_allclose(gam, jax_kernel[2], atol=5e-5, rtol=0)
+
+
+def _jax_generic(kind, arrs):
+    P, q, l, g, lo, hi, v = (None if x is None else jnp.asarray(x) for x in arrs)
+    if kind == tk.KIND_QP:
+        return (K.qp_vjp(P, q, l, g, CFG),)
+    if kind == tk.KIND_BOX:
+        return tuple(K.box_vjp(P, q, lo, hi, l, g, CFG))
+    return tuple(K.signed_box_vjp(P, q, lo, hi, v, l, g, CFG))
+
+
+@pytest.fixture(scope="module", params=F64_CASES, ids=F64_CASES)
+def f64_case(request):
+    kind, arrs = _problem(request.param)
+    x64 = tuple(None if x is None else x.astype(np.float64) for x in arrs)
+    return kind, x64, tuple(np.asarray(x) for x in _jax_generic(kind, x64))
+
+
+def _close(got, want, bar=1e-8):
+    for a, b in zip(got, want):
+        a = a.numpy()
+        assert a.dtype == np.float64
+        np.testing.assert_allclose(a, b, atol=bar * max(1.0, float(np.abs(b).max())), rtol=0)
+
+
+def test_plain_k4_matches_jax_generic_path_f64(f64_case):
+    kind, arrs, ref = f64_case
+    _close(tk.coord_kkt_bwd_fused_plain(*_t(*_kernel_inputs(arrs)), kind, CFG.eps, CFG.act_eps),
+           ref)
+
+
+def test_vjp_and_assembled_branch_match_jax_generic_path_f64(f64_case):
+    """The port's *_vjp (K4's plain version on a CPU tensor) and its
+    assembled branch (torch.linalg.solve) against the JAX generic path."""
+    kind, arrs, ref = f64_case
+    P, q, l, g, lo, hi, v = _t(*arrs)
+    if kind == tk.KIND_QP:
+        vjp = (TK.qp_vjp(P, q, l, g, TCFG),)
+        assembled = (TK._qp_assembled_vjp(P, q, l, g, TCFG),)
+    elif kind == tk.KIND_BOX:
+        vjp = TK.box_vjp(P, q, lo, hi, l, g, TCFG)
+        assembled = TK.box_vjp(P, q, lo, hi, l, g, TCFG, duals=TK.box_dual(P, q, lo, hi, l, TCFG))
+    else:
+        vjp = TK.signed_box_vjp(P, q, lo, hi, v, l, g, TCFG)
+        assembled = TK._signed_box_assembled_vjp(P, q, lo, hi, v, l, g, TCFG)
+    _close(vjp, ref)
+    _close(assembled, ref)
+
+
+def test_duals_match_jax_f64(case):
+    _, kind, arrs = case
+    P, q, l, _, lo, hi, v = (None if x is None else x.astype(np.float64) for x in arrs)
+    Pt, qt, lt, lot, hit, vt = _t(P, q, l, lo, hi, v)
+    j = lambda *xs: tuple(jnp.asarray(x) for x in xs)  # noqa: E731
+    if kind == tk.KIND_QP:
+        pairs = [(TK.qp_dual(Pt, qt, lt, TCFG), K.qp_dual(*j(P, q, l), CFG))]
+    elif kind == tk.KIND_BOX:
+        dt, dj = TK.box_dual(Pt, qt, lot, hit, lt, TCFG), K.box_dual(*j(P, q, lo, hi, l), CFG)
+        pairs = list(zip(dt, dj))
+    else:
+        dt = TK.signed_box_dual(Pt, qt, lot, hit, vt, lt, TCFG)
+        dj = K.signed_box_dual(*j(P, q, lo, hi, v, l), CFG)
+        pairs = list(zip(dt, dj))
+    for a, b in pairs:
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-12, rtol=0)
+
+
+def test_masked_factor_solves_k():
+    """chol_factor of fm P fm with shift am, then ldl_solve, against a dense
+    solve of K = fm P fm + diag(am) (float64)."""
+    rng = np.random.default_rng(7)
+    S = rng.standard_normal((4, 9, 9))
+    P = S @ S.transpose(0, 2, 1) + 0.1 * np.eye(9)
+    am = (rng.random((4, 9)) < 0.4).astype(np.float64)
+    fm = 1.0 - am
+    rhs = rng.standard_normal((4, 9)) * fm
+    Kd = P * fm[:, :, None] * fm[:, None, :] + am[:, :, None] * np.eye(9)
+    Pt, amt, fmt, rt = _t(P, am, fm, rhs)
+    Lh, dinv = chol_to_unit(chol_factor(Pt * fmt[:, :, None] * fmt[:, None, :], amt))
+    x = ldl_solve(Lh, dinv, rt)
+    np.testing.assert_allclose(x.numpy(), np.linalg.solve(Kd, rhs[..., None])[..., 0],
+                               atol=1e-11, rtol=0)
+    assert (x.numpy()[am > 0] == 0).all()
+
+
+def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing(case):
+    _, kind, arrs = case
+    args = _t(*_kernel_inputs(arrs)) + (kind, CFG.eps, CFG.act_eps)
+    before = tk.coord_kkt_bwd_fused_cuda.launches
+    out_w = tk.coord_kkt_bwd_fused_cuda(*args)
+    out_p = tk.coord_kkt_bwd_fused_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out_w, out_p))
+    assert tk.coord_kkt_bwd_fused_cuda.launches == before
+
+
+@pytest.mark.parametrize(
+    "bad", ["P_shape", "g_shape", "bound_shape", "missing_bound", "extra_bound",
+            "unknown_kind", "mixed_dtype"],
+)
+def test_wrapper_checks_its_inputs(bad):
+    rng = np.random.default_rng(0)
+    P = torch.eye(6).expand(2, 6, 6).contiguous()
+    q, l, g, lo, hi = (torch.from_numpy(rng.standard_normal((2, 6)).astype(np.float32))
+                       for _ in range(5))
+    vs, kind, err = None, tk.KIND_BOX, ValueError
+    if bad == "P_shape":
+        P = P[:, :5, :5]
+    elif bad == "g_shape":
+        g = g[:1]
+    elif bad == "bound_shape":
+        hi = hi[:, :5]
+    elif bad == "missing_bound":
+        hi = None
+    elif bad == "extra_bound":
+        vs = torch.sign(lo)
+    elif bad == "unknown_kind":
+        kind = 3
+    else:
+        q, err = q.double(), TypeError
+    with pytest.raises(err):
+        tk.coord_kkt_bwd_fused_cuda(P, q, l, g, lo, hi, vs, kind, 1e-8, 1e-10)
+
+
+def test_smem_bytes_bounds():
+    # ~5 KB at N=24 (one warp); N=96 opts in above 48 KB and fits the 227 KB
+    # a Hopper block may use
+    assert tk.smem_bytes(24) < 6 * 1024
+    assert 48 * 1024 < tk.smem_bytes(96) <= 232448
