@@ -9,10 +9,14 @@ for P, q, l_n and mu) at B=4096, N=24 (12 contacts) with the benchmark
 generator and configuration (seed 0); and the forward+backward steps of the
 QP family at the JAX package's benchmark points (benchmarks/
 run_benchmarks.py): the non-negative QP at B=4096, N=24 (config 10, seed 10)
-and the box and signed-box QP at B=2048, N=24 (config 9, seed 9). Phases,
-each of which fails the run if its check fails:
+and the box and signed-box QP at B=2048, N=24 (config 9, seed 9); and the
+generic adjoint route with the duals given (``kkt.qcqp_vjp`` /
+``kkt.box_vjp`` with ``duals=``) at the QCQP flagship, at config 9's box
+point and at the JAX package's large-N size (B=2048, N=96, 48 contacts;
+its config 6). Phases, each of which fails the run if its check fails:
 
-  1. the card: name and power limit (nvidia-smi), kernel build time;
+  1. the card: name and power limit (nvidia-smi), the build of every
+     ``kernels/_build.SOURCES`` library (one nvcc each, all at once);
   2. kernel K1 (``admm_solve_cuda``) against its plain PyTorch version
      (``admm_solve_plain``) on the same card inputs: at the flagship point,
      for all four prox kinds and the rho_sync=False, primal_check=False,
@@ -43,6 +47,20 @@ each of which fails the run if its check fails:
      |dgamma|_inf) per problem; max |d gamma| <= 5e-5; all finite; the mask
      may differ on at most 0.1 % of the slots. The float64 plain version is
      printed beside them;
+  2d. kernel K5 (``qr_solve_cuda``) against its plain version
+     (``qr_solve_plain``) on the same card systems: the assembled adjoint
+     systems of the QCQP flagship (4096, 36, 36) and of config 9's box
+     (2048, 72, 72), the QP's SPD K at config 10 (4096, 24, 24) and a QCQP at
+     the route's bound, m = 87 (B=1024, N=58), l from K1 and g = 2 l. Bar: per
+     problem max |dx| <= min(2e-3, max(1e-4, m kappa_b u)) max(1, |x_b|_inf),
+     kappa_b the problem's condition number, u float32's unit roundoff (see
+     ``phase_2d``); over the batch the kernel at most twice as far off a
+     float64 ``torch.linalg.solve`` of the same system as the plain version;
+  2e. kernel K6 (``qcqp_kkt_bwd_cuda``) against its plain version
+     (``qcqp_kkt_bwd_plain``) at B=2048, N=96 and at the flagship, fed gamma,
+     s and the strict mask from ``qcqp_dual`` / ``qcqp_strict_active``, g =
+     2 l and a random g, with phase 2b's bars; then K6 fed K2's own gamma
+     against K2 at the flagship, on the problems whose mask agrees;
   3. the slice through ``solve_qcqp_with_stats`` (launch counters zeroed
      just before, read just after): K1 launched, every problem converged,
      every contact feasible, and max |dl| <= 1e-4 against the plain version
@@ -54,8 +72,9 @@ each of which fails the run if its check fails:
      system by ``torch.linalg.solve``, a route that shares none of K2's
      Schur arithmetic), per-problem relative error median <= 1e-3 and max
      <= 2e-3; a float64 central difference on 4 problems; ``QCQPFn2`` in the
-     (B, N, 1) layout against the entry point. Phase 3 also shows that the
-     entry point's K1 launch gives the bits of a direct launch;
+     (B, N, 1) layout against the entry point; K5 and K6 not launched.
+     Phase 3 also shows that the entry point's K1 launch gives the bits of a
+     direct launch;
   3c. for each QP-family class, the forward+backward step of sum(l^2) +
      <w, l> through ``solve_qp`` / ``solve_box_qp`` / ``solve_signed_box_qp``
      (``*_with_stats``) and ``torch.autograd.grad`` (counters zeroed just
@@ -66,7 +85,24 @@ each of which fails the run if its check fails:
      relative error median <= 1e-3 and max <= 2e-3 on the problems whose
      strict mask the referee shares; float64 central differences on 4
      problems for q and the bounds; the class's ``*Fn2`` binding in the
-     (B, N, 1) layout against the entry point;
+     (B, N, 1) layout against the entry point; K5 and K6 not launched;
+  3d. the generic route's three calls, g the cotangent of sum(l^2) + <w, l>,
+     each with the launch counters zeroed just before and read just after:
+     ``qcqp_vjp(duals=qcqp_dual(...))`` at
+     the flagship (K5 once), ``box_vjp(duals=box_dual(...))`` at config 9
+     (K5 once) and ``qcqp_vjp(duals=...)`` at B=2048, N=96 (nc + n = 144 >
+     88: K6 once), no other kernel; each against a float64 referee, the
+     assembled system of the call's own duals and mask solved by
+     ``torch.linalg.solve`` (sharing no arithmetic with K5 or K6), with the
+     route run on the kernel's plain version and the float32 LU of the same
+     system printed beside it. Bars: dl per-problem relative error median
+     <= 1e-3, max <= 2e-3; dgamma per problem <= 2e-3 max(1, |dgamma|_inf),
+     or twice the plain route's worst where that is larger, capped at 1e-2,
+     which the plain route's worst must also meet (see ``phase_3d``); then
+     the N=96 call in float64 on the card: no kernel launched (the Schur
+     route's Cholesky-and-LU branch) and within 1e-7 of the referee.
+     Every float64 referee of phases 3b-3d solves its
+     assembled system by ``torch.linalg.solve`` itself;
   4. timing at the flagship point: K1, K2, the forward entry point and the
      forward+backward step per call over back-to-back calls with CUDA events
      (warm-up, median of samples; K1's and K2's are the ``ms`` reported),
@@ -78,7 +114,13 @@ each of which fails the run if its check fails:
      bound, ``torch.linalg.solve`` of the assembled float32 system and the
      class's step with its device time by kernel. K4's ``ms`` is its device
      time per launch from torch.profiler: back to back, its wrapper's host
-     work outlasts the kernel, so the CUDA-event time measures the host;
+     work outlasts the kernel, so the CUDA-event time measures the host; K5
+     at each phase-2d point (profiler and events), its plain version, its
+     bound and ``torch.linalg.solve`` of the same system; K6 at N=96 and at
+     the flagship beside K2 on the same problems and ``torch.linalg.solve``
+     of the assembled (2048, 144, 144) / (4096, 36, 36) system; one
+     ``qcqp_vjp(duals=)`` call end to end against the K2 route. K5's and
+     K6's ``ms`` are profiler device times, as K4's;
   5. one JSON line of every ported kernel, then as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -89,7 +131,6 @@ when no CUDA device is present or the port cannot be imported.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
@@ -101,6 +142,7 @@ B_FLAG, NC_FLAG = 4096, 12
 ITER_ANCHOR = 17.21       # mean iterations of the JAX package at this config (its r04 record)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12         # H100 SXM data sheet, float32 outside the tensor cores
+DGAMMA_CAP = 1e-2          # phase 3d: the most dgamma's bar may grow to, of the problem's scale
 
 
 def log(*a):
@@ -173,28 +215,52 @@ def k1_bound_ms(B, n, nc, iters, power_iters):
     bytes_ = 4 * (B * n * n + 2 * B * n + B * nc) + 4 * B * n + B * (4 * 4 + 2)
     per_prob = (power_iters + 1) * (2 * n * n + 3 * n) + n ** 3 / 3 + n * n
     per_iter = 2 * n * n + 21 * n
-    flops = B * per_prob + float(iters.sum()) * per_iter
+    return bound_ms(bytes_, B * per_prob + float(iters.sum()) * per_iter)
+
+
+def bound_ms(bytes_, flops):
+    """(ms, what bounds it, bytes, FLOPs): the larger of the bytes over the
+    memory rate and the FLOPs over the float32 peak."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bytes_, flops
+
+
+def schur_flops(B, n, nc, active):
+    """FLOPs of the Schur adjoint (K2's steps 4-8, the whole of K6) that this
+    run's data needs: per problem the Cholesky of D (n^3 / 3), the g solve
+    (2 n^2), C^T W for M and y (4 n (nc + 1)), the QR of the nc x (nc + 1)
+    system (4 nc^3 / 3), the back substitution (nc^2) and dl (2 n nc); per
+    strictly active contact c its solve, whose forward sweep starts at row 2c
+    ((n - 2c)^2 + n^2). ``active`` is the (B, nc) mask."""
+    c = torch.arange(nc, dtype=torch.float64, device=active.device)
+    solves = float((active.double() * ((n - 2 * c) ** 2 + n * n)).sum())
+    per_prob = n ** 3 / 3 + 2 * n * n + 4 * n * (nc + 1) + 4 * nc ** 3 / 3 + nc * nc + 2 * n * nc
+    return B * per_prob + solves
 
 
 def k2_bound_ms(B, n, nc, active):
     """Least time for K2 on an H100 SXM: bytes of P, q, l, g and radius read
-    once and dgamma, dl and gamma written once, against the FLOPs this run's
-    data needs: per problem P l + q (2 n^2), the Cholesky of D (n^3 / 3),
-    the g solve (2 n^2), C^T W for M and y (4 n (nc + 1)), the QR of the
-    nc x (nc + 1) system (4 nc^3 / 3), the back substitution (nc^2) and dl
-    (2 n nc); per strictly active contact c its solve, whose forward sweep
-    starts at row 2c ((n - 2c)^2 + n^2). ``active`` is the (B, nc) mask."""
+    once and dgamma, dl and gamma written once, against P l + q (2 n^2 per
+    problem) and ``schur_flops``."""
     bytes_ = 4 * (B * n * n + 3 * B * n + B * nc) + 4 * (B * n + 2 * B * nc)
-    c = torch.arange(nc, dtype=torch.float64, device=active.device)
-    solves = float((active.double() * ((n - 2 * c) ** 2 + n * n)).sum())
-    per_prob = 4 * n * n + n ** 3 / 3 + 4 * n * (nc + 1) + 4 * nc ** 3 / 3 + nc * nc + 2 * n * nc
-    flops = B * per_prob + solves
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bytes_, flops
+    return bound_ms(bytes_, schur_flops(B, n, nc, active) + B * 2 * n * n)
+
+
+def k6_bound_ms(B, n, nc, active):
+    """Least time for K6 on an H100 SXM: bytes of P, l, g, gamma, s and the
+    float mask read once and dgamma and dl written once, against
+    ``schur_flops``."""
+    bytes_ = 4 * (B * n * n + 2 * B * n + 3 * B * nc) + 4 * (B * nc + B * n)
+    return bound_ms(bytes_, schur_flops(B, n, nc, active))
+
+
+def k5_bound_ms(B, m):
+    """Least time for K5 on an H100 SXM: A and b read once and x written
+    once, against 4/3 m^3 + m^2 FLOPs per problem (the Householder
+    triangularisation of [A | b] and the back substitution; the schedule is
+    the same for every problem)."""
+    return bound_ms(4 * B * (m * m + 2 * m), B * (4 * m ** 3 / 3 + m * m))
 
 
 def per_problem(x, ref, rows):
@@ -204,10 +270,11 @@ def per_problem(x, ref, rows):
     return ((x.double() - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1.0))[rows]
 
 
-def compare_k2(name, out_k, out_p, out_64):
-    """K2 against its plain version; fails on the bars, returns max |d dl|.
-    dgamma is exactly 0 where the strict mask am is 0 and almost surely not
-    elsewhere, so its zero pattern shows each side's mask. ``out_64`` is the
+def compare_k2(name, out_k, out_p, out_64, kernel="K2"):
+    """K2 (or K6, ``kernel``) against its plain version; fails on the bars,
+    returns max |d dl|. dgamma is exactly 0 where the strict mask am is 0
+    and almost surely not elsewhere, so its zero pattern shows each side's
+    mask. ``out_64`` is the
     plain version in float64 on the same inputs, printed to show how far
     float32 rounding alone moves each side's dgamma."""
     (dgk, dlk, gk), (dgp, dlp, gp), dg64 = out_k, out_p, out_64[0]
@@ -232,7 +299,7 @@ def compare_k2(name, out_k, out_p, out_64):
         f"strictly active: {float((dgp != 0).double().mean()):.4f}")
     if not (finite and n_flip <= 1e-3 * flip.numel() and s_dl <= 5e-5 and e_dg <= bar_dg
             and float(s_dg.max()) <= 2e-3 and e_g <= 1e-4):
-        raise AssertionError(f"K2 disagrees with its plain version: {name}")
+        raise AssertionError(f"{kernel} disagrees with its plain version: {name}")
     return e_dl
 
 
@@ -387,25 +454,34 @@ def feasibility_excess(c, l):
     return max(float(x.max()) for x in ex)
 
 
+def solve64(A, rhs):
+    """x of A x = rhs by ``torch.linalg.solve`` in float64: the referees' own
+    solve of an assembled system, which shares no arithmetic with K2, K4, K5
+    or K6 (the port's dispatch would send some of these systems to them)."""
+    return torch.linalg.solve(A.double(), rhs.double()[..., None])[..., 0]
+
+
 def class_referee(c, xs64, rest64, l64, g64):
     """float64 gradients of <g64, l> from the assembled KKT system solved by
-    torch.linalg.solve, and its (B, slots) strict mask."""
+    ``solve64``, and its (B, slots) strict mask."""
     from diffqcqp_tpu_torch.api import _bound_grads, _grad_P
     from diffqcqp_tpu_torch.diff import kkt
 
     P, q, *bnd = xs64
     if c.name == "qp":
-        am = kkt._qp_kkt_system(P, q, l64, g64, c.cfg)[2] == 0
-        dl = kkt._qp_assembled_vjp(P, q, l64, g64, c.cfg)
-        return (_grad_P(dl, l64), -dl), am
+        K, rhs, fm = kkt._qp_kkt_system(P, q, l64, g64, c.cfg)
+        dl = solve64(K, rhs) * fm
+        return (_grad_P(dl, l64), -dl), fm == 0
     if c.name == "box_qp":
         duals = kkt.box_dual(P, q, *bnd, l64, c.cfg)
-        am = kkt._box_kkt_system(P, l64, g64, duals, c.cfg)[2] > 0
-        r = kkt.box_vjp(P, q, *bnd, l64, g64, c.cfg, duals=duals)
+        ST, rhs, am = kkt._box_kkt_system(P, l64, g64, duals, c.cfg)
+        gamma = duals.gamma
     else:
-        am = kkt._signed_box_kkt_system(P, q, *bnd, *rest64, l64, g64, c.cfg)[2] > 0
-        r = kkt._signed_box_assembled_vjp(P, q, *bnd, *rest64, l64, g64, c.cfg)
-    return (_grad_P(r.dl, l64), -r.dl, *_bound_grads(r, l64.shape[-1])), am
+        ST, rhs, am, gamma = kkt._signed_box_kkt_system(P, q, *bnd, *rest64, l64, g64, c.cfg)
+    x = solve64(ST, rhs)
+    m = am.shape[-1]
+    r = kkt.BoxVJP(dl=x[:, m:], dgamma=x[:, :m] * am, gamma=gamma)
+    return (_grad_P(r.dl, l64), -r.dl, *_bound_grads(r, l64.shape[-1])), am > 0
 
 
 def phase_3c(dqt, c, w):
@@ -417,6 +493,8 @@ def phase_3c(dqt, c, w):
     from diffqcqp_tpu_torch import torch_autograd as ta
     from diffqcqp_tpu_torch.kernels.admm_cuda import admm_solve_cuda, admm_solve_plain
     from diffqcqp_tpu_torch.kernels.coord_bwd_cuda import coord_kkt_bwd_fused_cuda
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda
+    from diffqcqp_tpu_torch.kernels.qr_solve_cuda import qr_solve_cuda
 
     solve = getattr(dqt, f"solve_{c.name}_with_stats")
     diff = (c.P, c.q) + (c.params[:2] if c.params else ())
@@ -428,11 +506,13 @@ def phase_3c(dqt, c, w):
         lx = lx[0] if isinstance(lx, tuple) else lx
         return lx, torch.autograd.grad((lx * lx).sum() + (w.reshape(lx.shape) * lx).sum(), xs)
 
-    admm_solve_cuda.launches = coord_kkt_bwd_fused_cuda.launches = 0
+    kernels = (admm_solve_cuda, coord_kkt_bwd_fused_cuda, qr_solve_cuda, qcqp_kkt_bwd_cuda)
+    for k_ in kernels:
+        k_.launches = 0
     l, st = solve(*leaves, *rest, config=c.cfg)
     grads = torch.autograd.grad((l * l).sum() + (w * l).sum(), leaves)
     torch.cuda.synchronize()
-    n_k1, n_k4 = admm_solve_cuda.launches, coord_kkt_bwd_fused_cuda.launches
+    n_k1, n_k4, n_k5, n_k6 = (k_.launches for k_ in kernels)
     l = l.detach()
     finite = all(bool(torch.isfinite(x).all()) for x in grads)
     conv = float(st.converged.float().mean())
@@ -449,7 +529,7 @@ def phase_3c(dqt, c, w):
     out_k4 = coord_kkt_bwd_fused_cuda(c.P, c.q, l, (2.0 * l + w).contiguous(), *c.bounds,
                                       c.kind, c.cfg.eps, c.cfg.act_eps)
     shared = ~(k4_mask(c.kind, out_k4) != am_ref).any(dim=-1)
-    log(f"  {c.name}: launches K1 {n_k1}, K4 {n_k4}; converged_frac={conv} "
+    log(f"  {c.name}: launches K1 {n_k1}, K4 {n_k4}, K5 {n_k5}, K6 {n_k6}; converged_frac={conv} "
         f"mean_iters={float(st.iterations.float().mean()):.4f} "
         f"max_iters={int(st.iterations.max())} stalled={float(st.stalled.float().mean()):.4f} "
         f"max feasibility excess={excess:.3e} max|l - l_f64 referee|={err_l:.3e} "
@@ -457,8 +537,8 @@ def phase_3c(dqt, c, w):
         f"{float(st64.iterations.float().mean()):.2f}); gradients finite {finite}; strictly "
         f"active slots {float(am_ref.double().mean()):.4f}; problems whose strict mask the "
         f"referee does not share: {int((~shared).sum())}/{shared.numel()}")
-    if n_k1 < 1 or n_k4 < 1 or not finite:
-        raise AssertionError(f"the {c.name} step did not run through K1 and K4")
+    if n_k1 < 1 or n_k4 < 1 or n_k5 or n_k6 or not finite:
+        raise AssertionError(f"the {c.name} step did not run through K1 and K4 alone")
     if conv != 1.0 or excess > 0 or not err_l <= 1e-4 or not bool(st64.converged.all()):
         raise AssertionError(f"{c.name} forward check failed")
     worst = worst_max = 0.0
@@ -524,10 +604,7 @@ def k4_bound_ms(B, n, slots, n_bounds):
     FLOPs per problem: 2 n^2 for P l + q, n^3 / 3 for the factor, 2 n^2 for
     the solve, and 2 n^2 for the box kinds' residual."""
     bytes_ = 4 * B * (n * n + (3 + n_bounds) * n) + 4 * B * n * (1 + 2 * slots)
-    flops = B * (4 * n * n + n ** 3 / 3 + (2 * n * n if slots else 0))
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bytes_, flops
+    return bound_ms(bytes_, B * (4 * n * n + n ** 3 / 3 + (2 * n * n if slots else 0)))
 
 
 def phase_4c(c, step, smi):
@@ -587,6 +664,302 @@ def phase_4c(c, step, smi):
     return dict(ms=ms, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by, library_ms=ms_lib)
 
 
+# ---------------------------------------------------------------------------
+# The generic adjoint route, duals given: K5 (QR solve) and K6 (Schur adjoint)
+# ---------------------------------------------------------------------------
+
+def qcqp_system(P, q, radius, l, g, cfg, dtype=None):
+    """(S^T, rhs, am) of ``qcqp_vjp(duals=)``'s assembled system, with the
+    duals, squared slacks and strict mask that route computes from these
+    inputs; assembled in ``dtype`` (default: the inputs')."""
+    from diffqcqp_tpu_torch.diff import kkt
+
+    duals = kkt.qcqp_dual(P, q, radius, l, cfg)
+    s, act = kkt.qcqp_strict_active(l, radius, duals.gamma, cfg)
+    dt = dtype or l.dtype
+    am = act.to(dt)
+    return (*kkt._qcqp_kkt_system(*(x.to(dt) for x in (P, l, g, duals.gamma, s)), am), am)
+
+
+def box_system(c, l, g, dtype=None):
+    """(S^T, rhs, am) of ``box_vjp(duals=)``'s assembled system for the class
+    ``c``, with the duals and strict mask that route computes from these
+    inputs; assembled in ``dtype`` (default: the inputs')."""
+    from diffqcqp_tpu_torch.diff import kkt
+
+    d = kkt.box_dual(c.P, c.q, *c.params, l, c.cfg)
+    dt = dtype or l.dtype
+    d = kkt.BoxDuals(d.gamma.to(dt), d.act_lo, d.act_hi)
+    return kkt._box_kkt_system(c.P.to(dt), l.to(dt), g.to(dt), d, c.cfg)
+
+
+def phase_2d(points):
+    """K5 against its plain version on the card at each (label, A, b), both
+    beside a float64 ``torch.linalg.solve`` of the same system. Returns
+    {label: max |dx|}.
+
+    Bar, per problem: max |dx| <= min(2e-3, max(1e-4, m kappa_b u)) max(1,
+    |x_b|_inf), x_b the plain version's, kappa_b the 2-norm condition number
+    of A_b (in float64) and u = 2^-24 float32's unit roundoff. Householder QR
+    is backward stable, so each float32 solve sits up to about m kappa u of
+    its scale off the exact solution (the first-order normwise bound), and
+    two such solves in different rounding orders differ by as much. So 1e-4
+    holds where kappa is small (the QP's K, the box system), and the QCQP's
+    assembled system, which carries the 1/gamma-sized dgamma of weakly
+    active contacts (kappa ~1e5, up to ~4e7), gets phase 2b's per-problem
+    dgamma bar of 2e-3: there the kernel and the plain version alike sit
+    ~1e-3 of scale off the float64 solve. And over the batch the kernel's
+    worst error against the float64 solve must be at most twice the plain
+    version's plus 1e-5: the kernel is as accurate as its plain version."""
+    from diffqcqp_tpu_torch.kernels.qr_solve_cuda import qr_solve_cuda, qr_solve_plain
+
+    u = torch.finfo(torch.float32).eps / 2
+    errs = {}
+    for label, A, b in points:
+        xk, xp, x64 = qr_solve_cuda(A, b), qr_solve_plain(A, b), solve64(A, b)
+        m = A.shape[-1]
+        kappa = torch.linalg.cond(A.double())
+        bar = (m * kappa * u).clamp(1e-4, 2e-3)
+        every = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
+        s_kp = per_problem(xk, xp, every)
+        s_k64, s_p64 = (float(per_problem(x, x64, every).max()) for x in (xk, xp))
+        errs[label] = float((xk - xp).abs().max())
+        finite = bool(torch.isfinite(xk).all())
+        log(f"  {label} {tuple(A.shape)}: max|dx|={errs[label]:.3e}, per problem "
+            f"/max(1,|x|_inf) {float(s_kp.max()):.3e} (over 1e-4 on "
+            f"{int((s_kp > 1e-4).sum())}/{s_kp.numel()} problems; largest share of the "
+            f"problem's bar min(2e-3, max(1e-4, m kappa u)) {float((s_kp / bar).max()):.3f}; "
+            f"kappa median "
+            f"{float(kappa.median()):.3e} max {float(kappa.max()):.3e}); against the float64 "
+            f"solve: kernel {s_k64:.3e}, plain {s_p64:.3e}; |x|_max {float(x64.abs().max()):.3e}; "
+            f"finite={finite}")
+        if not (finite and bool((s_kp <= bar).all()) and s_k64 <= 2.0 * s_p64 + 1e-5):
+            raise AssertionError(f"K5 disagrees with its plain version: {label}")
+    return errs
+
+
+def phase_2e(cases, rand_g, cfg):
+    """K6 against its plain version on the card: gamma, s and the strict mask
+    from ``qcqp_dual`` / ``qcqp_strict_active`` on the card, g = 2 l and a
+    random g, with phase 2b's bars (``compare_k2``) and the float64 plain
+    version beside. Returns the first case's max |d dl| with g = 2 l."""
+    from diffqcqp_tpu_torch.diff import kkt
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_plain
+
+    errs = []
+    for label, (P, q, l, r) in cases:
+        duals = kkt.qcqp_dual(P, q, r, l, cfg)
+        s, act = kkt.qcqp_strict_active(l, r, duals.gamma, cfg)
+        for gname, g in (("g=2l", 2.0 * l), ("random g", rand_g(l))):
+            a6 = (P, l, g.contiguous(), duals.gamma, s, act)
+            a64 = tuple(x.double() for x in a6[:5]) + (act,)
+            errs.append(compare_k2(f"{label} {gname}", qcqp_kkt_bwd_cuda(*a6) + (duals.gamma,),
+                                   qcqp_kkt_bwd_plain(*a6) + (duals.gamma,),
+                                   qcqp_kkt_bwd_plain(*a64), kernel="K6"))
+    return errs[0]
+
+
+def k6_against_k2(P, q, l, r, g, cfg, ulps):
+    """K6 fed K2's own gamma (s and the strict mask from
+    ``qcqp_strict_active`` on it) against K2 on the same problem, with phase
+    2b's bars on the problems whose strict mask agrees: the two kernels share
+    steps 4-8, so they differ only where the slack is rounded differently."""
+    from diffqcqp_tpu_torch.diff import kkt
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import (
+        qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_plain,
+    )
+
+    out2 = qcqp_kkt_bwd_fused_cuda(P, q, l, g, r, cfg.eps, cfg.act_eps, ulps)
+    s, act = kkt.qcqp_strict_active(l, r, out2[2], cfg)
+    out6 = qcqp_kkt_bwd_cuda(P, l, g, out2[2], s, act) + (out2[2],)
+    out64 = qcqp_kkt_bwd_fused_plain(*(x.double() for x in (P, q, l, g, r)), cfg.eps,
+                                     cfg.act_eps, ulps)
+    return compare_k2("K6 fed K2's duals against K2, flagship B=4096 N=24 g=2l", out6, out2,
+                      out64, kernel="K6 against K2")
+
+
+def phase_3d(calls, kernels):
+    """Each (label, call, plain, system, want) of the generic adjoint route:
+    the launch counters zeroed just before the call and read just after,
+    which must show ``want`` ({kernel: launches}; every other kernel 0); then
+    the call's (dl, dgamma) against a float64 referee, ``system(torch.
+    float64)`` (the assembled system of the call's own duals and strict mask,
+    built from its float32 inputs) solved by ``solve64``, beside ``plain()``
+    (the same route with the kernel's plain version in its place) and the
+    float32 LU of ``system(torch.float32)``. Bars: per-problem relative
+    error of dl median <= 1e-3 and max <= 2e-3 (phases 3b and 3c's gradient
+    bars; grad q = -dl), each problem's |dl_ref| floored at 1e-3 |g_b| (a
+    problem whose every slot is strictly active has dl = 0 exactly in the
+    referee and float32 rounding noise in any float32 solve; a free
+    coordinate has |dl_i| >~ |g_i| / 4, P's largest eigenvalue being ~4
+    for these generators); per problem max |d dgamma| <= 2e-3 max(1,
+    |dgamma|_inf) (phase 2b's), or at most twice the plain route's worst
+    where that is larger: the route's algorithm itself (unpivoted
+    Householder QR of the assembled system, as the JAX package runs it)
+    loses more of the 1/gamma-sized dgamma of weakly active contacts in
+    float32 than the pivoted LU does (4.0e-3 of scale at the flagship on
+    an H100). That bar is capped at ``DGAMMA_CAP`` = 1e-2 of scale, which
+    the plain route's own worst must also meet, so an error of the shared
+    algorithm cannot raise it. Returns the launches of each kernel summed
+    over the calls."""
+    total = dict.fromkeys(kernels, 0)
+    for label, call, plain, system, want in calls:
+        for k_ in kernels.values():
+            k_.launches = 0
+        out = call()
+        torch.cuda.synchronize()
+        got = {name: k_.launches for name, k_ in kernels.items()}
+        for name, n_ in got.items():
+            total[name] += n_
+        ST, rhs, am = system(torch.float64)
+        m = am.shape[-1]
+        x64 = solve64(ST, rhs)
+        ref = (x64[:, m:], x64[:, :m] * am)
+        ST32, rhs32, am32 = system(torch.float32)
+        x32 = torch.linalg.solve(ST32, rhs32[..., None])[..., 0]
+        pl = plain()
+        every = torch.ones(am.shape[0], dtype=torch.bool, device=am.device)
+        floor = 1e-3 * rhs.norm(dim=-1)     # rhs = [0; g]
+        e_dl, e_dlp, e_dl32 = (rel_err(x, ref[0], floor) for x in (out.dl, pl[0], x32[:, m:]))
+        e_dg, e_dgp, e_dg32 = (per_problem(x, ref[1], every)
+                               for x in (out.dgamma, pl[1], x32[:, :m] * am32))
+        bar_dg = min(DGAMMA_CAP, max(2e-3, 2.0 * float(e_dgp.max())))
+        finite = bool(torch.isfinite(out.dl).all() and torch.isfinite(out.dgamma).all())
+        log(f"  {label} (m = {ST.shape[-1]}): launches " + ", ".join(f"{k} {v}" for k, v in got.items())
+            + f"; strictly active slots {float(am.mean()):.4f}; finite {finite}\n"
+            f"    against the float64 referee (dl median / dl max / dgamma max, per problem): "
+            f"the call {float(e_dl.median()):.3e} / {float(e_dl.max()):.3e} / "
+            f"{float(e_dg.max()):.3e} (dgamma bar {bar_dg:.3e}; over 2e-4 on "
+            f"{int((e_dg > 2e-4).sum())}/{e_dg.numel()} problems); the plain version's route "
+            f"{float(e_dlp.median()):.3e} / {float(e_dlp.max()):.3e} / {float(e_dgp.max()):.3e}; "
+            f"float32 LU of the same system {float(e_dl32.median()):.3e} / "
+            f"{float(e_dl32.max()):.3e} / {float(e_dg32.max()):.3e}")
+        if got != {name: want.get(name, 0) for name in kernels} or not finite:
+            raise AssertionError(f"{label} did not run through {want} alone")
+        if not (float(e_dl.median()) <= 1e-3 and float(e_dl.max()) <= 2e-3
+                and float(e_dg.max()) <= bar_dg and float(e_dgp.max()) <= DGAMMA_CAP):
+            raise AssertionError(f"{label} disagrees with its float64 referee")
+    return total
+
+
+def phase_3d_f64(a64, cfg, kernels):
+    """``qcqp_vjp(duals=)`` on float64 card tensors above the route's bound
+    (a64 = (P, q, radius, l, g)): the Schur route's float64 branch, a
+    Cholesky of D and an LU of the nc x nc system, launches no kernel (the
+    counters zeroed just before, read just after), and its (dl, dgamma) sit
+    within 1e-7 of each problem's scale of the float64 referee, the
+    assembled system solved by ``solve64``: both are float64 solves of the
+    same system, apart by about kappa u64 <~ 1e-8 (kappa up to ~4e7 on the
+    QCQP systems of phase 2d), while a float32 solve sits ~1e-4 off."""
+    from diffqcqp_tpu_torch.diff import kkt
+
+    for k_ in kernels.values():
+        k_.launches = 0
+    out = kkt.qcqp_vjp(*a64, cfg, duals=kkt.qcqp_dual(*a64[:4], cfg))
+    torch.cuda.synchronize()
+    got = {name: k_.launches for name, k_ in kernels.items()}
+    ST, rhs, am = qcqp_system(*a64, cfg)
+    m = am.shape[-1]
+    x64 = solve64(ST, rhs)
+    every = torch.ones(am.shape[0], dtype=torch.bool, device=am.device)
+    e_dl = float(per_problem(out.dl, x64[:, m:], every).max())
+    e_dg = float(per_problem(out.dgamma, x64[:, :m] * am, every).max())
+    log(f"  qcqp_vjp(duals=) in float64, B={am.shape[0]} N={a64[3].shape[-1]}: launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; dtype {out.dl.dtype}; against the float64 referee, per problem /max(1,|.|_inf): "
+        f"dl {e_dl:.3e}, dgamma {e_dg:.3e} (bar 1e-7)")
+    if any(got.values()) or out.dl.dtype != torch.float64 or not (e_dl <= 1e-7 and e_dg <= 1e-7):
+        raise AssertionError("qcqp_vjp(duals=) in float64 left its float64 route")
+
+
+def qr_plain_route(system):
+    """(dl, dgamma) of the assembled route with K5's plain version in the
+    kernel's place: ``system(torch.float32)`` solved by ``qr_solve_plain``."""
+    from diffqcqp_tpu_torch.kernels.qr_solve_cuda import qr_solve_plain
+
+    ST, rhs, am = system(torch.float32)
+    m = am.shape[-1]
+    x = qr_solve_plain(ST.contiguous(), rhs.contiguous())
+    return x[:, m:], x[:, :m] * am
+
+
+def schur_plain_route(P, q, r, l, g, cfg):
+    """(dl, dgamma) of the Schur route with K6's plain version in the
+    kernel's place, on the duals and mask ``qcqp_vjp`` computes."""
+    from diffqcqp_tpu_torch.diff import kkt
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_plain
+
+    gamma = kkt.qcqp_dual(P, q, r, l, cfg).gamma
+    s, act = kkt.qcqp_strict_active(l, r, gamma, cfg)
+    dgamma, dl = qcqp_kkt_bwd_plain(P, l, g, gamma, s, act)
+    return dl, dgamma
+
+
+def phase_4d(points, smi):
+    """K5 at each phase-2d point: its device time per launch
+    (torch.profiler), CUDA events over 20 back-to-back calls, its plain
+    version, its bound and ``torch.linalg.solve`` of the same float32
+    system. Returns {label: the numbers of the kernels line}."""
+    from diffqcqp_tpu_torch.kernels.qr_solve_cuda import qr_solve_cuda, qr_solve_plain
+
+    out = {}
+    for label, A, b in points:
+        B, m = b.shape
+        k5 = lambda: qr_solve_cuda(A, b)   # noqa: E731
+        dev = per_launch_ms(device_time_by_kernel(k5), "qr_solve_kernel")
+        ev, ts = time_cuda(k5, reps=5, calls=20)
+        ms_p, ts_p = time_cuda(lambda: qr_solve_plain(A, b), reps=3)
+        b3 = b[..., None].contiguous()
+        ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(A, b3), reps=5, calls=20)
+        bound, bound_by, nbytes, nflops = k5_bound_ms(B, m)
+        log(f"  K5 at {label} {tuple(A.shape)} ({smi}): device time per launch "
+            f"(torch.profiler) {dev if dev is None else round(dev, 4)} ms; per call, 20 "
+            f"back-to-back (CUDA events) {ev:.4f} ms (samples {[round(t, 4) for t in ts]}); "
+            f"plain version {ms_p:.2f} ms (samples {[round(t, 2) for t in ts_p]}); bound "
+            f"{bound:.5f} ms ({bound_by}: {nbytes} bytes, {nflops:.4g} FLOP); torch.linalg.solve "
+            f"{ms_lib:.4f} ms (samples {[round(t, 4) for t in ts_lib]})")
+        out[label] = dict(ms=dev if dev is not None else ev, plain_ms=ms_p, bound_ms=bound,
+                          bound_by=bound_by, library_ms=ms_lib)
+    return out
+
+
+def phase_4e(cases, smi):
+    """K6 at each (label, K6 inputs, K2 inputs, (S^T, rhs)): beside K2 on the
+    same problems (its own duals) and ``torch.linalg.solve`` of the
+    assembled float32 system; device time per launch (torch.profiler), CUDA
+    events over 20 back-to-back calls, the plain version and the bound.
+    Returns the first case's numbers for the kernels line."""
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import (
+        qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_plain,
+    )
+
+    out = []
+    for label, a6, a2, (ST, rhs) in cases:
+        B, n = a6[1].shape
+        k6 = lambda: qcqp_kkt_bwd_cuda(*a6)          # noqa: E731
+        k2 = lambda: qcqp_kkt_bwd_fused_cuda(*a2)    # noqa: E731
+        dev6 = per_launch_ms(device_time_by_kernel(k6), "qcqp_schur_kernel")
+        dev2 = per_launch_ms(device_time_by_kernel(k2), "qcqp_bwd_kernel")
+        ev6, ts6 = time_cuda(k6, reps=5, calls=20)
+        ev2, _ = time_cuda(k2, reps=5, calls=20)
+        ms_p, ts_p = time_cuda(lambda: qcqp_kkt_bwd_plain(*a6), reps=2)
+        rhs3 = rhs[..., None].contiguous()
+        ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(ST, rhs3), reps=3, calls=5)
+        bound, bound_by, nbytes, nflops = k6_bound_ms(B, n, n // 2, a6[5])
+        fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
+        log(f"  K6 at {label} ({smi}): device time per launch (torch.profiler) {fmt(dev6)}; "
+            f"per call, 20 back-to-back (CUDA events) {ev6:.4f} ms (samples "
+            f"{[round(t, 4) for t in ts6]}); K2 on the same problems {fmt(dev2)} device, "
+            f"{ev2:.4f} ms events; plain version {ms_p:.2f} ms (samples "
+            f"{[round(t, 2) for t in ts_p]}); bound {bound:.5f} ms ({bound_by}: {nbytes} bytes, "
+            f"{nflops:.4g} FLOP; {int(a6[5].sum())} strictly active contacts); "
+            f"torch.linalg.solve of the assembled float32 {tuple(ST.shape)}: {ms_lib:.4f} ms "
+            f"(samples {[round(t, 4) for t in ts_lib]})")
+        out.append(dict(ms=dev6 if dev6 is not None else ev6, plain_ms=ms_p, bound_ms=bound,
+                        bound_by=bound_by, library_ms=ms_lib))
+    return out[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -601,9 +974,11 @@ def main() -> int:
         PROX_BOX, PROX_DISK, PROX_NONNEG, PROX_SIGNED_BOX,
         admm_solve_cuda, admm_solve_plain,
     )
+    from diffqcqp_tpu_torch.kernels.coord_bwd_cuda import coord_kkt_bwd_fused_cuda
     from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import (
-        qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_plain,
+        qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_plain,
     )
+    from diffqcqp_tpu_torch.kernels.qr_solve_cuda import qr_solve_cuda
     from diffqcqp_tpu_torch.torch_autograd import QCQPFn2
     from diffqcqp_tpu_torch.utils.shapes import canon_problem
 
@@ -617,7 +992,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"phase 1: card {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    sources = sorted(f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
+    sources = list(_build.SOURCES)
     t0 = time.perf_counter()
     _build.build(sources)
     t_build = time.perf_counter() - t0
@@ -750,6 +1125,40 @@ def main() -> int:
     ], rand_g)
     torch.cuda.synchronize()
 
+    # ---- phase 2d: K5 against its plain version on the card, at the two K5
+    # points of the generic route (the QCQP flagship's and config 9's box
+    # adjoint), the QP's SPD K at config 10 and m = 87 at the route's bound
+    log("phase 2d: K5 against qr_solve_plain on the card")
+    lk = out_k[0]
+    c9, c10 = families["box_qp"], families["qp"]
+    l9, l10 = (admm_solve_cuda(c.P, c.q, torch.zeros_like(c.q), c.prox, c.prox_args, c.cfg)[0]
+               for c in (c9, c10))
+    P29, q29, ln29, mu29 = cuda(*build_problems(1024, 29, seed=5))
+    r29 = (ln29 * mu29).contiguous()
+    l29 = admm_solve_cuda(P29, q29, torch.zeros_like(q29), PROX_DISK, (r29,), cfg, True, False)[0]
+    k5_points = [(label, A.contiguous(), b.contiguous()) for label, A, b, *_ in (
+        ("QCQP flagship B=4096 N=24", *qcqp_system(P, q, radius, lk, 2.0 * lk, cfg)),
+        ("box B=2048 N=24 (config 9)", *box_system(c9, l9, 2.0 * l9)),
+        ("QP B=4096 N=24 (config 10), SPD K", *kkt._qp_kkt_system(c10.P, c10.q, l10, 2.0 * l10,
+                                                                 c10.cfg)),
+        ("QCQP B=1024 N=58, at the route's bound", *qcqp_system(P29, q29, r29, l29, 2.0 * l29, cfg)),
+    )]
+    err_k5 = phase_2d(k5_points)
+    torch.cuda.synchronize()
+
+    # ---- phase 2e: K6 against its plain version on the card, at the JAX
+    # package's large-N size (B=2048, N=96) and at the flagship
+    log("phase 2e: K6 against qcqp_kkt_bwd_plain on the card")
+    P48, q48, ln48, mu48 = cuda(*build_problems(2048, 48, seed=6))
+    r48 = (ln48 * mu48).contiguous()
+    l48, st48 = dqt.solve_qcqp_with_stats(P48, q48, ln48, mu48, config=cfg)
+    log(f"  B=2048 N=96 problems solved by solve_qcqp_with_stats: converged_frac="
+        f"{float(st48.converged.float().mean())} mean_iters {float(st48.iterations.float().mean()):.2f}")
+    err_k6 = phase_2e([("B=2048 N=96", (P48, q48, l48, r48)),
+                       ("flagship B=4096 N=24", (P, q, lk, radius))], rand_g, cfg)
+    k6_against_k2(P, q, lk, radius, (2.0 * lk).contiguous(), cfg, f32_ulps)
+    torch.cuda.synchronize()
+
     # ---- phase 3: the slice through the public entry point
     log("phase 3: solve_qcqp_with_stats at B=4096 N=24")
     admm_solve_cuda.launches = 0
@@ -794,25 +1203,32 @@ def main() -> int:
         v = (lx * lx).sum() + ((W.reshape(lx.shape) * lx).sum() if linear else 0.0)
         return lx, torch.autograd.grad(v, xs)
 
-    admm_solve_cuda.launches = qcqp_kkt_bwd_fused_cuda.launches = 0
+    kernels = {"K1": admm_solve_cuda, "K2": qcqp_kkt_bwd_fused_cuda,
+               "K4": coord_kkt_bwd_fused_cuda, "K5": qr_solve_cuda, "K6": qcqp_kkt_bwd_cuda}
+    for k_ in kernels.values():
+        k_.launches = 0
     l_sq, g_sq = step()
     torch.cuda.synchronize()
-    launches_k1, launches_k2 = admm_solve_cuda.launches, qcqp_kkt_bwd_fused_cuda.launches
+    n_3b = {name_: k_.launches for name_, k_ in kernels.items()}
+    launches_k1, launches_k2 = n_3b["K1"], n_3b["K2"]
     _, g_lin = step(linear=True)
     finite = all(bool(torch.isfinite(x).all()) for x in g_sq + g_lin)
-    log(f"  launches in the step: K1 {launches_k1}, K2 {launches_k2}; gradients finite: {finite}")
-    if launches_k1 < 1 or launches_k2 < 1 or not finite:
-        raise AssertionError("the forward+backward step did not run through K1 and K2")
+    log("  launches in the step: " + ", ".join(f"{k} {v}" for k, v in n_3b.items())
+        + f"; gradients finite: {finite}")
+    if launches_k1 < 1 or launches_k2 < 1 or n_3b["K4"] or n_3b["K5"] or n_3b["K6"] or not finite:
+        raise AssertionError("the forward+backward step did not run through K1 and K2 alone")
 
     # float64 referee: the plain K1 at eps=1e-10 (l64 above, solved with the
     # float64 radius, as its strict mask at float64's floor needs), then the
     # assembled KKT system solved by torch.linalg.solve
 
     def referee(g64):
-        duals = kkt.qcqp_dual(P64, q64, r64, l64, cfg)
-        rv = kkt.qcqp_vjp(P64, q64, r64, l64, g64, cfg, duals=duals)
-        e1, e2 = kkt.qcqp_radius_factors(ln64, mu64, rv.gamma)
-        return _grad_P(rv.dl, l64), -rv.dl, e2 * rv.dgamma, e1 * rv.dgamma
+        gamma = kkt.qcqp_dual(P64, q64, r64, l64, cfg).gamma
+        ST, rhs, am = qcqp_system(P64, q64, r64, l64, g64, cfg)
+        x = solve64(ST, rhs)
+        dl, dgamma = x[:, NC_FLAG:], x[:, :NC_FLAG] * am
+        e1, e2 = kkt.qcqp_radius_factors(ln64, mu64, gamma)
+        return _grad_P(dl, l64), -dl, e2 * dgamma, e1 * dgamma
 
     # sum(l^2) is flat in P and q where every contact binds (|l_c| = r_c):
     # those two gradients are zero up to rounding, so their error is taken
@@ -881,6 +1297,32 @@ def main() -> int:
         n_k1, n_k4, step_c = phase_3c(dqt, c, rand_g(c.q))
         steps[name_] = (n_k4, step_c)
 
+    # ---- phase 3d: the generic adjoint route, duals given, with problems and
+    # l from the entry points (K1): K5 at N=24, K6 at N=96
+    log("phase 3d: the generic adjoint route, kkt.qcqp_vjp / kkt.box_vjp with duals given")
+    l9e = dqt.solve_box_qp(c9.P, c9.q, *c9.params, config=c9.cfg)
+    # the cotangent of sum(l^2) + <w, l>: where every contact binds, sum(l^2)
+    # alone is flat in P and q and its dl is rounding noise (phase 3b)
+    g_fl, g9, g48 = ((2.0 * x + rand_g(x)).contiguous() for x in (l, l9e, l48))
+    sys_fl = lambda dt: qcqp_system(P, q, radius, l, g_fl, cfg, dt)  # noqa: E731
+    sys_9 = lambda dt: box_system(c9, l9e, g9, dt)  # noqa: E731
+    launches_3d = phase_3d([
+        ("qcqp_vjp(duals=qcqp_dual(...)), flagship B=4096 N=24",
+         lambda: kkt.qcqp_vjp(P, q, radius, l, g_fl, cfg,
+                              duals=kkt.qcqp_dual(P, q, radius, l, cfg)),
+         lambda: qr_plain_route(sys_fl), sys_fl, {"K5": 1}),
+        ("box_vjp(duals=box_dual(...)), config 9 B=2048 N=24",
+         lambda: kkt.box_vjp(c9.P, c9.q, *c9.params, l9e, g9, c9.cfg,
+                             duals=kkt.box_dual(c9.P, c9.q, *c9.params, l9e, c9.cfg)),
+         lambda: qr_plain_route(sys_9), sys_9, {"K5": 1}),
+        ("qcqp_vjp(duals=qcqp_dual(...)), B=2048 N=96",
+         lambda: kkt.qcqp_vjp(P48, q48, r48, l48, g48, cfg,
+                              duals=kkt.qcqp_dual(P48, q48, r48, l48, cfg)),
+         lambda: schur_plain_route(P48, q48, r48, l48, g48, cfg),
+         lambda dt: qcqp_system(P48, q48, r48, l48, g48, cfg, dt), {"K6": 1}),
+    ], kernels)
+    phase_3d_f64(tuple(x.double() for x in (P48, q48, r48, l48, g48)), cfg, kernels)
+
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
     k1 = lambda: admm_solve_cuda(*args)            # noqa: E731
@@ -916,13 +1358,8 @@ def main() -> int:
     bound2, bound2_by, nbytes2, nflops2 = k2_bound_ms(B_FLAG, 2 * NC_FLAG, NC_FLAG, active)
     # the library call: the same adjoint solve, assembled in float32 and
     # solved by torch.linalg.solve (the dual recovery not included)
-    duals = kkt.qcqp_dual(P, q, radius, lk, cfg)
-    s_, am_ = kkt.qcqp_strict_active(lk, radius, duals.gamma, cfg)
-    am_ = am_.float()
-    Ct, Bt, D = kkt._qcqp_kkt_blocks(P, lk, duals.gamma, am_, NC_FLAG, 2 * NC_FLAG)
-    ST = torch.cat([torch.cat([torch.diag_embed(s_ * am_ + (1.0 - am_)), Ct], -1),
-                    torch.cat([Bt, D], -1)], -2).contiguous()
-    rhs = torch.cat([torch.zeros_like(radius), 2.0 * lk], -1)[..., None].contiguous()
+    ST, rhs, _ = qcqp_system(P, q, radius, lk, k2_args[3], cfg)
+    ST, rhs = ST.contiguous(), rhs[..., None].contiguous()
     ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(ST, rhs), reps=5, calls=20)
 
     # the forward+backward step, as bench.py times it, and its device time
@@ -947,6 +1384,37 @@ def main() -> int:
     for name_, ms_, cnt in by_kernel[:10]:
         log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
     k4_times = {name_: phase_4c(c, steps[name_][1], smi) for name_, c in families.items()}
+
+    # K5 at each phase-2d point; K6 at N=96 and at the flagship beside K2
+    # and the library call; the generic route's call against the K2 route
+    k5_times = phase_4d(k5_points, smi)
+    cases_4e = []
+    for label, (Pc, qc, lc, rc) in (("B=2048 N=96", (P48, q48, l48, r48)),
+                                     ("flagship B=4096 N=24", (P, q, lk, radius))):
+        gc = (2.0 * lc).contiguous()
+        duals = kkt.qcqp_dual(Pc, qc, rc, lc, cfg)
+        s_, act_ = kkt.qcqp_strict_active(lc, rc, duals.gamma, cfg)
+        ST_, rhs_, _ = qcqp_system(Pc, qc, rc, lc, gc, cfg)
+        cases_4e.append((label, (Pc, lc, gc, duals.gamma, s_, act_),
+                         (Pc, qc, lc, gc, rc, cfg.eps, cfg.act_eps, f32_ulps),
+                         (ST_.contiguous(), rhs_.contiguous())))
+    k6_times = phase_4e(cases_4e, smi)
+    del cases_4e
+    generic = lambda: kkt.qcqp_vjp(P, q, radius, lk, k2_args[3], cfg,  # noqa: E731
+                                   duals=kkt.qcqp_dual(P, q, radius, lk, cfg))
+    fused = lambda: kkt.qcqp_vjp(P, q, radius, lk, k2_args[3], cfg)  # noqa: E731
+    ev_gen, ts_gen = time_cuda(generic, reps=5, calls=20)
+    ev_fus, ts_fus = time_cuda(fused, reps=5, calls=20)
+    rows_gen = device_time_by_kernel(generic)
+    dev_gen = sum(r_[1] for r_ in rows_gen)
+    dev_gen_k5 = sum(r_[1] for r_ in rows_gen if "qr_solve_kernel" in r_[0])
+    log(f"  qcqp_vjp at the flagship, per call, 20 back-to-back (CUDA events): duals given "
+        f"(qcqp_dual, then the assembled system through K5) {ev_gen:.4f} ms (samples "
+        f"{[round(t, 4) for t in ts_gen]}); the K2 route {ev_fus:.4f} ms (samples "
+        f"{[round(t, 4) for t in ts_fus]}); the generic call's device time (torch.profiler) "
+        f"{dev_gen:.4f} ms, of which K5 {dev_gen_k5:.4f} ms")
+    for name_, ms_, cnt in rows_gen[:8]:
+        log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
 
     # ---- phase 5: the kernels line, then the result
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
@@ -983,6 +1451,24 @@ def main() -> int:
         "launches": steps["qp"][0],
         "max_abs_err": err_k4,
         **k4_times["qp"],
+    }, {
+        "name": "qr_solve_cuda (K5; numbers at the QCQP flagship's assembled system, "
+                "B=4096 m=36)",
+        "route": "cuda",
+        "source": "diffqcqp_tpu_torch/kernels/csrc/qr_solve.cu",
+        "replaces": "diffqcqp_tpu/kernels/qr_solve_pallas.py:43",
+        "launches": launches_3d["K5"],
+        "max_abs_err": err_k5[k5_points[0][0]],
+        **k5_times[k5_points[0][0]],
+    }, {
+        "name": "qcqp_kkt_bwd_cuda (K6, K2's steps 4-8 with the duals given; numbers at "
+                "B=2048 N=96)",
+        "route": "cuda",
+        "source": "diffqcqp_tpu_torch/kernels/csrc/qcqp_bwd.cu",
+        "replaces": "diffqcqp_tpu/kernels/qcqp_bwd_pallas.py:44",
+        "launches": launches_3d["K6"],
+        "max_abs_err": err_k6,
+        **k6_times,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

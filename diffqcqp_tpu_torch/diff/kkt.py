@@ -13,16 +13,15 @@ the JAX package:
   * dense P and no duals: the fused backward K4
     (``kernels/coord_bwd_cuda.py``), dual recovery plus the masked SPD solve
     in one launch on a CUDA tensor, its plain version on a CPU tensor;
-  * the assembled fixed-shape system (the JAX generic path's counterpart),
-    solved by ``torch.linalg.solve``: K = fm P fm + diag(am) for the QP, and
+  * the generic route: the assembled fixed-shape system, solved by
+    ``_solve_direct``: K = fm P fm + diag(am) for the QP (SPD), and
     S^T x = [0; g] with S^T = [[I_inact, J^T], [J diag(gamma am), P]] over
     all 2n or 3n slots for the box kinds. It is reached through
     ``box_vjp(..., duals=)`` and the private ``_qp_assembled_vjp`` /
-    ``_signed_box_assembled_vjp``; the tests and ``chip_smoke.py`` use it as
-    a referee that shares none of K4's arithmetic. Where two slots of one
-    coordinate are strictly active (a signed box with l_min = 0 and v < 0,
-    whose sign constraint repeats the lower bound) it is singular, and K4
-    splits the residual at minimal norm instead, as the JAX kernel does.
+    ``_signed_box_assembled_vjp``. Where two slots of one coordinate are
+    strictly active (a signed box with l_min = 0 and v < 0, whose sign
+    constraint repeats the lower bound) it is singular, and K4 splits the
+    residual at minimal norm instead, as the JAX kernel does.
 
 The friction-cone QCQP:
 
@@ -43,17 +42,22 @@ Two routes, as in the JAX package:
   * dense P and no ``duals``: the fused backward K2
     (``kernels/qcqp_bwd_cuda.py``), dual recovery plus the Schur-complement
     solve in one launch on a CUDA tensor, its plain version on a CPU tensor;
-  * ``duals`` given: the assembled (nc + n) system solved by
-    ``torch.linalg.solve`` (the JAX generic path's counterpart). It is not on
-    the main path: the tests and ``chip_smoke.py`` use it as a referee that
-    does not share K2's Schur arithmetic.
+  * ``duals`` given, the generic route: up to nc + n = 88 the assembled
+    system through ``_solve_direct``; above it ``_qcqp_schur_vjp``, the
+    Schur complement with the duals given (kernel K6, ``qcqp_kkt_bwd_cuda``).
+
+``_solve_direct`` is the generic route's solve: kernel K5
+(``kernels/qr_solve_cuda.py``, batched Householder QR) for a float32 CUDA
+system of m <= 88 or wherever ``cfg.backend == 'pallas'``, else a batched
+Cholesky (SPD) or ``torch.linalg.solve``. The public steps keep K2 and K4 at
+every size: the JAX package's n <= 64 bound on its fused kernels comes from
+the TPU's VMEM, and the port's fused kernels run at N = 96 on the card.
 
 Not ported yet (ROADMAP): the diagonal-P closed forms
 (``_diag_coord_adjoint`` and the QCQP's; the port's forward takes dense P
-only), ``_solve_direct``'s QR-kernel (K5) and Newton-Schulz routes, and
-``_qcqp_schur_vjp`` (the JAX generic path above nc + n = 88, which needs
-``ops/linalg.py``'s Newton-Schulz inverse); the assembled branches here solve
-any size directly.
+only), and the Newton-Schulz inverse (``_spd_inverse_f32``, ROADMAP Queue 1
+item 2) that the JAX package's float32 SPD solves take outside the QR
+kernel; here those solve by Cholesky.
 """
 
 from __future__ import annotations
@@ -69,7 +73,9 @@ from ..kernels.coord_bwd_cuda import (
     KIND_SIGNED_BOX,
     coord_kkt_bwd_fused_cuda,
 )
-from ..kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_fused_cuda
+from ..kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda
+from ..kernels.qr_solve_cuda import qr_solve_cuda
+from ..ops.linalg import spd_cholesky_solve
 
 __all__ = [
     "qp_dual",
@@ -121,7 +127,45 @@ def _kernel_args(l: torch.Tensor, *xs: Optional[torch.Tensor]):
     return tuple(None if x is None else x.to(work).contiguous() for x in xs)
 
 
-def _solve_assembled(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+# The largest assembled system the automatic dispatch sends to K5, and the
+# nc + n above which qcqp_vjp(duals=) takes the Schur route: the JAX
+# package's bound (its QR kernel's VMEM working set at the 128-lane tile),
+# kept so that both packages take the same route at every shape. The card
+# holds more (K5's [A | b] fits a block's shared memory up to m ~ 240); a
+# move of the bound waits for card timings of both routes.
+QR_MAX_M = 88
+
+
+def _solve_direct(
+    A: torch.Tensor, rhs: torch.Tensor, cfg: SolverConfig, spd: bool = False
+) -> torch.Tensor:
+    """Solve A x = rhs batched; A (B, m, m), rhs (B, m) (port of
+    ``_solve_direct``; a CUDA tensor plays the TPU's part):
+
+      * ``cfg.backend == 'pallas'``: kernel K5 (``qr_solve_cuda``) at any m,
+        in float32 and cast back: on a CUDA tensor the kernel, which raises
+        where a block's shared memory cannot hold m (as the JAX package's
+        explicit ``pallas`` fails loudly); on a CPU tensor its plain version
+        (the JAX package runs the kernel in interpret mode off the TPU);
+      * a float32 CUDA tensor with ``backend='auto'`` and m <= ``QR_MAX_M``:
+        K5;
+      * anything else: ``spd_cholesky_solve`` when ``spd`` (A symmetric
+        positive definite), else ``torch.linalg.solve`` (the JAX package's
+        ``jnp.linalg.solve``). The JAX package solves a float32 SPD system
+        here by its Newton-Schulz inverse, which is not ported yet; the port
+        takes the Cholesky route at every dtype.
+    """
+    use_kernel = cfg.backend == "pallas" or (
+        cfg.backend == "auto"
+        and A.device.type == "cuda"
+        and rhs.dtype == torch.float32
+        and A.shape[-1] <= QR_MAX_M
+    )
+    if use_kernel:
+        f32 = torch.float32
+        return qr_solve_cuda(A.to(f32).contiguous(), rhs.to(f32).contiguous()).to(rhs.dtype)
+    if spd:
+        return spd_cholesky_solve(A, rhs[..., None])[..., 0]
     return torch.linalg.solve(A, rhs[..., None])[..., 0]
 
 
@@ -149,9 +193,10 @@ def _qp_kkt_system(P, q, l, g, cfg: SolverConfig):
 
 
 def _qp_assembled_vjp(P, q, l, g, cfg: SolverConfig) -> torch.Tensor:
-    """K x = g fm assembled and solved by ``torch.linalg.solve``; dl = x fm."""
+    """K x = g fm assembled and solved by ``_solve_direct`` (K SPD); dl =
+    x fm: the JAX package's generic QP route."""
     K, rhs, fm = _qp_kkt_system(P, q, l, g, cfg)
-    return _solve_assembled(K, rhs) * fm
+    return _solve_direct(K, rhs, cfg, spd=True) * fm
 
 
 def qp_vjp(
@@ -249,11 +294,11 @@ def box_vjp(
     """Adjoint of the box-QP solution map: (dl, dgamma, gamma) for the
     cotangent g. Without ``duals``: K4, which recovers the duals itself
     (float32 on a CUDA tensor, cast back; l's dtype on a CPU tensor). With
-    ``duals``: the assembled system, solved by ``torch.linalg.solve``."""
+    ``duals``: the assembled system, solved by ``_solve_direct``."""
     _require_dense(P)
     if duals is not None:
         ST, rhs, am = _box_kkt_system(P, l, g, duals, cfg)
-        x = _solve_assembled(ST, rhs)
+        x = _solve_direct(ST, rhs, cfg)
         m = am.shape[-1]
         return BoxVJP(dl=x[:, m:], dgamma=x[:, :m] * am, gamma=duals.gamma)
     out = coord_kkt_bwd_fused_cuda(
@@ -332,9 +377,10 @@ def _signed_box_kkt_system(P, q, l_min, l_max, v, l, g, cfg: SolverConfig):
 
 
 def _signed_box_assembled_vjp(P, q, l_min, l_max, v, l, g, cfg: SolverConfig) -> SignedBoxVJP:
-    """S^T x = [0; g] assembled and solved by ``torch.linalg.solve``."""
+    """S^T x = [0; g] assembled and solved by ``_solve_direct``: the JAX
+    package's generic signed-box route."""
     ST, rhs, am, gamma = _signed_box_kkt_system(P, q, l_min, l_max, v, l, g, cfg)
-    x = _solve_assembled(ST, rhs)
+    x = _solve_direct(ST, rhs, cfg)
     m = am.shape[-1]
     return SignedBoxVJP(dl=x[:, m:], dgamma=x[:, :m] * am, gamma=gamma)
 
@@ -417,18 +463,49 @@ def _qcqp_kkt_blocks(P, l, gamma, am, nc: int, n: int):
     return Ct, Bt, D
 
 
-def _qcqp_assembled_vjp(P, radius, l, g, duals: QCQPDuals, cfg: SolverConfig) -> QCQPVJP:
-    """S^T x = [0; g] assembled and solved by ``torch.linalg.solve``."""
+def _qcqp_kkt_system(P, l, g, gamma, s, am):
+    """(S^T, [0; g]) of the QCQP's transposed system, assembled:
+    S^T = [[diag(s am + (1 - am)), C^T], [B^T, D]] from the raw duals gamma,
+    the squared slacks s and the strict mask am (0 / 1 in l's dtype)."""
     B, n = l.shape
     nc = n // 2
-    s, active = qcqp_strict_active(l, radius, duals.gamma, cfg)
-    am = active.to(l.dtype)
-    Ct, Bt, D = _qcqp_kkt_blocks(P, l, duals.gamma, am, nc, n)
+    Ct, Bt, D = _qcqp_kkt_blocks(P, l, gamma, am, nc, n)
     top = torch.cat([torch.diag_embed(s * am + (1.0 - am)), Ct], dim=-1)
     ST = torch.cat([top, torch.cat([Bt, D], dim=-1)], dim=-2)
     rhs = torch.cat([torch.zeros(B, nc, dtype=l.dtype, device=l.device), g], dim=-1)
-    x = _solve_assembled(ST, rhs)
-    return QCQPVJP(dl=x[:, nc:], dgamma=x[:, :nc] * am, gamma=duals.gamma)
+    return ST, rhs
+
+
+def _qcqp_assembled_vjp(P, l, g, gamma, s, am, cfg: SolverConfig) -> QCQPVJP:
+    """S^T x = [0; g] assembled and solved by ``_solve_direct``."""
+    nc = l.shape[-1] // 2
+    x = _solve_direct(*_qcqp_kkt_system(P, l, g, gamma, s, am), cfg)
+    return QCQPVJP(dl=x[:, nc:], dgamma=x[:, :nc] * am, gamma=gamma)
+
+
+def _qcqp_schur_vjp(P, l, g, s, am, gamma) -> QCQPVJP:
+    """Schur-complement form of the transposed system (port of
+    ``_qcqp_schur_vjp``): eliminating dl,
+
+        (Sigma - C^T D^{-1} B^T) dgamma = -C^T D^{-1} g,   dl = D^{-1} (g - B^T dgamma),
+
+    with D = P + blockdiag(2 gamma_i I_2) SPD: one factor of D, nc + 1
+    solves and an nc x nc system, never the (nc + n)^3 solve. In float64,
+    on either device, the JAX package's float64 route: a batched Cholesky
+    of D and ``torch.linalg.solve`` of the nc x nc system. Otherwise kernel
+    K6 (``qcqp_kkt_bwd_cuda``), where the JAX package takes its float32
+    Newton-Schulz route: float32 on a CUDA tensor (cast back), its plain
+    version in l's dtype on a CPU tensor."""
+    if l.dtype == torch.float64:
+        n = l.shape[-1]
+        Ct, Bt, D = _qcqp_kkt_blocks(P, l, gamma, am, n // 2, n)
+        X = spd_cholesky_solve(D, torch.cat([g[..., None], Bt], dim=-1))
+        y, W = X[..., 0], X[..., 1:]                # D^{-1} g, D^{-1} B^T
+        M = torch.diag_embed(s * am + (1.0 - am)) - Ct @ W
+        dgamma = torch.linalg.solve(M, -(Ct @ y[..., None]))[..., 0] * am
+        return QCQPVJP(dl=y - (W @ dgamma[..., None])[..., 0], dgamma=dgamma, gamma=gamma)
+    dgamma, dl = qcqp_kkt_bwd_cuda(*_kernel_args(l, P, l, g, gamma, s, am))
+    return QCQPVJP(dl=dl.to(l.dtype), dgamma=dgamma.to(l.dtype), gamma=gamma)
 
 
 def qcqp_vjp(
@@ -447,10 +524,19 @@ def qcqp_vjp(
     duals itself. On a CUDA tensor it runs in float32 whatever the dtype
     (cast back on return), with float32's 8-ulp slack floor; on a CPU tensor
     its plain version runs in l's dtype, with that dtype's floor (the JAX
-    generic path's at float64). With ``duals``: the assembled system."""
+    generic path's at float64). With ``duals``, the generic route: above
+    nc + n = ``QR_MAX_M`` the Schur complement (``_qcqp_schur_vjp``: K6,
+    in float32 on a CUDA tensor, outside float64), else the assembled (nc + n) system through
+    ``_solve_direct`` (K5 on a float32 CUDA tensor)."""
     _require_dense(P)
     if duals is not None:
-        return _qcqp_assembled_vjp(P, radius, l, g, duals, cfg)
+        n = l.shape[-1]
+        nc = n // 2
+        s, active = qcqp_strict_active(l, radius, duals.gamma, cfg)
+        am = active.to(l.dtype)
+        if nc + n > QR_MAX_M:
+            return _qcqp_schur_vjp(P, l, g, s, am, duals.gamma)
+        return _qcqp_assembled_vjp(P, l, g, duals.gamma, s, am, cfg)
     args = _kernel_args(l, P, q, l, g, radius)
     dgamma, dl, gamma = qcqp_kkt_bwd_fused_cuda(
         *args, cfg.eps, cfg.act_eps, 8.0 * torch.finfo(args[0].dtype).eps,

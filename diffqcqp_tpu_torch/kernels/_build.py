@@ -31,11 +31,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "build", "load", "library_path", "check_launch", "check_rc"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build", "load", "library_path", "check_launch", "check_rc"]
 
-MAX_THREADS = 256   # __launch_bounds__ of every kernel: one thread per row, n <= 256
+MAX_THREADS = 256   # __launch_bounds__ of every kernel: a thread per row (K5: per column)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# every csrc/<name>.cu, one library each
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

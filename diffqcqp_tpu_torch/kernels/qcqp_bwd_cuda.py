@@ -1,20 +1,26 @@
-"""Fused QCQP backward: the CUDA kernel K2 and its plain version.
+"""QCQP backward: the CUDA kernels K2 (fused) and K6 (Schur adjoint with
+the duals given), and their plain versions.
 
 ``qcqp_kkt_bwd_fused_cuda`` replaces ``diffqcqp_tpu/kernels/qcqp_bwd_pallas.py::
 qcqp_kkt_bwd_fused`` (kernel ``_qcqp_bwd_fused_kernel`` -> ``_schur_core``):
 the closed-form dual recovery and the Schur-complement KKT adjoint of the
-friction-cone QCQP in one launch. On a CUDA tensor it launches
-``kernels/csrc/qcqp_bwd.cu`` (one thread block per problem; see the note at
-the top of that file) or raises; on a CPU tensor it runs
-``qcqp_kkt_bwd_fused_plain``. There is no fallback from one to the other.
+friction-cone QCQP in one launch. ``qcqp_kkt_bwd_cuda`` replaces
+``qcqp_kkt_bwd_pallas`` (kernel ``_qcqp_bwd_kernel`` -> ``_schur_core``): the
+same Schur adjoint from the caller's raw gamma, squared slacks s and strict
+mask, the solve of ``diff/kkt.py::_qcqp_schur_vjp``. On a CUDA tensor each
+launches its kernel in ``kernels/csrc/qcqp_bwd.cu`` (one thread block per
+problem; see the note at the top of that file) or raises; on a CPU tensor
+it runs its plain version. There is no fallback from one to the other.
 
-``qcqp_kkt_bwd_fused_plain`` repeats the kernel's arithmetic on whole
-batches in eager PyTorch, in any dtype: P l + q accumulated over columns,
-the per-contact duals and strict mask, the LDL^T factor of
-D = P + diag(2 gamma_raw) (``kernels/ldl.py``), the nc + 1 solves (column c
-of C starting at row 2c), M and y, the column-oriented Householder QR and
-back substitution, and dl. The CPU path and the tests use it;
-``chip_smoke.py`` holds the kernel against it on the card.
+The plain versions repeat the kernels' arithmetic on whole batches in eager
+PyTorch, in any dtype: K2's P l + q accumulated over columns and its
+per-contact duals and strict mask, then, shared by both
+(``_schur_core_plain``), the LDL^T factor of D = P + diag(2 gamma_raw)
+(``kernels/ldl.py``), the nc + 1 solves (column c of C starting at row 2c),
+M and y, the column-oriented Householder QR and back substitution
+(``kernels/qr_solve_cuda.py::householder_solve``), and dl. The CPU path and
+the tests use them; ``chip_smoke.py`` holds the kernels against them on the
+card.
 
 Layout: reference order, contact c owns coordinates 2c and 2c + 1; n = 2 nc.
 """
@@ -27,8 +33,15 @@ import torch
 
 from . import _build
 from .ldl import TINY, chol_factor, chol_to_unit, ldl_solve
+from .qr_solve_cuda import householder_solve
 
-__all__ = ["qcqp_kkt_bwd_fused_cuda", "qcqp_kkt_bwd_fused_plain", "smem_bytes"]
+__all__ = [
+    "qcqp_kkt_bwd_cuda",
+    "qcqp_kkt_bwd_fused_cuda",
+    "qcqp_kkt_bwd_fused_plain",
+    "qcqp_kkt_bwd_plain",
+    "smem_bytes",
+]
 
 
 def _ct(l: torch.Tensor, z: torch.Tensor, am: torch.Tensor) -> torch.Tensor:
@@ -37,37 +50,22 @@ def _ct(l: torch.Tensor, z: torch.Tensor, am: torch.Tensor) -> torch.Tensor:
     return 2.0 * (t[:, 0::2] + t[:, 1::2]) * am
 
 
-def qcqp_kkt_bwd_fused_plain(
+def _schur_core_plain(
     P: torch.Tensor,
-    q: torch.Tensor,
     l: torch.Tensor,
     g: torch.Tensor,
-    radius: torch.Tensor,
-    eps: float,
-    act_eps: float,
-    stall_ulps: float,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2's plain PyTorch version over a whole batch, in the inputs' dtype
-    and on their device. Returns (dgamma (B, nc), dl (B, n), gamma (B, nc)),
-    gamma being the raw recovered duals."""
-    B, n = l.shape
-    nc = n // 2
-
-    plq = q
-    for k in range(n):
-        plq = plq + P[:, :, k] * l[:, k : k + 1]
-
-    la, lb = l[:, 0::2], l[:, 1::2]
-    sq = la * la + lb * lb
-    act = (radius - torch.sqrt(sq) <= eps) & (radius >= eps)
-    num = torch.clamp_min(-2.0 * (la * plq[:, 0::2] + lb * plq[:, 1::2]), 0.0)
-    gam_raw = torch.where(act, num / torch.clamp_min(4.0 * sq, TINY), torch.zeros_like(num))
-    rr = radius * radius
-    s = sq - rr
-    s_tol = torch.clamp_min(stall_ulps * (sq + rr), act_eps)
-    am = ((s > -s_tol) & (radius > act_eps) & (gam_raw > act_eps)).to(l.dtype)
+    gam_raw: torch.Tensor,
+    am: torch.Tensor,
+    sigma: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Steps 4-8 of K2 and K6 (csrc/qcqp_bwd.cu's schur_core): the LDL^T
+    factor of D = P + diag(2 gam_raw) (``kernels/ldl.py``), W = D^{-1} [g | C]
+    (column c of C starting at row 2c), M and y, the column-oriented
+    Householder QR and back substitution (``householder_solve``), and dl.
+    ``am`` is the (B, nc) strict mask as 0 / 1 in l's dtype, ``sigma`` =
+    s am + (1 - am). Returns (dgamma (B, nc), dl (B, n))."""
+    nc = l.shape[-1] // 2
     gam = gam_raw * am
-    sigma = torch.where(am > 0, s, torch.ones_like(s))
 
     Lh, dinv = chol_to_unit(chol_factor(P, torch.repeat_interleave(2.0 * gam_raw, 2, dim=-1)))
     Wg = ldl_solve(Lh, dinv, g)
@@ -83,34 +81,60 @@ def qcqp_kkt_bwd_fused_plain(
         torch.where(eye[c], sigma, torch.zeros_like(sigma)) - _ct(l, Wc[c], am) * gam[:, c : c + 1]
         for c in range(nc)
     ]
-    A = torch.stack(cols + [-_ct(l, Wg, am)], dim=-1)
-
-    # Householder QR applied to y, one column of [M | y] at a time
-    for k in range(nc):
-        ck = A[:, k:, k]
-        akk = ck[:, 0]
-        alpha = torch.where(akk < 0, 1.0, -1.0).to(l.dtype) * torch.sqrt(torch.sum(ck * ck, dim=-1))
-        v = ck.clone()
-        v[:, 0] = akk - alpha
-        vsq = torch.sum(v * v, dim=-1)
-        beta = torch.where(vsq > TINY, 2.0 / torch.clamp_min(vsq, TINY), torch.zeros_like(vsq))
-        rest = A[:, k:, k + 1 :]
-        wd = torch.sum(v[:, :, None] * rest, dim=1)
-        A[:, k:, k + 1 :] = rest - (beta[:, None] * wd)[:, None, :] * v[:, :, None]
-        A[:, k, k] = alpha
-
-    bvec = A[:, :, nc].clone()
-    dg = torch.zeros_like(gam)
-    for k in reversed(range(nc)):
-        d = A[:, k, k]
-        dg[:, k] = bvec[:, k] / torch.where(d.abs() > TINY, d, torch.full_like(d, TINY))
-        bvec[:, :k] = bvec[:, :k] - A[:, :k, k] * dg[:, k : k + 1]
-    dgamma = dg * am
+    dgamma = householder_solve(torch.stack(cols + [-_ct(l, Wg, am)], dim=-1)) * am
 
     dl = Wg
     for c in range(nc):
         dl = dl - Wc[c] * (gam[:, c : c + 1] * dgamma[:, c : c + 1])
+    return dgamma, dl
+
+
+def qcqp_kkt_bwd_fused_plain(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    l: torch.Tensor,
+    g: torch.Tensor,
+    radius: torch.Tensor,
+    eps: float,
+    act_eps: float,
+    stall_ulps: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's plain PyTorch version over a whole batch, in the inputs' dtype
+    and on their device. Returns (dgamma (B, nc), dl (B, n), gamma (B, nc)),
+    gamma being the raw recovered duals."""
+    plq = q
+    for k in range(l.shape[-1]):
+        plq = plq + P[:, :, k] * l[:, k : k + 1]
+
+    la, lb = l[:, 0::2], l[:, 1::2]
+    sq = la * la + lb * lb
+    act = (radius - torch.sqrt(sq) <= eps) & (radius >= eps)
+    num = torch.clamp_min(-2.0 * (la * plq[:, 0::2] + lb * plq[:, 1::2]), 0.0)
+    gam_raw = torch.where(act, num / torch.clamp_min(4.0 * sq, TINY), torch.zeros_like(num))
+    rr = radius * radius
+    s = sq - rr
+    s_tol = torch.clamp_min(stall_ulps * (sq + rr), act_eps)
+    am = ((s > -s_tol) & (radius > act_eps) & (gam_raw > act_eps)).to(l.dtype)
+    sigma = torch.where(am > 0, s, torch.ones_like(s))
+    dgamma, dl = _schur_core_plain(P, l, g, gam_raw, am, sigma)
     return dgamma, dl, gam_raw
+
+
+def qcqp_kkt_bwd_plain(
+    P: torch.Tensor,
+    l: torch.Tensor,
+    g: torch.Tensor,
+    gamma: torch.Tensor,
+    s: torch.Tensor,
+    active: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's plain PyTorch version over a whole batch, in l's dtype and on its
+    device: the Schur adjoint with the raw duals ``gamma`` (D's shift), the
+    squared slacks ``s`` and the strict mask ``active`` (bool, or 0 / 1 in
+    l's dtype) given, all (B, nc). C and B^T use gamma * am, Sigma = s am + (1 - am), and dgamma is
+    masked. Returns (dgamma (B, nc), dl (B, n))."""
+    am = active.to(l.dtype)
+    return _schur_core_plain(P, l, g, gamma, am, s * am + (1.0 - am))
 
 
 # ---------------------------------------------------------------------------
@@ -123,12 +147,14 @@ def _lib():
         vp, f = ctypes.c_void_p, ctypes.c_float
         lib.dq_qcqp_bwd_f32.argtypes = [vp] * 8 + [ctypes.c_int] * 2 + [f] * 3 + [vp]
         lib.dq_qcqp_bwd_f32.restype = ctypes.c_int
+        lib.dq_qcqp_schur_f32.argtypes = [vp] * 8 + [ctypes.c_int] * 2 + [vp]
+        lib.dq_qcqp_schur_f32.restype = ctypes.c_int
         lib._dq_typed = True
     return lib
 
 
 def smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one block at problem size n (as
+    """Dynamic shared memory of one block of K2 or K6 at problem size n (as
     ``smem_bytes`` in csrc/qcqp_bwd.cu computes it): P and the factor
     (n x (n|1) each), W (n x (nc+1)), [M | y] ((nc|1) x (nc+1)), five
     n-vectors and three nc-vectors of slots."""
@@ -193,3 +219,63 @@ def qcqp_kkt_bwd_fused_cuda(
 
 
 qcqp_kkt_bwd_fused_cuda.launches = 0
+
+
+def _check_schur(P, l, g, gamma, s, active):
+    if l.ndim != 2 or l.shape[-1] % 2:
+        raise ValueError(f"l must be (B, 2 nc), got {tuple(l.shape)}")
+    B, n = l.shape
+    if tuple(P.shape) != (B, n, n):
+        raise ValueError(f"P must be (B, n, n) = {(B, n, n)}, got {tuple(P.shape)}")
+    if tuple(g.shape) != (B, n):
+        raise ValueError(f"g must be {(B, n)}, got {tuple(g.shape)}")
+    for name, t in (("gamma", gamma), ("s", s), ("active", active)):
+        if tuple(t.shape) != (B, n // 2):
+            raise ValueError(f"{name} must be {(B, n // 2)}, got {tuple(t.shape)}")
+    if active.dtype not in (torch.bool, l.dtype):
+        raise TypeError(f"active must be bool or 0 / 1 in {l.dtype}, got {active.dtype}")
+    dtypes = {t.dtype for t in (P, l, g, gamma, s)}
+    if len(dtypes) != 1 or not l.dtype.is_floating_point:
+        raise TypeError(f"inputs must share one floating dtype, got {sorted(map(str, dtypes))}")
+
+
+def qcqp_kkt_bwd_cuda(
+    P: torch.Tensor,
+    l: torch.Tensor,
+    g: torch.Tensor,
+    gamma: torch.Tensor,
+    s: torch.Tensor,
+    active: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6: the QCQP Schur adjoint of a batch in one launch, with the raw
+    duals, squared slacks and strict mask (bool, or 0 / 1 in the inputs'
+    dtype) given. Returns (dgamma (B, nc), dl (B, n)).
+
+    CPU tensors go to ``qcqp_kkt_bwd_plain``. CUDA tensors must be
+    contiguous float32 on one device; the kernel is launched on the current
+    stream (no synchronisation) or this raises.
+    ``qcqp_kkt_bwd_cuda.launches`` counts the launches.
+    """
+    tensors = (P, l, g, gamma, s, active)
+    _check_schur(*tensors)
+    if all(t.device.type == "cpu" for t in tensors):
+        return qcqp_kkt_bwd_plain(*tensors)
+    B, n = l.shape
+    am = active.to(torch.float32)       # the kernel's 0 / 1 mask; a float32 mask as it is
+    dev = _build.check_launch((P, l, g, gamma, s, am), smem_bytes(n), n)
+
+    lib = _lib()
+    dgamma = torch.empty_like(gamma)
+    dl = torch.empty_like(l)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dq_qcqp_schur_f32(
+            *(t.data_ptr() for t in (P, l, g, gamma, s, am)), dgamma.data_ptr(),
+            dl.data_ptr(), B, n, stream,
+        )
+    _build.check_rc(lib, rc, f"qcqp_schur (B={B}, n={n})")
+    qcqp_kkt_bwd_cuda.launches += 1
+    return dgamma, dl
+
+
+qcqp_kkt_bwd_cuda.launches = 0
