@@ -16,7 +16,11 @@ point and at the JAX package's large-N size (B=2048, N=96, 48 contacts;
 its config 6). Phases, each of which fails the run if its check fails:
 
   1. the card: name and power limit (nvidia-smi), the build of every
-     ``kernels/_build.SOURCES`` library (one nvcc each, all at once);
+     ``kernels/_build.SOURCES`` library (one nvcc each, all at once); each
+     kernel's launch plan (threads, shared memory, bound) as the built library
+     computes it against the Python wrapper's, for K2 / K6 at n = 24, 34, 96,
+     142 and K5 at m = 5, 33, 36, 72, 88, and three blocks of K6 and K2 on an
+     SM at N=96 (the occupancy calculator);
   2. kernel K1 (``admm_solve_cuda``) against its plain PyTorch version
      (``admm_solve_plain``) on the same card inputs: at the flagship point,
      for all four prox kinds and the rho_sync=False, primal_check=False,
@@ -27,7 +31,9 @@ its config 6). Phases, each of which fails the run if its check fails:
      (``qcqp_kkt_bwd_fused_plain``) on the same card inputs, with l from K1
      and the cotangents g = 2 l and a random g: at the flagship point, at
      B=256, N=12 with 30 % zero radii and 30 % of the radii 50 times wider
-     (inactive contacts), and at B=512, N=96. Bars, on the problems whose
+     (inactive contacts), at B=512, N=96, and at the block-wide path's edges,
+     B=256 at N=34 (just past one warp) and N=142 on problems built at a known
+     KKT point (``kkt_problems``). Bars, on the problems whose
      strict mask agrees: per problem max |d dl| <= 5e-5 max(1, |dl|_inf);
      max |d dgamma| <= 2e-4 max(1, |dgamma|_inf) over the batch (the JAX
      suite's K2 bars), and per problem <= 2e-3 max(1, |dgamma|_inf), since
@@ -50,14 +56,17 @@ its config 6). Phases, each of which fails the run if its check fails:
   2d. kernel K5 (``qr_solve_cuda``) against its plain version
      (``qr_solve_plain``) on the same card systems: the assembled adjoint
      systems of the QCQP flagship (4096, 36, 36) and of config 9's box
-     (2048, 72, 72), the QP's SPD K at config 10 (4096, 24, 24) and a QCQP at
-     the route's bound, m = 87 (B=1024, N=58), l from K1 and g = 2 l. Bar: per
+     (2048, 72, 72), the QP's SPD K at config 10 (4096, 24, 24), a QCQP at
+     the route's bound, m = 87 (B=1024, N=58), l from K1 and g = 2 l, and at
+     the lane-group edges a QCQP at m = 33 (B=1024, N=22) and a random
+     system at m = 5 (B=1024, A = N(0, 1) + 3 I). Bar: per
      problem max |dx| <= min(2e-3, max(1e-4, m kappa_b u)) max(1, |x_b|_inf),
      kappa_b the problem's condition number, u float32's unit roundoff (see
      ``phase_2d``); over the batch the kernel at most twice as far off a
      float64 ``torch.linalg.solve`` of the same system as the plain version;
   2e. kernel K6 (``qcqp_kkt_bwd_cuda``) against its plain version
-     (``qcqp_kkt_bwd_plain``) at B=2048, N=96 and at the flagship, fed gamma,
+     (``qcqp_kkt_bwd_plain``) at B=2048, N=96, at the flagship and at phase
+     2b's N=34 and N=142 problems, fed gamma,
      s and the strict mask from ``qcqp_dual`` / ``qcqp_strict_active``, g =
      2 l and a random g, with phase 2b's bars; then K6 fed K2's own gamma
      against K2 at the flagship, on the problems whose mask agrees;
@@ -120,7 +129,12 @@ its config 6). Phases, each of which fails the run if its check fails:
      the flagship beside K2 on the same problems and ``torch.linalg.solve``
      of the assembled (2048, 144, 144) / (4096, 36, 36) system; one
      ``qcqp_vjp(duals=)`` call end to end against the K2 route. K5's and
-     K6's ``ms`` are profiler device times, as K4's;
+     K6's ``ms`` are profiler device times, as K4's; K2's bound at N=96; then
+     the public QCQP step at B=2048, N=96 (the phase-2e problems,
+     ``solve_qcqp`` then ``torch.autograd.grad`` of sum(l^2), launch counters
+     zeroed just before and read just after: K1 and K2 alone), timed as the
+     flagship step, with its device time by kernel and the card's idle
+     share;
   5. one JSON line of every ported kernel, then as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -159,6 +173,29 @@ def build_problems(b, nc, seed=0):
     l_n = (rng.random((b, nc)) * 0.5 + 0.05).astype(np.float32)
     mu = (rng.random((b, nc)) * 0.5 + 0.05).astype(np.float32)
     return tuple(x.astype(np.float32) for x in (P, q, l_n, mu))
+
+
+def kkt_problems(b, nc, seed):
+    """(P, q, l, radius), float32, QCQPs built at a known KKT point: P as the
+    benchmark generator's, l ~ 0.3 N(0, 1), 60 % of the contacts binding (r_c
+    = |l_c|) with duals gamma_c ~ U(0.05, 1.05), the rest strictly inside (r_c
+    = 1.5 |l_c|), and q = -(P l + 2 gamma l). Unlike the benchmark generator's
+    problems, whose every contact binds, none of these has a weakly active
+    contact (gamma near 0, dgamma ~ 1 / gamma), so the Schur systems stay well
+    conditioned as nc grows; with the benchmark generator at N=142 both
+    float32 versions sit ~3e-2 of dgamma's scale off their float64 run (an
+    H100 run), which measures the system and not the kernel."""
+    n = 2 * nc
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((b, n, n)) / np.sqrt(n)
+    P = s @ s.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    l = rng.standard_normal((b, n)) * 0.3
+    norm = np.linalg.norm(l.reshape(b, nc, 2), axis=-1)
+    act = rng.random((b, nc)) < 0.6
+    radius = np.where(act, norm, 1.5 * norm)
+    gam = np.where(act, rng.random((b, nc)) + 0.05, 0.0)
+    q = -(np.einsum("bij,bj->bi", P, l) + 2.0 * np.repeat(gam, 2, axis=1) * l)
+    return tuple(x.astype(np.float32) for x in (P, q, l, radius))
 
 
 def cuda(*xs):
@@ -946,15 +983,17 @@ def phase_4e(cases, smi):
         rhs3 = rhs[..., None].contiguous()
         ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(ST, rhs3), reps=3, calls=5)
         bound, bound_by, nbytes, nflops = k6_bound_ms(B, n, n // 2, a6[5])
+        b2, b2_by, b2_bytes, b2_flops = k2_bound_ms(B, n, n // 2, a6[5])
         fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
         log(f"  K6 at {label} ({smi}): device time per launch (torch.profiler) {fmt(dev6)}; "
             f"per call, 20 back-to-back (CUDA events) {ev6:.4f} ms (samples "
             f"{[round(t, 4) for t in ts6]}); K2 on the same problems {fmt(dev2)} device, "
             f"{ev2:.4f} ms events; plain version {ms_p:.2f} ms (samples "
             f"{[round(t, 2) for t in ts_p]}); bound {bound:.5f} ms ({bound_by}: {nbytes} bytes, "
-            f"{nflops:.4g} FLOP; {int(a6[5].sum())} strictly active contacts); "
-            f"torch.linalg.solve of the assembled float32 {tuple(ST.shape)}: {ms_lib:.4f} ms "
-            f"(samples {[round(t, 4) for t in ts_lib]})")
+            f"{nflops:.4g} FLOP; {int(a6[5].sum())} strictly active contacts); K2's bound "
+            f"{b2:.5f} ms ({b2_by}: {b2_bytes} bytes, {b2_flops:.4g} FLOP); "
+            f"torch.linalg.solve of the assembled float32 {tuple(ST.shape)} (K6's and K2's "
+            f"library call): {ms_lib:.4f} ms (samples {[round(t, 4) for t in ts_lib]})")
         out.append(dict(ms=dev6 if dev6 is not None else ev6, plain_ms=ms_p, bound_ms=bound,
                         bound_by=bound_by, library_ms=ms_lib))
     return out[0]
@@ -1001,6 +1040,18 @@ def main() -> int:
         ptx = _build.library_path(name).with_suffix(".log").read_text().strip()
         log(f"  ptxas ({name}): " + " | ".join(
             ln.strip() for ln in ptx.splitlines() if "Used" in ln or "spill" in ln))
+
+    # each launch plan as the built library computes it, against the wrappers'
+    from diffqcqp_tpu_torch.kernels import qcqp_bwd_cuda as k26, qr_solve_cuda as k5m
+    plans = [(f"K2/K6 n={n}", k26.launch_plan(n), k26.c_launch_plan(n)) for n in (24, 34, 96, 142)]
+    plans += [(f"K5 m={m}", k5m.launch_plan(m), k5m.c_launch_plan(m)) for m in (5, 33, 36, 72, 88)]
+    for label, py, c in plans:
+        log(f"  launch plan {label}: (threads, smem bytes, bound, tile) wrapper {py} library {c}")
+    occ96 = {name: k26.c_blocks_per_sm(96, schur) for name, schur in (("K2", False), ("K6", True))}
+    log(f"  blocks per SM at N=96 (occupancy calculator): {occ96}")
+    if any(py != c for _, py, c in plans) or min(occ96.values()) < 3:
+        raise AssertionError("a launch plan disagrees with the library, or N=96 fits fewer "
+                             "than three blocks on an SM")
 
     cfg = dqt.QCQP_DEFAULTS.replace(
         eps=1e-7, max_iter=400, rho0_scale=2.0, power_iters=10,
@@ -1071,11 +1122,17 @@ def main() -> int:
     P2, q2, ln2, mu2 = cuda(P2, q2, ln2, mu2)
     rad2 = (ln2 * mu2).contiguous()
     l2 = admm_solve_cuda(P2, q2, torch.zeros_like(q2), PROX_DISK, (rad2,), cfg, True, False)[0]
+    # the block-wide path's edges: just past one warp, and the largest n
+    # the kernels took before they ran block-wide (``kkt_problems``)
+    edge = {label: cuda(*kkt_problems(256, nc_e, seed))
+            for label, nc_e, seed in (("N=34", 17, 13), ("N=142", 71, 14))}
     errs_k2 = []     # the first is the flagship with the main path's g = 2 l
     for name, (Pc, qc, lc, rc) in [
         ("flagship B=4096 N=24", (P, q, out_k[0], radius)),
         (f"B=256 N=12, {int((rad2 == 0).sum())} zero radii", (P2, q2, l2, rad2)),
-        ("B=512 N=96 (3 warps)", (Pb, qb, l96, (lnb * mub).contiguous())),
+        ("B=512 N=96 (block-wide)", (Pb, qb, l96, (lnb * mub).contiguous())),
+        ("B=256 N=34 (block-wide, just past one warp)", edge["N=34"]),
+        ("B=256 N=142 (block-wide, large tiles)", edge["N=142"]),
     ]:
         for gname, g in (("g=2l", 2.0 * lc), ("random g", rand_g(lc))):
             a2 = (Pc, qc, lc, g.contiguous(), rc, cfg.eps, cfg.act_eps, f32_ulps)
@@ -1136,12 +1193,21 @@ def main() -> int:
     P29, q29, ln29, mu29 = cuda(*build_problems(1024, 29, seed=5))
     r29 = (ln29 * mu29).contiguous()
     l29 = admm_solve_cuda(P29, q29, torch.zeros_like(q29), PROX_DISK, (r29,), cfg, True, False)[0]
+    P11, q11, ln11, mu11 = cuda(*build_problems(1024, 11, seed=7))
+    r11 = (ln11 * mu11).contiguous()
+    l11 = admm_solve_cuda(P11, q11, torch.zeros_like(q11), PROX_DISK, (r11,), cfg, True, False)[0]
+    rng = np.random.default_rng(8)
+    A5, b5 = cuda((rng.standard_normal((1024, 5, 5)) + 3.0 * np.eye(5)).astype(np.float32),
+                  rng.standard_normal((1024, 5)).astype(np.float32))
     k5_points = [(label, A.contiguous(), b.contiguous()) for label, A, b, *_ in (
         ("QCQP flagship B=4096 N=24", *qcqp_system(P, q, radius, lk, 2.0 * lk, cfg)),
         ("box B=2048 N=24 (config 9)", *box_system(c9, l9, 2.0 * l9)),
         ("QP B=4096 N=24 (config 10), SPD K", *kkt._qp_kkt_system(c10.P, c10.q, l10, 2.0 * l10,
                                                                  c10.cfg)),
         ("QCQP B=1024 N=58, at the route's bound", *qcqp_system(P29, q29, r29, l29, 2.0 * l29, cfg)),
+        ("QCQP B=1024 N=22 (m = 33, two lanes a column)",
+         *qcqp_system(P11, q11, r11, l11, 2.0 * l11, cfg)),
+        ("random B=1024 m = 5 (one warp)", A5, b5),
     )]
     err_k5 = phase_2d(k5_points)
     torch.cuda.synchronize()
@@ -1155,7 +1221,9 @@ def main() -> int:
     log(f"  B=2048 N=96 problems solved by solve_qcqp_with_stats: converged_frac="
         f"{float(st48.converged.float().mean())} mean_iters {float(st48.iterations.float().mean()):.2f}")
     err_k6 = phase_2e([("B=2048 N=96", (P48, q48, l48, r48)),
-                       ("flagship B=4096 N=24", (P, q, lk, radius))], rand_g, cfg)
+                       ("flagship B=4096 N=24", (P, q, lk, radius)),
+                       ("B=256 N=34", edge["N=34"]), ("B=256 N=142", edge["N=142"])],
+                      rand_g, cfg)
     k6_against_k2(P, q, lk, radius, (2.0 * lk).contiguous(), cfg, f32_ulps)
     torch.cuda.synchronize()
 
@@ -1414,6 +1482,32 @@ def main() -> int:
         f"{[round(t, 4) for t in ts_fus]}); the generic call's device time (torch.profiler) "
         f"{dev_gen:.4f} ms, of which K5 {dev_gen_k5:.4f} ms")
     for name_, ms_, cnt in rows_gen[:8]:
+        log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
+
+    # the public QCQP step at B=2048, N=96 (the phase-2e problems), timed as
+    # the flagship step, with the launch counters around one step
+    leaves96 = [x.clone().requires_grad_() for x in (P48, q48, ln48, mu48)]
+    step96 = lambda: step(xs=leaves96)   # noqa: E731
+    for k_ in kernels.values():
+        k_.launches = 0
+    step96()
+    torch.cuda.synchronize()
+    n_96 = {name_: k_.launches for name_, k_ in kernels.items()}
+    if n_96["K1"] < 1 or n_96["K2"] < 1 or n_96["K4"] or n_96["K5"] or n_96["K6"]:
+        raise AssertionError("the N=96 step did not run through K1 and K2 alone")
+    ev96, ts96 = time_cuda(step96, reps=5, calls=5)
+    rows96 = device_time_by_kernel(step96, calls=5)
+    dev96 = sum(r_[1] for r_ in rows96)
+    dev96_k1 = sum(r_[1] for r_ in rows96 if "admm_kernel" in r_[0])
+    dev96_k2 = sum(r_[1] for r_ in rows96 if "qcqp_bwd_kernel" in r_[0])
+    log(f"  public QCQP step at B=2048 N=96 ({smi}): launches "
+        + ", ".join(f"{k} {v}" for k, v in n_96.items())
+        + f"; per call, 5 back-to-back (CUDA events): {ev96:.4f} ms (samples "
+        f"{[round(t, 4) for t in ts96]}) = {2048 / ev96 * 1e3:.1f} problems/s\n"
+        f"    step device time by kernel (torch.profiler, ms per step): total {dev96:.4f}, "
+        f"K1 {dev96_k1:.4f}, K2 {dev96_k2:.4f}, other kernels {dev96 - dev96_k1 - dev96_k2:.4f}, "
+        f"device idle {ev96 - dev96:.4f} ({(ev96 - dev96) / ev96:.1%})")
+    for name_, ms_, cnt in rows96[:8]:
         log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
 
     # ---- phase 5: the kernels line, then the result

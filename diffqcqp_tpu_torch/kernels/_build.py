@@ -14,8 +14,9 @@ report (registers, shared memory, spills) is kept beside the library as
 or collecting its tests, needs no ``nvcc``.
 
 ``check_launch`` and ``check_rc`` are the checks every kernel wrapper makes
-around a launch: inputs, shared memory and block size before it, the
-kernel's ``cudaGetLastError()`` code after it.
+around a launch: inputs, shared memory and block size (against the
+kernel's own ``__launch_bounds__``) before it, the kernel's
+``cudaGetLastError()`` code after it.
 """
 
 from __future__ import annotations
@@ -31,9 +32,12 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build", "load", "library_path", "check_launch", "check_rc"]
+__all__ = [
+    "NVCC_FLAGS", "SOURCES", "build", "load", "library_path", "check_geometry", "check_launch",
+    "check_rc", "row_threads",
+]
 
-MAX_THREADS = 256   # __launch_bounds__ of every kernel: a thread per row (K5: per column)
+ROW_BOUND = 256     # __launch_bounds__ of the thread-per-row kernels (K1, K4; K2 and K6 at n <= 32)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every csrc/<name>.cu, one library each
@@ -119,11 +123,22 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_launch(tensors, smem: int, n: int) -> torch.device:
-    """Raise unless every tensor is a contiguous float32 on one CUDA device,
-    a block's ``smem`` bytes of dynamic shared memory fit what this card
-    lets a block opt into, and the n threads of a block fit the kernels'
-    bound. Returns the device."""
+def check_geometry(threads: int, smem: int, bound: int, limit: int) -> None:
+    """Raise unless a block of ``threads`` fits the kernel's
+    ``__launch_bounds__`` (``bound``) and its ``smem`` bytes of dynamic
+    shared memory fit ``limit``, what the card lets a block opt into."""
+    if threads > bound or smem > limit:
+        raise ValueError(
+            f"a block of {threads} threads and {smem} bytes of shared memory is past "
+            f"what the kernel takes: at most {bound} threads (its __launch_bounds__) "
+            f"and {limit} bytes on this card"
+        )
+
+
+def check_launch(tensors, threads: int, smem: int, bound: int) -> torch.device:
+    """Raise unless every tensor is a contiguous float32 on one CUDA device
+    and the launch passes ``check_geometry`` on that device. Returns the
+    device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or dev.type != "cuda":
@@ -132,13 +147,14 @@ def check_launch(tensors, smem: int, n: int) -> torch.device:
             raise TypeError(f"the CUDA kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous tensors")
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit or n > MAX_THREADS:
-        raise ValueError(
-            f"n={n} needs {smem} bytes of shared memory per block; this card "
-            f"allows {limit} (and the kernel at most {MAX_THREADS} threads)"
-        )
+    check_geometry(threads, smem, bound,
+                   torch.cuda.get_device_properties(dev).shared_memory_per_block_optin)
     return dev
+
+
+def row_threads(n: int) -> int:
+    """Threads of a thread-per-row block at size n: whole warps."""
+    return 32 * ((n + 31) // 32)
 
 
 def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:

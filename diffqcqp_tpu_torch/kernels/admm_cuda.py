@@ -290,7 +290,7 @@ def admm_solve_cuda(
             P, q, warm_start, prox_kind, prox_args, cfg, qcqp_stopping, damp_both
         )
     B, n = q.shape
-    dev = _build.check_launch(tensors, smem_bytes(n), n)
+    dev = _build.check_launch(tensors, _build.row_threads(n), smem_bytes(n), _build.ROW_BOUND)
 
     lib = _lib()
     prm = _Params(

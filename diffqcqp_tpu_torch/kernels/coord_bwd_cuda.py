@@ -165,7 +165,7 @@ def coord_kkt_bwd_fused_cuda(
     if all(t.device.type == "cpu" for t in tensors):
         return coord_kkt_bwd_fused_plain(P, q, l, g, l_min, l_max, v_sign, kind, eps, act_eps)
     B, n = l.shape
-    dev = _build.check_launch(tensors, smem_bytes(n), n)
+    dev = _build.check_launch(tensors, _build.row_threads(n), smem_bytes(n), _build.ROW_BOUND)
 
     lib = _lib()
     dl = torch.empty_like(l)

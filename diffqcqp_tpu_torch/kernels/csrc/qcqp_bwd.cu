@@ -24,39 +24,57 @@
 // slacks s and the strict mask am (0 or 1) loaded from the caller in place
 // of steps 1-3. It is diff/kkt.py::_qcqp_schur_vjp's solve. Outputs dgamma
 // (B, nc) and dl (B, n). Both kernels call one __device__ function for steps
-// 4-8 (schur_core below), so they share every operation of the solve.
+// 4-8 (schur_core below, or schur_core_mw above one warp), so they share
+// every operation of the solve.
 //
-// Design: one thread block per problem, one thread per coordinate row, as in
-// K1 (one warp at the flagship N = 24). P, the factor, W and [M | y] live in
-// dynamic shared memory; the factor and the nc + 1 solves are the ldl.cuh
-// helpers. A contact's two rows sit on neighbouring lanes, so every
-// per-contact quantity (the duals, the mask, C^T z) is one __shfl_xor with
-// the partner lane, and both lanes hold the same value.
+// Two paths, split at n = 32 (one warp):
 //
-// The QR is qr.cuh's qr_solve_cols on [M | y] stored column-major (odd
-// stride ldm = nc | 1) with thread j owning column j, not row j: every
-// thread computes each reflector itself, in the same order, so the control
-// flow stays uniform with no reduction at all (see qr.cuh; K5 shares it).
+// One warp, n <= 32 (the flagship N = 24; the first design, kept): one thread
+// block per problem, one thread per coordinate row, as in K1. P, the
+// factor, W and [M | y] live in dynamic shared memory (~7 KB at N = 24);
+// the factor and the nc + 1 solves are ldl.cuh's thread-per-row helpers,
+// whose broadcasts are shuffles, not barriers. A contact's two rows sit on
+// neighbouring lanes, so every per-contact quantity (the duals, the mask,
+// C^T z) is one __shfl_xor with the partner lane. The QR is qr.cuh's
+// qr_solve_cols on [M | y] (column-major, odd stride ldm = nc | 1), a thread
+// per column. What bounds it: the dependent chain inside each problem (n
+// factor columns, nc + 1 solves of up to 2n + 1 steps, nc QR steps), not the
+// bytes (~11.6 MB, ~3.5 us at 3.35 TB/s) or the FLOPs (~19 kFLOP per
+// problem); the design answers with occupancy, one warp a problem.
+//
+// Block-wide, n > 32 (K6's N = 96): 256 threads per problem. There the
+// thread-per-row design ran on barriers (every broadcast of its 49 solves a
+// __syncthreads, ~7,400 per problem) and on too little memory (P and its
+// factor in two planes, ~105 KB: two blocks, six warps an SM). Now:
+//   * P is factored in place, one n x (n | 1) plane (P is dead after K2's
+//     P l + q): ~67 KB at N = 96, so three blocks and 24 warps share an SM;
+//   * the factor is ldl.cuh's chol_factor_tiles, right-looking over a 16 x
+//     16 grid of register tiles, one barrier per column;
+//   * W = D^-1 [g | C] is one pair of sweeps over all nc + 1 right-hand
+//     sides (ldl.cuh's ldl_solve_tiles), 2n + 1 barriers, 8 FMAs per shared
+//     load of the factor;
+//   * steps 6 and 8 spread over the block's threads;
+//   * the QR is qr.cuh's qr_solve_lanes, 4 lanes per column (2 above n =
+//     96), each reflector computed once.
+// Two instances, picked by n: up to n = 96 (three blocks an SM) and up to
+// n = 150 (larger tiles, one block an SM); dq_qcqp_bwd_plan gives each
+// launch's geometry. At N = 96 the operations lead the bytes (~1.1 MFLOP
+// per problem, ~0.03 ms for B = 2048 against ~0.02 ms of bytes); what
+// bounds the kernel is still the ~4n + nc steps per problem, each behind a
+// barrier, and the issue slots of the tiles' loads and FMAs.
 //
 // What differs from the TPU kernels and why it does not change the result:
 // the TPU permutes coordinates (contact c on rows c, nc + c) so a contact's
 // rows are sublane slices, and starts column c's sweep at row c; here the
-// reference order keeps a contact on two neighbouring lanes and its sweep
-// starts at row 2c. The TPU's QR takes column dot products over the rows of
-// M (thread-per-row reductions); here each thread sums one column. These
-// change the order of float32 operations only.
+// reference order keeps a contact on two neighbouring rows and its sweep
+// starts at row 2c (the block-wide sweep from row 0, subtracting exact
+// zeros before 2c). The TPU's QR takes column dot products over the rows of
+// M (thread-per-row reductions); here a thread, or a group of lanes, sums a
+// column. These change the order of float32 operations only.
 //
-// What bounds it on this card: at B = 4096, N = 24 the bytes (P, q, l, g,
-// radius in; dl, dgamma, gamma out: ~11.6 MB, ~3.5 us at 3.35 TB/s) and the
-// operations (~19 kFLOP per problem, ~1.2 us at 67 TFLOP/s) are both small;
-// what bounds a simple kernel is the dependent chain inside each problem:
-// n Cholesky columns, nc + 1 solves of up to 2n + 1 broadcast-then-FMA steps
-// each, and nc QR steps. As in K1 the design answers with occupancy (one warp
-// and ~7 KB of shared memory per problem) rather than with parallelism
-// inside a problem. At K6's N = 96 (B = 2048) the operations lead (~1.3
-// MFLOP per problem, ~0.04 ms for the batch against ~0.02 ms of bytes), and
-// the chain is longer: three warps, whose broadcasts each cost a barrier,
-// and ~105 KB of shared memory, so two blocks share an SM.
+// ptxas (sm_90a): one-warp K2 48 registers, K6 47; block-wide, n <= 96, 80
+// registers (the three-blocks bound), one of the two with 20 bytes of
+// spill; n <= 150, 187-190 registers, no spill.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -251,12 +269,220 @@ qcqp_schur_kernel(const float* __restrict__ P, const float* __restrict__ l,
   schur_core(k, sm, gam_raw, lv, gv, amf, sigma, dl_out + b * n, dgamma_out + b * nc);
 }
 
+// ---------------------------------------------------------------------------
+// Above one warp (n > 32): the block-wide path, 256 threads per problem.
+// ---------------------------------------------------------------------------
+
+constexpr int kOneWarpMaxN = 32;   // n <= 32: one warp, the kernels above
+constexpr int kMwThreads = 256;    // n > 32: eight warps per problem
+constexpr int kMwMaxN = 150;       // the largest n the block-wide path's register tiles take
+
+// The block-wide path's two instances: register tile rows of the sweeps
+// (NR), row and column blocks of the factor (NF: n <= 16 NF), the QR's
+// lanes per column (QG: QG (nc + 1) <= 256) and row chunks of 32 of its back
+// substitution (QC: nc <= 32 QC). Small: n <= 96, three blocks an SM;
+// large: n <= 150, one.
+template <int NR, int NF, int QG, int QC>
+struct Tiles {
+  static constexpr int kNR = NR, kNF = NF, kQG = QG, kQC = QC;
+  static constexpr int kMinBlocks = NR <= 3 ? 3 : 1;
+};
+using SmallTiles = Tiles<3, 6, 4, 2>;
+using LargeTiles = Tiles<6, 10, 2, 3>;
+
+// One problem's dynamic shared memory on the block-wide path.
+struct SmemMW {
+  float* sA;     // n x ld, column-major: P, then D, then Lh in place
+  float* sX;     // (nc + 1) columns of ldx = n + 1: [g | C], then W = D^-1 [g | C]
+  float* sM;     // (nc + 1) columns of ldm: [M | y]
+  float* s_x;    // n: l
+  float* s_rd;   // n: 1 / L_rr
+  float* s_gam;  // nc: gamma * am
+  float* s_am;   // nc: am as 0 / 1
+  float* s_sig;  // nc: sigma = s am + (1 - am)
+  float* s_dg;   // nc: beta per QR step, then dgamma before the mask
+  float* s_col;  // 2 n: the factor's published columns
+  float* s_rs;   // 2: the factor's published 1 / sqrt(pivot)
+  float* s_ref;  // 4: the QR's (beta, v_k) slots
+};
+
+__device__ SmemMW carve_mw(float* smem, int n) {
+  const int ld = n | 1, nc = n / 2, ldm = nc | 1;
+  SmemMW s;
+  s.sA = smem;
+  s.sX = s.sA + n * ld;
+  s.sM = s.sX + (nc + 1) * (n + 1);
+  s.s_x = s.sM + (nc + 1) * ldm;
+  s.s_rd = s.s_x + n;
+  s.s_gam = s.s_rd + n;
+  s.s_am = s.s_gam + nc;
+  s.s_sig = s.s_am + nc;
+  s.s_dg = s.s_sig + nc;
+  s.s_col = s.s_dg + nc;
+  s.s_rs = s.s_col + 2 * n;
+  s.s_ref = s.s_rs + 2;
+  return s;
+}
+
+// Problem b's P (transposed into column-major sA), l (into s_x) and g (into
+// column 0 of sX); the columns of C zeroed, for the caller to fill after the
+// next barrier.
+__device__ void load_mw(const SmemMW& sm, int n, const float* __restrict__ P,
+                        const float* __restrict__ l, const float* __restrict__ g, size_t b) {
+  const int ld = n | 1, ldx = n + 1, nc = n / 2;
+  const float* Pb = P + b * n * n;
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+    const int i = idx / n;
+    sm.sA[(idx - i * n) * ld + i] = Pb[idx];   // P[i][j] into column j
+  }
+  for (int idx = ldx + threadIdx.x; idx < (nc + 1) * ldx; idx += blockDim.x) sm.sX[idx] = 0.f;
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    sm.s_x[r] = l[b * n + r];
+    sm.sX[r] = g[b * n + r];
+  }
+}
+
+// Steps 4-8 with the whole block: on entry (after a barrier) sm.sA holds D
+// = P + diag(2 gamma_raw) in its lower triangle, sX holds [g | C] and the
+// per-contact slots are filled. Writes dl_b (n) and dgamma_b (nc).
+template <typename T>
+__device__ void schur_core_mw(const SmemMW& sm, int n, float* __restrict__ dl_b,
+                              float* __restrict__ dgamma_b) {
+  const int ld = n | 1, ldx = n + 1, nc = n / 2, ldm = nc | 1;
+  const int t = threadIdx.x;
+
+  // 4. the factor, in place; 5. W = D^{-1} [g | C], all columns at once
+  dq::chol_factor_tiles<T::kNF>(sm.sA, n, ld, sm.s_rd, sm.s_col, sm.s_rs);
+  dq::ldl_solve_tiles<T::kNR>(sm.sA, n, ld, sm.s_rd, sm.sX, ldx, nc + 1);
+
+  // 6. M[i][c] = Sigma_ic - (C^T W_c+1)_i gamma_c am_c, y = -(C^T W_g);
+  // (C^T z)_i = 2 (l_2i z_2i + l_2i+1 z_2i+1) am_i
+  for (int idx = t; idx < nc * (nc + 1); idx += blockDim.x) {
+    const int c = idx / nc, i = idx - c * nc;
+    const float* wc = sm.sX + ((c == nc) ? 0 : c + 1) * ldx;
+    const float t0 = sm.s_x[2 * i] * wc[2 * i];
+    const float t1 = sm.s_x[2 * i + 1] * wc[2 * i + 1];
+    const float ct = 2.f * (t0 + t1) * sm.s_am[i];
+    sm.sM[c * ldm + i] =
+        (c == nc) ? -ct : ((i == c) ? sm.s_sig[i] : 0.f) - ct * sm.s_gam[c];
+  }
+  __syncthreads();
+
+  // 7. Householder QR of M applied to y, a thread per column, each
+  // reflector computed once
+  dq::qr_solve_lanes<T::kQG, T::kQC>(sm.sM, nc, ldm, sm.s_dg, sm.s_ref);
+
+  // 8. dl = W_g - W_C (gamma am dgamma am)
+  for (int r = t; r < n; r += blockDim.x) {
+    float dl = sm.sX[r];
+    for (int c = 0; c < nc; ++c) {
+      dl = dl - sm.sX[(c + 1) * ldx + r] * (sm.s_gam[c] * (sm.s_dg[c] * sm.s_am[c]));
+    }
+    dl_b[r] = dl;
+  }
+  for (int c = t; c < nc; c += blockDim.x) dgamma_b[c] = sm.s_dg[c] * sm.s_am[c];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMwThreads, T::kMinBlocks)
+qcqp_bwd_kernel_mw(const float* __restrict__ P, const float* __restrict__ q,
+                   const float* __restrict__ l, const float* __restrict__ g,
+                   const float* __restrict__ radius, float* __restrict__ dgamma_out,
+                   float* __restrict__ dl_out, float* __restrict__ gamma_out, int n,
+                   float eps, float act_eps, float stall_ulps) {
+  extern __shared__ float smem[];
+  const int ld = n | 1, ldx = n + 1, nc = n / 2;
+  const SmemMW sm = carve_mw(smem, n);
+  const int r = threadIdx.x;
+  const bool real = r < n;
+  const size_t b = blockIdx.x;
+
+  load_mw(sm, n, P, l, g, b);
+  const int cown = r >> 1;
+  const bool odd = r & 1;
+  const float rad = real ? radius[b * nc + cown] : 0.f;
+  __syncthreads();
+
+  // 1. P l + q, accumulated from q over the columns in order (row r of P is
+  // column r of sA)
+  const float lv = real ? sm.s_x[r] : 0.f;
+  float plq = real ? q[b * n + r] : 0.f;
+  if (real) {
+    for (int c = 0; c < n; ++c) plq = plq + sm.sA[c * ld + r] * sm.s_x[c];
+  }
+
+  // 2-3. per-contact duals and mask, as the one-warp kernel computes them
+  const float lp = __shfl_xor_sync(dq::kFullMask, lv, 1);
+  const float pp = __shfl_xor_sync(dq::kFullMask, plq, 1);
+  const float la = odd ? lp : lv, lb = odd ? lv : lp;
+  const float pa = odd ? pp : plq, pb = odd ? plq : pp;
+  const float sq = la * la + lb * lb;
+  const bool act = (rad - sqrtf(sq) <= eps) && (rad >= eps);
+  const float num = fmaxf(-2.f * (la * pa + lb * pb), 0.f);
+  const float gam_raw = act ? num / fmaxf(4.f * sq, dq::kTiny) : 0.f;
+  const float rr = rad * rad;
+  const float s = sq - rr;
+  const float s_tol = fmaxf(act_eps, stall_ulps * (sq + rr));
+  const bool am = real && (s > -s_tol) && (rad > act_eps) && (gam_raw > act_eps);
+  const float amf = am ? 1.f : 0.f;
+  if (real) {
+    sm.sA[r * ld + r] = sm.sA[r * ld + r] + 2.f * gam_raw;  // only this thread read P_rr
+    sm.sX[(cown + 1) * ldx + r] = 2.f * lv * amf;
+    if (!odd) {
+      sm.s_gam[cown] = gam_raw * amf;
+      sm.s_am[cown] = amf;
+      sm.s_sig[cown] = am ? s : 1.f;
+      gamma_out[b * nc + cown] = gam_raw;
+    }
+  }
+  __syncthreads();
+
+  schur_core_mw<T>(sm, n, dl_out + b * n, dgamma_out + b * nc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMwThreads, T::kMinBlocks)
+qcqp_schur_kernel_mw(const float* __restrict__ P, const float* __restrict__ l,
+                     const float* __restrict__ g, const float* __restrict__ gamma,
+                     const float* __restrict__ s, const float* __restrict__ am,
+                     float* __restrict__ dgamma_out, float* __restrict__ dl_out, int n) {
+  extern __shared__ float smem[];
+  const int ld = n | 1, ldx = n + 1, nc = n / 2;
+  const SmemMW sm = carve_mw(smem, n);
+  const int r = threadIdx.x;
+  const size_t b = blockIdx.x;
+
+  load_mw(sm, n, P, l, g, b);
+  __syncthreads();
+  if (r < n) {
+    const size_t co = b * nc + (r >> 1);    // this row's contact
+    const float gam_raw = gamma[co];
+    const float amf = am[co];
+    sm.sA[r * ld + r] = sm.sA[r * ld + r] + 2.f * gam_raw;
+    sm.sX[((r >> 1) + 1) * ldx + r] = 2.f * sm.s_x[r] * amf;
+    if (!(r & 1)) {
+      sm.s_gam[r >> 1] = gam_raw * amf;
+      sm.s_am[r >> 1] = amf;
+      sm.s_sig[r >> 1] = s[co] * amf + (1.f - amf);
+    }
+  }
+  __syncthreads();
+
+  schur_core_mw<T>(sm, n, dl_out + b * n, dgamma_out + b * nc);
+}
+
 // Dynamic shared memory one block needs for a problem of size n, for either
-// kernel (the wrapper's smem_bytes in kernels/qcqp_bwd_cuda.py computes the
-// same).
+// kernel (the wrapper's launch_plan in kernels/qcqp_bwd_cuda.py computes the
+// same): at n <= 32 P and the factor (n x (n|1) each), W (n x (nc+1)),
+// [M | y], five n-vectors and three nc-vectors of slots; above, P and its
+// factor in one plane, W with stride n + 1, [M | y], four n-vectors (two
+// of them the factor's column buffers), four nc-vectors and six slots.
 size_t smem_bytes(int n) {
   const size_t ld = n | 1, nc = n / 2, ldm = nc | 1;
-  return sizeof(float) * (2 * n * ld + (nc + 1) * n + (nc + 1) * ldm + 5 * n + 3 * nc);
+  if (n <= kOneWarpMaxN) {
+    return sizeof(float) * (2 * n * ld + (nc + 1) * n + (nc + 1) * ldm + 5 * n + 3 * nc);
+  }
+  return sizeof(float) * (n * ld + (nc + 1) * (n + 1) + (nc + 1) * ldm + 4 * n + 4 * nc + 6);
 }
 
 // Opt the kernel into smem bytes of dynamic shared memory where that is
@@ -264,31 +490,84 @@ size_t smem_bytes(int n) {
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+  const int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)smem);
+  if (e != 0) return e;
+  // the whole of the SM's unified memory as shared memory, for blocks per SM
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// Launch `kernel` on B blocks of `threads` with smem bytes; a CUDA error code.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int B, int threads, size_t smem, void* stream, Args... args) {
+  const int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  if (B > 0) kernel<<<B, threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// The launch of a problem of size n: threads per block, dynamic shared
+// memory per block, the kernel's __launch_bounds__ and, above one warp, the
+// register tile rows of its sweeps (0 at n <= 32; 3: SmallTiles, 6:
+// LargeTiles). Returns 0, or 1 where n is past what the kernels take (an
+// odd n, or n > kMwMaxN).
+int dq_qcqp_bwd_plan(int n, int* threads, long long* smem, int* bound, int* rows) {
+  *smem = (long long)smem_bytes(n);
+  *bound = kMwThreads;
+  if (n <= kOneWarpMaxN) {
+    *threads = 32;
+    *rows = 0;
+  } else {
+    *threads = kMwThreads;
+    *rows = n <= 96 ? SmallTiles::kNR : LargeTiles::kNR;
+  }
+  return (n < 2 || n % 2 || n > kMwMaxN) ? 1 : 0;
+}
+
+// Blocks of K6 (schur = 1) or K2 (schur = 0) that one SM holds at size n,
+// from the occupancy calculator after the launch's attributes are set; -1
+// where n is past the plan, or a negated CUDA error code.
+int dq_qcqp_bwd_blocks_per_sm(int n, int schur) {
+  int threads, bound, rows, blocks = 0;
+  long long smem;
+  if (dq_qcqp_bwd_plan(n, &threads, &smem, &bound, &rows)) return -1;
+  auto occ = [&](auto kernel) {
+    const int e = allow_smem(kernel, smem);
+    if (e != 0) return -e;
+    const int e2 =
+        (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+    return e2 != 0 ? -e2 : blocks;
+  };
+  if (rows == 0) return schur ? occ(qcqp_schur_kernel) : occ(qcqp_bwd_kernel);
+  if (rows == SmallTiles::kNR) {
+    return schur ? occ(qcqp_schur_kernel_mw<SmallTiles>) : occ(qcqp_bwd_kernel_mw<SmallTiles>);
+  }
+  return schur ? occ(qcqp_schur_kernel_mw<LargeTiles>) : occ(qcqp_bwd_kernel_mw<LargeTiles>);
+}
+
 // Launch K2 on `stream` for B problems of size n = 2 nc. All pointers are
 // device pointers to contiguous float32 allocated by the caller. Returns
-// cudaGetLastError().
+// cudaGetLastError(), or cudaErrorInvalidValue for an n past the plan.
 int dq_qcqp_bwd_f32(const float* P, const float* q, const float* l, const float* g,
                     const float* radius, float* dgamma_out, float* dl_out,
                     float* gamma_out, int B, int n, float eps, float act_eps,
                     float stall_ulps, void* stream) {
-  const int threads = 32 * ((n + 31) / 32);
-  const size_t smem = smem_bytes(n);
-  const int e = allow_smem(qcqp_bwd_kernel, smem);
-  if (e != 0) return e;
-  if (B > 0) {
-    qcqp_bwd_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        P, q, l, g, radius, dgamma_out, dl_out, gamma_out, n, eps, act_eps,
-        stall_ulps);
+  int threads, bound, rows;
+  long long smem;
+  if (dq_qcqp_bwd_plan(n, &threads, &smem, &bound, &rows)) return (int)cudaErrorInvalidValue;
+  if (rows == 0) {
+    return launch(qcqp_bwd_kernel, B, threads, smem, stream, P, q, l, g, radius, dgamma_out,
+                  dl_out, gamma_out, n, eps, act_eps, stall_ulps);
   }
-  return (int)cudaGetLastError();
+  return launch(rows == SmallTiles::kNR ? qcqp_bwd_kernel_mw<SmallTiles>
+                                        : qcqp_bwd_kernel_mw<LargeTiles>, B, threads,
+                smem, stream, P, q, l, g, radius, dgamma_out, dl_out, gamma_out, n, eps,
+                act_eps, stall_ulps);
 }
 
 // Launch K6 on `stream` for B problems of size n = 2 nc: gamma, s and am are
@@ -296,15 +575,16 @@ int dq_qcqp_bwd_f32(const float* P, const float* q, const float* l, const float*
 int dq_qcqp_schur_f32(const float* P, const float* l, const float* g, const float* gamma,
                       const float* s, const float* am, float* dgamma_out, float* dl_out,
                       int B, int n, void* stream) {
-  const int threads = 32 * ((n + 31) / 32);
-  const size_t smem = smem_bytes(n);
-  const int e = allow_smem(qcqp_schur_kernel, smem);
-  if (e != 0) return e;
-  if (B > 0) {
-    qcqp_schur_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        P, l, g, gamma, s, am, dgamma_out, dl_out, n);
+  int threads, bound, rows;
+  long long smem;
+  if (dq_qcqp_bwd_plan(n, &threads, &smem, &bound, &rows)) return (int)cudaErrorInvalidValue;
+  if (rows == 0) {
+    return launch(qcqp_schur_kernel, B, threads, smem, stream, P, l, g, gamma, s, am,
+                  dgamma_out, dl_out, n);
   }
-  return (int)cudaGetLastError();
+  return launch(rows == SmallTiles::kNR ? qcqp_schur_kernel_mw<SmallTiles>
+                                        : qcqp_schur_kernel_mw<LargeTiles>, B,
+                threads, smem, stream, P, l, g, gamma, s, am, dgamma_out, dl_out, n);
 }
 
 const char* dq_cuda_error_string(int code) {

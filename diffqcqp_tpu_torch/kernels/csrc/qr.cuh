@@ -1,25 +1,43 @@
 // Block-cooperative unpivoted Householder-QR solve of a small dense system,
-// shared by K2 / K6 (the nc x nc Schur system M dgamma = y, csrc/qcqp_bwd.cu)
-// and K5 (the assembled KKT systems, csrc/qr_solve.cu).
+// shared by K5 (the assembled KKT systems, csrc/qr_solve.cu) and K2 / K6
+// (the nc x nc Schur system M dgamma = y, csrc/qcqp_bwd.cu).
 //
 // The augmented matrix [A | b] (m rows, m + 1 columns) sits in shared memory
-// column-major with an odd stride ld: column j at sA + j * ld. Thread j owns
-// column j (j == m is b); threads past m only take part in the barriers.
+// column-major with an odd stride ld: column j at sA + j * ld. At every step
+// k: alpha = -sign(a_kk) ||A[k:, k]|| (sign(0) = +1), v = A[k:, k] - alpha
+// e_k, beta = 2 / ||v||^2, or 0 when ||v||^2 <= 1e-30, A[k:, j] -= beta (v^T
+// A[k:, j]) v for every later column j (b included), and the diagonal
+// becomes alpha. The entries of column k below the diagonal keep stale
+// values where the TPU kernel writes zeros: nothing reads them again. Back
+// substitution R x = Q^T b divides by the diagonal, replaced by 1e-30 where
+// |d| <= 1e-30.
 //
-// At step k every thread reads column k (a shared-memory broadcast) and
-// computes the reflector itself, in the same order:
-//   alpha = -sign(a_kk) ||A[k:, k]||  (sign(0) = +1),
-//   v = A[k:, k] - alpha e_k,  beta = 2 / ||v||^2, or 0 when ||v||^2 <= 1e-30,
-// so every thread holds bit-identical values and the control flow stays
-// uniform with no reduction at all. Each thread j > k then applies the
-// reflector to its own column, A[k:, j] -= beta (v^T A[k:, j]) v, and thread
-// k sets the diagonal to alpha. The entries of column k below the diagonal
-// keep stale values where the TPU kernel writes zeros: nothing reads them
-// again. One barrier per step.
+// What bounds it on an H100: not the bytes or the FLOPs (4/3 m^3 per
+// problem is ~4 us for 4096 systems of m = 36) but the chain of m dependent
+// steps inside each problem, each a pass over column k and over every later
+// column, and the shared-memory loads and issue slots those passes take.
+// Two forms:
 //
-// Back substitution R x = Q^T b goes column by column: thread k divides by
-// the diagonal (replaced by 1e-30 where |d| <= 1e-30), every thread i < k
-// updates its own b_i. On return s_x[0..m) holds x, visible to the block.
+// qr_solve_cols (K2 and K6 at one warp, n <= 32, i.e. nc <= 16: the QCQP
+// flagship's 12 x 13 system; the first form, kept): thread j owns column j;
+// every thread computes each reflector from column k itself with serial
+// sums (two passes over m - k rows), then its dot product and update (two
+// more); one __syncwarp per step. At 13 columns on one warp there is no
+// barrier to save, and the plain version keeps torch.sum's order there
+// (householder_solve(group=None)).
+//
+// qr_solve_lanes (K5 at every m; K2 and K6 above one warp): each reflector
+// is computed once, by the G lanes that own column k, inside their update of
+// step k - 1, and travels in a slot; every other column takes two passes
+// (v^T A_j, the update), split over G lanes per column (rows i = q mod G,
+// a butterfly of G - 1 shuffles joins them), one __syncthreads per step; the
+// back substitution runs on warp 0 alone with x_k moving by shuffles, no
+// barrier. G trades the per-step chain ((m - k) / G loads and FMAs) against
+// warps per problem: K5 takes G = 2 from m = 32 to 127 and 1 otherwise, K6
+// 4 at n <= 96 and 2 above (timed on an H100). Every lane
+// of a group ends a butterfly with the same bits, so no broadcast is needed,
+// and kernels/qr_solve_cuda.py::householder_solve(group=G) adds in this
+// order. ptxas (sm_90a): K5's instances 30-40 registers, no spill.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,6 +81,122 @@ __device__ void qr_solve_cols(const Blk& k, float* sA, int m, int ld, float* s_x
     bsync(k);
     if (r < kk) bi = bi - sA[kk * ld + r] * s_x[kk];
   }
+}
+
+// Back substitution R x = Q^T b on warp 0 from R (upper triangle) and Q^T b
+// (column m) in shared memory: lanes over rows, b_i in registers (m <= 32
+// kChunks), x_k moving by __shfl_sync, no barrier. The block's other warps
+// wait at the closing __syncthreads. Same operations, in the same order, as
+// qr_solve_cols's back substitution.
+template <int kChunks>
+__device__ void back_substitute_warp(const float* sA, int m, int ld, float* s_x) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const float* cb = sA + m * ld;
+    float bi[kChunks];
+#pragma unroll
+    for (int a = 0; a < kChunks; ++a) bi[a] = (lane + 32 * a < m) ? cb[lane + 32 * a] : 0.f;
+    for (int kk = m - 1; kk >= 0; --kk) {
+      float own = 0.f;
+#pragma unroll
+      for (int a = 0; a < kChunks; ++a) {
+        if ((kk >> 5) == a) own = bi[a];
+      }
+      const float bk = __shfl_sync(kFullMask, own, kk & 31);
+      const float d = sA[kk * ld + kk];
+      const float xk = bk / (fabsf(d) > kTiny ? d : kTiny);
+      if (lane == 0) s_x[kk] = xk;
+#pragma unroll
+      for (int a = 0; a < kChunks; ++a) {
+        const int i = lane + 32 * a;
+        if (i < kk) bi[a] = bi[a] - sA[kk * ld + i] * xk;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Sum of p over the G lanes of this thread's group (the lanes of `gmask`)
+// by a butterfly, stages G / 2, ..., 1: every lane of the group returns the
+// same bits.
+template <int G>
+__device__ __forceinline__ float group_sum(float p, unsigned gmask) {
+#pragma unroll
+  for (int s = G / 2; s > 0; s >>= 1) p = p + __shfl_xor_sync(gmask, p, s);
+  return p;
+}
+
+// Step k's reflector from column c (final), its rows spread over a group of
+// G lanes, `tail_p` this lane's part of ||c[k+1:]||^2: alpha = -sign(c_k)
+// sqrt(c_k^2 + tail), v_k = c_k - alpha, ||v||^2 = v_k^2 + tail; (beta, v_k)
+// into `slot` and alpha into R's diagonal c[k], by the group's lane 0.
+template <int G>
+__device__ __forceinline__ void publish_reflector(float* c, int k, float tail_p, int q,
+                                                  unsigned gmask, float* slot) {
+  __syncwarp(gmask);                           // c[k] is written by another lane of the group
+  const float akk = c[k];
+  const float tail = group_sum<G>(tail_p, gmask);
+  const float alpha = (akk < 0.f ? 1.f : -1.f) * sqrtf(akk * akk + tail);   // -sign(akk) |col|
+  const float vk = akk - alpha;
+  const float vsq = vk * vk + tail;
+  if (q == 0) {
+    slot[0] = vsq > kTiny ? 2.f / fmaxf(vsq, kTiny) : 0.f;
+    slot[1] = vk;
+    c[k] = alpha;              // nothing reads a_kk again: v_k travels in the slot
+  }
+}
+
+// The QR of K5 and of K2 / K6 above one warp. A group of G lanes owns column
+// j of [A | b] in shared memory, lane q the rows i = q (mod G); block thread
+// t is lane t % G of column t / G. Each reflector is computed once: the group
+// of column k takes it as soon as that column is final, inside its update of
+// step k - 1 (the same pass adds the new entries' squares), and publishes
+// beta and v_k in a double-buffered slot of s_ref (4 floats). At step k
+// every column j > k takes v^T A_j (each lane adds its rows in order, then
+// the group's butterfly) and its update, reading v from column k: one
+// __syncthreads per step, and per step a chain of about (m - k) / G
+// dependent loads and FMAs per lane instead of qr_solve_cols's four passes
+// of m - k. kernels/qr_solve_cuda.py::householder_solve(group=G) adds in
+// this order. Then back_substitute_warp. The block has at least
+// max(G (m + 1), 32) threads and m <= 32 kChunks.
+template <int G, int kChunks>
+__device__ void qr_solve_lanes(float* sA, int m, int ld, float* s_x, float* s_ref) {
+  const int j = threadIdx.x / G, q = threadIdx.x % G;
+  const unsigned gmask = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  const bool mine = j <= m;
+  float* cj = sA + (mine ? j : m) * ld;
+  if (j == 0) {
+    float tp = 0.f;
+    for (int i = q; i < m; i += G) {
+      if (i > 0) tp = tp + cj[i] * cj[i];
+    }
+    publish_reflector<G>(cj, 0, tp, q, gmask, s_ref);
+  }
+  __syncthreads();
+  for (int kk = 0; kk < m; ++kk) {
+    if (mine && j > kk) {
+      const float* slot = s_ref + 2 * (kk & 1);
+      const float beta = slot[0], vk = slot[1];
+      const float* ck = sA + kk * ld;
+      const int i0 = kk + ((q - kk) & (G - 1));   // this lane's first row >= kk
+      const bool has_k = i0 == kk;
+      float wd = has_k ? vk * cj[kk] : 0.f;
+#pragma unroll 4
+      for (int i = has_k ? kk + G : i0; i < m; i += G) wd = wd + ck[i] * cj[i];
+      const float bw = beta * group_sum<G>(wd, gmask);
+      if (has_k) cj[kk] = cj[kk] - bw * vk;
+      float tp = 0.f;                             // the next step's tail, rows > kk + 1
+#pragma unroll 4
+      for (int i = has_k ? kk + G : i0; i < m; i += G) {
+        const float c = cj[i] - bw * ck[i];
+        cj[i] = c;
+        if (i > kk + 1) tp = tp + c * c;
+      }
+      if (j == kk + 1 && j < m) publish_reflector<G>(cj, j, tp, q, gmask, s_ref + 2 * (j & 1));
+    }
+    __syncthreads();
+  }
+  back_substitute_warp<kChunks>(sA, m, ld, s_x);
 }
 
 }  // namespace dq

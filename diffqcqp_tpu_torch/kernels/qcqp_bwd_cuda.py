@@ -11,14 +11,20 @@ mask, the solve of ``diff/kkt.py::_qcqp_schur_vjp``. On a CUDA tensor each
 launches its kernel in ``kernels/csrc/qcqp_bwd.cu`` (one thread block per
 problem; see the note at the top of that file) or raises; on a CPU tensor
 it runs its plain version. There is no fallback from one to the other.
+Both run one warp per problem at n <= 32 (``ONE_WARP_MAX_N``) and a block of
+256 threads above it, in two instances (n <= 96, n <= 150 =
+``MW_MAX_N``); ``launch_plan`` gives each launch's geometry.
 
 The plain versions repeat the kernels' arithmetic on whole batches in eager
 PyTorch, in any dtype: K2's P l + q accumulated over columns and its
 per-contact duals and strict mask, then, shared by both
 (``_schur_core_plain``), the LDL^T factor of D = P + diag(2 gamma_raw)
 (``kernels/ldl.py``), the nc + 1 solves (column c of C starting at row 2c),
-M and y, the column-oriented Householder QR and back substitution
-(``kernels/qr_solve_cuda.py::householder_solve``), and dl. The CPU path and
+M and y, the Householder QR and back substitution
+(``kernels/qr_solve_cuda.py::householder_solve``, summing in the order of
+the kernels' QR at each n: ``qr_group``), and dl. The kernels' block-wide
+factor and multi-right-hand-side sweeps give the bits of the thread-per-row
+ones, so the plain factor and solves serve both paths. The CPU path and
 the tests use them; ``chip_smoke.py`` holds the kernels against them on the
 card.
 
@@ -40,8 +46,21 @@ __all__ = [
     "qcqp_kkt_bwd_fused_cuda",
     "qcqp_kkt_bwd_fused_plain",
     "qcqp_kkt_bwd_plain",
+    "launch_plan",
     "smem_bytes",
 ]
+
+ONE_WARP_MAX_N = 32   # csrc/qcqp_bwd.cu's kOneWarpMaxN: one warp per problem up to here
+MW_THREADS = 256      # kMwThreads: the block-wide path's threads, and every kernel's bound
+MW_MAX_N = 150        # kMwMaxN: the largest n of the block-wide path
+
+
+def qr_group(n: int) -> int | None:
+    """Lanes per column of the kernels' QR of the Schur system at size n
+    (csrc/qcqp_bwd.cu's Tiles::kQG): None at one warp, where qr_solve_cols
+    gives a thread to a column and the plain version keeps ``torch.sum``'s
+    order; 4 up to n = 96, 2 above."""
+    return None if n <= ONE_WARP_MAX_N else (4 if n <= 96 else 2)
 
 
 def _ct(l: torch.Tensor, z: torch.Tensor, am: torch.Tensor) -> torch.Tensor:
@@ -60,10 +79,11 @@ def _schur_core_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Steps 4-8 of K2 and K6 (csrc/qcqp_bwd.cu's schur_core): the LDL^T
     factor of D = P + diag(2 gam_raw) (``kernels/ldl.py``), W = D^{-1} [g | C]
-    (column c of C starting at row 2c), M and y, the column-oriented
-    Householder QR and back substitution (``householder_solve``), and dl.
-    ``am`` is the (B, nc) strict mask as 0 / 1 in l's dtype, ``sigma`` =
-    s am + (1 - am). Returns (dgamma (B, nc), dl (B, n))."""
+    (column c of C starting at row 2c), M and y, the Householder QR and back
+    substitution (``householder_solve``, in the order of the kernels' QR at
+    this n: ``qr_group``), and dl. ``am`` is the (B, nc) strict mask as 0 /
+    1 in l's dtype, ``sigma`` = s am + (1 - am). Returns (dgamma (B, nc), dl
+    (B, n))."""
     nc = l.shape[-1] // 2
     gam = gam_raw * am
 
@@ -81,7 +101,8 @@ def _schur_core_plain(
         torch.where(eye[c], sigma, torch.zeros_like(sigma)) - _ct(l, Wc[c], am) * gam[:, c : c + 1]
         for c in range(nc)
     ]
-    dgamma = householder_solve(torch.stack(cols + [-_ct(l, Wg, am)], dim=-1)) * am
+    Ab = torch.stack(cols + [-_ct(l, Wg, am)], dim=-1)
+    dgamma = householder_solve(Ab, qr_group(l.shape[-1])) * am
 
     dl = Wg
     for c in range(nc):
@@ -149,17 +170,57 @@ def _lib():
         lib.dq_qcqp_bwd_f32.restype = ctypes.c_int
         lib.dq_qcqp_schur_f32.argtypes = [vp] * 8 + [ctypes.c_int] * 2 + [vp]
         lib.dq_qcqp_schur_f32.restype = ctypes.c_int
+        ip, lp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
+        lib.dq_qcqp_bwd_plan.argtypes = [ctypes.c_int, ip, lp, ip, ip]
+        lib.dq_qcqp_bwd_plan.restype = ctypes.c_int
+        lib.dq_qcqp_bwd_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dq_qcqp_bwd_blocks_per_sm.restype = ctypes.c_int
         lib._dq_typed = True
     return lib
 
 
 def smem_bytes(n: int) -> int:
     """Dynamic shared memory of one block of K2 or K6 at problem size n (as
-    ``smem_bytes`` in csrc/qcqp_bwd.cu computes it): P and the factor
-    (n x (n|1) each), W (n x (nc+1)), [M | y] ((nc|1) x (nc+1)), five
-    n-vectors and three nc-vectors of slots."""
-    nc = n // 2
-    return 4 * (2 * n * (n | 1) + (nc + 1) * n + (nc + 1) * (nc | 1) + 5 * n + 3 * nc)
+    ``smem_bytes`` in csrc/qcqp_bwd.cu computes it). One warp (n <= 32): P
+    and the factor (n x (n|1) each), W (n x (nc+1)), [M | y] ((nc|1) x
+    (nc+1)), five n-vectors and three nc-vectors of slots. Block-wide: P
+    and its factor in one n x (n|1) plane, W ((n+1) x (nc+1)), [M | y], four
+    n-vectors (two of them the factor's column buffers), four nc-vectors and
+    six slots."""
+    nc, ld, ldm = n // 2, n | 1, (n // 2) | 1
+    if n <= ONE_WARP_MAX_N:
+        return 4 * (2 * n * ld + (nc + 1) * n + (nc + 1) * ldm + 5 * n + 3 * nc)
+    return 4 * (n * ld + (nc + 1) * (n + 1) + (nc + 1) * ldm + 4 * n + 4 * nc + 6)
+
+
+def launch_plan(n: int) -> tuple[int, int, int, int]:
+    """(threads per block, dynamic shared memory per block, the kernel's
+    __launch_bounds__, register tile rows of the sweeps) of K2 or K6 at size
+    n, as csrc/qcqp_bwd.cu's dq_qcqp_bwd_plan computes them. One warp at n
+    <= 32 (tile rows 0); above, 256 threads, in the small instance up to n =
+    96 (3 rows) and the large one up to ``MW_MAX_N`` = 150 (6 rows). Raises
+    ValueError for an odd n or n > 150."""
+    if n < 2 or n % 2 or n > MW_MAX_N:
+        raise ValueError(f"n must be even, 2 <= n <= {MW_MAX_N}, got {n}")
+    if n <= ONE_WARP_MAX_N:
+        return 32, smem_bytes(n), MW_THREADS, 0
+    return MW_THREADS, smem_bytes(n), MW_THREADS, 3 if n <= 96 else 6
+
+
+def c_launch_plan(n: int) -> tuple[int, int, int, int] | None:
+    """``launch_plan`` as the built library computes it (needs nvcc); None
+    where the library refuses n."""
+    lib = _lib()
+    t, s, bd, r = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+    bad = lib.dq_qcqp_bwd_plan(n, ctypes.byref(t), ctypes.byref(s), ctypes.byref(bd),
+                               ctypes.byref(r))
+    return None if bad else (t.value, s.value, bd.value, r.value)
+
+
+def c_blocks_per_sm(n: int, schur: bool) -> int:
+    """Blocks of K6 (``schur``) or K2 at size n that one SM of the current
+    card holds, from CUDA's occupancy calculator (needs nvcc and a card)."""
+    return _lib().dq_qcqp_bwd_blocks_per_sm(n, int(schur))
 
 
 def _check(P, q, l, g, radius):
@@ -201,7 +262,7 @@ def qcqp_kkt_bwd_fused_cuda(
     if all(t.device.type == "cpu" for t in tensors):
         return qcqp_kkt_bwd_fused_plain(P, q, l, g, radius, eps, act_eps, stall_ulps)
     B, n = l.shape
-    dev = _build.check_launch(tensors, smem_bytes(n), n)
+    dev = _build.check_launch(tensors, *launch_plan(n)[:3])
 
     lib = _lib()
     dgamma = torch.empty_like(radius)
@@ -262,7 +323,7 @@ def qcqp_kkt_bwd_cuda(
         return qcqp_kkt_bwd_plain(*tensors)
     B, n = l.shape
     am = active.to(torch.float32)       # the kernel's 0 / 1 mask; a float32 mask as it is
-    dev = _build.check_launch((P, l, g, gamma, s, am), smem_bytes(n), n)
+    dev = _build.check_launch((P, l, g, gamma, s, am), *launch_plan(n)[:3])
 
     lib = _lib()
     dgamma = torch.empty_like(gamma)
