@@ -19,14 +19,18 @@ its config 6). Phases, each of which fails the run if its check fails:
      ``kernels/_build.SOURCES`` library (one nvcc each, all at once); each
      kernel's launch plan (threads, shared memory, bound) as the built library
      computes it against the Python wrapper's, for K2 / K6 at n = 24, 34, 96,
-     142 and K5 at m = 5, 33, 36, 72, 88, and three blocks of K6 and K2 on an
-     SM at N=96 (the occupancy calculator);
+     142 and K5 at m = 5, 33, 36, 72, 88, and three blocks of K6, K2 and K1
+     on an SM at N=96 (the occupancy calculator);
   2. kernel K1 (``admm_solve_cuda``) against its plain PyTorch version
      (``admm_solve_plain``) on the same card inputs: at the flagship point,
      for all four prox kinds and the rho_sync=False, primal_check=False,
-     max_iter and warm_start_dual branches at B=256, N=12, and at N=96,
-     B=512 (three warps per block). Bars: max |dl| <= 2e-5, per-problem
-     |d iterations| <= 1, equal ``converged``;
+     max_iter and warm_start_dual branches at B=256, N=12, and past one
+     warp at N=96, B=512 (three warps per block) and N=34, B=512 (two); K1
+     iterates against an explicit inverse at every n. Bars: max |dl| <= 2e-5,
+     per-problem |d iterations| <= 1, equal ``converged``; with the count of
+     problems whose l and iterations are equal bit for bit, and each
+     solve's iterations and factorisations per problem (the first and one
+     per rho change, counted by the plain version) at the flagship;
   2b. kernel K2 (``qcqp_kkt_bwd_fused_cuda``) against its plain version
      (``qcqp_kkt_bwd_fused_plain``) on the same card inputs, with l from K1
      and the cotangents g = 2 l and a random g: at the flagship point, at
@@ -112,6 +116,22 @@ its config 6). Phases, each of which fails the run if its check fails:
      route's Cholesky-and-LU branch) and within 1e-7 of the referee.
      Every float64 referee of phases 3b-3d solves its
      assembled system by ``torch.linalg.solve`` itself;
+  3e. the dispatch past the kernels' bounds and in float64, each case with
+     the launch counters zeroed just before and read just after:
+     ``solve_qcqp`` + autograd at B=256, N=160 (``kkt_problems``; K1 runs,
+     K2 and K6 do not: the Schur route's Newton-Schulz branch), gradients
+     on all 256 problems against the float64 referee built on the route's
+     own classification of the contacts (its recovered duals and strict
+     mask), at phase 3b's bars; ``solve_qp`` +
+     autograd at B=256, N=176 (no kernel: the eager engine and the
+     assembled system), l within 1e-4 of the float64 plain K1 and the
+     gradients at phase 3c's bars; a float64 ``solve_qcqp`` + autograd on
+     the card at B=256, N=24 (no kernel; float64 results within 1e-8 (l)
+     and 1e-7 (gradients, of each problem's scale) of the float64 referee);
+     ``backend='xla'`` float32 at the flagship against K1 (both estimate L
+     by power iteration): iterations within 4, |dl| <= 1e-4, equal
+     ``converged``, with the engine's time per forward; and that TF32
+     matmuls stay off throughout;
   4. timing at the flagship point: K1, K2, the forward entry point and the
      forward+backward step per call over back-to-back calls with CUDA events
      (warm-up, median of samples; K1's and K2's are the ``ms`` reported),
@@ -134,7 +154,9 @@ its config 6). Phases, each of which fails the run if its check fails:
      ``solve_qcqp`` then ``torch.autograd.grad`` of sum(l^2), launch counters
      zeroed just before and read just after: K1 and K2 alone), timed as the
      flagship step, with its device time by kernel and the card's idle
-     share;
+     share; then K1 alone on those problems against its plain version, its
+     device time (whole, and set-up only), its bound and its iterations and
+     inverses per problem;
   5. one JSON line of every ported kernel, then as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -209,7 +231,9 @@ def compare(name, out_k, out_p, tol=2e-5):
     dit = (sk.iterations - sp.iterations).abs()
     conv_eq = bool((sk.converged == sp.converged).all())
     stall_eq = int((sk.stalled != sp.stalled).sum())
-    log(f"  {name}: max|dl|={dl:.3e} max|d iters|={int(dit.max())} "
+    same = int(((lk == lp).all(dim=-1) & (sk.iterations == sp.iterations)).sum())
+    log(f"  {name}: max|dl|={dl:.3e} problems bit for bit equal {same}/{dit.numel()} "
+        f"max|d iters|={int(dit.max())} "
         f"problems with |d iters|>1: {int((dit > 1).sum())}/{dit.numel()} "
         f"converged equal={conv_eq} stalled {int(sk.stalled.sum())} "
         f"(differ on {stall_eq}) "
@@ -241,18 +265,29 @@ def time_cuda(fn, reps, calls=1):
     return float(np.median(ts)), ts
 
 
-def k1_bound_ms(B, n, nc, iters, power_iters):
-    """Least time for the flagship solve on an H100 SXM: the larger of bytes
-    (inputs read once, outputs written once) over the memory rate and
-    FLOPs over the float32 peak. FLOPs count what this run's data needs:
-    power iteration, one factorisation per problem (refactorisations after
-    a rho change are not counted, so this is a lower bound), and per
-    executed iteration two triangular sweeps (n^2 / 2 multiply-adds each)
-    plus ~21 n of vector updates and reductions."""
+def k1_bound_ms(B, n, nc, iters, factors, power_iters):
+    """Least time for a K1 solve on an H100 SXM: the larger of bytes (inputs
+    read once, outputs written once) over the memory rate and FLOPs over the
+    float32 peak. FLOPs count the least work this run's data needs, by the
+    LDL^T route whatever K1 runs: power iteration, n^3 / 3 + n^2 per
+    factorisation (``factors``: per problem, the first and one per rho
+    change, counted by the plain version), and per executed iteration two
+    triangular sweeps (n^2 / 2 multiply-adds each) plus ~21 n of vector
+    updates and reductions."""
     bytes_ = 4 * (B * n * n + 2 * B * n + B * nc) + 4 * B * n + B * (4 * 4 + 2)
-    per_prob = (power_iters + 1) * (2 * n * n + 3 * n) + n ** 3 / 3 + n * n
+    per_prob = (power_iters + 1) * (2 * n * n + 3 * n)
+    per_factor = n ** 3 / 3 + n * n
     per_iter = 2 * n * n + 21 * n
-    return bound_ms(bytes_, B * per_prob + float(iters.sum()) * per_iter)
+    return bound_ms(bytes_, B * per_prob + float(factors.sum()) * per_factor
+                    + float(iters.sum()) * per_iter)
+
+
+def counts(label, iters, factors):
+    """One line of a solve's iterations and factorisations per problem."""
+    log(f"  {label}: iterations per problem mean {float(iters.double().mean()):.4f} max "
+        f"{int(iters.max())}; factorisations (inverses formed) per problem (the first and one "
+        f"per rho change, from the plain version) mean {float(factors.double().mean()):.4f} max "
+        f"{int(factors.max())}")
 
 
 def bound_ms(bytes_, flops):
@@ -705,17 +740,22 @@ def phase_4c(c, step, smi):
 # The generic adjoint route, duals given: K5 (QR solve) and K6 (Schur adjoint)
 # ---------------------------------------------------------------------------
 
-def qcqp_system(P, q, radius, l, g, cfg, dtype=None):
+def qcqp_system(P, q, radius, l, g, cfg, dtype=None, route=None):
     """(S^T, rhs, am) of ``qcqp_vjp(duals=)``'s assembled system, with the
     duals, squared slacks and strict mask that route computes from these
-    inputs; assembled in ``dtype`` (default: the inputs')."""
+    inputs; assembled in ``dtype`` (default: the inputs'). ``route`` =
+    (recovered, strict), two (B, nc) masks, imposes another solve's
+    classification: gamma is kept where ``recovered`` holds and 0 elsewhere,
+    and ``strict`` is the strict mask."""
     from diffqcqp_tpu_torch.diff import kkt
 
-    duals = kkt.qcqp_dual(P, q, radius, l, cfg)
-    s, act = kkt.qcqp_strict_active(l, radius, duals.gamma, cfg)
+    gamma = kkt.qcqp_dual(P, q, radius, l, cfg).gamma
+    s, act = kkt.qcqp_strict_active(l, radius, gamma, cfg)
+    if route is not None:
+        gamma, act = gamma * route[0], route[1]
     dt = dtype or l.dtype
     am = act.to(dt)
-    return (*kkt._qcqp_kkt_system(*(x.to(dt) for x in (P, l, g, duals.gamma, s)), am), am)
+    return (*kkt._qcqp_kkt_system(*(x.to(dt) for x in (P, l, g, gamma, s)), am), am)
 
 
 def box_system(c, l, g, dtype=None):
@@ -813,6 +853,197 @@ def k6_against_k2(P, q, l, r, g, cfg, ulps):
                                      cfg.act_eps, ulps)
     return compare_k2("K6 fed K2's duals against K2, flagship B=4096 N=24 g=2l", out6, out2,
                       out64, kernel="K6 against K2")
+
+
+def qcqp_referee(P64, q64, ln64, mu64, l64, g64, cfg, route=None):
+    """float64 gradients of <g64, l> for (P, q, l_n, mu) at the float64
+    solution l64: the recovered duals, then the assembled KKT system solved
+    by ``solve64`` (sharing no arithmetic with K2, K5 or K6), on its own
+    classification of the contacts or on ``route``'s (see
+    ``qcqp_system``)."""
+    from diffqcqp_tpu_torch.api import _grad_P
+    from diffqcqp_tpu_torch.diff import kkt
+
+    r64 = ln64 * mu64
+    nc = r64.shape[-1]
+    gamma = kkt.qcqp_dual(P64, q64, r64, l64, cfg).gamma
+    if route is not None:
+        gamma = gamma * route[0]
+    ST, rhs, am = qcqp_system(P64, q64, r64, l64, g64, cfg, route=route)
+    x = solve64(ST, rhs)
+    dl, dgamma = x[:, nc:], x[:, :nc] * am
+    e1, e2 = kkt.qcqp_radius_factors(ln64, mu64, gamma)
+    return _grad_P(dl, l64), -dl, e2 * dgamma, e1 * dgamma
+
+
+def check_no_tf32(where):
+    """The port never turns TF32 on: every float32 product on a solve path
+    stays full float32."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError(f"TF32 matmuls are on ({where})")
+
+
+def stepped(kernels, solve, xs, cfg, w):
+    """One forward+backward step of sum(l^2) + <w, l> through ``solve`` and
+    torch.autograd.grad, the launch counters zeroed just before and read
+    just after. Returns (l, stats, grads, {kernel: launches})."""
+    for k_ in kernels.values():
+        k_.launches = 0
+    leaves = [x.clone().requires_grad_() for x in xs]
+    l, st = solve(*leaves, config=cfg)
+    grads = torch.autograd.grad((l * l).sum() + (w * l).sum(), leaves)
+    torch.cuda.synchronize()
+    return l.detach(), st, grads, {name: k_.launches for name, k_ in kernels.items()}
+
+
+def grad_errors(label, grads, ref, names, bar_med, bar_max, floor=None):
+    """Per-problem relative errors of each gradient against its float64
+    referee; fails past the bars (median, max)."""
+    worst = worst_max = 0.0
+    for gname, a, b in zip(names, grads, ref):
+        e = rel_err(a, b, b.new_tensor(floor) if floor else None)
+        med, mx = float(e.median()), float(e.max())
+        worst, worst_max = max(worst, med), max(worst_max, mx)
+        log(f"    {label} grad {gname}: per-problem relative error vs f64 referee median "
+            f"{med:.3e} max {mx:.3e} (|ref|_max {float(b.abs().max()):.3e})")
+    if not (worst <= bar_med and worst_max <= bar_max):
+        raise AssertionError(f"{label}: gradients disagree with the float64 referee")
+
+
+def phase_3e(dqt, cfg, qp_cfg, kernels, rand_g, flag, out_k, l64_flag):
+    """The dispatch past the kernels' bounds and in float64, each case with
+    the launch counters zeroed just before and read just after; every route
+    is the one ``api._use_kernel`` / ``kkt._use_fused_kernel`` name."""
+    from diffqcqp_tpu_torch import api
+    from diffqcqp_tpu_torch.diff import kkt
+    from diffqcqp_tpu_torch.kernels import coord_bwd_cuda, qcqp_bwd_cuda
+    from diffqcqp_tpu_torch.kernels.admm_cuda import PROX_DISK, PROX_NONNEG, admm_solve_plain
+
+    check_no_tf32("phase 3e")
+    names = ("P", "q", "l_n", "mu")
+
+    def only(got, want=()):
+        """Each kernel in ``want`` launched, every other one not."""
+        return all((n >= 1) if k in want else (n == 0) for k, n in got.items())
+
+    # (a) QCQP at N=160 (past K2 and K6, within K1): K1, then the generic Schur
+    # route's Newton-Schulz branch
+    P, q, _, r = cuda(*kkt_problems(256, 80, seed=16))
+    l_n, mu = r, torch.ones_like(r)
+    if not (api._use_kernel(P, q, cfg) and not kkt._use_fused_kernel(P, q, cfg, qcqp_bwd_cuda.fits)):
+        raise AssertionError("the dispatch does not name K1 and the generic route at N=160")
+    w = rand_g(q)
+    l, st, grads, got = stepped(kernels, dqt.solve_qcqp_with_stats, (P, q, l_n, mu), cfg, w)
+    P64, q64, ln64, mu64 = (x.double() for x in (P, q, l_n, mu))
+    l64, st64 = admm_solve_plain(P64, q64, torch.zeros_like(q64), PROX_DISK, (ln64 * mu64,),
+                                 cfg.replace(eps=1e-10, max_iter=5000), True, False)
+    err = float((l.double() - l64).abs().max())
+    # the referee solves its system on the route's own classification of
+    # the contacts (the duals it recovers from the float32 l, and its strict
+    # mask), so every problem is held to it. Where the float64 solution
+    # classifies a contact otherwise, the run prints why: the recovery's
+    # test r - |l_c| <= eps (the JAX package's autodiff rule too,
+    # diffqcqp_tpu/diff/kkt.py::qcqp_dual) on the float32 l
+    d32, d64 = kkt.qcqp_dual(P, q, r, l, cfg), kkt.qcqp_dual(P64, q64, ln64 * mu64, l64, cfg)
+    act = kkt.qcqp_strict_active(l, r, d32.gamma, cfg)[1]
+    act64 = kkt.qcqp_strict_active(l64, ln64 * mu64, d64.gamma, cfg)[1]
+    differ = (act != act64).any(dim=-1)
+    flip = d32.active != d64.active
+    slack32 = r - torch.linalg.vector_norm(l.reshape(256, 80, 2), dim=-1)
+    why = (f"; where the recovery differs ({int(flip.sum())} contacts: "
+           f"{int((d32.active & ~d64.active).sum())} active on l only): radius "
+           f"{float(r[flip].min()):.4f}-{float(r[flip].max()):.4f}, float32 r - |l_c| "
+           f"{float(slack32[flip].min()):.3e}-{float(slack32[flip].max()):.3e} against eps "
+           f"{cfg.eps:.1e}, float64 gamma {float(d64.gamma[flip].min()):.3e}-"
+           f"{float(d64.gamma[flip].max()):.3e}" if bool(flip.any()) else "")
+    log(f"  QCQP B=256 N=160 (solve_qcqp + autograd): launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; converged_frac={float(st.converged.float().mean())} mean_iters="
+        f"{float(st.iterations.float().mean()):.2f}; max|l - l_f64 referee|={err:.3e} (referee "
+        f"converged {bool(st64.converged.all())}); problems whose strict mask on l differs from "
+        f"the mask on l_f64: {int(differ.sum())}/{differ.numel()} ({int((act != act64).sum())} "
+        f"contacts: {int((act & ~act64).sum())} active on l only, {int((~act & act64).sum())} "
+        f"on l_f64 only){why}")
+    if not (only(got, ("K1",)) and bool(st.converged.all()) and err <= 1e-4
+            and bool(st64.converged.all())):
+        raise AssertionError("the N=160 QCQP step left its route or its forward check")
+    ref = qcqp_referee(P64, q64, ln64, mu64, l64, 2.0 * l64 + w.double(), cfg,
+                       route=(d32.active, act))
+    grad_errors("N=160", grads, ref, names, 1e-3, 2e-3)
+
+    # (b) QP at N=176 (past K1 and K4): the eager engine (Newton-Schulz
+    # inverse), then the assembled SPD system (Newton-Schulz again)
+    _, P, q = spd_problems(256, 176, seed=17)
+    P, q = cuda(P, q)
+    c = qp_class("qp", P, q, qp_cfg)
+    if api._use_kernel(P, q, qp_cfg) or kkt._use_fused_kernel(P, q, qp_cfg, coord_bwd_cuda.fits):
+        raise AssertionError("the dispatch names a kernel at N=176")
+    w = rand_g(q)
+    l, st, grads, got = stepped(kernels, dqt.solve_qp_with_stats, (P, q), qp_cfg, w)
+    xs64 = [P.double(), q.double()]
+    l64, st64 = admm_solve_plain(*xs64, torch.zeros_like(xs64[1]), PROX_NONNEG, (),
+                                 qp_cfg.replace(eps=1e-10, max_iter=5000))
+    err = float((l.double() - l64).abs().max())
+    ref, am_ref = class_referee(c, xs64, [], l64, 2.0 * l64 + w.double())
+    am = kkt._qp_kkt_system(P, q, l, 2.0 * l + w, qp_cfg)[2] == 0    # the route's strict mask
+    shared = ~(am != am_ref).any(dim=-1)
+    log(f"  QP B=256 N=176 (solve_qp + autograd): launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; converged_frac={float(st.converged.float().mean())} mean_iters="
+        f"{float(st.iterations.float().mean()):.2f}; max|l - l_f64 referee|={err:.3e} (referee "
+        f"converged {bool(st64.converged.all())}); problems whose strict mask the referee does "
+        f"not share: {int((~shared).sum())}/{shared.numel()}")
+    if not (only(got) and bool(st.converged.all()) and err <= 1e-4
+            and bool(st64.converged.all())):
+        raise AssertionError("the N=176 QP step left its route or its forward check")
+    grad_errors("N=176", [g[shared] for g in grads], [x[shared] for x in ref], names[:2],
+                1e-3, 2e-3, floor=1e-30)
+
+    # (c) a float64 QCQP on the card: the engine and the generic route in
+    # float64, no kernel, against the float64 referee (plain K1 at eps=1e-10)
+    P, q, l_n, mu = (x[:256].double() for x in flag)
+    w = rand_g(q).double()
+    c64 = cfg.replace(eps=1e-10, max_iter=5000)
+    l, st, grads, got = stepped(kernels, dqt.solve_qcqp_with_stats, (P, q, l_n, mu), c64, w)
+    l64 = l64_flag[:256]
+    err = float((l - l64).abs().max())
+    ref = qcqp_referee(P, q, l_n, mu, l64, 2.0 * l64 + w, c64)
+    every = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    e_g = max(float(per_problem(a.flatten(1), b.flatten(1), every).max())
+              for a, b in zip(grads, ref))
+    log(f"  float64 QCQP B=256 N=24 on the card: launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; dtypes {l.dtype} / {grads[0].dtype}; converged_frac="
+        f"{float(st.converged.float().mean())}; max|l - l_f64 referee|={err:.3e} (bar 1e-8); "
+        f"gradients per problem /max(1,|ref|_inf) {e_g:.3e} (bar 1e-7)")
+    if not (only(got) and l.dtype == torch.float64 and all(g.dtype == torch.float64
+                                                              for g in grads)
+            and bool(st.converged.all()) and err <= 1e-8 and e_g <= 1e-7):
+        raise AssertionError("the float64 QCQP step left float64 or its referee")
+
+    # (d) backend='xla' at the flagship, float32, against K1 (both estimate
+    # L by power iteration)
+    xcfg = cfg.replace(backend="xla", lmax_method="power")
+    for k_ in kernels.values():
+        k_.launches = 0
+    lx, sx = dqt.solve_qcqp_with_stats(*flag, config=xcfg)
+    torch.cuda.synchronize()
+    got = {name: k_.launches for name, k_ in kernels.items()}
+    lk, sk = out_k
+    dl = float((lx - lk).abs().max())
+    dit = int((sx.iterations - sk.iterations).abs().max())
+    conv_eq = bool((sx.converged == sk.converged).all())
+    ms_x, ts_x = time_cuda(lambda: dqt.solve_qcqp_with_stats(*flag, config=xcfg), reps=3)
+    log(f"  backend='xla' at the flagship B=4096 N=24 (the eager engine, spectral handle): "
+        f"launches " + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; against K1: max|dl|={dl:.3e} (bar 1e-4), max|d iters|={dit} (bar 4), converged "
+        f"equal={conv_eq}; engine mean iters {float(sx.iterations.float().mean()):.3f}, K1 "
+        f"{float(sk.iterations.float().mean()):.3f}; the engine's forward {ms_x:.2f} ms per "
+        f"call (CUDA events, samples {[round(t, 2) for t in ts_x]})")
+    if not (only(got) and dl <= 1e-4 and dit <= 4 and conv_eq):
+        raise AssertionError("backend='xla' left the engine or disagrees with K1")
+    check_no_tf32("phase 3e, end")
+    return ms_x
 
 
 def phase_3d(calls, kernels):
@@ -1047,7 +1278,9 @@ def main() -> int:
     plans += [(f"K5 m={m}", k5m.launch_plan(m), k5m.c_launch_plan(m)) for m in (5, 33, 36, 72, 88)]
     for label, py, c in plans:
         log(f"  launch plan {label}: (threads, smem bytes, bound, tile) wrapper {py} library {c}")
+    from diffqcqp_tpu_torch.kernels import admm_cuda as k1m
     occ96 = {name: k26.c_blocks_per_sm(96, schur) for name, schur in (("K2", False), ("K6", True))}
+    occ96["K1"] = k1m.c_blocks_per_sm(96)
     log(f"  blocks per SM at N=96 (occupancy calculator): {occ96}")
     if any(py != c for _, py, c in plans) or min(occ96.values()) < 3:
         raise AssertionError("a launch plan disagrees with the library, or N=96 fits fewer "
@@ -1065,8 +1298,10 @@ def main() -> int:
     ws = torch.zeros_like(q)
     args = (P, q, ws, PROX_DISK, (radius,), cfg, True, False)
     out_k = admm_solve_cuda(*args)
-    out_p = admm_solve_plain(*args)
+    factors_flag = torch.zeros(B_FLAG, dtype=torch.int64, device=q.device)
+    out_p = admm_solve_plain(*args, factors=factors_flag)
     err_flag = compare("flagship B=4096 N=24 disk", out_k, out_p)
+    counts("flagship B=4096 N=24", out_p[1].iterations, factors_flag)
 
     rng = np.random.default_rng(1)
     b, n = 256, 12
@@ -1107,8 +1342,14 @@ def main() -> int:
     Pb, qb, lnb, mub = cuda(*build_problems(512, 48, seed=2))
     a = (Pb, qb, torch.zeros_like(qb), PROX_DISK, ((lnb * mub).contiguous(),),
          cfg, True, False)
-    compare("disk B=512 N=96 (3 warps)", admm_solve_cuda(*a), admm_solve_plain(*a))
+    compare("disk B=512 N=96 (3 warps)", admm_solve_cuda(*a),
+            admm_solve_plain(*a))
     l96 = admm_solve_cuda(*a)[0]
+    P17, q17, ln17, mu17 = cuda(*build_problems(512, 17, seed=15))
+    a = (P17, q17, torch.zeros_like(q17), PROX_DISK, ((ln17 * mu17).contiguous(),),
+         cfg, True, False)
+    compare("disk B=512 N=34 (2 warps)", admm_solve_cuda(*a),
+            admm_solve_plain(*a))
 
     # ---- phase 2b: K2 against its plain version on the card
     log("phase 2b: K2 against qcqp_kkt_bwd_fused_plain on the card")
@@ -1291,12 +1532,7 @@ def main() -> int:
     # assembled KKT system solved by torch.linalg.solve
 
     def referee(g64):
-        gamma = kkt.qcqp_dual(P64, q64, r64, l64, cfg).gamma
-        ST, rhs, am = qcqp_system(P64, q64, r64, l64, g64, cfg)
-        x = solve64(ST, rhs)
-        dl, dgamma = x[:, NC_FLAG:], x[:, :NC_FLAG] * am
-        e1, e2 = kkt.qcqp_radius_factors(ln64, mu64, gamma)
-        return _grad_P(dl, l64), -dl, e2 * dgamma, e1 * dgamma
+        return qcqp_referee(P64, q64, ln64, mu64, l64, g64, cfg)
 
     # sum(l^2) is flat in P and q where every contact binds (|l_c| = r_c):
     # those two gradients are zero up to rounding, so their error is taken
@@ -1391,6 +1627,10 @@ def main() -> int:
     ], kernels)
     phase_3d_f64(tuple(x.double() for x in (P48, q48, r48, l48, g48)), cfg, kernels)
 
+    # ---- phase 3e: the dispatch past the kernels' bounds and in float64
+    log("phase 3e: the routes past the kernels' bounds, float64 and backend='xla'")
+    ms_engine = phase_3e(dqt, cfg, qp_cfg10, kernels, rand_g, (P, q, l_n, mu), out_k, l64)
+
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
     k1 = lambda: admm_solve_cuda(*args)            # noqa: E731
@@ -1403,7 +1643,7 @@ def main() -> int:
     ev_api, _ = time_cuda(api, reps=5, calls=20)
     ms_p, ts_p = time_cuda(lambda: admm_solve_plain(*args), reps=5)
     bound, bound_by, nbytes, nflops = k1_bound_ms(
-        B_FLAG, 2 * NC_FLAG, NC_FLAG, out_k[1].iterations.double(), cfg.power_iters)
+        B_FLAG, 2 * NC_FLAG, NC_FLAG, out_k[1].iterations, factors_flag, cfg.power_iters)
     fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
     log(f"phase 4 ({smi}):\n"
         f"  K1 device time per launch (torch.profiler): {fmt(dev_k)}; "
@@ -1509,11 +1749,41 @@ def main() -> int:
         f"device idle {ev96 - dev96:.4f} ({(ev96 - dev96) / ev96:.1%})")
     for name_, ms_, cnt in rows96[:8]:
         log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
+    # K1 alone on the same problems: its time, bound and counts
+    a96 = (P48, q48, torch.zeros_like(q48), PROX_DISK, (r48,), cfg, True, False)
+    k1_96 = lambda: admm_solve_cuda(*a96)   # noqa: E731
+    out96 = k1_96()
+    B96 = q48.shape[0]
+    factors96 = torch.zeros(B96, dtype=torch.int64, device=q48.device)
+    t0 = time.perf_counter()
+    out96p = admm_solve_plain(*a96, factors=factors96)
+    torch.cuda.synchronize()
+    ms_p96 = (time.perf_counter() - t0) * 1e3
+    compare("K1 at B=2048 N=96 (the step's problems)", out96, out96p)
+    counts("B=2048 N=96", out96p[1].iterations, factors96)
+    dev_k96 = per_launch_ms(device_time_by_kernel(k1_96, calls=5), "admm_kernel")
+    ev_k96, ts_k96 = time_cuda(k1_96, reps=5, calls=5)
+    # K1's two halves: its set-up (power iteration and the first inverse,
+    # max_iter=0), with and without the power iteration, and the iterations
+    a96_0 = a96[:5] + (cfg.replace(max_iter=0),) + a96[6:]
+    a96_00 = a96[:5] + (cfg.replace(max_iter=0, power_iters=0),) + a96[6:]
+    setup_ms = lambda a: per_launch_ms(  # noqa: E731
+        device_time_by_kernel(lambda: admm_solve_cuda(*a), calls=5), "admm_kernel")
+    dev_k96_setup, dev_k96_setup0 = setup_ms(a96_0), setup_ms(a96_00)
+    b96, b96_by, b96_bytes, b96_flops = k1_bound_ms(B96, 96, 48, out96[1].iterations,
+                                                    factors96, cfg.power_iters)
+    log(f"  K1 at B=2048 N=96 ({smi}): device time per launch (torch.profiler) {fmt(dev_k96)}; "
+        f"per call, 5 back-to-back (CUDA events) {ev_k96:.4f} ms (samples "
+        f"{[round(t, 4) for t in ts_k96]}); plain version {ms_p96:.1f} ms (one call); bound "
+        f"{b96:.5f} ms ({b96_by}: {b96_bytes} bytes, {b96_flops:.4g} FLOP); set-up only "
+        f"(max_iter=0) {fmt(dev_k96_setup)}, without the power iteration "
+        f"{fmt(dev_k96_setup0)}")
 
     # ---- phase 5: the kernels line, then the result
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": "admm_solve_cuda (K1, with the K3 LDL^T helpers inlined)",
+        "name": "admm_solve_cuda (K1: an explicit inverse and one refined solve per "
+                "iteration; numbers at the flagship, B=4096 N=24)",
         "route": "cuda",
         "source": "diffqcqp_tpu_torch/kernels/csrc/admm.cu",
         "replaces": "diffqcqp_tpu/kernels/admm_pallas.py:78",

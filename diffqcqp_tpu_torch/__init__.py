@@ -5,8 +5,11 @@ the signed-box QP and the friction-cone QCQP, whose forward solve and
 backward (KKT adjoint) each run in one hand-written CUDA kernel per batch on
 an NVIDIA Hopper card: ``kernels/csrc/admm.cu`` forward, and
 ``kernels/csrc/coord_bwd.cu`` (QP family) or ``kernels/csrc/qcqp_bwd.cu``
-(QCQP) backward. The port imports torch and never jax, and nothing of the
-JAX package, which stays beside it as the reference.
+(QCQP) backward, for dense float32 problems within the kernels' bounds; the
+eager engine (``solvers/admm.py``) and the generic adjoint route take
+float64, ``backend='xla'``, ``accel`` and larger sizes (``which_backend``
+names the forward's engine). The port imports torch and never jax, and
+nothing of the JAX package, which stays beside it as the reference.
 
     import diffqcqp_tpu_torch as dqt
     l, stats = dqt.solve_qcqp_with_stats(P, q, l_n, mu, config=cfg)   # on the card
@@ -23,6 +26,7 @@ from .api import (
     solve_qp_with_stats,
     solve_signed_box_qp,
     solve_signed_box_qp_with_stats,
+    which_backend,
 )
 from .config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig
 from .duals import (
@@ -55,6 +59,7 @@ __all__ = [
     "solve_box_qp_with_stats",
     "solve_signed_box_qp_with_stats",
     "solve_qcqp_with_stats",
+    "which_backend",
     "recover_qp_duals",
     "recover_box_qp_duals",
     "recover_signed_box_qp_duals",

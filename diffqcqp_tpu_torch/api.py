@@ -2,15 +2,24 @@
 
 ``solve_qp``, ``solve_box_qp``, ``solve_signed_box_qp`` and ``solve_qcqp``,
 each with its ``*_with_stats`` form, take the JAX package's signatures plus
-``device``. They run on the card by default (``device="cuda"``): the forward
-goes through the fused ADMM kernel K1 (``kernels/csrc/admm.cu``) with the
-class's prox, the backward through the class's fused KKT adjoint, K4
-(``kernels/csrc/coord_bwd.cu``) for the QP family and K2
-(``kernels/csrc/qcqp_bwd.cu``) for the QCQP, all in float32, as the JAX
-kernel path computes in float32, with the results cast back to the input
-dtype. ``device="cpu"`` runs the kernels' plain PyTorch versions in the
-input dtype. Without CUDA the default raises; it never runs on the CPU by
-itself.
+``device``. They run on the card by default (``device="cuda"``);
+``device="cpu"`` runs the same routes with each kernel's plain PyTorch
+version in its place. Without CUDA the default raises; it never runs on the
+CPU by itself.
+
+The forward takes one of two engines, decided from shapes, dtype and config
+before anything launches (``_use_kernel``, reported by ``which_backend``):
+the fused ADMM kernel K1 (``kernels/csrc/admm.cu``, 'pallas') for dense
+float32 problems within K1's launch bound (n <= 169 on a Hopper card), else
+the eager engine (``solvers/admm.py``, 'xla') in the input dtype: float64,
+``backend='xla'``, ``accel`` and the sizes past K1. The backward takes the
+class's fused adjoint, K4 (``kernels/csrc/coord_bwd.cu``) for the QP family
+or K2 (``kernels/csrc/qcqp_bwd.cu``) for the QCQP, for dense float32 problems
+within the kernel's bound, else the generic route of ``diff/kkt.py``
+(``kkt._use_fused_kernel``). Under 'auto' nothing is cast: a float64 caller
+gets float64 arithmetic throughout. ``backend='pallas'`` runs the kernels in
+float32 whatever the inputs' dtype and casts their results back, as the JAX
+package's kernel path does.
 
 Gradients flow through one ``torch.autograd.Function``, ``_Solve`` (the JAX
 package's ``jax.custom_vjp``s): it saves the caller's inputs (before
@@ -21,13 +30,13 @@ dgamma_lo, grad_l_max = gamma_hi dgamma_hi, and the radius chain rule for
 l_n and mu. The warm start and the signed box's v get zero gradients. The
 backward is not itself differentiable.
 
-Diagonal P raises (the kernel path takes dense P, as the JAX kernel path
-does). ``which_backend`` waits for a second forward engine, and Jacobians,
-``verify``, ``parallel`` and ``models`` are not ported yet (ROADMAP Queue 1).
+Diagonal P raises (ROADMAP Queue 1, item 3), and Jacobians, ``verify``,
+``parallel`` and ``models`` are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -35,15 +44,17 @@ from torch.autograd.function import once_differentiable
 
 from .config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig, check_supported
 from .diff.kkt import box_vjp, qcqp_radius_factors, qcqp_vjp, qp_vjp, signed_box_vjp
+from .kernels import admm_cuda
 from .kernels.admm_cuda import (
     PROX_BOX,
     PROX_DISK,
     PROX_NONNEG,
     PROX_SIGNED_BOX,
     admm_solve_cuda,
+    prox_fn,
 )
 from .ops.equilibrate import isotropize, ruiz_diag, scale_problem
-from .solvers.admm import SolveStats
+from .solvers.admm import SolveStats, admm_solve
 from .utils.shapes import Canon, canon_like, canon_problem
 
 __all__ = [
@@ -55,6 +66,7 @@ __all__ = [
     "solve_signed_box_qp_with_stats",
     "solve_qcqp",
     "solve_qcqp_with_stats",
+    "which_backend",
 ]
 
 
@@ -81,6 +93,16 @@ def _build_cfg(
         over["axis_name"] = axis_name
     cfg = cfg.replace(**over) if over else cfg
     check_supported(cfg)
+    if cfg.accel and (cfg.adaptive_rho or cfg.alpha_relax != 1.0):
+        # permitted, as in the JAX package, but measured harmful there:
+        # momentum and the adaptive schedule harvest the same slack
+        warnings.warn(
+            "SolverConfig.accel combined with adaptive_rho=True or alpha_relax != 1.0 "
+            "is measured harmful (momentum and the adaptive schedule harvest the same "
+            "slack; tails blow up). Use accel only with alpha_relax=1.0, "
+            "adaptive_rho=False.",
+            stacklevel=3,
+        )
     return cfg
 
 
@@ -97,23 +119,75 @@ def _device(device) -> torch.device:
 
 
 # --------------------------------------------------------------------------
-# Forward: Ruiz equilibration around one K1 launch
+# Forward: Ruiz equilibration around K1 or the eager engine
 # --------------------------------------------------------------------------
 
+def _use_kernel(P: torch.Tensor, q: torch.Tensor, cfg: SolverConfig) -> bool:
+    """Forward dispatch, the counterpart of the JAX package's
+    ``api.py::_use_pallas``, decided from shapes, dtype and config alone
+    (never from a kernel's error):
+
+      * ``backend='pallas'``: K1 (its plain version on a CPU tensor), in
+        float32 whatever the inputs' dtype, as the JAX package's kernel path
+        (``_forward`` casts the result back); with ``accel`` it raises
+        ``ValueError``, as in the JAX package;
+      * ``backend='xla'``: the eager engine;
+      * ``backend='auto'``: K1 iff P is dense, q is float32, no
+        ``axis_name``, no ``accel``, and K1 launches at this n on a Hopper
+        card (``admm_cuda.fits``: its shared memory within the 232,448 bytes
+        a block may opt into and its block within its launch bound, n <=
+        169). That is the card kernel's own bound, not the JAX package's
+        N <= 112, which is the TPU's VMEM ceiling; and unlike the JAX rule it
+        does not depend on the device, so a CPU tensor takes the same route
+        with K1's plain version.
+    """
+    if cfg.backend == "pallas":
+        if cfg.accel:
+            raise ValueError(
+                "SolverConfig.accel is not supported by the pallas backend; "
+                "use backend='xla' (or 'auto', which avoids the kernel)."
+            )
+        return True
+    if cfg.backend != "auto":
+        return False
+    return (
+        P.ndim == 3
+        and q.dtype == torch.float32
+        and cfg.axis_name is None
+        and not cfg.accel
+        and admm_cuda.fits(q.shape[-1])
+    )
+
+
+def which_backend(P, q, config: Optional[SolverConfig] = None) -> str:
+    """Which forward engine a solve of these inputs takes: 'pallas' (the
+    fused kernel K1, the JAX package's name for its kernel path) or 'xla'
+    (the eager engine). See ``_use_kernel``; e.g. a dense float32 batch at
+    N = 170 is past K1's shared memory and takes the engine:
+
+        >>> which_backend(P, q)          # 'pallas' or 'xla'
+    """
+    cfg = config if config is not None else QP_DEFAULTS
+    c = canon_problem(P, q)
+    return "pallas" if _use_kernel(c.P, c.q, cfg) else "xla"
+
+
 def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, damp_both):
-    """K1 with the given prox and stopping rule: float32 on CUDA tensors
-    (the results cast back to q's dtype), q's dtype on CPU tensors."""
-    dtype = q.dtype
-    work = torch.float32 if q.device.type == "cuda" else dtype
-    c = lambda x: x.to(work).contiguous()  # noqa: E731
-    l, st = admm_solve_cuda(
-        c(P), c(q), c(ws), prox_kind, tuple(map(c, prox_args)), cfg,
-        qcqp_stopping=qcqp_stopping, damp_both=damp_both,
-    )
-    return l.to(dtype), SolveStats(
-        st.iterations, st.res_prim.to(dtype), st.res_dual.to(dtype),
-        st.rho.to(dtype), st.converged, st.stalled,
-    )
+    """The solve with the given prox and stopping rule, by K1 or the eager
+    engine (``_use_kernel``), on q's device, returned in q's dtype. K1
+    computes in float32 ('auto' sends it float32 only; ``backend='pallas'``
+    casts other inputs, as the JAX package's kernel path does)."""
+    if _use_kernel(P, q, cfg):
+        c = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
+        l, st = admm_solve_cuda(
+            c(P), c(q), c(ws), prox_kind, tuple(map(c, prox_args)), cfg,
+            qcqp_stopping=qcqp_stopping, damp_both=damp_both,
+        )
+        dt = q.dtype
+        return l.to(dt), st._replace(res_prim=st.res_prim.to(dt), res_dual=st.res_dual.to(dt),
+                                     rho=st.rho.to(dt))
+    return admm_solve(P, q, ws, prox_fn(prox_kind, prox_args), cfg,
+                      qcqp_stopping=qcqp_stopping, damp_both_taus=damp_both)
 
 
 def _equilibrate(P, q, ws, cfg: SolverConfig, isotropic: bool = False):
@@ -247,8 +321,8 @@ def _problem(P, q, device) -> Canon:
     c = canon_problem(P, q, device=_device(device))
     if c.P.ndim != 3:
         raise NotImplementedError(
-            "diagonal P on the forward path: the fused kernel takes dense "
-            "(B, N, N) P (diag_embed it), as the JAX kernel path does"
+            "diagonal P: its closed-form adjoints are not ported yet (ROADMAP "
+            "Queue 1, item 3); pass dense (B, N, N) P (diag_embed it)"
         )
     return c
 

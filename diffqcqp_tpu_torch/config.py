@@ -14,13 +14,16 @@ What the port does with each field that differs from the JAX package:
     ``'auto'`` / -1) and then ignored. Straggler compaction exists because a
     TPU tile pays for its slowest problem; on the card each problem leaves
     its own loop, so there is no tile tail to compact.
-  * ``lmax_method``: ignored, as on the JAX kernel path: the kernel always
-    estimates L by ``power_iters`` steps of power iteration.
-  * ``linsolve``: ignored (the kernel has its own Cholesky/LDL^T solve).
-  * ``accel=True``, ``axis_name`` and ``backend='xla'`` raise
-    ``NotImplementedError``: the XLA engine (spectral / Newton-Schulz, with
-    momentum and cross-shard stopping) is not ported yet (ROADMAP Queue 1,
-    items 2, 3 and 12).
+  * ``lmax_method`` and ``linsolve``: read by the eager engine
+    (``solvers/admm.py``) as in the JAX package; the kernel K1 ignores them,
+    as the JAX kernel does (it always estimates L by ``power_iters`` steps
+    of power iteration and has its own linear solve).
+  * ``backend``: 'auto' (the dispatch of ``api.py::_use_kernel`` and
+    ``diff/kkt.py::_use_fused_kernel``), 'pallas' (the kernels, their plain
+    versions on CPU tensors) or 'xla' (the eager engine and the generic
+    adjoint route).
+  * ``axis_name`` raises ``NotImplementedError``: cross-shard stopping waits
+    for the port of ``parallel/`` (ROADMAP Queue 1, item 8).
 
 See the JAX package's ``SolverConfig`` docstring for what each knob means;
 the semantics are the same.
@@ -102,24 +105,14 @@ def _check_compact_iters(k) -> None:
 
 
 def check_supported(cfg: SolverConfig) -> None:
-    """Raise ``NotImplementedError`` for settings the port cannot run yet."""
-    if cfg.accel:
-        raise NotImplementedError(
-            "SolverConfig.accel needs the XLA engine's momentum path, not "
-            "ported yet (ROADMAP Queue 1, item 3)"
-        )
+    """Raise ``NotImplementedError`` for settings the port cannot run yet,
+    ``ValueError`` for an unknown backend."""
     if cfg.axis_name is not None:
         raise NotImplementedError(
             "SolverConfig.axis_name (cross-shard stopping) is not ported yet "
-            "(ROADMAP Queue 1, item 12)"
+            "(ROADMAP Queue 1, item 8)"
         )
-    if cfg.backend == "xla":
-        raise NotImplementedError(
-            "backend='xla': the spectral/Newton-Schulz engine is not ported "
-            "yet (ROADMAP Queue 1, items 2-3); use 'auto' or 'pallas', which "
-            "both run the fused ADMM kernel"
-        )
-    if cfg.backend not in ("auto", "pallas"):
+    if cfg.backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
 
 

@@ -8,17 +8,18 @@ gamma = -(Pl+q) (its activity test is gamma < -act_eps).
 
 The QP family (non-negative, box, signed box): every constraint touches one
 coordinate, so the differentiated KKT system decouples. Two routes, as in
-the JAX package:
+the JAX package, chosen by ``_use_fused_kernel``:
 
-  * dense P and no duals: the fused backward K4
-    (``kernels/coord_bwd_cuda.py``), dual recovery plus the masked SPD solve
-    in one launch on a CUDA tensor, its plain version on a CPU tensor;
-  * the generic route: the assembled fixed-shape system, solved by
-    ``_solve_direct``: K = fm P fm + diag(am) for the QP (SPD), and
-    S^T x = [0; g] with S^T = [[I_inact, J^T], [J diag(gamma am), P]] over
-    all 2n or 3n slots for the box kinds. It is reached through
-    ``box_vjp(..., duals=)`` and the private ``_qp_assembled_vjp`` /
-    ``_signed_box_assembled_vjp``. Where two slots of one coordinate are
+  * the fused backward K4 (``kernels/coord_bwd_cuda.py``), dual recovery
+    plus the masked SPD solve in one launch on a CUDA tensor, its plain
+    version on a CPU tensor: dense float32 P within K4's bound (n <= 168)
+    and no duals given, or ``backend='pallas'``;
+  * the generic route otherwise (float64, ``backend='xla'``, past K4's
+    bound, or ``box_vjp(..., duals=)``): the assembled fixed-shape system,
+    solved by ``_solve_direct``: K = fm P fm + diag(am) for the QP (SPD),
+    and S^T x = [0; g] with S^T = [[I_inact, J^T], [J diag(gamma am), P]]
+    over all 2n or 3n slots for the box kinds (``_qp_assembled_vjp``,
+    ``_signed_box_assembled_vjp``). Where two slots of one coordinate are
     strictly active (a signed box with l_min = 0 and v < 0, whose sign
     constraint repeats the lower bound) it is singular, and K4 splits the
     residual at minimal norm instead, as the JAX kernel does.
@@ -37,27 +38,30 @@ differentiated-KKT system for an upstream cotangent g, in the unknowns
 with C (n, nc) column i = 2 l_(i) on the strictly active contacts, B^T =
 C diag(gamma), D = P + blockdiag(2 gamma_i I_2).
 
-Two routes, as in the JAX package:
+Two routes, as in the JAX package, chosen by ``_use_fused_kernel``:
 
-  * dense P and no ``duals``: the fused backward K2
-    (``kernels/qcqp_bwd_cuda.py``), dual recovery plus the Schur-complement
-    solve in one launch on a CUDA tensor, its plain version on a CPU tensor;
-  * ``duals`` given, the generic route: up to nc + n = 88 the assembled
-    system through ``_solve_direct``; above it ``_qcqp_schur_vjp``, the
-    Schur complement with the duals given (kernel K6, ``qcqp_kkt_bwd_cuda``).
+  * the fused backward K2 (``kernels/qcqp_bwd_cuda.py``), dual recovery
+    plus the Schur-complement solve in one launch on a CUDA tensor, its
+    plain version on a CPU tensor: dense float32 P within K2's bound (n <=
+    150) and no duals given, or ``backend='pallas'``;
+  * the generic route otherwise, with the duals given or recovered by
+    ``qcqp_dual``: up to nc + n = 88 the assembled system through
+    ``_solve_direct``; above it ``_qcqp_schur_vjp``, the Schur complement:
+    kernel K6 (``qcqp_kkt_bwd_cuda``) in float32 within its bound (n <=
+    150), the Newton-Schulz inverse of D (``_spd_inverse_f32``) in float32
+    past it, a Cholesky of D in float64.
 
 ``_solve_direct`` is the generic route's solve: kernel K5
 (``kernels/qr_solve_cuda.py``, batched Householder QR) for a float32 CUDA
-system of m <= 88 or wherever ``cfg.backend == 'pallas'``, else a batched
-Cholesky (SPD) or ``torch.linalg.solve``. The public steps keep K2 and K4 at
-every size: the JAX package's n <= 64 bound on its fused kernels comes from
-the TPU's VMEM, and the port's fused kernels run at N = 96 on the card.
+system of m <= 88 or wherever ``cfg.backend == 'pallas'``; else, for an SPD
+system, the Newton-Schulz inverse in float32 and a batched Cholesky in any
+other dtype; else ``torch.linalg.solve``.
 
-Not ported yet (ROADMAP): the diagonal-P closed forms
+The fused kernels' bounds are the card's own (their shared memory and
+launch plans), not the JAX package's n <= 64, which is the TPU's VMEM. Not
+ported yet (ROADMAP Queue 1, item 3): the diagonal-P closed forms
 (``_diag_coord_adjoint`` and the QCQP's; the port's forward takes dense P
-only), and the Newton-Schulz inverse (``_spd_inverse_f32``, ROADMAP Queue 1
-item 2) that the JAX package's float32 SPD solves take outside the QR
-kernel; here those solve by Cholesky.
+only).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import SolverConfig
+from ..kernels import coord_bwd_cuda, qcqp_bwd_cuda
 from ..kernels.coord_bwd_cuda import (
     KIND_BOX,
     KIND_QP,
@@ -75,7 +80,7 @@ from ..kernels.coord_bwd_cuda import (
 )
 from ..kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda
 from ..kernels.qr_solve_cuda import qr_solve_cuda
-from ..ops.linalg import spd_cholesky_solve
+from ..ops.linalg import newton_schulz_inverse_adaptive, spd_cholesky_solve
 
 __all__ = [
     "qp_dual",
@@ -120,11 +125,47 @@ def _require_dense(P: torch.Tensor) -> None:
         )
 
 
-def _kernel_args(l: torch.Tensor, *xs: Optional[torch.Tensor]):
-    """The fused kernels' inputs: float32 on a CUDA tensor (cast back by
-    the caller), l's dtype on a CPU tensor, contiguous; None stays None."""
-    work = torch.float32 if l.device.type == "cuda" else l.dtype
-    return tuple(None if x is None else x.to(work).contiguous() for x in xs)
+def _kernel_args(*xs: Optional[torch.Tensor]):
+    """The fused kernels' inputs, contiguous float32; None stays None. The
+    kernels compute in float32 whatever the caller's dtype, as the JAX
+    package's kernel path does: 'auto' sends them float32 only, and
+    ``backend='pallas'`` on other inputs gets float32 arithmetic, cast back
+    by ``_kernel_out``."""
+    return tuple(None if x is None else x.to(torch.float32).contiguous() for x in xs)
+
+
+def _kernel_out(dtype: torch.dtype, *outs: torch.Tensor) -> tuple:
+    """A fused kernel's outputs in the caller's dtype."""
+    return tuple(x.to(dtype) for x in outs)
+
+
+def _use_fused_kernel(P: torch.Tensor, l: torch.Tensor, cfg: SolverConfig, fits) -> bool:
+    """Backward dispatch, the counterpart of the JAX package's
+    ``kkt.py::_use_fused_kernel``, decided from shapes, dtype and config
+    alone: ``backend='pallas'`` takes the fused kernel (K2 or K4, whose
+    ``fits(n)`` is passed); 'auto' takes it iff P is dense, l is float32
+    and the kernel launches at this n on a Hopper card (K2: n <= 150, K4:
+    n <= 168); anything else takes the generic route. Like the forward rule
+    it does not depend on the device: a CPU tensor runs the kernel's plain
+    version where a CUDA tensor would launch it."""
+    if P.ndim != 3:
+        return False
+    if cfg.backend == "pallas":
+        return True
+    return cfg.backend == "auto" and l.dtype == torch.float32 and fits(l.shape[-1])
+
+
+def _spd_inverse_f32(A: torch.Tensor) -> torch.Tensor:
+    """Newton-Schulz inverse of a batch of float32 SPD systems (port of the
+    JAX package's ``_spd_inverse_f32``): from X0 = I / ||A||_inf (the max
+    absolute row sum, a rigorous bound on lambda_max: an underestimate makes
+    NS diverge) with the measured stopping rule of
+    ``newton_schulz_inverse_adaptive`` (at most 30 cubic steps)."""
+    n = A.shape[-1]
+    hi = torch.clamp_min(torch.amax(torch.sum(torch.abs(A), dim=-1), dim=-1),
+                         torch.finfo(A.dtype).tiny)
+    x0 = (1.0 / hi)[:, None, None] * torch.eye(n, dtype=A.dtype, device=A.device)
+    return newton_schulz_inverse_adaptive(A, x0)
 
 
 # The largest assembled system the automatic dispatch sends to K5, and the
@@ -149,11 +190,10 @@ def _solve_direct(
         (the JAX package runs the kernel in interpret mode off the TPU);
       * a float32 CUDA tensor with ``backend='auto'`` and m <= ``QR_MAX_M``:
         K5;
-      * anything else: ``spd_cholesky_solve`` when ``spd`` (A symmetric
-        positive definite), else ``torch.linalg.solve`` (the JAX package's
-        ``jnp.linalg.solve``). The JAX package solves a float32 SPD system
-        here by its Newton-Schulz inverse, which is not ported yet; the port
-        takes the Cholesky route at every dtype.
+      * anything else: when ``spd`` (A symmetric positive definite) the
+        Newton-Schulz inverse (``_spd_inverse_f32``) in float32 and
+        ``spd_cholesky_solve`` in any other dtype, as the JAX package; else
+        ``torch.linalg.solve`` (the JAX package's ``jnp.linalg.solve``).
     """
     use_kernel = cfg.backend == "pallas" or (
         cfg.backend == "auto"
@@ -165,6 +205,8 @@ def _solve_direct(
         f32 = torch.float32
         return qr_solve_cuda(A.to(f32).contiguous(), rhs.to(f32).contiguous()).to(rhs.dtype)
     if spd:
+        if rhs.dtype == torch.float32:
+            return (_spd_inverse_f32(A) @ rhs[..., None])[..., 0]
         return spd_cholesky_solve(A, rhs[..., None])[..., 0]
     return torch.linalg.solve(A, rhs[..., None])[..., 0]
 
@@ -202,12 +244,14 @@ def _qp_assembled_vjp(P, q, l, g, cfg: SolverConfig) -> torch.Tensor:
 def qp_vjp(
     P: torch.Tensor, q: torch.Tensor, l: torch.Tensor, g: torch.Tensor, cfg: SolverConfig
 ) -> torch.Tensor:
-    """Adjoint dl of the QP solution map (zeros on the strictly active set),
-    by K4 (``coord_kkt_bwd_fused_cuda``): float32 on a CUDA tensor (cast
-    back), l's dtype on a CPU tensor."""
+    """Adjoint dl of the QP solution map (zeros on the strictly active set):
+    K4 (``coord_kkt_bwd_fused_cuda``) where ``_use_fused_kernel`` says so,
+    else the assembled SPD system (``_qp_assembled_vjp``)."""
     _require_dense(P)
+    if not _use_fused_kernel(P, l, cfg, coord_bwd_cuda.fits):
+        return _qp_assembled_vjp(P, q, l, g, cfg)
     (dl,) = coord_kkt_bwd_fused_cuda(
-        *_kernel_args(l, P, q, l, g, None, None, None), KIND_QP, cfg.eps, cfg.act_eps,
+        *_kernel_args(P, q, l, g, None, None, None), KIND_QP, cfg.eps, cfg.act_eps,
     )
     return dl.to(l.dtype)
 
@@ -292,19 +336,21 @@ def box_vjp(
     duals: Optional[BoxDuals] = None,
 ) -> BoxVJP:
     """Adjoint of the box-QP solution map: (dl, dgamma, gamma) for the
-    cotangent g. Without ``duals``: K4, which recovers the duals itself
-    (float32 on a CUDA tensor, cast back; l's dtype on a CPU tensor). With
-    ``duals``: the assembled system, solved by ``_solve_direct``."""
+    cotangent g. Without ``duals``, where ``_use_fused_kernel`` says so: K4,
+    which recovers the duals itself. Otherwise the assembled system of the
+    given duals (or of ``box_dual``'s), solved by ``_solve_direct``."""
     _require_dense(P)
-    if duals is not None:
-        ST, rhs, am = _box_kkt_system(P, l, g, duals, cfg)
-        x = _solve_direct(ST, rhs, cfg)
-        m = am.shape[-1]
-        return BoxVJP(dl=x[:, m:], dgamma=x[:, :m] * am, gamma=duals.gamma)
-    out = coord_kkt_bwd_fused_cuda(
-        *_kernel_args(l, P, q, l, g, l_min, l_max, None), KIND_BOX, cfg.eps, cfg.act_eps,
-    )
-    return BoxVJP(*(x.to(l.dtype) for x in out))
+    if duals is None and _use_fused_kernel(P, l, cfg, coord_bwd_cuda.fits):
+        out = coord_kkt_bwd_fused_cuda(
+            *_kernel_args(P, q, l, g, l_min, l_max, None), KIND_BOX, cfg.eps, cfg.act_eps,
+        )
+        return BoxVJP(*_kernel_out(l.dtype, *out))
+    if duals is None:
+        duals = box_dual(P, q, l_min, l_max, l, cfg)
+    ST, rhs, am = _box_kkt_system(P, l, g, duals, cfg)
+    x = _solve_direct(ST, rhs, cfg)
+    m = am.shape[-1]
+    return BoxVJP(dl=x[:, m:], dgamma=x[:, :m] * am, gamma=duals.gamma)
 
 
 # --------------------------------------------------------------------------
@@ -396,14 +442,16 @@ def signed_box_vjp(
     cfg: SolverConfig,
 ) -> SignedBoxVJP:
     """Adjoint of the signed-box solution map, the sign constraint's dual
-    included, by K4 (float32 on a CUDA tensor, cast back; l's dtype on a CPU
-    tensor). v enters only through sign(v)."""
+    included: K4 where ``_use_fused_kernel`` says so, else the assembled
+    system (``_signed_box_assembled_vjp``). v enters only through sign(v)."""
     _require_dense(P)
+    if not _use_fused_kernel(P, l, cfg, coord_bwd_cuda.fits):
+        return _signed_box_assembled_vjp(P, q, l_min, l_max, v, l, g, cfg)
     out = coord_kkt_bwd_fused_cuda(
-        *_kernel_args(l, P, q, l, g, l_min, l_max, torch.sign(v)),
+        *_kernel_args(P, q, l, g, l_min, l_max, torch.sign(v)),
         KIND_SIGNED_BOX, cfg.eps, cfg.act_eps,
     )
-    return SignedBoxVJP(*(x.to(l.dtype) for x in out))
+    return SignedBoxVJP(*_kernel_out(l.dtype, *out))
 
 
 # --------------------------------------------------------------------------
@@ -490,22 +538,23 @@ def _qcqp_schur_vjp(P, l, g, s, am, gamma) -> QCQPVJP:
         (Sigma - C^T D^{-1} B^T) dgamma = -C^T D^{-1} g,   dl = D^{-1} (g - B^T dgamma),
 
     with D = P + blockdiag(2 gamma_i I_2) SPD: one factor of D, nc + 1
-    solves and an nc x nc system, never the (nc + n)^3 solve. In float64,
-    on either device, the JAX package's float64 route: a batched Cholesky
-    of D and ``torch.linalg.solve`` of the nc x nc system. Otherwise kernel
-    K6 (``qcqp_kkt_bwd_cuda``), where the JAX package takes its float32
-    Newton-Schulz route: float32 on a CUDA tensor (cast back), its plain
-    version in l's dtype on a CPU tensor."""
-    if l.dtype == torch.float64:
-        n = l.shape[-1]
-        Ct, Bt, D = _qcqp_kkt_blocks(P, l, gamma, am, n // 2, n)
-        X = spd_cholesky_solve(D, torch.cat([g[..., None], Bt], dim=-1))
-        y, W = X[..., 0], X[..., 1:]                # D^{-1} g, D^{-1} B^T
-        M = torch.diag_embed(s * am + (1.0 - am)) - Ct @ W
-        dgamma = torch.linalg.solve(M, -(Ct @ y[..., None]))[..., 0] * am
-        return QCQPVJP(dl=y - (W @ dgamma[..., None])[..., 0], dgamma=dgamma, gamma=gamma)
-    dgamma, dl = qcqp_kkt_bwd_cuda(*_kernel_args(l, P, l, g, gamma, s, am))
-    return QCQPVJP(dl=dl.to(l.dtype), dgamma=dgamma.to(l.dtype), gamma=gamma)
+    solves and an nc x nc system, never the (nc + n)^3 solve. In float32
+    within K6's bound (n <= 150): kernel K6 (``qcqp_kkt_bwd_cuda``; its
+    plain version on a CPU tensor). Otherwise the JAX package's route: D^{-1}
+    by its Newton-Schulz inverse (``_spd_inverse_f32``) in float32 or a
+    batched Cholesky in any other dtype, and ``torch.linalg.solve`` of the
+    nc x nc system."""
+    n = l.shape[-1]
+    if l.dtype == torch.float32 and qcqp_bwd_cuda.fits(n):
+        dgamma, dl = qcqp_kkt_bwd_cuda(*_kernel_args(P, l, g, gamma, s, am))
+        return QCQPVJP(dl=dl, dgamma=dgamma, gamma=gamma)
+    Ct, Bt, D = _qcqp_kkt_blocks(P, l, gamma, am, n // 2, n)
+    rhs = torch.cat([g[..., None], Bt], dim=-1)
+    X = _spd_inverse_f32(D) @ rhs if l.dtype == torch.float32 else spd_cholesky_solve(D, rhs)
+    y, W = X[..., 0], X[..., 1:]                # D^{-1} g, D^{-1} B^T
+    M = torch.diag_embed(s * am + (1.0 - am)) - Ct @ W
+    dgamma = torch.linalg.solve(M, -(Ct @ y[..., None]))[..., 0] * am
+    return QCQPVJP(dl=y - (W @ dgamma[..., None])[..., 0], dgamma=dgamma, gamma=gamma)
 
 
 def qcqp_vjp(
@@ -520,28 +569,28 @@ def qcqp_vjp(
     """Adjoint of the QCQP solution map: (dl, dgamma, gamma) for the
     cotangent g. P (B, n, n) dense; q, l, g (B, n); radius (B, nc).
 
-    Without ``duals``: K2 (``qcqp_kkt_bwd_fused_cuda``), which recovers the
-    duals itself. On a CUDA tensor it runs in float32 whatever the dtype
-    (cast back on return), with float32's 8-ulp slack floor; on a CPU tensor
-    its plain version runs in l's dtype, with that dtype's floor (the JAX
-    generic path's at float64). With ``duals``, the generic route: above
-    nc + n = ``QR_MAX_M`` the Schur complement (``_qcqp_schur_vjp``: K6,
-    in float32 on a CUDA tensor, outside float64), else the assembled (nc + n) system through
-    ``_solve_direct`` (K5 on a float32 CUDA tensor)."""
+    Without ``duals``, where ``_use_fused_kernel`` says so: K2
+    (``qcqp_kkt_bwd_fused_cuda``), which recovers the duals itself, with
+    the 8-ulp slack floor of l's dtype. Otherwise the generic route, with
+    the given duals or ``qcqp_dual``'s: above nc + n = ``QR_MAX_M`` the
+    Schur complement (``_qcqp_schur_vjp``), else the assembled (nc + n)
+    system through ``_solve_direct`` (K5 on a float32 CUDA tensor)."""
     _require_dense(P)
-    if duals is not None:
-        n = l.shape[-1]
-        nc = n // 2
-        s, active = qcqp_strict_active(l, radius, duals.gamma, cfg)
-        am = active.to(l.dtype)
-        if nc + n > QR_MAX_M:
-            return _qcqp_schur_vjp(P, l, g, s, am, duals.gamma)
-        return _qcqp_assembled_vjp(P, l, g, duals.gamma, s, am, cfg)
-    args = _kernel_args(l, P, q, l, g, radius)
-    dgamma, dl, gamma = qcqp_kkt_bwd_fused_cuda(
-        *args, cfg.eps, cfg.act_eps, 8.0 * torch.finfo(args[0].dtype).eps,
-    )
-    return QCQPVJP(dl=dl.to(l.dtype), dgamma=dgamma.to(l.dtype), gamma=gamma.to(l.dtype))
+    if duals is None and _use_fused_kernel(P, l, cfg, qcqp_bwd_cuda.fits):
+        dgamma, dl, gamma = _kernel_out(l.dtype, *qcqp_kkt_bwd_fused_cuda(
+            *_kernel_args(P, q, l, g, radius), cfg.eps, cfg.act_eps,
+            8.0 * torch.finfo(torch.float32).eps,
+        ))
+        return QCQPVJP(dl=dl, dgamma=dgamma, gamma=gamma)
+    if duals is None:
+        duals = qcqp_dual(P, q, radius, l, cfg)
+    n = l.shape[-1]
+    nc = n // 2
+    s, active = qcqp_strict_active(l, radius, duals.gamma, cfg)
+    am = active.to(l.dtype)
+    if nc + n > QR_MAX_M:
+        return _qcqp_schur_vjp(P, l, g, s, am, duals.gamma)
+    return _qcqp_assembled_vjp(P, l, g, duals.gamma, s, am, cfg)
 
 
 def qcqp_radius_factors(

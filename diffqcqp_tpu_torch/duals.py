@@ -10,16 +10,16 @@
     squared-slack convention c_i = ||l_(i)||^2 - r_i^2.
   * ``*_derivatives``: the transposed differentiated-KKT solve against a
     cotangent grad_l (the reference's ``solveDerivatives*``), unpacked per
-    constraint block, through ``diff/kkt.py``'s adjoints, i.e. the fused
-    kernels K4 (QP family) and K2 (QCQP) on the card. Gradients assemble
+    constraint block, through ``diff/kkt.py``'s adjoints and their dispatch:
+    the fused kernels K4 (QP family) and K2 (QCQP) for float32 within their
+    bounds, the generic route otherwise. Gradients assemble
     from them as grad_P = -dl l^T, grad_q = -dl, grad_l_min = -gamma_lo
     dgamma_lo, grad_l_max = gamma_hi dgamma_hi, grad_l_n = e2 dgamma,
     grad_mu = e1 dgamma.
 
 All take the JAX package's layouts and ``device``: the card by default
-(raising without CUDA), ``device="cpu"`` for the plain path. The recovery
-runs in the input dtype on either device; the derivative solves on the card
-run their kernel in float32 and cast back.
+(raising without CUDA), ``device="cpu"`` for the plain path. Everything runs
+in the input dtype on either device.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, compiled with ``nvcc`` at first use and loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas=-v -I csrc -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v [SOURCE_FLAGS[name]] -I csrc \
+         -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The output goes to ``diffqcqp_tpu_torch/_build/`` (listed in .gitignore),
 keyed by a hash of the flags, the source and every header in ``csrc``, so an
@@ -34,10 +35,11 @@ import torch
 
 __all__ = [
     "NVCC_FLAGS", "SOURCES", "build", "load", "library_path", "check_geometry", "check_launch",
-    "check_rc", "row_threads",
+    "check_rc", "fits", "row_threads",
 ]
 
 ROW_BOUND = 256     # __launch_bounds__ of the thread-per-row kernels (K1, K4; K2 and K6 at n <= 32)
+HOPPER_SMEM_OPTIN = 232448   # dynamic shared memory a block may opt into on sm_90 (227 KB)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every csrc/<name>.cu, one library each
@@ -47,6 +49,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+# flags of one source on top of NVCC_FLAGS: K1 contracts no product and sum
+# into a fused multiply-add (only its explicit fmaf / fma calls are fused),
+# so that its plain version's torch ops round as it does (csrc/admm.cu)
+SOURCE_FLAGS = {"admm": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -68,7 +75,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` is built, keyed by content."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ())).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode())
@@ -92,7 +99,8 @@ def build(names: list[str]) -> dict[str, float]:
     t0 = time.perf_counter()
     for name, path in todo.items():
         tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, path)
@@ -133,6 +141,14 @@ def check_geometry(threads: int, smem: int, bound: int, limit: int) -> None:
             f"what the kernel takes: at most {bound} threads (its __launch_bounds__) "
             f"and {limit} bytes on this card"
         )
+
+
+def fits(threads: int, smem: int, bound: int) -> bool:
+    """Whether a block of ``threads`` threads and ``smem`` bytes of dynamic
+    shared memory launches on a Hopper card under a ``__launch_bounds__`` of
+    ``bound``: the device-independent form of ``check_geometry`` that the
+    dispatch rules use, decided from shapes alone before anything launches."""
+    return threads <= bound and smem <= HOPPER_SMEM_OPTIN
 
 
 def check_launch(tensors, threads: int, smem: int, bound: int) -> torch.device:

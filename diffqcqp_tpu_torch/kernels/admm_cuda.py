@@ -7,12 +7,19 @@ at the top of that file) or raises; on a CPU tensor it runs
 ``admm_solve_plain``. There is no fallback from one to the other.
 
 ``admm_solve_plain`` repeats the kernel's arithmetic on whole batches in a
-masked eager loop, in any dtype: power iteration, left-looking Cholesky ->
-zero-diagonal LDL^T -> (2n + 1)-step solves (``kernels/ldl.py``), the same
-update order, stopping rules, stall floors and adaptive-rho gating. The CPU
+masked eager loop, in any dtype: power iteration; the explicit inverse of
+P + (rho + mu) I by the kernel's Gauss-Jordan elimination (``gj_inverse``)
+and one refined solve per iteration (``_refined_solve``: two products with
+the inverse, in the kernel's four partial sums, around a residual taken in
+float64); and the same update order, stopping rules, stall floors and
+adaptive-rho gating, forming a new inverse wherever rho changed. The CPU
 path and the tests use it; ``chip_smoke.py`` holds the kernel against it on
-the card. Its stall floor is ``stall_tol * finfo(dtype).eps`` (the kernel's
-float32 floor at float32, the XLA engine's at float64).
+the card.
+Its stall floor is ``stall_tol * finfo(dtype).eps`` (the kernel's float32
+floor at float32, the XLA engine's at float64).
+
+``fits(n)`` says whether the kernel launches at size n on a Hopper card (its
+shared memory and block size); ``api.py::_use_kernel`` dispatches on it.
 
 Prox kinds and their ``prox_args``, as in the JAX kernel:
 
@@ -33,11 +40,11 @@ from ..config import SolverConfig
 from ..ops.prox import prox_box, prox_disk, prox_nonneg, prox_signed_box
 from ..solvers.admm import SolveStats
 from . import _build
-from .ldl import TINY, chol_factor, chol_to_unit, ldl_solve
+from .ldl import TINY
 
 __all__ = [
     "PROX_NONNEG", "PROX_BOX", "PROX_SIGNED_BOX", "PROX_DISK",
-    "admm_solve_cuda", "admm_solve_plain", "smem_bytes",
+    "admm_solve_cuda", "admm_solve_plain", "fits", "gj_inverse", "prox_fn", "smem_bytes",
 ]
 
 PROX_NONNEG = 0
@@ -45,9 +52,11 @@ PROX_BOX = 1
 PROX_SIGNED_BOX = 2
 PROX_DISK = 3
 _N_ARGS = {PROX_NONNEG: 0, PROX_BOX: 2, PROX_SIGNED_BOX: 3, PROX_DISK: 1}
+_GJ = 4     # Gauss-Jordan steps a pass (kGJ in csrc/admm.cu)
 
 
-def _prox_fn(prox_kind: int, prox_args: tuple):
+def prox_fn(prox_kind: int, prox_args: tuple):
+    """The projection of a prox kind with its arguments, over (B, n)."""
     if prox_kind == PROX_NONNEG:
         return prox_nonneg
     if prox_kind == PROX_BOX:
@@ -60,15 +69,100 @@ def _prox_fn(prox_kind: int, prox_args: tuple):
 
 
 def _matvec(P: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(P x) accumulated over columns in order, as the kernels do."""
+    """(P x) accumulated over columns in order in fused multiply-adds, as
+    the kernel's ``matvec``."""
     acc = P[:, :, 0] * x[:, 0:1]
     for k in range(1, P.shape[-1]):
-        acc = acc + P[:, :, k] * x[:, k : k + 1]
+        acc = _fma(P[:, :, k], x[:, k : k + 1], acc)
     return acc
 
 
-def _factor(P, shift):
-    return chol_to_unit(chol_factor(P, shift))
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a b + c rounded once in float32, as the kernel's fmaf: the product of
+    two float32 values is exact in float64 and the sum is rounded there,
+    then to float32 (a second rounding that changes the result only when
+    the float64 sum is a float32 tie). Any other dtype: a b + c."""
+    if c.dtype != torch.float32:
+        return c + a * b
+    return (c.double() + a.double() * b.double()).float()
+
+
+def _block_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis of x (B, n) in the kernel's order
+    (``block_reduce``): a butterfly within each warp of 32 rows (the rows
+    past n add 0), then the warps' sums in order."""
+    B, n = x.shape
+    nw = -(-n // 32)
+    x = torch.nn.functional.pad(x, (0, 32 * nw - n)).view(B, nw, 32)
+    for h in (16, 8, 4, 2, 1):
+        x = x[..., :h] + x[..., h : 2 * h]
+    acc = x[:, 0, 0]
+    for w in range(1, nw):
+        acc = acc + x[:, w, 0]
+    return acc
+
+
+def _pow(x: torch.Tensor, e: float) -> torch.Tensor:
+    """x ** e with e rounded to x's dtype, taken in float64 and rounded once
+    to x's dtype, as the kernel takes it."""
+    e = torch.tensor(e, dtype=x.dtype).item()
+    return torch.pow(x.double(), e).to(x.dtype)
+
+
+def gj_inverse(P: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """(P + shift I)^{-1} for symmetric positive definite P (B, n, n), shift
+    (B,), by in-place Gauss-Jordan elimination without pivoting, with the
+    arithmetic of the kernel's ``csrc/admm.cu::gj_inverse``: row r of the
+    working matrix A belongs to thread r, and step c eliminates column c.
+    Row c of A is not read: by symmetry of the original and of the active
+    Schur complement, the pivot row equals column c with the sign of its
+    finished entries (j < c) flipped, so each row publishes its own column-c
+    entry, w_j = -A[j, c] (j < c), A[j, c] (j > c), w_c = 1, with the pivot
+    p = A[c, c] floored at ``TINY``. Then every row j != c takes g = A[j, c]
+    / p, sets A[j, c] = 0 and A[j, :] -= g w, and row c becomes w / p. The
+    kernel takes the steps in passes of ``_GJ``: an update of the pass's own
+    columns is rounded twice (the product, then the difference; it runs in
+    registers), any other one once (a fused multiply-add), and so here. The
+    result is a row-wise inverse, symmetric up to rounding."""
+    B, n, _ = P.shape
+    A = P + shift[:, None, None] * torch.eye(n, dtype=P.dtype, device=P.device)
+    rows = torch.arange(n, device=P.device)
+    for c in range(n):
+        col = A[:, :, c]
+        w = torch.where(rows < c, -col, col)
+        w[:, c] = 1.0
+        pinv = 1.0 / torch.clamp_min(col[:, c], TINY)
+        g = col * pinv[:, None]
+        g[:, c] = 0.0
+        A[:, :, c] = torch.where(rows == c, A[:, :, c], torch.zeros_like(col))
+        c0 = c - c % _GJ
+        own = (rows >= c0) & (rows < c0 + _GJ)
+        gw = g[:, :, None] * w[:, None, :]
+        A = torch.where(own, A - gw, _fma(-g[:, :, None], w[:, None, :], A))
+        A[:, c, :] = w * pinv[:, None]
+    return A
+
+
+def _matvec4(P: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(P x) in four partial sums of fused multiply-adds, column c into sum
+    c % 4, then (s0 + s1) + (s2 + s3), as the kernel's ``row_dot4``."""
+    s = [torch.zeros_like(x) for _ in range(4)]
+    for c in range(P.shape[-1]):
+        s[c % 4] = _fma(P[:, :, c], x[:, c : c + 1], s[c % 4])
+    return (s[0] + s[1]) + (s[2] + s[3])
+
+
+def _refined_solve(P, Minv, rhs, shift):
+    """(P + shift I)^{-1} rhs from the explicit inverse, with one step of
+    refinement whose residual is taken in float64 (the kernel's
+    ``refined_solve``): l0 = Minv rhs, res = rhs - (P l0 + shift l0) in
+    float64 (each product of two float32 values is exact there, so for the
+    same l0 this is the kernel's residual bit for bit), l = l0 + Minv res."""
+    wide = torch.float64
+    l0 = _matvec4(Minv, rhs)
+    l0w = l0.to(wide)
+    res = rhs.to(wide) - (_matvec4(P.to(wide), l0w) + shift.to(wide)[:, None] * l0w)
+    return l0 + _matvec4(Minv, res.to(rhs.dtype))
 
 
 def admm_solve_plain(
@@ -80,12 +174,17 @@ def admm_solve_plain(
     cfg: SolverConfig,
     qcqp_stopping: bool = False,
     damp_both: bool = True,
+    factors: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, SolveStats]:
     """K1's plain PyTorch version, over a whole batch in the inputs' dtype
-    and on their device. P (B, n, n) symmetric, q and warm_start (B, n)."""
+    and on their device. P (B, n, n) symmetric, q and warm_start (B, n).
+    It iterates against the explicit inverse (``gj_inverse``,
+    ``_refined_solve``), as the kernel does. ``factors``, a (B,) integer
+    tensor, gets one added per problem for each inverse the solve forms (the
+    first, and one per rho change)."""
     B, n = q.shape
     dtype, dev = q.dtype, q.device
-    prox = _prox_fn(prox_kind, prox_args)
+    prox = prox_fn(prox_kind, prox_args)
 
     def c(x):
         return torch.tensor(x, dtype=dtype, device=dev)
@@ -100,14 +199,16 @@ def admm_solve_plain(
     v = torch.full((B, n), 1.0 / math.sqrt(n), dtype=dtype, device=dev)
     for _ in range(cfg.power_iters):
         av = _matvec(P, v)
-        nrm = torch.sqrt(torch.sum(av * av, dim=-1, keepdim=True))
+        nrm = torch.sqrt(_block_sum(av * av))[:, None]
         v = av / torch.maximum(nrm, tiny)
-    L = torch.maximum(torch.sum(v * _matvec(P, v), dim=-1), mu)
+    L = torch.maximum(_block_sum(v * _matvec(P, v)), mu)
     ratio = L / mu
-    rho = torch.sqrt(mu * L) * torch.pow(ratio, c(0.4)) * c(cfg.rho0_scale)
-    tau0 = torch.pow(ratio, c(0.15))
+    rho = torch.sqrt(mu * L) * _pow(ratio, 0.4) * c(cfg.rho0_scale)
+    tau0 = _pow(ratio, 0.15)
 
-    Lh, dinv = _factor(P, rho + mu)
+    X = gj_inverse(P, rho + mu)
+    if factors is not None:
+        factors += 1
     l2 = warm_start.to(dtype).clone()
     u = -(_matvec(P, l2) + q) if cfg.warm_start_dual else torch.zeros_like(q)
     q_prox = q.clone()
@@ -127,7 +228,7 @@ def admm_solve_plain(
             break
         active = ~conv
         rc = rho[:, None]
-        l = ldl_solve(Lh, dinv, rc * l2 - u - q_prox)
+        l = _refined_solve(P, X, rc * l2 - u - q_prox, rho + mu)
         q_prox_n = q - mu * l
         r = alpha * l + one_m_alpha * l2
         l2_n = prox(r + u / rc)
@@ -140,7 +241,7 @@ def admm_solve_plain(
         noise = floor * torch.maximum(torch.amax(torch.abs(l2_n), dim=-1), one)
         dual_ok = eps_ok | (delta <= noise) if cfg.stall_tol > 0.0 else eps_ok
         if primal_test:
-            lnorm = torch.sqrt(torch.sum(l * l, dim=-1))
+            lnorm = torch.sqrt(_block_sum(l * l))
             prim_eps = rp < eps + eps_rel * lnorm
             prim_ok = prim_eps | (rp <= noise) if cfg.stall_tol > 0.0 else prim_eps
             newly = prim_ok & dual_ok
@@ -178,13 +279,13 @@ def admm_solve_plain(
                 app_inc, 1, torch.where(app_dec, -1, rho_up)
             ).to(torch.int32)
             cpt = cpt + fire.to(torch.int32)
-            # refactor only the problems whose rho changed (the factor is a
+            # a new inverse only for the problems whose rho changed (it is a
             # pure function of (P, rho), so the others keep theirs)
             changed = torch.nonzero(app_inc | app_dec).flatten()
             if changed.numel():
-                Lh_c, dinv_c = _factor(P[changed], rho_n[changed] + mu)
-                Lh = Lh.index_copy(0, changed, Lh_c)
-                dinv = dinv.index_copy(0, changed, dinv_c)
+                X = X.index_copy(0, changed, gj_inverse(P[changed], rho_n[changed] + mu))
+                if factors is not None:
+                    factors[changed] += 1
 
         m = active[:, None]
         l2 = torch.where(m, l2_n, l2)
@@ -232,6 +333,8 @@ def _lib():
             ctypes.c_int, ctypes.POINTER(_Params), vp,
         ]
         lib.dq_admm_solve_f32.restype = ctypes.c_int
+        lib.dq_admm_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.dq_admm_blocks_per_sm.restype = ctypes.c_int
         lib._dq_typed = True
     return lib
 
@@ -239,8 +342,24 @@ def _lib():
 def smem_bytes(n: int) -> int:
     """Dynamic shared memory of one block at problem size n (as
     ``smem_bytes`` in csrc/admm.cu computes it): two n x (n|1) matrices, five
-    n-vectors of broadcast/scratch slots, 128 reduction slots."""
-    return 4 * (2 * n * (n | 1) + 5 * n + 128)
+    n-vectors of broadcast/scratch slots, 32 reduction slots (4 for each of
+    at most 8 warps)."""
+    return 4 * (2 * n * (n | 1) + 5 * n + 32)
+
+
+def c_blocks_per_sm(n: int) -> int:
+    """Blocks of K1 at size n that one SM of the current card holds, from
+    CUDA's occupancy calculator (needs nvcc and a card)."""
+    return _lib().dq_admm_blocks_per_sm(n)
+
+
+def fits(n: int) -> bool:
+    """Whether K1 launches at size n on a Hopper card: a block of
+    ``row_threads(n)`` threads within its ``__launch_bounds__`` and
+    ``smem_bytes(n)`` within the 232,448 bytes a block may opt into (n <=
+    169). The card's own bound; the JAX kernel's automatic N <= 112 is the
+    TPU's VMEM bound and does not apply here."""
+    return _build.fits(_build.row_threads(n), smem_bytes(n), _build.ROW_BOUND)
 
 
 def _check(P, q, ws, prox_kind, prox_args, cfg):

@@ -32,7 +32,7 @@ from .ldl import TINY, chol_factor, chol_to_unit, ldl_solve
 
 __all__ = [
     "KIND_QP", "KIND_BOX", "KIND_SIGNED_BOX",
-    "coord_kkt_bwd_fused_cuda", "coord_kkt_bwd_fused_plain", "smem_bytes",
+    "coord_kkt_bwd_fused_cuda", "coord_kkt_bwd_fused_plain", "fits", "smem_bytes",
 ]
 
 KIND_QP = 0
@@ -110,6 +110,13 @@ def smem_bytes(n: int) -> int:
     ``smem_bytes`` in csrc/coord_bwd.cu computes it): P and the factor
     (n x (n|1) each) and six n-vectors of slots."""
     return 4 * (2 * n * (n | 1) + 6 * n)
+
+
+def fits(n: int) -> bool:
+    """Whether K4 launches at size n on a Hopper card: ``smem_bytes(n)``
+    within the 232,448 bytes a block may opt into and its block within its
+    launch bound (n <= 168); the dispatch rule decides on it."""
+    return _build.fits(_build.row_threads(n), smem_bytes(n), _build.ROW_BOUND)
 
 
 def _bounds(kind, l_min, l_max, v_sign) -> tuple:

@@ -3,21 +3,34 @@
 // Replaces diffqcqp_tpu/kernels/admm_pallas.py::_admm_chol_kernel (wrapper
 // admm_solve_pallas). Same constants, update order and stopping rules: power
 // iteration for L, rho0 = sqrt(mu L) (L/mu)^0.4 * rho0_scale, tau0 =
-// (L/mu)^0.15, an LDL^T factor of P + (rho + mu) I, then per iteration the
-// solve, over-relaxation, prox (non-negative, box, signed box, disk), dual
-// update, residuals, the stopping rule with its stall floors, and the
-// adaptive rho (rho_sync or cpt gating) with a refactorisation whenever rho
-// changes.
+// (L/mu)^0.15, then per iteration the solve with P + (rho + mu) I,
+// over-relaxation, prox (non-negative, box, signed box, disk), dual update,
+// residuals, the stopping rule with its stall floors, and the adaptive rho
+// (rho_sync or cpt gating) with a new inverse whenever rho changes.
 //
 // Design: one thread block per problem, one thread per coordinate row
 // (blockDim = 32 * ceil(n / 32): one warp at the flagship N = 24). P and the
-// factor live in dynamic shared memory (2 n ld floats, ld = n | 1 odd so row
+// inverse live in dynamic shared memory (2 n ld floats, ld = n | 1 odd so row
 // and column walks are both bank-conflict free); per-problem scalars (rho,
 // taus, counters, flags) and per-row vectors (l2, u, q_prox) live in
 // registers. The inf-norm, 2-norm and Rayleigh-quotient reductions are warp
 // butterflies (every lane ends with the same value) plus a small shared array
 // across warps. Each block leaves its loop when its own problem converges or
 // at max_iter.
+//
+// The linear solve. The TPU kernel factors P + (rho + mu) I as LDL^T and
+// solves by two triangular sweeps: 2n + 1 dependent steps, each a broadcast
+// then a multiply-add the next step waits on, and past one warp each
+// broadcast would be a __syncthreads (193 per iteration at N = 96). Here the
+// second plane holds the explicit inverse X = (P + (rho + mu) I)^{-1}
+// (gj_inverse: Gauss-Jordan, one barrier per column), and an iteration is
+// refined_solve: l0 = X rhs, the residual rhs - (P + (rho + mu) I) l0
+// accumulated in double, and l = l0 + X res: three row-times-vector
+// products, three barriers (__syncwarp at one warp), no dependent chain
+// across threads. The refinement is not optional: an explicit float32
+// inverse alone is off by ~cond eps, enough to move a trajectory at the
+// stall floor onto a different rho schedule, while the double residual
+// brings each solve back to about float32 rounding.
 //
 // What differs from the TPU kernel and why it does not change the result:
 //   * the TPU loops a 128-lane tile until every lane converged, freezing the
@@ -27,19 +40,34 @@
 //     still running that counter equals its own iteration count, so the
 //     per-problem counter reproduces the gate exactly (it > 0 excluded);
 //   * the TPU refactors the whole tile when any lane's rho changed; here
-//     only the problem whose rho changed refactors. The factor is a pure
-//     function of (P, rho), so the numbers are the same;
+//     only the problem whose rho changed forms its new inverse. The inverse
+//     is a pure function of (P, rho), so the numbers are the same;
+//   * the solve is the refined inverse, not the sweeps: the same solution
+//     to about float32 rounding;
 //   * the friction-cone prox works in reference order (contact c owns rows
 //     2c, 2c+1; the partner value comes by a lane shuffle) instead of the
 //     TPU's permuted order. That changes float32 rounding only.
 //
+// Rounding: the plain version (kernels/admm_cuda.py::admm_solve_plain)
+// follows this kernel's trajectory operation for operation. This file is
+// built with -fmad=false (kernels/_build.py::SOURCE_FLAGS), so a product
+// and a sum are rounded on their own as torch's ops round them, and only
+// the explicit fmaf / fma calls (the matrix-vector products and the
+// Gauss-Jordan passes) are fused (the plain version's _fma); the
+// block sums add in the order the plain version's _block_sum repeats, and
+// the powers are taken in double. At eps = 1e-5 two float32 trajectories
+// that differ in rounding end up to ~1e-4 apart, so nothing less holds the
+// kernel to its plain version at phase 2's 2e-5.
+//
 // What bounds it on this card: not bytes (P is read once, ~9.4 MB at
-// B = 4096, N = 24) nor FLOPs (a few MFLOP per problem), but the latency of
-// the dependent chain inside each problem: a triangular sweep is 2n + 1
-// steps, each a broadcast then a multiply-add that the next step waits on.
-// The design answers with occupancy rather than parallelism inside a
-// problem: a block is one warp with ~5 KB of shared memory, so up to 32
-// problems are resident per SM and the schedulers interleave their chains.
+// B = 4096, N = 24) nor FLOPs (a few MFLOP per problem), but latency inside
+// each problem: an iteration's three barriers and three n-long multiply-add
+// chains (four partial sums each), and the inverse at each (re)factorisation,
+// about once per problem at the benchmark configs: 5 n / 4 barriers and
+// ~3 n^2 / 4 shared-memory accesses per thread (gj_inverse). At one warp the
+// design answers with occupancy: a block is one warp with ~5 KB of shared
+// memory, so up to 32 problems are resident per SM and the schedulers
+// interleave their chains.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -62,7 +90,10 @@ namespace {
 
 enum ProxKind { kNonneg = 0, kBox = 1, kSignedBox = 2, kDisk = 3 };
 
-constexpr int kMaxWarps = 32;
+// warps of a block at most (the kernel's __launch_bounds__(256)); the
+// reduction slots are 4 per warp. (At N = 96 a block's shared memory then
+// fits three blocks on an SM; with 32 slots a warp it was 128 bytes over.)
+constexpr int kMaxWarps = 8;
 
 // (max, max, max, sum) over the block; every thread gets the same four.
 __device__ __forceinline__ float4 block_reduce(const dq::Blk& k, float4 v, float* s_red) {
@@ -97,7 +128,8 @@ __device__ __forceinline__ float block_sum(const dq::Blk& k, float v, float* s_r
   return block_reduce(k, make_float4(0.f, 0.f, 0.f, v), s_red).w;
 }
 
-// (P x)_r, accumulated over columns in order as the TPU kernel does.
+// (P x)_r, accumulated over columns in order as the TPU kernel does, in
+// fused multiply-adds (kernels/admm_cuda.py::_matvec).
 __device__ __forceinline__ float matvec(const dq::Blk& k, const float* sP, float x,
                                         float* s_x) {
   if (k.real) s_x[k.r] = x;
@@ -106,10 +138,173 @@ __device__ __forceinline__ float matvec(const dq::Blk& k, const float* sP, float
   if (k.real) {
     const float* row = sP + k.r * k.ld;
     acc = row[0] * s_x[0];
-    for (int c = 1; c < k.n; ++c) acc = acc + row[c] * s_x[c];
+    for (int c = 1; c < k.n; ++c) acc = fmaf(row[c], s_x[c], acc);
   }
   dq::bsync(k);
   return acc;
+}
+
+// sX <- (P + shift I)^{-1} by Gauss-Jordan elimination without pivoting (the
+// matrix is symmetric positive definite), in place, thread r owning row r;
+// the arithmetic of kernels/admm_cuda.py::gj_inverse. Step c needs the pivot
+// row c. By symmetry it is column c, with the sign of its finished entries
+// (j < c) flipped, so each thread publishes its own column-c entry, w_j =
+// -A[j][c] (j < c), A[j][c] (j > c), w_c = 1, and the pivot p = A[c][c].
+// Then row c becomes w / p and every other row takes g = A[r][c] / p,
+// A[r][c] = 0, A[r][:] -= g w; one loop for both (a = 0, g = -1 / p on row
+// c), so no warp runs two loops in turn. The kGJ columns kept in registers
+// take fma(a, A[r][j], -(g w_j)), the plain version's two roundings, with
+// the product off the chain through A; the pass below rounds once.
+//
+// A pass over a row in shared memory is a load, a store and a load of w for
+// each multiply-add, and at N = 96 those passes, not the arithmetic, set the
+// time. So kGJ steps share one pass: each thread keeps its row's entries of
+// the kGJ columns c0 .. c0 + kGJ - 1 in registers and applies each step to
+// them at once (that is all the next step's publish needs), the kGJ
+// published columns sit side by side in one float4 per row (w4[j].t = w_t of
+// row j), and then one pass applies the kGJ updates to the rest of the row,
+// each entry receiving them in the order of the steps. One barrier per step
+// and one per pass. Scratch: s_v, 4 n + 4 floats, 16-byte aligned inside
+// s_v (at most 2 floats of padding, s_v being 8-byte aligned): within its
+// 5 n floats from n = 6, and below that within the reduction slots after
+// it, which no reduction uses while the inverse is formed.
+constexpr int kGJ = 4;
+static_assert(kGJ == 4, "the pass below applies four steps from one float4");
+
+// One pass: the kGJ updates to every entry of a row, x <- fma(-g_t, w_t, m x)
+// (restrict: the row and the published columns never overlap, so the loads
+// run ahead of the stores). On the row of this pass's pivot step tp, m = 0
+// and g_t = 0 for t < tp: its entries before tp are discarded (row c becomes
+// w / p), so the pass starts it from 0; every other row has m = 1. One
+// rounding per update here, two in the registers' and the plain version's.
+__device__ __forceinline__ void gj_pass(float* __restrict__ row, const float4* __restrict__ w4,
+                                        const float* g, float m, int n) {
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+    const float4 w = w4[j];
+    float x = row[j] * m;
+    x = fmaf(-g[0], w.x, x);
+    x = fmaf(-g[1], w.y, x);
+    x = fmaf(-g[2], w.z, x);
+    x = fmaf(-g[3], w.w, x);
+    row[j] = x;
+  }
+}
+
+__device__ void gj_inverse(const dq::Blk& k, const float* sP, float* sX, float shift,
+                           float* s_v) {
+  const int n = k.n, ld = k.ld, r = k.r;
+  float* row = sX + r * ld;
+  float4* w4 = reinterpret_cast<float4*>((reinterpret_cast<uintptr_t>(s_v) + 15) & ~uintptr_t(15));
+  float* piv = reinterpret_cast<float*>(w4 + n);
+  if (k.real) {
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) row[j] = sP[r * ld + j] + (j == r ? shift : 0.f);
+  }
+  for (int c0 = 0; c0 < n; c0 += kGJ) {
+    const int kb = min(kGJ, n - c0);
+    float v[kGJ], g[kGJ], a[kGJ];
+#pragma unroll
+    for (int t = 0; t < kGJ; ++t) {
+      v[t] = (k.real && t < kb) ? row[c0 + t] : 0.f;
+      g[t] = 0.f;
+      a[t] = 1.f;
+    }
+#pragma unroll
+    for (int t = 0; t < kGJ; ++t) {
+      if (t < kb) {
+        const int c = c0 + t;
+        if (k.real) {
+          reinterpret_cast<float*>(w4 + r)[t] = (r == c) ? 1.f : (r < c ? -v[t] : v[t]);
+          if (r == c) piv[t] = v[t];
+        }
+        dq::bsync(k);
+        if (k.real) {
+          const float pinv = __frcp_rn(fmaxf(piv[t], dq::kTiny));   // = 1 / p, rounded once
+          const bool p = r == c;
+          g[t] = p ? -pinv : v[t] * pinv;
+          a[t] = p ? 0.f : 1.f;
+          if (!p) v[t] = 0.f;
+#pragma unroll
+          for (int u = 0; u < kGJ; ++u) {
+            if (u < kb) {
+              v[u] = fmaf(a[t], v[u], -(g[t] * reinterpret_cast<const float*>(w4 + c0 + u)[t]));
+            }
+          }
+        }
+      }
+    }
+    if (k.real) {
+      // the pass's pivot row (r = c0 + tp) drops the steps before tp; steps
+      // past kb (the last, short pass) have g = 0: no change
+      const int tp = r - c0;
+      const bool pivot = tp >= 0 && tp < kb;
+      float gp[kGJ];
+#pragma unroll
+      for (int t = 0; t < kGJ; ++t) gp[t] = (pivot && t < tp) ? 0.f : g[t];
+      gj_pass(row, w4, gp, pivot ? 0.f : 1.f, n);
+      // the kGJ columns themselves took their updates in registers
+#pragma unroll
+      for (int u = 0; u < kGJ; ++u) {
+        if (u < kb) row[c0 + u] = v[u];
+      }
+    }
+    dq::bsync(k);   // w4 is rewritten by the next pass's steps, and s_v is the solve's scratch
+  }
+}
+
+// (X x)_r, x published in s_x by the caller (after a barrier); 0 past n.
+// Four partial sums, column c into sum c % 4, then (s0 + s1) + (s2 + s3),
+// as kernels/admm_cuda.py::_matvec4: four chains of n / 4 multiply-adds in
+// place of one of n (T float, or double over float rows and a double copy of
+// a float vector: products exact in double).
+template <typename T, typename X>
+__device__ __forceinline__ T row_dot4(const float* __restrict__ row, const X* __restrict__ x,
+                                      int n) {
+  T s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+  int c = 0;
+#pragma unroll 2
+  for (; c + 3 < n; c += 4) {
+    s0 = fma((T)row[c], (T)x[c], s0);
+    s1 = fma((T)row[c + 1], (T)x[c + 1], s1);
+    s2 = fma((T)row[c + 2], (T)x[c + 2], s2);
+    s3 = fma((T)row[c + 3], (T)x[c + 3], s3);
+  }
+  if (c < n) s0 = fma((T)row[c], (T)x[c], s0);
+  if (c + 1 < n) s1 = fma((T)row[c + 1], (T)x[c + 1], s1);
+  if (c + 2 < n) s2 = fma((T)row[c + 2], (T)x[c + 2], s2);
+  return (s0 + s1) + (s2 + s3);
+}
+
+__device__ __forceinline__ float row_dot(const dq::Blk& k, const float* sX, const float* s_x) {
+  return k.real ? row_dot4<float, float>(sX + k.r * k.ld, s_x, k.n) : 0.f;
+}
+
+// (P + shift I)^{-1} rhs for this thread's row from the explicit inverse in
+// sX, refined once: l0 = X rhs, res = rhs - (P l0 + shift l0) accumulated in
+// double (a product of two floats is exact there, so kernels/admm_cuda.py::
+// _refined_solve gets the same bits for the same l0), l = l0 + X res. Three
+// published vectors in s_v (rhs and res: n floats each; l0 as double, each
+// thread converting its own once: 2 n floats from s_v + 2 n, 8-byte aligned
+// as s_v is), one barrier each: each is read only before the next barrier
+// and rewritten only after the following one, so none needs a second.
+__device__ float refined_solve(const dq::Blk& k, const float* sP, const float* sX, float rhs,
+                               float shift, float* s_v) {
+  float* x0 = s_v;
+  float* x2 = s_v + k.n;
+  double* x1 = reinterpret_cast<double*>(s_v + 2 * k.n);
+  if (k.real) x0[k.r] = rhs;
+  dq::bsync(k);
+  const float l0 = row_dot(k, sX, x0);
+  if (k.real) x1[k.r] = (double)l0;
+  dq::bsync(k);
+  if (k.real) {
+    const double acc =
+        row_dot4<double, double>(sP + k.r * k.ld, x1, k.n) + (double)shift * (double)l0;
+    x2[k.r] = (float)((double)rhs - acc);
+  }
+  dq::bsync(k);
+  return l0 + row_dot(k, sX, x2);
 }
 
 __global__ void __launch_bounds__(256)
@@ -120,25 +315,44 @@ admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
             float* __restrict__ resp_out, float* __restrict__ resd_out,
             float* __restrict__ rho_out, uint8_t* __restrict__ conv_out,
             uint8_t* __restrict__ stall_out, const AdmmParams prm) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];   // float4 and double views inside
   const int n = prm.n, ld = n | 1, nc = n / 2;
   float* sP = smem;
-  float* sL = sP + n * ld;
-  float* s_fwd = sL + n * ld;
-  float* s_bwd = s_fwd + n;
-  float* s_piv = s_bwd + n;
-  float* s_rd = s_piv + n;
-  float* s_x = s_rd + n;
+  float* sX = sP + n * ld;                // the inverse of P + (rho + mu) I
+  // 5 n floats of vector scratch from s_v: refined_solve's three vectors
+  // (4 n floats) and gj_inverse's 4 n + 4; matvec publishes in its last n,
+  // s_x, only before the first inverse is formed
+  float* s_v = sX + n * ld;
+  float* s_x = s_v + 4 * n;
   float* s_red = s_x + n;                 // 4 * kMaxWarps
 
   const int r = threadIdx.x;
   const dq::Blk k{r, n, ld, blockDim.x == 32, r < n};
   const size_t b = blockIdx.x;
 
+  // P into shared memory, coalesced: in float4s where the rows are whole
+  // float4s and P is 16-byte aligned (then so is every problem's P, n being
+  // a multiple of 4), so that each thread keeps several loads in flight;
+  // else row by row, the block's threads across each row
   const float* Pb = P + b * n * n;
-  for (int idx = r; idx < n * n; idx += blockDim.x) {
-    const int i = idx / n;
-    sP[i * ld + (idx - i * n)] = Pb[idx];
+  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(P) & 15) == 0) {
+    const int n4 = n >> 2;
+    const float4* Pb4 = reinterpret_cast<const float4*>(Pb);
+#pragma unroll 4
+    for (int idx = r; idx < n * n4; idx += blockDim.x) {
+      const int i = idx / n4, j = (idx - i * n4) << 2;
+      const float4 v = Pb4[idx];
+      float* d = sP + i * ld + j;
+      d[0] = v.x;
+      d[1] = v.y;
+      d[2] = v.z;
+      d[3] = v.w;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      for (int j = r; j < n; j += blockDim.x) sP[i * ld + j] = Pb[i * n + j];
+    }
   }
   const size_t vo = b * n + r;
   const float qv = k.real ? q[vo] : 0.f;
@@ -164,14 +378,16 @@ admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
   const float pv = matvec(k, sP, v, s_x);
   const float L = fmaxf(block_sum(k, v * pv, s_red), mu);
   const float ratio = L / mu;
-  float rho = sqrtf(mu * L) * powf(ratio, 0.4f) * prm.rho0_scale;
-  const float tau0 = powf(ratio, 0.15f);
-
-  float dinv = dq::chol_factor(k, sP, sL, rho + mu, s_piv, s_rd);
+  // the powers in double, rounded once (powf is not correctly rounded; the
+  // plain version rounds the same float64 power)
+  float rho = sqrtf(mu * L) * (float)pow((double)ratio, (double)0.4f) * prm.rho0_scale;
+  const float tau0 = (float)pow((double)ratio, (double)0.15f);
 
   // u0 = -(P ws + q) synthesises the dual warm start from the primal one
   float u = 0.f;
   if (prm.warm_start_dual) u = -(matvec(k, sP, l2, s_x) + qv);
+
+  gj_inverse(k, sP, sX, rho + mu, s_v);
 
   float qp = qv;
   float tau_inc = tau0, tau_dec = tau0;
@@ -180,7 +396,8 @@ admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
   float resp = INFINITY, resd = INFINITY, rho_rec = rho;
 
   for (int it = 0; it < prm.max_iter; ++it) {
-    const float l = dq::ldl_solve(k, sL, dinv, rho * l2 - u - qp, 0, s_fwd, s_bwd);
+    const float rhs = rho * l2 - u - qp;
+    const float l = refined_solve(k, sP, sX, rhs, rho + mu, s_v);
     const float qpn = qv - mu * l;
     const float rr = prm.alpha * l + (1.0f - prm.alpha) * l2;
     const float x = rr + u / rho;
@@ -272,7 +489,7 @@ admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
         }
         rho = app_inc ? rho * tau_inc : rho / tau_dec;
         rho_up = app_inc ? 1 : -1;
-        dinv = dq::chol_factor(k, sP, sL, rho + mu, s_piv, s_rd);
+        gj_inverse(k, sP, sX, rho + mu, s_v);
       }
     }
   }
@@ -298,6 +515,22 @@ size_t smem_bytes(int n) {
 }  // namespace
 
 extern "C" {
+
+// Blocks of K1 that one SM holds at size n, from the occupancy calculator
+// after the launch's shared-memory attribute is set; a negated CUDA error
+// code on failure.
+int dq_admm_blocks_per_sm(int n) {
+  const size_t smem = smem_bytes(n);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return -(int)e;
+  }
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, admm_kernel, 32 * ((n + 31) / 32), smem);
+  return e != cudaSuccess ? -(int)e : blocks;
+}
 
 // Launch K1 on `stream` for B problems of size prm->n. All pointers are
 // device pointers to contiguous float32 (uint8 for the two flags, int32 for

@@ -210,18 +210,22 @@ qcqp_bwd_kernel(const float* __restrict__ P, const float* __restrict__ q,
   float plq = k.real ? q[vo] : 0.f;
   if (k.real) {
     const float* row = sm.sP + r * ld;
-    for (int c = 0; c < n; ++c) plq = plq + row[c] * sm.s_x[c];
+    for (int c = 0; c < n; ++c) plq = __fadd_rn(plq, __fmul_rn(row[c], sm.s_x[c]));
   }
 
   // 2-3. per-contact duals and mask; (la, lb) are the even and odd rows'
-  // values on both lanes of the pair, so both compute the same bits
+  // values on both lanes of the pair, so both compute the same bits. Steps
+  // 1-3 round each product and sum on its own (__fmul_rn / __fadd_rn: no
+  // fused multiply-add), as the plain version's torch ops do, so the two
+  // classify the contacts alike: a binding contact's slack r - |l_c| sits
+  // within an ulp of the activity eps, where one rounding decides
   const float lp = __shfl_xor_sync(dq::kFullMask, lv, 1);
   const float pp = __shfl_xor_sync(dq::kFullMask, plq, 1);
   const float la = odd ? lp : lv, lb = odd ? lv : lp;
   const float pa = odd ? pp : plq, pb = odd ? plq : pp;
-  const float sq = la * la + lb * lb;
+  const float sq = __fadd_rn(__fmul_rn(la, la), __fmul_rn(lb, lb));
   const bool act = (rad - sqrtf(sq) <= eps) && (rad >= eps);
-  const float num = fmaxf(-2.f * (la * pa + lb * pb), 0.f);
+  const float num = fmaxf(-2.f * __fadd_rn(__fmul_rn(la, pa), __fmul_rn(lb, pb)), 0.f);
   const float gam_raw = act ? num / fmaxf(4.f * sq, dq::kTiny) : 0.f;
   const float rr = rad * rad;
   const float s = sq - rr;
@@ -408,7 +412,7 @@ qcqp_bwd_kernel_mw(const float* __restrict__ P, const float* __restrict__ q,
   const float lv = real ? sm.s_x[r] : 0.f;
   float plq = real ? q[b * n + r] : 0.f;
   if (real) {
-    for (int c = 0; c < n; ++c) plq = plq + sm.sA[c * ld + r] * sm.s_x[c];
+    for (int c = 0; c < n; ++c) plq = __fadd_rn(plq, __fmul_rn(sm.sA[c * ld + r], sm.s_x[c]));
   }
 
   // 2-3. per-contact duals and mask, as the one-warp kernel computes them
@@ -416,9 +420,9 @@ qcqp_bwd_kernel_mw(const float* __restrict__ P, const float* __restrict__ q,
   const float pp = __shfl_xor_sync(dq::kFullMask, plq, 1);
   const float la = odd ? lp : lv, lb = odd ? lv : lp;
   const float pa = odd ? pp : plq, pb = odd ? plq : pp;
-  const float sq = la * la + lb * lb;
+  const float sq = __fadd_rn(__fmul_rn(la, la), __fmul_rn(lb, lb));
   const bool act = (rad - sqrtf(sq) <= eps) && (rad >= eps);
-  const float num = fmaxf(-2.f * (la * pa + lb * pb), 0.f);
+  const float num = fmaxf(-2.f * __fadd_rn(__fmul_rn(la, pa), __fmul_rn(lb, pb)), 0.f);
   const float gam_raw = act ? num / fmaxf(4.f * sq, dq::kTiny) : 0.f;
   const float rr = rad * rad;
   const float s = sq - rr;

@@ -46,6 +46,7 @@ __all__ = [
     "qcqp_kkt_bwd_fused_cuda",
     "qcqp_kkt_bwd_fused_plain",
     "qcqp_kkt_bwd_plain",
+    "fits",
     "launch_plan",
     "smem_bytes",
 ]
@@ -205,6 +206,12 @@ def launch_plan(n: int) -> tuple[int, int, int, int]:
     if n <= ONE_WARP_MAX_N:
         return 32, smem_bytes(n), MW_THREADS, 0
     return MW_THREADS, smem_bytes(n), MW_THREADS, 3 if n <= 96 else 6
+
+
+def fits(n: int) -> bool:
+    """Whether K2 and K6 launch at size n (``launch_plan`` takes it: n even,
+    2 <= n <= ``MW_MAX_N``); the dispatch rules decide on it."""
+    return 2 <= n <= MW_MAX_N and n % 2 == 0
 
 
 def c_launch_plan(n: int) -> tuple[int, int, int, int] | None:

@@ -18,8 +18,15 @@ kinds (tests/test_pallas.py): atol 2e-5 and every problem converged.
 
 float64: against the XLA engine ``admm_solve`` with lmax_method='power' at
 eps=1e-10, where both run the same algorithm with different linear solves
-(eigh vs LDL^T). Measured agreement ~1e-14; asserted atol 1e-11 and
+(eigh vs the refined Gauss-Jordan inverse). Asserted atol 1e-11 and
 iterations within 1.
+
+The plain version, as the kernel, iterates against the explicit inverse
+(``gj_inverse``) by one refined solve, where the JAX kernel sweeps an LDL^T
+factor: these bars are what holds that change to the JAX kernel's
+trajectory, at the stall floor too. It also rounds as the kernel does (its
+fused multiply-adds and its block sums' order; two tests pin those), so
+that on the card the kernel and its plain version agree bit for bit.
 """
 
 import dataclasses
@@ -93,11 +100,11 @@ def _assert_parity(out_j, out_t, atol=2e-5):
 @pytest.mark.parametrize("kind", ["nonneg", "box", "signed_box", "disk"])
 def test_plain_matches_jax_kernel_f32(kind):
     P, q, pa = _problems(0, 20, 8, np.float32)
-    ws = np.zeros_like(q)
-    out_j, out_t = _run_both(P, q, ws, kind, pa[kind],
-                             QCFG if kind == "disk" else CFG)
-    _assert_parity(out_j, out_t)
-    assert out_t[1].converged.all()
+    cfg = QCFG if kind == "disk" else CFG
+    factors = torch.zeros(20, dtype=torch.int64)
+    out_t = _plain(P, q, kind, pa[kind], cfg, factors=factors)
+    _assert_parity(_jax_kernel_on_problems(kind, cfg), out_t)
+    assert out_t[1].converged.all() and bool((factors >= 1).all())
     if kind == "disk":
         pts = out_t[0].reshape(20, 4, 2)
         assert np.all(np.linalg.norm(pts, axis=-1) <= pa["disk"][0] + 1e-5)
@@ -105,9 +112,13 @@ def test_plain_matches_jax_kernel_f32(kind):
 
 @pytest.mark.parametrize("kind", ["nonneg", "box", "signed_box", "disk"])
 def test_plain_matches_jax_kernel_f32_at_the_stall_floor(kind):
+    """The regime where an unrefined float32 inverse moved the nonneg
+    problems' rho schedule (8.7e-5 off the JAX kernel): the refinement's
+    float64 residual keeps the trajectory on the JAX kernel's."""
     P, q, pa = _problems(0, 20, 8, np.float32)
-    (lj, sj), (lt, st) = _run_both(P, q, np.zeros_like(q), kind, pa[kind],
-                                   QCFG6 if kind == "disk" else CFG6)
+    cfg = QCFG6 if kind == "disk" else CFG6
+    lt, st = _plain(P, q, kind, pa[kind], cfg)
+    lj, sj = _jax_kernel_on_problems(kind, cfg)
     np.testing.assert_allclose(lt, lj, atol=2e-5, rtol=0)
     assert st.converged.all() and bool(np.all(np.asarray(sj.converged)))
     assert st.stalled.any()                 # this is the floor regime
@@ -220,3 +231,132 @@ def test_smem_bytes_bounds():
     # bound) fits the 227 KB a Hopper block may opt into
     assert tk.smem_bytes(24) < 48 * 1024
     assert tk.smem_bytes(112) <= 232448
+
+
+# ---------------------------------------------------------------------------
+# Shared by the tests above and below
+# ---------------------------------------------------------------------------
+
+_JAX = {}
+
+
+def _jax_kernel_on_problems(kind, cfg):
+    """The JAX kernel's result on _problems(0, 20, 8) (cached: the tests of
+    both paths compare against the same run)."""
+    if (kind, cfg) not in _JAX:
+        P, q, pa = _problems(0, 20, 8, np.float32)
+        qstop = kind == "disk"
+        lj, sj = jk.admm_solve_pallas(
+            jnp.asarray(P), jnp.asarray(q), jnp.zeros_like(jnp.asarray(q)), KINDS[kind],
+            tuple(jnp.asarray(a) for a in pa[kind]), cfg, qcqp_stopping=qstop,
+            damp_both=not qstop, interpret=True, tile_b=128,
+        )
+        _JAX[(kind, cfg)] = (np.asarray(lj), sj)
+    return _JAX[(kind, cfg)]
+
+
+def _plain(P, q, kind, pa, cfg, **kw):
+    qstop = kind == "disk"
+    lt, st = tk.admm_solve_plain(
+        torch.from_numpy(P), torch.from_numpy(q), torch.zeros_like(torch.from_numpy(q)),
+        KINDS[kind], tuple(torch.from_numpy(a) for a in pa), _port_cfg(cfg), qstop, not qstop, **kw)
+    return lt.numpy(), st
+
+
+@pytest.mark.parametrize("n", [8, 34], ids=["n8", "n34"])
+@pytest.mark.parametrize("kind", ["box", "disk"])
+def test_inverse_path_matches_xla_engine_f64(kind, n):
+    """float64 against the XLA engine (eps = 1e-10, lmax by power
+    iteration) on another seed: atol 1e-11 and iterations within 1, at one
+    warp (n = 8) and past it (n = 34)."""
+    P, q, pa = _problems(3, 12, n, np.float64)
+    qstop = kind == "disk"
+    cfg = (QCFG6 if qstop else CFG6).replace(eps=1e-10)
+    ja = tuple(jnp.asarray(a) for a in pa[kind])
+    prox = (lambda x: prox_box(x, *ja)) if kind == "box" else (lambda x: prox_disk(x, *ja))
+    lj, sj = admm_solve(jnp.asarray(P), jnp.asarray(q), jnp.zeros_like(jnp.asarray(q)), prox,
+                        cfg, qcqp_stopping=qstop, damp_both_taus=not qstop)
+    lt, st = _plain(P, q, kind, pa[kind], cfg)
+    assert lt.dtype == np.float64
+    np.testing.assert_allclose(lt, np.asarray(lj), atol=1e-11, rtol=0)
+    assert st.converged.all() and bool(np.all(np.asarray(sj.converged)))
+    assert int(np.abs(st.iterations.numpy() - np.asarray(sj.iterations)).max()) <= 1
+
+
+def test_inverse_path_f32_at_n34_matches_xla_engine():
+    """float32 past one warp against the XLA engine at eps = 1e-5 (the JAX
+    kernel in interpret mode takes ~1 min at this n): atol 2e-5 and
+    iterations within 1, the kernel-against-engine bar of the JAX suite."""
+    P, q, pa = _problems(4, 8, 34, np.float32)
+    cfg = QCFG
+    ja = (jnp.asarray(pa["disk"][0]),)
+    lj, sj = admm_solve(jnp.asarray(P), jnp.asarray(q), jnp.zeros_like(jnp.asarray(q)),
+                        lambda x: prox_disk(x, *ja), cfg, qcqp_stopping=True, damp_both_taus=False)
+    lt, st = _plain(P, q, "disk", pa["disk"], cfg)
+    np.testing.assert_allclose(lt, np.asarray(lj), atol=2e-5, rtol=0)
+    np.testing.assert_array_equal(st.converged.numpy(), np.asarray(sj.converged))
+    assert int(np.abs(st.iterations.numpy() - np.asarray(sj.iterations)).max()) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_gj_inverse_and_refined_solve(dtype):
+    """gj_inverse against torch.linalg.inv (float64 1e-12; float32 within
+    64 cond eps); _refined_solve's residual taken in float64 brings a float32
+    solve to about float32 rounding of the float64 solution."""
+    P, _, _ = _problems(5, 6, 9, np.float64)
+    shift = torch.rand(6, dtype=torch.float64) + 0.1
+    Pt = torch.from_numpy(P)
+    M = Pt + shift[:, None, None] * torch.eye(9, dtype=torch.float64)
+    ref = torch.linalg.inv(M)
+    X = tk.gj_inverse(Pt.to(dtype), shift.to(dtype))
+    cond = float(torch.linalg.cond(M).max())
+    bar = 1e-12 if dtype == torch.float64 else 64 * cond * 1.2e-7
+    assert float((X.double() - ref).abs().max() / ref.abs().max()) <= bar
+    rhs = torch.from_numpy(np.random.default_rng(6).standard_normal((6, 9)))
+    x64 = torch.linalg.solve(M, rhs[..., None])[..., 0]
+    x = tk._refined_solve(Pt.to(dtype), X, rhs.to(dtype), shift.to(dtype))
+    assert x.dtype == dtype
+    scale = float(x64.abs().max())
+    assert float((x.double() - x64).abs().max()) <= (1e-13 if dtype == torch.float64 else 2e-6) * scale
+
+
+def test_fma_rounds_once_as_the_kernel():
+    """``_fma`` (the kernel's fmaf in the plain version) gives the float32
+    nearest to the exact a b + c, which a product rounded before the sum
+    misses on some inputs."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(7)
+    a, b, c = (rng.standard_normal(3000).astype(np.float32) for _ in range(3))
+    got = tk._fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    for x, y, z, r in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        err = abs(Fraction(float(r)) - exact)
+        for nb in (np.nextafter(r, np.float32(np.inf)), np.nextafter(r, np.float32(-np.inf))):
+            assert err <= abs(Fraction(float(nb)) - exact)
+    assert np.any(got != (a * b) + c)
+    assert tk._fma(*(torch.from_numpy(x).double() for x in (a, b, c))).dtype == torch.float64
+
+
+@pytest.mark.parametrize("n", [7, 32, 40, 96])
+def test_block_sum_adds_in_the_kernel_order(n):
+    """``_block_sum`` against the kernel's block_reduce written out: within
+    each warp of 32 rows the butterfly (lane i adds lane i ^ o for o = 16,
+    8, 4, 2, 1; rows past n hold 0), then the warps' sums in order; float32
+    bit for bit."""
+    x = np.random.default_rng(n).standard_normal((3, n)).astype(np.float32) * 1e3
+    got = tk._block_sum(torch.from_numpy(x)).numpy()
+    nw = -(-n // 32)
+    for row, g in zip(x, got):
+        lanes = np.zeros(32 * nw, dtype=np.float32)
+        lanes[:n] = row
+        sums = []
+        for w in range(nw):
+            v = list(lanes[32 * w : 32 * w + 32])
+            for o in (16, 8, 4, 2, 1):
+                v = [np.float32(v[i] + v[i ^ o]) for i in range(32)]
+            sums.append(v[0])
+        acc = sums[0]
+        for s_ in sums[1:]:
+            acc = np.float32(acc + s_)
+        assert acc == g

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 import diffqcqp_tpu.config as jcfg
 import diffqcqp_tpu_torch as dqt
@@ -64,17 +65,29 @@ def test_compact_iters_validated_on_every_path(k):
 
 @pytest.mark.parametrize(
     "over, item",
-    [({"accel": True}, "item 3"), ({"axis_name": "b"}, "item 12"),
-     ({"backend": "xla"}, "items 2-3")],
+    [({"accel": True, "alpha_relax": 1.0, "adaptive_rho": False}, None),
+     ({"axis_name": "b"}, "item 8"), ({"backend": "xla"}, None)],
     ids=["accel", "axis_name", "xla"],
 )
 def test_unported_settings_raise(over, item):
+    """Only axis_name is left unported and raises (ROADMAP Queue 1, item 8).
+    accel and backend='xla', which raised until the eager engine was
+    ported, now run through it: check_supported passes, which_backend says
+    'xla', and the solve returns the closed-form solution of this diagonal
+    problem (l = r (-q) / |q| per contact, the cone binding)."""
     cfg = dqt.SolverConfig(**over)
-    with pytest.raises(NotImplementedError, match=item):
-        check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        dqt.solve_qcqp([[1.0, 0.0], [0.0, 1.0]], [1.0, 1.0], [1.0], [1.0],
-                       config=cfg, device="cpu")
+    args = ([[1.0, 0.0], [0.0, 1.0]], [1.0, 1.0], [1.0], [1.0])
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            check_supported(cfg)
+        with pytest.raises(NotImplementedError):
+            dqt.solve_qcqp(*args, config=cfg, device="cpu")
+        return
+    check_supported(cfg)
+    assert dqt.which_backend(args[0], args[1], cfg) == "xla"
+    l = dqt.solve_qcqp(*args, config=cfg.replace(eps=1e-9, max_iter=5000), device="cpu")
+    expect = -torch.tensor([1.0, 1.0]) / (2.0 ** 0.5)
+    assert torch.allclose(l.to(expect.dtype), expect, atol=1e-6), l
 
 
 def test_tpu_only_fields_accepted():

@@ -170,8 +170,8 @@ def test_plain_k4_matches_jax_generic_path_f64(f64_case):
 
 
 def test_vjp_and_assembled_branch_match_jax_generic_path_f64(f64_case):
-    """The port's *_vjp (K4's plain version on a CPU tensor) and its
-    assembled branch (torch.linalg.solve) against the JAX generic path."""
+    """The port's *_vjp (float64 takes the generic route, as in the JAX
+    package) and its assembled branch against the JAX generic path."""
     kind, arrs, ref = f64_case
     P, q, l, g, lo, hi, v = _t(*arrs)
     if kind == tk.KIND_QP:

@@ -125,7 +125,8 @@ def test_plain_k2_matches_jax_generic_path_f64(f64_case):
 
 
 def test_qcqp_vjp_dispatch_matches_jax_generic_path_f64(f64_case):
-    """Without duals the port's qcqp_vjp runs plain K2 with float64's floor."""
+    """Without duals a float64 qcqp_vjp takes the generic route, as the JAX
+    package's: qcqp_dual, then the assembled system."""
     (P, q, l, g, r), (dlj, dgj, _) = f64_case
     Pt, qt, lt, gt, rt = _t(P, q, l, g, r)
     out = TK.qcqp_vjp(Pt, qt, rt, lt, gt, TCFG)

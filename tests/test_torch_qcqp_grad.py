@@ -1,5 +1,6 @@
-"""The slice end to end: gradients through the port's ``solve_qcqp`` (K1
-forward, K2 backward, their plain versions on the CPU) against
+"""The slice end to end: gradients through the port's ``solve_qcqp`` (in
+float32 K1 forward and K2 backward, their plain versions on the CPU; in
+float64 the eager engine and the generic adjoint) against
 ``jax.value_and_grad`` through the JAX package's ``solve_qcqp``.
 
 Problems: bench.py's generator and configuration at B=16, N=24. Losses:
@@ -11,8 +12,8 @@ second loss holds them to a substantive value.
 Bars: float32 against the JAX kernel path (backend="pallas", K1 and K2 in
 interpret mode): atol 2e-4 * max(1, max|grad|), K2's dgamma bar in the JAX
 suite (measured ~6e-5 on l_n). float64 against the JAX generic path
-(backend="xla", eps=1e-10): atol 1e-8 * max(1, max|grad|) (measured 2e-10;
-the two forwards stop at eps=1e-10 by different linear solves).
+(backend="xla", eps=1e-10): atol 1e-8 * max(1, max|grad|); both sides run
+the same float64 engine and generic route.
 """
 
 import dataclasses
@@ -169,8 +170,9 @@ def test_recover_qcqp_duals_matches_jax_f64(problems, act_floor):
 
 
 def test_qcqp_derivatives_match_jax_f64(problems):
-    """Through the port's qcqp_vjp (plain K2, float64) against the JAX
-    generic path: atol 1e-9, as K2's float64 parity in test_torch_kkt.py."""
+    """Through the port's qcqp_vjp (float64 takes the generic route: the
+    recovered duals and the assembled system) against the JAX generic path:
+    atol 1e-9, as K2's float64 parity in test_torch_kkt.py."""
     P, q, l_n, mu = (x.astype(np.float64) for x in problems)
     cfg = _cfg(np.float64, False)
     l = np.asarray(dq.solve_qcqp(*map(jnp.asarray, (P, q, l_n, mu)), config=cfg))

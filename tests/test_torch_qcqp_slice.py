@@ -6,7 +6,7 @@ generator and configuration, plus the entry point's guards.
 Bars: atol 2e-5 on l and iterations within 1 per problem, the JAX suite's
 kernel tolerances. Inputs are float32 on both sides (bench.py's P comes out
 float64 under NumPy 2 promotion; the JAX kernel path computes in float32
-whatever it is given, the port's CPU path in the input dtype).
+whatever it is given, while the port sends float64 to its eager engine).
 """
 
 import dataclasses

@@ -1,6 +1,7 @@
 """The QP-family slice end to end: gradients through the port's
-``solve_qp`` / ``solve_box_qp`` / ``solve_signed_box_qp`` (K1 forward, K4
-backward, their plain versions on the CPU) against ``jax.grad`` through the
+``solve_qp`` / ``solve_box_qp`` / ``solve_signed_box_qp`` (in float32 K1
+forward and K4 backward, their plain versions on the CPU; in float64 the
+eager engine and the generic adjoint) against ``jax.grad`` through the
 JAX package's, plus the duals, the raw derivatives, the ``*Fn2`` bindings
 and the entry points' guards.
 
@@ -12,8 +13,8 @@ U 0.9 + 0.1 and v ~ N(0, 1), here with a zero column). Loss: sum(l^2) +
 Bars: float32 against the JAX kernel path (backend="pallas": K1 and K4 in
 interpret mode), atol 5e-4 * max(1, max|grad|), the JAX suite's end-to-end
 bar (tests/test_coord_bwd_kernel.py). float64 against the JAX generic path
-(backend="xla", eps=1e-10): atol 1e-8 * max(1, max|grad|) (the two forwards
-stop at eps=1e-10 by different linear solves). Duals and derivatives in
+(backend="xla", eps=1e-10): atol 1e-8 * max(1, max|grad|); both sides run
+the same float64 engine and generic route. Duals and derivatives in
 float64: atol 1e-9.
 """
 
@@ -152,7 +153,7 @@ def test_recover_duals_match_jax_f64(solved64, cls, act_floor):
 
 @pytest.mark.parametrize("cls", CLASSES)
 def test_derivatives_match_jax_f64(solved64, cls):
-    """Through the port's *_vjp (plain K4, float64) against the JAX generic
+    """Through the port's *_vjp (the generic route in float64) against the JAX generic
     path."""
     probs, sols = solved64
     diff, rest = _args(cls, probs)

@@ -163,13 +163,16 @@ def test_solve_direct_pallas_f32_matches_jax_kernel(kind):
 
 def test_solve_direct_routes_on_cpu():
     """On a CPU tensor only backend='pallas' takes K5 (its plain version, in
-    float32, cast back); 'auto' takes the Cholesky or the LU at any dtype."""
+    float32, cast back); 'auto' takes, for an SPD system, the Newton-Schulz
+    inverse in float32 and the Cholesky in float64, as the JAX package, and
+    the LU otherwise."""
     A, rhs = _masked_spd(np.random.default_rng(13), 3, 7)
     auto, pallas = dqt.SolverConfig(), dqt.SolverConfig(backend="pallas")
     for dtype in (torch.float64, torch.float32):
         At, bt = T(A).to(dtype), T(rhs).to(dtype)
-        assert torch.equal(TK._solve_direct(At, bt, auto, spd=True),
-                           spd_cholesky_solve(At, bt[..., None])[..., 0])
+        want = ((TK._spd_inverse_f32(At) @ bt[..., None])[..., 0] if dtype == torch.float32
+                else spd_cholesky_solve(At, bt[..., None])[..., 0])
+        assert torch.equal(TK._solve_direct(At, bt, auto, spd=True), want)
         assert torch.equal(TK._solve_direct(At, bt, auto),
                            torch.linalg.solve(At, bt[..., None])[..., 0])
         x = TK._solve_direct(At, bt, pallas, spd=True)

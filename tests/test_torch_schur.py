@@ -9,7 +9,9 @@ given) of the port against the JAX package.
   * ``_qcqp_schur_vjp`` against the JAX one in float64 (1e-9), both a
     Cholesky and an LU; in float32 the port's route runs K6 (its plain
     version here, an LDL^T and a Householder QR), held against the JAX
-    float64 route with the kernel bars (dl 5e-5, dgamma 2e-4).
+    float64 route with the kernel bars (dl 5e-5, dgamma 2e-4); past K6's
+    bound its float32 branch (a Newton-Schulz inverse of D) against the
+    JAX float32 branch, with the same bars.
   * ``qcqp_vjp(duals=)`` against the JAX one in float64 on both sides of the
     route's bound, B = 2: nc = 29 (m = nc + n = 87, the assembled system) and
     nc = 30 (m = 90, the Schur route), and the route each size takes;
@@ -127,6 +129,39 @@ def test_schur_vjp_f32_runs_k6_and_matches_jax_f64(case, monkeypatch):
                         lambda *a: masks.append(a[-1].dtype) or tk.qcqp_kkt_bwd_cuda(*a))
     got = TK._qcqp_schur_vjp(*(T(x.astype(np.float32)) for x in (P, l, g, s, am, gam)))
     assert masks == [torch.float32] and got.dl.dtype == torch.float32
+    np.testing.assert_allclose(got.dl.numpy(), np.asarray(want.dl), atol=5e-5, rtol=0)
+    np.testing.assert_allclose(got.dgamma.numpy(), np.asarray(want.dgamma), atol=2e-4, rtol=0)
+
+
+def _schur_f32_past_k6(P, l, g, s, am, gam, monkeypatch):
+    """The port's float32 Schur route with K6 out of the way (any call of it
+    fails the test): the Newton-Schulz inverse of D, then the nc x nc
+    solve."""
+    def no_k6(*a):
+        raise AssertionError("K6 ran past its bound")
+
+    monkeypatch.setattr(TK, "qcqp_kkt_bwd_cuda", no_k6)
+    return TK._qcqp_schur_vjp(*(T(x.astype(np.float32)) for x in (P, l, g, s, am, gam)))
+
+
+@pytest.mark.parametrize("nc", [4, 76], ids=["nc4_bound_moved", "nc76_past_k6"])
+def test_schur_vjp_f32_past_k6_matches_jax_f32(nc, monkeypatch):
+    """Past K6's bound (n > 150; at nc = 4 the bound is moved below n) the
+    float32 route is the JAX package's own float32 branch: D^{-1} by the
+    Newton-Schulz inverse (``_spd_inverse_f32``), then the nc x nc solve.
+    Held against that JAX branch in float32 on the same inputs with the
+    kernel bars of tests/test_qcqp_bwd_kernel.py (dl 5e-5, dgamma 2e-4)."""
+    P, q, l, g, r = _qcqp_point(60 + nc, 2 if nc > 8 else 12, nc, 0.3 if nc < 8 else 0.0)
+    gam, s, active = _jax_duals(P, q, l, r)
+    n = 2 * nc
+    if nc < 8:
+        monkeypatch.setattr(tk, "fits", lambda n_: n_ < n)
+    assert not tk.fits(n)
+    am = active.astype(np.float64)
+    f32 = [x.astype(np.float32) for x in (P, l, g, s, am, gam)]
+    want = K._qcqp_schur_vjp(*map(J, f32), nc, n)
+    got = _schur_f32_past_k6(P, l, g, s, am, gam, monkeypatch)
+    assert got.dl.dtype == torch.float32 and 0 < active.mean() < 1
     np.testing.assert_allclose(got.dl.numpy(), np.asarray(want.dl), atol=5e-5, rtol=0)
     np.testing.assert_allclose(got.dgamma.numpy(), np.asarray(want.dgamma), atol=2e-4, rtol=0)
 
