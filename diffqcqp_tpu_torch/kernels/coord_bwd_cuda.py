@@ -56,24 +56,7 @@ def coord_kkt_bwd_fused_plain(
     """K4's plain PyTorch version over a whole batch, in the inputs' dtype
     and on their device."""
     n = l.shape[-1]
-    dtype = l.dtype
-
-    plq = q
-    for k in range(n):
-        plq = plq + P[:, :, k] * l[:, k : k + 1]
-
-    if kind == KIND_QP:
-        am = ((l <= eps) & (plq > act_eps)).to(dtype)
-    else:
-        rhs = -plq
-        acts = [((l - l_min) <= eps).to(dtype), ((l - l_max) >= -eps).to(dtype)]
-        if kind == KIND_SIGNED_BOX:
-            acts.append((v_sign * l >= -eps).to(dtype) * (v_sign * v_sign))
-        denom = torch.clamp_min(sum(acts), 1.0)
-        coef = [-1.0, 1.0, v_sign][: len(acts)]
-        gam = [a * c * rhs / denom for a, c in zip(acts, coef)]
-        strict = [a * (gk > act_eps).to(dtype) for a, gk in zip(acts, gam)]
-        am = torch.clamp_max(sum(strict), 1.0)
+    am, slots = coord_duals_plain(P, q, l, l_min, l_max, v_sign, kind, eps, act_eps)
     fm = 1.0 - am
 
     Lh, dinv = chol_to_unit(chol_factor(P * fm[:, :, None] * fm[:, None, :], am))
@@ -84,11 +67,41 @@ def coord_kkt_bwd_fused_plain(
     pdl = P[:, :, 0] * dl[:, 0:1]
     for k in range(1, n):
         pdl = pdl + P[:, :, k] * dl[:, k : k + 1]
+    return (dl,) + coord_dgamma_plain(g, pdl, am, slots)
+
+
+def coord_duals_plain(P, q, l, l_min, l_max, v_sign, kind, eps, act_eps):
+    """K4's steps 1-2: (am, slots), am the (B, n) strict mask as 0 / 1 in
+    l's dtype; for the box kinds ``slots`` = (coef, gam, strict), one entry
+    per slot [lo, hi(, sg)], else None."""
+    n = l.shape[-1]
+    dtype = l.dtype
+    plq = q
+    for k in range(n):
+        plq = plq + P[:, :, k] * l[:, k : k + 1]
+
+    if kind == KIND_QP:
+        return ((l <= eps) & (plq > act_eps)).to(dtype), None
+    rhs = -plq
+    acts = [((l - l_min) <= eps).to(dtype), ((l - l_max) >= -eps).to(dtype)]
+    if kind == KIND_SIGNED_BOX:
+        acts.append((v_sign * l >= -eps).to(dtype) * (v_sign * v_sign))
+    denom = torch.clamp_min(sum(acts), 1.0)
+    coef = [-1.0, 1.0, v_sign][: len(acts)]
+    gam = [a * c * rhs / denom for a, c in zip(acts, coef)]
+    strict = [a * (gk > act_eps).to(dtype) for a, gk in zip(acts, gam)]
+    return torch.clamp_max(sum(strict), 1.0), (coef, gam, strict)
+
+
+def coord_dgamma_plain(g, pdl, am, slots):
+    """K4's step 5 for the box kinds, from P dl: (dgamma, gamma), the
+    residual (g - P dl) am split over the strict slots at minimal norm."""
+    coef, gam, strict = slots
     resid = (g - pdl) * am
     cs = [c * gk * m for c, gk, m in zip(coef, gam, strict)]
     den = torch.clamp_min(sum(c * c for c in cs), TINY)
     dgamma = torch.cat([c * resid / den for c in cs], dim=-1)
-    return dl, dgamma, torch.cat(gam, dim=-1)
+    return dgamma, torch.cat(gam, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -101,15 +114,28 @@ def _lib():
         vp, f = ctypes.c_void_p, ctypes.c_float
         lib.dq_coord_bwd_f32.argtypes = [vp] * 10 + [ctypes.c_int] * 3 + [f] * 2 + [vp]
         lib.dq_coord_bwd_f32.restype = ctypes.c_int
+        lib.dq_coord_bwd_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dq_coord_bwd_blocks_per_sm.restype = ctypes.c_int
         lib._dq_typed = True
     return lib
+
+
+ONE_WARP_MAX_N = 32   # csrc/coord_bwd.cu's kOneWarpMaxN: the free-block kernel up to here
 
 
 def smem_bytes(n: int) -> int:
     """Dynamic shared memory of one block at problem size n (as
     ``smem_bytes`` in csrc/coord_bwd.cu computes it): P and the factor
-    (n x (n|1) each) and six n-vectors of slots."""
-    return 4 * (2 * n * (n | 1) + 6 * n)
+    (n x (n|1) each) and, at one warp (n <= 32), the publish slots, l and
+    the map of free coordinates (128 words); above it six n-vectors of
+    slots."""
+    return 4 * (2 * n * (n | 1) + (128 if n <= ONE_WARP_MAX_N else 6 * n))
+
+
+def c_blocks_per_sm(n: int, kind: int) -> int:
+    """Blocks of K4 of ``kind`` at size n that one SM of the current card
+    holds, from CUDA's occupancy calculator (needs nvcc and a card)."""
+    return _lib().dq_coord_bwd_blocks_per_sm(n, kind)
 
 
 def fits(n: int) -> bool:

@@ -23,14 +23,35 @@
 // Outputs dl (B, n) and, for the box kinds, dgamma and gamma (B, 2n or 3n)
 // in blocks [lo | hi | sg].
 //
-// Design: one thread block per problem, one thread per coordinate row, as in
-// K1 and K2 (one warp at N = 24); the kind is a template parameter. Steps 1,
-// 2 and 5 are per-thread: every constraint touches one coordinate, so there
-// is no shuffle and no reduction. The masked factor is ldl.cuh's
-// chol_factor<true>, which applies the mask as it reads P (fm_r fm_j from a
-// shared array of fm; diag(am) is each thread's own shift) and writes the
-// factor to a second shared matrix, so sP keeps the unmasked P that step 5's
-// P dl reads.
+// Design: one thread block per problem, one thread per coordinate row; the
+// kind is a template parameter. Steps 1, 2 and 5 are per-thread: every
+// constraint touches one coordinate, so there is no shuffle and no
+// reduction.
+//
+// One warp, n <= 32 (the main path's N = 24), the free block alone: a
+// strictly active coordinate's row and column of K are unit vectors, so
+// every operation the full factor, the sweeps and P dl spend on them
+// subtracts or adds an exact zero (half the coordinates at the QP point,
+// a third or a quarter at the box points). The warp compacts its free
+// coordinates (fm = 1) with one __ballot_sync; __popc of the lanes below
+// gives each free lane its index f, and s_map[f] its row. Lane f < nf loads
+// row f of the free block of P (= K there) into registers, which ldl.cuh's
+// chol_factor_warp factors right-looking (nf steps, the pivot column
+// published once a step and read four entries a load) and ldl_solve_warp
+// solves (2 nf + 1 steps); the strictly active rows get dl = 0, and P dl
+// (box kinds) runs over the free columns only. Each free entry keeps the
+// full factor's operations in their order, so dl, dgamma and gamma keep the
+// masked factor's bits apart from the sign of zeros, and the plain version
+// is unchanged (tests/test_torch_coord_bwd.py emulates the compaction).
+// 5,312 B of shared memory at n = 24 and __launch_bounds__(32, 32): 32
+// blocks an SM, one wave at B = 4096. Two instances unroll the register
+// loops to n <= 24 and n <= 32.
+//
+// Above one warp, n > 32 (3 to 6 warps): the first design, kept. The
+// masked factor is ldl.cuh's chol_factor, which applies the mask as it
+// reads P (fm_r fm_j from a shared array of fm; diag(am) is each thread's
+// own shift) and writes the factor to a second shared matrix, so sP keeps
+// the unmasked P that step 5's P dl reads.
 //
 // What differs from the TPU kernel and why it does not change the result:
 // the TPU pads n to a multiple of 8 with unit-diagonal rows (a layout
@@ -42,10 +63,14 @@
 //
 // What bounds it on this card: at B = 4096, N = 24 the bytes (P, q, l, g in,
 // dl out: ~11 MB, ~3.3 us at 3.35 TB/s) are far above the operations
-// (~7 kFLOP per problem, ~0.4 us at 67 TFLOP/s); what bounds a simple kernel
-// is the dependent chain inside each problem: n Cholesky columns and one
-// solve of 2n + 1 broadcast-then-FMA steps. As in K1 and K2 the design
-// answers with occupancy (one warp and ~5 KB of shared memory per problem).
+// (~7 kFLOP per problem, ~0.4 us at 67 TFLOP/s); what bounds the kernel is
+// the dependent chain inside each problem (nf factor steps, 2 nf + 1 sweep
+// steps, P l + q's n rounded adds) with one warp a problem.
+//
+// ptxas (sm_90a): one warp, n <= 24: QP 56 registers, box 62, signed box 64
+// with 4 bytes of spill; n <= 32: 64 registers, 4-8 bytes of spill; above
+// one warp 32 / 40 / 40 registers, no spill (the first design, at every n,
+// 32 / 40 / 40).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -57,6 +82,159 @@ namespace {
 // the wrapper's KIND_QP, KIND_BOX, KIND_SIGNED_BOX (kernels/coord_bwd_cuda.py)
 constexpr int kQP = 0, kBox = 1, kSignedBox = 2;
 
+// Step 2 for this thread's coordinate: its strict mask am (the return
+// value) and, for the box kinds, its slots' duals g_* and coefficients c_*.
+struct Duals {
+  float g_lo = 0.f, g_hi = 0.f, g_sg = 0.f, c_lo = 0.f, c_hi = 0.f, c_sg = 0.f;
+};
+
+template <int kKind>
+__device__ float coord_duals(bool real, size_t vo, float lv, float plq,
+                             const float* __restrict__ l_min, const float* __restrict__ l_max,
+                             const float* __restrict__ v_sign, float eps, float act_eps,
+                             Duals& d) {
+  if constexpr (kKind == kQP) {
+    return (lv <= eps && plq > act_eps) ? 1.f : 0.f;
+  } else {
+    const float lo = real ? l_min[vo] : 0.f;
+    const float hi = real ? l_max[vo] : 0.f;
+    const float a_lo = (lv - lo <= eps) ? 1.f : 0.f;
+    const float a_hi = (lv - hi >= -eps) ? 1.f : 0.f;
+    const float rhs = -plq;
+    float vs = 0.f, a_sg = 0.f;
+    if constexpr (kKind == kSignedBox) {
+      vs = real ? v_sign[vo] : 0.f;
+      a_sg = (vs * lv >= -eps) ? vs * vs : 0.f;
+    }
+    const float denom = fmaxf(a_lo + a_hi + a_sg, 1.f);
+    d.g_lo = -a_lo * rhs / denom;
+    d.g_hi = a_hi * rhs / denom;
+    const float m_lo = (d.g_lo > act_eps) ? a_lo : 0.f;
+    const float m_hi = (d.g_hi > act_eps) ? a_hi : 0.f;
+    d.c_lo = -d.g_lo * m_lo;
+    d.c_hi = d.g_hi * m_hi;
+    float m_sg = 0.f;
+    if constexpr (kKind == kSignedBox) {
+      d.g_sg = a_sg * vs * rhs / denom;
+      m_sg = (d.g_sg > act_eps) ? a_sg : 0.f;
+      d.c_sg = vs * d.g_sg * m_sg;
+    }
+    return fminf(m_lo + m_hi + m_sg, 1.f);
+  }
+}
+
+// Step 5 for the box kinds: resid = (g - P dl) am split over the strict
+// slots, written with the duals. `pdl` is (P dl)_r.
+template <int kKind>
+__device__ void coord_dgamma(int n, size_t b, int r, float gv, float pdl, float am,
+                             const Duals& d, float* __restrict__ dgamma_out,
+                             float* __restrict__ gamma_out) {
+  const float resid = (gv - pdl) * am;
+  float den = __fadd_rn(__fmul_rn(d.c_lo, d.c_lo), __fmul_rn(d.c_hi, d.c_hi));
+  if constexpr (kKind == kSignedBox) den = __fadd_rn(den, __fmul_rn(d.c_sg, d.c_sg));
+  den = fmaxf(den, dq::kTiny);
+  const size_t kn = (kKind == kBox ? 2 : 3) * (size_t)n;
+  float* dg = dgamma_out + b * kn + r;
+  float* ga = gamma_out + b * kn + r;
+  dg[0] = d.c_lo * resid / den;
+  dg[n] = d.c_hi * resid / den;
+  ga[0] = d.g_lo;
+  ga[n] = d.g_hi;
+  if constexpr (kKind == kSignedBox) {
+    dg[2 * n] = d.c_sg * resid / den;
+    ga[2 * n] = d.g_sg;
+  }
+}
+
+// One warp, n <= N (N = 24 or 32, a multiple of 4): the free block alone.
+// 32 blocks an SM: at most 64 registers a thread.
+template <int kKind, int N>
+__global__ void __launch_bounds__(32, 32)
+coord_bwd_kernel_w(const float* __restrict__ P, const float* __restrict__ q,
+                   const float* __restrict__ l, const float* __restrict__ g,
+                   const float* __restrict__ l_min, const float* __restrict__ l_max,
+                   const float* __restrict__ v_sign, float* __restrict__ dl_out,
+                   float* __restrict__ dgamma_out, float* __restrict__ gamma_out, int n,
+                   float eps, float act_eps) {
+  extern __shared__ float4 smem_w[];
+  const int ld = n | 1;
+  float* s_pub = reinterpret_cast<float*>(smem_w);   // 2 x 32: published values
+  float* s_x = s_pub + 2 * dq::kPubStride;          // 32: l, later dl
+  int* s_map = reinterpret_cast<int*>(s_x + 32);    // 32: row of free coordinate f
+  float* sP = reinterpret_cast<float*>(s_map + 32);  // n x ld, row-major, unmasked
+  float* sL = sP + n * ld;                          // factor of the free block
+
+  const int r = threadIdx.x;
+  const bool real = r < n;
+  const size_t b = blockIdx.x;
+  const float* Pb = P + b * n * n;
+  if (real) {
+    for (int i = 0; i < n; ++i) sP[i * ld + r] = Pb[i * n + r];   // row i, coalesced
+  }
+  const size_t vo = b * n + r;
+  const float lv = real ? l[vo] : 0.f;
+  const float gv = real ? g[vo] : 0.f;
+  s_x[r] = lv;
+  __syncwarp();
+
+  // 1. P l + q, each product and sum rounded on its own (see the block-wide
+  // kernel below), l read four entries a load
+  float plq = real ? q[vo] : 0.f;
+  const float* row = sP + min(r, n - 1) * ld;
+#pragma unroll
+  for (int k = 0; k < N; k += 4) {
+    const float4 x4 = *reinterpret_cast<const float4*>(s_x + k);
+    const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (real && k + e < n) plq = __fadd_rn(plq, __fmul_rn(row[k + e], xv[e]));
+    }
+  }
+
+  // 2. this coordinate's duals, slot coefficients and strict mask
+  Duals d;
+  const float am = coord_duals<kKind>(real, vo, lv, plq, l_min, l_max, v_sign, eps, act_eps, d);
+
+  // 3. compaction: free coordinate f (fm = 1, in increasing row order) is
+  // row s_map[f]; lane f < nf takes row f of the free block of P, which is
+  // the free block of K (there fm P fm = P and diag(am) = 0)
+  const unsigned free_mask = __ballot_sync(dq::kFullMask, real && am == 0.f);
+  const int nf = __popc(free_mask);
+  const bool is_free = (free_mask >> r) & 1u;
+  if (is_free) s_map[__popc(free_mask & ((1u << r) - 1u))] = r;
+  __syncwarp();
+  const bool lane_f = r < nf;
+  const int rf = lane_f ? s_map[r] : 0;
+  float a[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) a[k] = (lane_f && k < nf) ? sP[rf * ld + s_map[k]] : 0.f;
+  const float dinv = dq::chol_factor_warp<N>(a, nf, r, sL, ld, s_pub);
+
+  // 4. dl = K^{-1} (g fm) fm: the free rows by one pair of sweeps over the
+  // free block (2 nf + 1 steps), the strictly active rows 0
+  float x[1] = {lane_f ? g[b * n + rf] : 0.f};
+  if (nf > 0) dq::ldl_solve_warp<1>(sL, nf, ld, r, dinv, x, s_pub);
+  if (real && !is_free) s_x[r] = 0.f;
+  if (lane_f) s_x[rf] = x[0];
+  __syncwarp();
+  if (real) dl_out[vo] = s_x[r];
+
+  if constexpr (kKind != kQP) {
+    // 5. resid = (g - P dl) am, P dl over the free columns in order (dl is
+    // an exact 0 on the others), accumulated from its first term
+    float pdl = 0.f;
+    if (real) {
+      for (int f = 0; f < nf; ++f) {
+        const int c = s_map[f];
+        pdl = __fadd_rn(pdl, __fmul_rn(row[c], s_x[c]));
+      }
+      coord_dgamma<kKind>(n, b, r, gv, pdl, am, d, dgamma_out, gamma_out);
+    }
+  }
+}
+
+// Above one warp, n > 32 (3 to 6 warps): thread per row over the whole
+// coordinate set, the masked factor chol_factor.
 template <int kKind>
 __global__ void __launch_bounds__(256)
 coord_bwd_kernel(const float* __restrict__ P, const float* __restrict__ q,
@@ -103,43 +281,15 @@ coord_bwd_kernel(const float* __restrict__ P, const float* __restrict__ q,
   }
 
   // 2. this coordinate's duals, slot coefficients and strict mask
-  float am = 0.f;
-  float g_lo = 0.f, g_hi = 0.f, g_sg = 0.f, c_lo = 0.f, c_hi = 0.f, c_sg = 0.f;
-  if constexpr (kKind == kQP) {
-    am = (lv <= eps && plq > act_eps) ? 1.f : 0.f;
-  } else {
-    const float lo = k.real ? l_min[vo] : 0.f;
-    const float hi = k.real ? l_max[vo] : 0.f;
-    const float a_lo = (lv - lo <= eps) ? 1.f : 0.f;
-    const float a_hi = (lv - hi >= -eps) ? 1.f : 0.f;
-    const float rhs = -plq;
-    float vs = 0.f, a_sg = 0.f;
-    if constexpr (kKind == kSignedBox) {
-      vs = k.real ? v_sign[vo] : 0.f;
-      a_sg = (vs * lv >= -eps) ? vs * vs : 0.f;
-    }
-    const float denom = fmaxf(a_lo + a_hi + a_sg, 1.f);
-    g_lo = -a_lo * rhs / denom;
-    g_hi = a_hi * rhs / denom;
-    const float m_lo = (g_lo > act_eps) ? a_lo : 0.f;
-    const float m_hi = (g_hi > act_eps) ? a_hi : 0.f;
-    c_lo = -g_lo * m_lo;
-    c_hi = g_hi * m_hi;
-    float m_sg = 0.f;
-    if constexpr (kKind == kSignedBox) {
-      g_sg = a_sg * vs * rhs / denom;
-      m_sg = (g_sg > act_eps) ? a_sg : 0.f;
-      c_sg = vs * g_sg * m_sg;
-    }
-    am = fminf(m_lo + m_hi + m_sg, 1.f);
-  }
+  Duals d;
+  const float am = coord_duals<kKind>(k.real, vo, lv, plq, l_min, l_max, v_sign, eps, act_eps, d);
   const float fm = 1.f - am;
   if (k.real) s_fm[r] = fm;
   dq::bsync(k);
 
   // 3. K = fm P fm + diag(am): the mask is applied as P is read, and each
   // thread passes its own am as its row's shift
-  const float dinv = dq::chol_factor<true>(k, sP, sL, am, s_piv, s_rd, s_fm);
+  const float dinv = dq::chol_factor(k, sP, sL, am, s_piv, s_rd, s_fm);
 
   // 4. dl = K^{-1} (g fm) fm
   const float dl = dq::ldl_solve(k, sL, dinv, gv * fm, 0, s_fwd, s_bwd) * fm;
@@ -155,51 +305,53 @@ coord_bwd_kernel(const float* __restrict__ P, const float* __restrict__ q,
     if (k.real) {
       const float* row = sP + r * ld;
       for (int c = 0; c < n; ++c) pdl = __fadd_rn(pdl, __fmul_rn(row[c], s_x[c]));
-    }
-    const float resid = (gv - pdl) * am;
-    float den = __fadd_rn(__fmul_rn(c_lo, c_lo), __fmul_rn(c_hi, c_hi));
-    if constexpr (kKind == kSignedBox) den = __fadd_rn(den, __fmul_rn(c_sg, c_sg));
-    den = fmaxf(den, dq::kTiny);
-    if (k.real) {
-      const size_t kn = (kKind == kBox ? 2 : 3) * (size_t)n;
-      float* dg = dgamma_out + b * kn + r;
-      float* ga = gamma_out + b * kn + r;
-      dg[0] = c_lo * resid / den;
-      dg[n] = c_hi * resid / den;
-      ga[0] = g_lo;
-      ga[n] = g_hi;
-      if constexpr (kKind == kSignedBox) {
-        dg[2 * n] = c_sg * resid / den;
-        ga[2 * n] = g_sg;
-      }
+      coord_dgamma<kKind>(n, b, r, gv, pdl, am, d, dgamma_out, gamma_out);
     }
   }
 }
+
+constexpr int kOneWarpMaxN = 32;   // n <= 32: one warp, coord_bwd_kernel_w
 
 // Dynamic shared memory one block needs for a problem of size n (the
-// wrapper's smem_bytes in kernels/coord_bwd_cuda.py computes the same).
+// wrapper's smem_bytes in kernels/coord_bwd_cuda.py computes the same): P
+// and the factor (n x (n|1) each) and, at one warp, the publish slots, l and
+// the map of free coordinates (128 words); above it six n-vectors of slots.
 size_t smem_bytes(int n) {
   const size_t ld = n | 1;
-  return sizeof(float) * (2 * n * ld + 6 * n);
+  return sizeof(float) * (2 * n * ld + (n <= kOneWarpMaxN ? 128 : 6 * n));
 }
 
-template <int kKind>
-int launch(const float* P, const float* q, const float* l, const float* g,
-           const float* l_min, const float* l_max, const float* v_sign, float* dl_out,
-           float* dgamma_out, float* gamma_out, int B, int n, float eps, float act_eps,
-           cudaStream_t stream) {
-  const int threads = 32 * ((n + 31) / 32);
-  const size_t smem = smem_bytes(n);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        coord_bwd_kernel<kKind>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// f(K4's instance of kind kKind that takes size n, its threads per block).
+template <int kKind, typename F>
+int with_kernel(int n, F f) {
+  if (n <= 24) return f(coord_bwd_kernel_w<kKind, 24>, 32);
+  if (n <= kOneWarpMaxN) return f(coord_bwd_kernel_w<kKind, 32>, 32);
+  return f(coord_bwd_kernel<kKind>, 32 * ((n + 31) / 32));
+}
+
+// f(K4's instance of `kind` that takes size n, its threads per block), or
+// cudaErrorInvalidValue for an unknown kind.
+template <typename F>
+int with_kind(int kind, int n, F f) {
+  switch (kind) {
+    case kQP:
+      return with_kernel<kQP>(n, f);
+    case kBox:
+      return with_kernel<kBox>(n, f);
+    case kSignedBox:
+      return with_kernel<kSignedBox>(n, f);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  if (B > 0) {
-    coord_bwd_kernel<kKind><<<B, threads, smem, stream>>>(
-        P, q, l, g, l_min, l_max, v_sign, dl_out, dgamma_out, gamma_out, n, eps, act_eps);
-  }
-  return (int)cudaGetLastError();
+}
+
+// Opt `kernel` into smem bytes of dynamic shared memory where that is above
+// the default 48 KB; returns a CUDA error code.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 }  // namespace
@@ -216,20 +368,32 @@ int dq_coord_bwd_f32(const float* P, const float* q, const float* l, const float
                      const float* l_min, const float* l_max, const float* v_sign,
                      float* dl_out, float* dgamma_out, float* gamma_out, int B, int n,
                      int kind, float eps, float act_eps, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (kind) {
-    case kQP:
-      return launch<kQP>(P, q, l, g, l_min, l_max, v_sign, dl_out, dgamma_out, gamma_out,
-                         B, n, eps, act_eps, s);
-    case kBox:
-      return launch<kBox>(P, q, l, g, l_min, l_max, v_sign, dl_out, dgamma_out, gamma_out,
-                          B, n, eps, act_eps, s);
-    case kSignedBox:
-      return launch<kSignedBox>(P, q, l, g, l_min, l_max, v_sign, dl_out, dgamma_out,
-                                gamma_out, B, n, eps, act_eps, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const size_t smem = smem_bytes(n);
+  return with_kind(kind, n, [&](auto kernel, int threads) {
+    const int e = allow_smem(kernel, smem);
+    if (e != 0) return e;
+    if (B > 0) {
+      kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+          P, q, l, g, l_min, l_max, v_sign, dl_out, dgamma_out, gamma_out, n, eps, act_eps);
+    }
+    return (int)cudaGetLastError();
+  });
+}
+
+// Blocks of K4 of `kind` that one SM holds at size n, from the occupancy
+// calculator after the launch's attributes are set; -1 for an unknown kind,
+// or a negated CUDA error code.
+int dq_coord_bwd_blocks_per_sm(int n, int kind) {
+  if (kind < kQP || kind > kSignedBox) return -1;
+  const size_t smem = smem_bytes(n);
+  return with_kind(kind, n, [&](auto kernel, int threads) {
+    const int e = allow_smem(kernel, smem);
+    if (e != 0) return -e;
+    int blocks = 0;
+    const int e2 =
+        (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+    return e2 != 0 ? -e2 : blocks;
+  });
 }
 
 const char* dq_cuda_error_string(int code) {

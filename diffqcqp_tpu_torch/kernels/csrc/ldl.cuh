@@ -11,13 +11,22 @@
 // times a column of Lh subtracted from the rest (see the plain versions in
 // kernels/ldl.py, which repeat this arithmetic).
 //
-// Two forms.
+// Three forms.
 //
-// Thread per row (chol_factor, ldl_solve: K1, K4, and K2 / K6 at one warp,
-// n <= 32): thread r owns row r, left-looking factor columns, one solve per
-// right-hand side. With a single warp a value moves by __shfl_sync and no
-// barrier is needed; with more warps it goes through a shared slot and one
+// Thread per row (chol_factor, ldl_solve: K4 above one warp, n > 32):
+// thread r owns row r, left-looking factor columns, one solve per
+// right-hand side; a value moves through a shared slot and one
 // __syncthreads per step, so a solve costs 2n + 1 barriers.
+//
+// Registers at one warp (chol_factor_warp, ldl_solve_warp: K2 and K6 at n
+// <= 32, K4's free block at n <= 32). The thread-per-row form spent two
+// shared loads on every FMA of the factor (a serial left-looking chain per
+// column) and one shuffle-then-FMA step per right-hand side and row (K2:
+// ~505 dependent steps for its 13 solves at n = 24). Here lane r holds row
+// r in registers: the factor is right-looking, the pivot column published
+// once a step and read four entries a load; the sweeps take all right-hand
+// sides in one pair of 2n + 1 steps, each lane applying NC independent FMAs
+// a step from one load of Lh. No barrier: __syncwarp only.
 //
 // Block-wide (chol_factor_tiles, ldl_solve_tiles: K2 and K6 above one warp,
 // 256 threads). There the thread-per-row form paid ~7,400 block-wide
@@ -29,12 +38,14 @@
 // thread per problem. The solves are one pair of sweeps for all nc + 1
 // right-hand sides together, 2n + 1 barriers in all, each thread holding a
 // tile of rows x 8 right-hand sides in registers so that one shared load of
-// Lh feeds 8 FMAs. Both give each entry the thread-per-row form's operations
-// in its order (fmaf(-L[r][c], L[k][c], a) for c = 0, 1, ...; the sweeps'
-// subtractions by i), so the block-wide factor and solves agree with
-// kernels/ldl.py as the thread-per-row ones do; the sweeps also take the
-// steps ldl_solve's `start` skips, which subtract exact zeros. ptxas: see
-// csrc/qcqp_bwd.cu.
+// Lh feeds 8 FMAs.
+//
+// All three give each entry the same operations in the same order
+// (fmaf(-L[r][c], L[k][c], a) for c = 0, 1, ...; the sweeps' subtractions
+// by i), so they agree with kernels/ldl.py as the thread-per-row form does;
+// the register and block-wide sweeps also take the steps that
+// kernels/ldl.py's ldl_solve skips by its `start`, which subtract exact
+// zeros. ptxas: see csrc/qcqp_bwd.cu and csrc/coord_bwd.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,7 +72,10 @@ __device__ __forceinline__ void bsync(const Blk& k) {
 }
 
 // Value of `v` held by thread `src`, returned to every thread of the block.
-// `slot` is a shared float used only in the multi-warp case.
+// `slot` is a shared float used only in the multi-warp case. (K4, its one
+// caller, runs it on several warps; dropping the one-warp branch changed
+// the code ptxas generates for K4's box kinds at n = 96 and measured 29 %
+// slower for the box on an H100.)
 __device__ __forceinline__ float bcast(const Blk& k, float v, int src, float* slot) {
   if (k.one_warp) return __shfl_sync(kFullMask, v, src);
   if (k.r == src) *slot = v;
@@ -69,26 +83,22 @@ __device__ __forceinline__ float bcast(const Blk& k, float v, int src, float* sl
   return *slot;
 }
 
-// sL <- zero-diagonal unit-lower LDL^T factor of (P + shift I), P read from
-// sP (row-major, stride ld). Left-looking standard Cholesky columns with the
-// pivot floored at kTiny, then the in-place conversion Lh[r][j] = L[r][j] /
-// L_jj (r > j). Returns this thread's dinv = 1 / L_rr^2.
-// `shift` is read only by the thread whose row is the pivot (r == j), so each
-// thread may pass its own value: K1 passes one rho + mu for all rows, K2 its
-// row's 2 gamma, which factors P + diag(shift_r) with no change here.
-// With kMasked (K4) the factor is of fm P fm + diag(shift): `s_fm` holds a
-// 0 / 1 mask per row in shared memory and each element of P is masked as it
-// is read, so sP keeps the unmasked P for later use.
+// sL <- zero-diagonal unit-lower LDL^T factor of fm P fm + diag(shift), P
+// read from sP (row-major, stride ld) and masked as it is read (`s_fm`
+// holds a 0 / 1 mask per row in shared memory), so sP keeps the unmasked P
+// for later use: K4 above one warp. Left-looking standard Cholesky columns
+// with the pivot floored at kTiny, then the in-place conversion Lh[r][j] =
+// L[r][j] / L_jj (r > j). Returns this thread's dinv = 1 / L_rr^2. `shift`
+// is read only by the thread whose row is the pivot (r == j), so each
+// thread passes its own value (K4's am).
 // Scratch: s_piv[n] (pivot broadcast slots), s_rd[n] (reciprocal diagonal).
-template <bool kMasked = false>
 __device__ float chol_factor(const Blk& k, const float* sP, float* sL, float shift,
-                             float* s_piv, float* s_rd, const float* s_fm = nullptr) {
+                             float* s_piv, float* s_rd, const float* s_fm) {
   const int n = k.n, ld = k.ld, r = k.r;
   for (int j = 0; j < n; ++j) {
     float s = 0.f;
     if (k.real) {
-      s = sP[r * ld + j];
-      if constexpr (kMasked) s = s * s_fm[r] * s_fm[j];
+      s = sP[r * ld + j] * s_fm[r] * s_fm[j];
       if (r == j) s = s + shift;
       for (int c = 0; c < j; ++c) s = s - sL[c * ld + r] * sL[c * ld + j];
     }
@@ -130,6 +140,113 @@ __device__ float ldl_solve(const Blk& k, const float* sL, float dinv, float rhs,
     if (k.real) acc = acc - sL[r * ld + i] * v;      // Lh[i][r]
   }
   return acc;
+}
+
+// ---------------------------------------------------------------------------
+// Register forms for one warp (K2 and K6 at n <= 32, K4's free block at n <=
+// 32). Lane r holds row r in registers, so the factor reads no shared memory
+// per FMA and every broadcast is one 16-byte load that all lanes share.
+// ---------------------------------------------------------------------------
+
+// Published values of one step, double-buffered: 2 x 32 floats, 16-byte
+// aligned (the caller's carve places it first in dynamic shared memory).
+constexpr int kPubStride = 32;
+
+// In-place right-looking LDL^T factor on one warp. On entry lane r < n holds
+// row r of A = P + diag(shift) in a[0 .. n - 1] (only a[0 .. r] are read:
+// the lower triangle by rows, as chol_factor reads it) and zeros past n;
+// lanes r >= n hold zeros. At step j the pivot a_jj moves by one shuffle,
+// every lane forms L[r][j] = a_rj rs_j (rs_j = 1 / sqrt(max(a_jj, 1e-30)))
+// and publishes it, and after one __syncwarp takes a_rk -= L[r][j] L[k][j]
+// for every k > j from the published column, four entries a load. Entry
+// (r, k) meets chol_factor's subtractions in its order (fmaf(-L[r][c],
+// L[k][c], a) for c = 0, 1, ...) and its scaling, so the two give the same
+// bits. Writes the zero-diagonal unit-lower Lh (Lh[r][j] = L[r][j] / L_jj
+// below the diagonal, zeros on and above it) column-major into sL (sL[j * ld
+// + r], rows r < n) and returns this lane's dinv = 1 / L_rr^2. The loops are
+// unrolled to NMAX (>= n, a multiple of 4, <= 32) so that a[] stays in
+// registers; the steps j >= n are skipped by a warp-uniform test.
+template <int NMAX>
+__device__ float chol_factor_warp(float (&a)[NMAX], int n, int r, float* sL, int ld,
+                                  float* s_pub) {
+  static_assert(NMAX % 4 == 0 && NMAX <= kPubStride, "NMAX: a multiple of 4, at most 32");
+  float lrr = 1.f;
+#pragma unroll
+  for (int J = 0; J < NMAX; ++J) {
+    if (J < n) {
+      const float piv = __shfl_sync(kFullMask, a[J], J);
+      const float rs = 1.0f / sqrtf(fmaxf(piv, kTiny));
+      const float lr = r >= J ? a[J] * rs : 0.f;       // L[r][J]
+      if (r == J) lrr = lr;
+      float* col = s_pub + (J & 1) * kPubStride;
+      col[r] = lr;
+      if (r < n) sL[J * ld + r] = r > J ? lr * (1.0f / (piv * rs)) : 0.f;
+      __syncwarp();
+#pragma unroll
+      for (int K = (J + 1) & ~3; K < NMAX; K += 4) {
+        const float4 c4 = *reinterpret_cast<const float4*>(col + K);
+        if (K > J) a[K] = fmaf(-lr, c4.x, a[K]);
+        if (K + 1 > J) a[K + 1] = fmaf(-lr, c4.y, a[K + 1]);
+        if (K + 2 > J) a[K + 2] = fmaf(-lr, c4.z, a[K + 2]);
+        if (K + 3 > J) a[K + 3] = fmaf(-lr, c4.w, a[K + 3]);
+      }
+    }
+  }
+  const float rr = 1.0f / lrr;
+  return rr * rr;
+}
+
+// One step of ldl_solve_warp: lane `src` publishes its row of the NC
+// right-hand sides (float4 stores), one __syncwarp, and every lane takes
+// x[c] -= lh v[c] for all c from NC / 4 loads of the published row.
+template <int NC>
+__device__ __forceinline__ void sweep_step(float* pub, int r, int src, float lh,
+                                           float (&x)[NC]) {
+  constexpr int NC4 = (NC + 3) / 4;
+  if (r == src) {
+#pragma unroll
+    for (int q = 0; q < NC4; ++q) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = 4 * q + e < NC ? x[4 * q + e] : 0.f;
+      reinterpret_cast<float4*>(pub)[q] = make_float4(p[0], p[1], p[2], p[3]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < NC4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(pub)[q];
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (4 * q + e < NC) x[4 * q + e] = fmaf(-lh, vv[e], x[4 * q + e]);
+    }
+  }
+}
+
+// x <- (L L^T)^{-1} x for NC right-hand sides at once on one warp, from
+// chol_factor_warp's factor: lane r holds row r of all of them in x[]. One
+// pair of sweeps, 2n + 1 steps (sweep_step: at step i lane i publishes its
+// finished row, and every lane updates all NC entries from one load of
+// Lh[r][i], forward, or Lh[i][r], backward). Each entry takes ldl_solve's
+// operations in ldl_solve's order; kernels/ldl.py's `start` skips steps that
+// subtract exact zeros, which changes nothing but the sign of a zero.
+template <int NC>
+__device__ void ldl_solve_warp(const float* sL, int n, int ld, int r, float dinv, float (&x)[NC],
+                               float* s_pub) {
+  static_assert(NC <= kPubStride, "NC: at most 32 right-hand sides");
+  const int rr = min(r, n - 1);     // lanes past n read a real row and are ignored
+  __syncwarp();                     // the factor's last published column is read
+  for (int i = 0; i < n; ++i) {
+    sweep_step<NC>(s_pub + (i & 1) * kPubStride, r, i, sL[i * ld + rr], x);   // Lh[r][i]
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) x[c] = x[c] * dinv;
+  __syncwarp();                     // the last forward row is read before it is rewritten
+  for (int i = n - 1; i >= 0; --i) {
+    sweep_step<NC>(s_pub + (i & 1) * kPubStride, r, i, sL[rr * ld + i], x);   // Lh[i][r]
+  }
+  __syncwarp();                     // every lane has read the last published row
 }
 
 // ---------------------------------------------------------------------------
@@ -254,7 +371,7 @@ __device__ void chol_factor_tiles(float* sA, int n, int ld, float* s_rd, float* 
 // no-ops (skipping them behind a test measured slower on an H100). 2n + 1
 // barriers in all. Each entry takes ldl_solve's operations in
 // ldl_solve's order (forward i = 0 .. n - 1, times dinv, backward i = n - 1
-// .. 0); ldl_solve's `start` skips steps that would subtract a zero, which
+// .. 0); kernels/ldl.py's `start` skips steps that would subtract a zero, which
 // changes nothing but the sign of a zero. On return (after a barrier) sX
 // holds the solutions.
 constexpr int kTileCols = 8;

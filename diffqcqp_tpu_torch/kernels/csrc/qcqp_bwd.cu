@@ -29,18 +29,32 @@
 //
 // Two paths, split at n = 32 (one warp):
 //
-// One warp, n <= 32 (the flagship N = 24; the first design, kept): one thread
-// block per problem, one thread per coordinate row, as in K1. P, the
-// factor, W and [M | y] live in dynamic shared memory (~7 KB at N = 24);
-// the factor and the nc + 1 solves are ldl.cuh's thread-per-row helpers,
-// whose broadcasts are shuffles, not barriers. A contact's two rows sit on
+// One warp, n <= 32 (the flagship N = 24): one 32-thread block per
+// problem, lane r owning coordinate row r; a contact's two rows sit on
 // neighbouring lanes, so every per-contact quantity (the duals, the mask,
-// C^T z) is one __shfl_xor with the partner lane. The QR is qr.cuh's
-// qr_solve_cols on [M | y] (column-major, odd stride ldm = nc | 1), a thread
-// per column. What bounds it: the dependent chain inside each problem (n
-// factor columns, nc + 1 solves of up to 2n + 1 steps, nc QR steps), not the
-// bytes (~11.6 MB, ~3.5 us at 3.35 TB/s) or the FLOPs (~19 kFLOP per
-// problem); the design answers with occupancy, one warp a problem.
+// C^T z) is one __shfl_xor with the partner lane. What bounds it: not the
+// bytes (~11.6 MB at B = 4096, ~3.5 us at 3.35 TB/s) or the FLOPs (~19
+// kFLOP per problem) but each problem's dependent chain and the issue slots
+// of its loads, with one warp a problem and so few warps an SM to hide
+// either. The first design held P and its factor in two shared
+// planes and W in a third (7,348 B: 27 blocks an SM, two waves at B =
+// 4096), read two shared words per FMA of its left-looking factor and ran
+// the nc + 1 solves one after another (~505 dependent shuffle steps at n =
+// 24). Now (ldl.cuh's register forms):
+//   * each lane loads its row of P into registers (through the shared
+//     plane, coalesced) and the factor of D runs right-looking on them, the
+//     pivot column published once a step and read four entries a load; the
+//     factor Lh is written in place into the same plane (P is dead once P l
+//     + q is taken);
+//   * W = D^{-1} [g | C] is one pair of sweeps for all nc + 1 right-hand
+//     sides, 2n + 1 steps, each lane's row of W staying in registers (steps
+//     6 and 8 read only their own row), so no W plane;
+//   * the QR is qr.cuh's qr_solve_warp: lane j holds column j of [M | y]
+//     in registers, each reflector is computed once by its lane and
+//     published once;
+//   * 3,604 B of shared memory at n = 24 and __launch_bounds__(32, 32): 32
+//     blocks an SM, B = 4096 in one wave on 132 SMs.
+// Two instances unroll the register loops to n <= 24 and n <= 32.
 //
 // Block-wide, n > 32 (K6's N = 96): 256 threads per problem. There the
 // thread-per-row design ran on barriers (every broadcast of its 49 solves a
@@ -67,14 +81,16 @@
 // the TPU permutes coordinates (contact c on rows c, nc + c) so a contact's
 // rows are sublane slices, and starts column c's sweep at row c; here the
 // reference order keeps a contact on two neighbouring rows and its sweep
-// starts at row 2c (the block-wide sweep from row 0, subtracting exact
-// zeros before 2c). The TPU's QR takes column dot products over the rows of
-// M (thread-per-row reductions); here a thread, or a group of lanes, sums a
-// column. These change the order of float32 operations only.
+// starts at row 0, subtracting exact zeros before 2c. The TPU's QR takes
+// column dot products over the rows of M (thread-per-row reductions); here
+// a group of lanes sums a column. These change the order of float32
+// operations only.
 //
-// ptxas (sm_90a): one-warp K2 48 registers, K6 47; block-wide, n <= 96, 80
-// registers (the three-blocks bound), one of the two with 20 bytes of
-// spill; n <= 150, 187-190 registers, no spill.
+// ptxas (sm_90a): one warp, K2 and K6 64 registers each (the 32-blocks
+// bound; 48 and 47 in the first design), 12 bytes of spill each at n <= 24,
+// 24 and 84 bytes at n <= 32; block-wide, n <= 96, 80 registers (the
+// three-blocks bound), one of the two with 20 bytes of spill; n <= 150,
+// 187-190 registers, no spill.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -84,133 +100,157 @@
 
 namespace {
 
-// One problem's dynamic shared memory, laid out the same for K2 and K6.
-struct Smem {
-  float* sP;     // n x ld, row-major
-  float* sL;     // factor, column-major
-  float* sW;     // (nc + 1) columns of n: W = D^-1 [g | C]
+// ---------------------------------------------------------------------------
+// One warp, n <= 32: one problem per 32-thread block, lane r owning row r.
+// ---------------------------------------------------------------------------
+
+// The one-warp path's two instances: loops unrolled to kN rows (n <= kN)
+// and kNC = kN / 2 + 1 right-hand sides.
+template <int N>
+struct Warp {
+  static constexpr int kN = N, kNC = N / 2 + 1;
+};
+using WarpSmall = Warp<24>;   // n <= 24, the flagship
+using WarpLarge = Warp<32>;   // n <= 32
+
+// One problem's dynamic shared memory at one warp, laid out the same for K2
+// and K6; s_pub and s_x first, so that both are 16-byte aligned.
+struct SmemW {
+  float* s_pub;  // 2 x 32: what a step of the factor, the sweeps or the QR publishes
+  float* s_x;    // 32: l, broadcast for P l (K2)
+  float* sA;     // n x ld: P row-major, then the factor Lh column-major, in place
   float* sM;     // (nc + 1) columns of ldm: [M | y]
-  float* s_x;    // n: l, broadcast for P l (K2)
-  float* s_fwd;  // n: broadcast slots of the solves
-  float* s_bwd;  // n
-  float* s_piv;  // n: pivot broadcast slots of the factor
-  float* s_rd;   // n: reciprocal diagonal
   float* s_gam;  // nc: gamma * am
   float* s_am;   // nc: am as 0 / 1
   float* s_dg;   // nc: dgamma before the mask
 };
 
-__device__ Smem carve(float* smem, int n) {
+__device__ SmemW carve_w(float* smem, int n) {
   const int ld = n | 1, nc = n / 2, ldm = nc | 1;
-  Smem s;
-  s.sP = smem;
-  s.sL = s.sP + n * ld;
-  s.sW = s.sL + n * ld;
-  s.sM = s.sW + (nc + 1) * n;
-  s.s_x = s.sM + (nc + 1) * ldm;
-  s.s_fwd = s.s_x + n;
-  s.s_bwd = s.s_fwd + n;
-  s.s_piv = s.s_bwd + n;
-  s.s_rd = s.s_piv + n;
-  s.s_gam = s.s_rd + n;
+  SmemW s;
+  s.s_pub = smem;
+  s.s_x = s.s_pub + 2 * dq::kPubStride;
+  s.sA = s.s_x + 32;
+  s.sM = s.sA + n * ld;
+  s.s_gam = s.sM + (nc + 1) * ldm;
   s.s_am = s.s_gam + nc;
   s.s_dg = s.s_am + nc;
   return s;
 }
 
-// Problem b's P from global memory into sm.sP (row-major, stride ld).
-__device__ void load_P(const dq::Blk& k, const Smem& sm, const float* __restrict__ P,
-                       size_t b) {
-  const int n = k.n, ld = k.ld;
+// Problem b's P through sA (coalesced loads) into lane r's registers: a[k] =
+// P[r][k] for r, k < n, zeros elsewhere. sA is free again on return.
+template <int N>
+__device__ void load_row(const SmemW& sm, int n, int r, const float* __restrict__ P, size_t b,
+                         float (&a)[N]) {
+  const int ld = n | 1;
   const float* Pb = P + b * n * n;
-  for (int idx = k.r; idx < n * n; idx += blockDim.x) {
-    const int i = idx / n;
-    sm.sP[i * ld + (idx - i * n)] = Pb[idx];
+  if (r < n) {
+    for (int i = 0; i < n; ++i) sm.sA[i * ld + r] = Pb[i * n + r];   // row i, coalesced
   }
+  __syncwarp();
+  const float* row = sm.sA + min(r, n - 1) * ld;
+#pragma unroll
+  for (int k = 0; k < N; ++k) a[k] = (r < n && k < n) ? row[k] : 0.f;
+  __syncwarp();
 }
 
-// Steps 4-8 for this thread's row r (contact r >> 1). On entry sm.sP holds
-// P, and sm.s_gam / sm.s_am hold gamma am and am per contact (the factor's
-// first barrier publishes them). Per thread: gam_raw, the raw gamma of its
-// contact (D's shift), its l and g, and its contact's am and
-// sigma = s am + (1 - am). Writes dl_b[r] (r < n) and dgamma_b[c] (c < nc),
-// problem b's rows of the outputs.
-__device__ void schur_core(const dq::Blk& k, const Smem& sm, float gam_raw, float lv,
-                           float gv, float amf, float sigma, float* __restrict__ dl_b,
-                           float* __restrict__ dgamma_b) {
-  const int r = k.r, n = k.n, nc = n / 2, ldm = nc | 1;
+// Steps 4-8 for lane r (contact r >> 1). On entry a[] holds row r of P and
+// sm.s_gam / sm.s_am hold gamma am and am per contact (the factor's first
+// __syncwarp publishes them). Per lane: gam_raw, the raw gamma of its
+// contact (D's shift), its l and g, and its contact's am and sigma = s am +
+// (1 - am). Writes dl_b[r] (r < n) and dgamma_b[c] (c < nc), problem b's
+// rows of the outputs.
+template <typename T>
+__device__ void schur_core_w(const SmemW& sm, int n, int r, float (&a)[T::kN], float gam_raw,
+                             float lv, float gv, float amf, float sigma, float* __restrict__ dl_b,
+                             float* __restrict__ dgamma_b) {
+  const int ld = n | 1, nc = n / 2, ldm = nc | 1;
   const int cown = r >> 1;
-  const bool odd = r & 1;
+  const bool odd = r & 1, real = r < n;
 
-  // 4. D = P + diag(2 gamma_raw): each thread passes its own row's shift
-  const float dinv = dq::chol_factor(k, sm.sP, sm.sL, 2.f * gam_raw, sm.s_piv, sm.s_rd);
-
-  // 5. W = D^{-1} [g | C]; only this thread reads its row of W again
-  float w = dq::ldl_solve(k, sm.sL, dinv, gv, 0, sm.s_fwd, sm.s_bwd);
-  if (k.real) sm.sW[r] = w;
-  for (int c = 0; c < nc; ++c) {
-    const float rhs = (cown == c) ? 2.f * lv * amf : 0.f;
-    w = dq::ldl_solve(k, sm.sL, dinv, rhs, 2 * c, sm.s_fwd, sm.s_bwd);
-    if (k.real) sm.sW[(c + 1) * n + r] = w;
+  // 4. D = P + diag(2 gamma_raw), factored in place in sA
+#pragma unroll
+  for (int k = 0; k < T::kN; ++k) {
+    if (k == r) a[k] = a[k] + 2.f * gam_raw;
   }
+  const float dinv = dq::chol_factor_warp<T::kN>(a, n, r, sm.sA, ld, sm.s_pub);
+
+  // 5. W = D^{-1} [g | C], all nc + 1 columns in one pair of sweeps; lane r
+  // keeps its row of W in x[]
+  float x[T::kNC];
+  x[0] = real ? gv : 0.f;
+#pragma unroll
+  for (int c = 0; c + 1 < T::kNC; ++c) x[c + 1] = (real && cown == c) ? 2.f * lv * amf : 0.f;
+  dq::ldl_solve_warp<T::kNC>(sm.sA, n, ld, r, dinv, x, sm.s_pub);
 
   // 6. column c < nc of M from W's column c + 1, column nc (= y) from W_g;
   // (C^T z)_i = 2 (l_2i z_2i + l_2i+1 z_2i+1) am_i, summed by the lane pair
-  for (int c = 0; c <= nc; ++c) {
-    const int wc = (c == nc) ? 0 : c + 1;
-    const float t = k.real ? lv * sm.sW[wc * n + r] : 0.f;
-    const float tp = __shfl_xor_sync(dq::kFullMask, t, 1);
-    const float ct = 2.f * (odd ? tp + t : t + tp) * amf;
-    if (k.real && !odd) {
-      sm.sM[c * ldm + cown] =
-          (c == nc) ? -ct : ((cown == c) ? sigma : 0.f) - ct * sm.s_gam[c];
+#pragma unroll
+  for (int c = 0; c < T::kNC; ++c) {
+    if (c <= nc) {
+      const float wv = c == nc ? x[0] : x[c + 1 < T::kNC ? c + 1 : 0];
+      const float t = real ? lv * wv : 0.f;
+      const float tp = __shfl_xor_sync(dq::kFullMask, t, 1);
+      const float ct = 2.f * (odd ? tp + t : t + tp) * amf;
+      if (real && !odd) {
+        sm.sM[c * ldm + cown] =
+            (c == nc) ? -ct : ((cown == c) ? sigma : 0.f) - ct * sm.s_gam[c < nc ? c : 0];
+      }
     }
   }
-  dq::bsync(k);
+  __syncwarp();
 
-  // 7. Householder QR of M applied to y; thread j <= nc owns column j
-  dq::qr_solve_cols(k, sm.sM, nc, ldm, sm.s_dg);
+  // 7. Householder QR of M applied to y in registers, lane j owning column j
+  dq::qr_solve_warp<T::kN / 2>(sm.sM, nc, ldm, sm.s_dg, sm.s_pub);
 
   // 8. dl = W_g - W_C (gamma am dgamma am)
-  if (k.real) {
-    float dl = sm.sW[r];
-    for (int c = 0; c < nc; ++c) {
-      dl = dl - sm.sW[(c + 1) * n + r] * (sm.s_gam[c] * (sm.s_dg[c] * sm.s_am[c]));
+  if (real) {
+    float dl = x[0];
+#pragma unroll
+    for (int c = 0; c + 1 < T::kNC; ++c) {
+      if (c < nc) dl = dl - x[c + 1] * (sm.s_gam[c] * (sm.s_dg[c] * sm.s_am[c]));
     }
     dl_b[r] = dl;
   }
   if (r < nc) dgamma_b[r] = sm.s_dg[r] * sm.s_am[r];
 }
 
-__global__ void __launch_bounds__(256)
+// 32 blocks (one warp each) an SM: at most 64 registers a thread
+template <typename T>
+__global__ void __launch_bounds__(32, 32)
 qcqp_bwd_kernel(const float* __restrict__ P, const float* __restrict__ q,
                 const float* __restrict__ l, const float* __restrict__ g,
                 const float* __restrict__ radius, float* __restrict__ dgamma_out,
                 float* __restrict__ dl_out, float* __restrict__ gamma_out, int n,
                 float eps, float act_eps, float stall_ulps) {
-  extern __shared__ float smem[];
-  const int ld = n | 1, nc = n / 2;
-  const Smem sm = carve(smem, n);
-
+  extern __shared__ float4 smem_w[];
+  const int nc = n / 2;
+  const SmemW sm = carve_w(reinterpret_cast<float*>(smem_w), n);
   const int r = threadIdx.x;
-  const dq::Blk k{r, n, ld, blockDim.x == 32, r < n};
+  const bool real = r < n;
   const size_t b = blockIdx.x;
 
-  load_P(k, sm, P, b);
   const size_t vo = b * n + r;
   const int cown = r >> 1;                // this row's contact
   const bool odd = r & 1;
-  const float lv = k.real ? l[vo] : 0.f;
-  const float gv = k.real ? g[vo] : 0.f;
-  const float rad = k.real ? radius[b * nc + cown] : 0.f;
-  if (k.real) sm.s_x[r] = lv;
-  __syncthreads();
+  const float lv = real ? l[vo] : 0.f;
+  const float gv = real ? g[vo] : 0.f;
+  const float rad = real ? radius[b * nc + cown] : 0.f;
+  sm.s_x[r] = lv;
+  float a[T::kN];
+  load_row<T::kN>(sm, n, r, P, b, a);     // its __syncwarp publishes s_x too
 
   // 1. P l + q, accumulated from q over the columns in order
-  float plq = k.real ? q[vo] : 0.f;
-  if (k.real) {
-    const float* row = sm.sP + r * ld;
-    for (int c = 0; c < n; ++c) plq = __fadd_rn(plq, __fmul_rn(row[c], sm.s_x[c]));
+  float plq = real ? q[vo] : 0.f;
+#pragma unroll
+  for (int k = 0; k < T::kN; k += 4) {
+    const float4 x4 = *reinterpret_cast<const float4*>(sm.s_x + k);
+    const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (k + e < n) plq = __fadd_rn(plq, __fmul_rn(a[k + e], xv[e]));
+    }
   }
 
   // 2-3. per-contact duals and mask; (la, lb) are the even and odd rows'
@@ -230,47 +270,47 @@ qcqp_bwd_kernel(const float* __restrict__ P, const float* __restrict__ q,
   const float rr = rad * rad;
   const float s = sq - rr;
   const float s_tol = fmaxf(act_eps, stall_ulps * (sq + rr));
-  const bool am = k.real && (s > -s_tol) && (rad > act_eps) && (gam_raw > act_eps);
+  const bool am = real && (s > -s_tol) && (rad > act_eps) && (gam_raw > act_eps);
   const float amf = am ? 1.f : 0.f;
   const float sigma = am ? s : 1.f;       // s am + (1 - am)
-  if (k.real && !odd) {
+  if (real && !odd) {
     sm.s_gam[cown] = gam_raw * amf;
     sm.s_am[cown] = amf;
+    gamma_out[b * nc + cown] = gam_raw;
   }
 
   // 4-8.
-  schur_core(k, sm, gam_raw, lv, gv, amf, sigma, dl_out + b * n, dgamma_out + b * nc);
-  if (k.real && !odd) gamma_out[b * nc + cown] = gam_raw;
+  schur_core_w<T>(sm, n, r, a, gam_raw, lv, gv, amf, sigma, dl_out + b * n, dgamma_out + b * nc);
 }
 
-__global__ void __launch_bounds__(256)
+template <typename T>
+__global__ void __launch_bounds__(32, 32)
 qcqp_schur_kernel(const float* __restrict__ P, const float* __restrict__ l,
                   const float* __restrict__ g, const float* __restrict__ gamma,
                   const float* __restrict__ s, const float* __restrict__ am,
                   float* __restrict__ dgamma_out, float* __restrict__ dl_out, int n) {
-  extern __shared__ float smem[];
-  const int ld = n | 1, nc = n / 2;
-  const Smem sm = carve(smem, n);
-
+  extern __shared__ float4 smem_w[];
+  const int nc = n / 2;
+  const SmemW sm = carve_w(reinterpret_cast<float*>(smem_w), n);
   const int r = threadIdx.x;
-  const dq::Blk k{r, n, ld, blockDim.x == 32, r < n};
+  const bool real = r < n;
   const size_t b = blockIdx.x;
 
-  load_P(k, sm, P, b);
   const size_t vo = b * n + r;
   const size_t co = b * nc + (r >> 1);    // this row's contact
-  const float lv = k.real ? l[vo] : 0.f;
-  const float gv = k.real ? g[vo] : 0.f;
-  const float gam_raw = k.real ? gamma[co] : 0.f;
-  const float amf = k.real ? am[co] : 0.f;
-  const float sigma = (k.real ? s[co] : 0.f) * amf + (1.f - amf);
-  if (k.real && !(r & 1)) {
+  const float lv = real ? l[vo] : 0.f;
+  const float gv = real ? g[vo] : 0.f;
+  const float gam_raw = real ? gamma[co] : 0.f;
+  const float amf = real ? am[co] : 0.f;
+  const float sigma = (real ? s[co] : 0.f) * amf + (1.f - amf);
+  if (real && !(r & 1)) {
     sm.s_gam[r >> 1] = gam_raw * amf;
     sm.s_am[r >> 1] = amf;
   }
-  __syncthreads();
+  float a[T::kN];
+  load_row<T::kN>(sm, n, r, P, b, a);
 
-  schur_core(k, sm, gam_raw, lv, gv, amf, sigma, dl_out + b * n, dgamma_out + b * nc);
+  schur_core_w<T>(sm, n, r, a, gam_raw, lv, gv, amf, sigma, dl_out + b * n, dgamma_out + b * nc);
 }
 
 // ---------------------------------------------------------------------------
@@ -477,14 +517,14 @@ qcqp_schur_kernel_mw(const float* __restrict__ P, const float* __restrict__ l,
 
 // Dynamic shared memory one block needs for a problem of size n, for either
 // kernel (the wrapper's launch_plan in kernels/qcqp_bwd_cuda.py computes the
-// same): at n <= 32 P and the factor (n x (n|1) each), W (n x (nc+1)),
-// [M | y], five n-vectors and three nc-vectors of slots; above, P and its
-// factor in one plane, W with stride n + 1, [M | y], four n-vectors (two
-// of them the factor's column buffers), four nc-vectors and six slots.
+// same): at n <= 32 the two 32-float publish slots and l (96 floats), P and
+// its factor in one n x (n|1) plane, [M | y] and three nc-vectors; above, P and its factor in one plane, W with stride n + 1, [M | y],
+// four n-vectors (two of them the factor's column buffers), four nc-vectors
+// and six slots.
 size_t smem_bytes(int n) {
   const size_t ld = n | 1, nc = n / 2, ldm = nc | 1;
   if (n <= kOneWarpMaxN) {
-    return sizeof(float) * (2 * n * ld + (nc + 1) * n + (nc + 1) * ldm + 5 * n + 3 * nc);
+    return sizeof(float) * (3 * 32 + n * ld + (nc + 1) * ldm + 3 * nc);
   }
   return sizeof(float) * (n * ld + (nc + 1) * (n + 1) + (nc + 1) * ldm + 4 * n + 4 * nc + 6);
 }
@@ -511,6 +551,22 @@ int launch(Kernel kernel, int B, int threads, size_t smem, void* stream, Args...
   return (int)cudaGetLastError();
 }
 
+// f(the instance of K6 (kSchur) or K2 that takes size n); n within the plan.
+template <bool kSchur, typename F>
+int with_kernel(int n, F f) {
+  if constexpr (kSchur) {
+    if (n <= WarpSmall::kN) return f(qcqp_schur_kernel<WarpSmall>);
+    if (n <= kOneWarpMaxN) return f(qcqp_schur_kernel<WarpLarge>);
+    if (n <= 96) return f(qcqp_schur_kernel_mw<SmallTiles>);
+    return f(qcqp_schur_kernel_mw<LargeTiles>);
+  } else {
+    if (n <= WarpSmall::kN) return f(qcqp_bwd_kernel<WarpSmall>);
+    if (n <= kOneWarpMaxN) return f(qcqp_bwd_kernel<WarpLarge>);
+    if (n <= 96) return f(qcqp_bwd_kernel_mw<SmallTiles>);
+    return f(qcqp_bwd_kernel_mw<LargeTiles>);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -522,12 +578,13 @@ extern "C" {
 // odd n, or n > kMwMaxN).
 int dq_qcqp_bwd_plan(int n, int* threads, long long* smem, int* bound, int* rows) {
   *smem = (long long)smem_bytes(n);
-  *bound = kMwThreads;
   if (n <= kOneWarpMaxN) {
     *threads = 32;
+    *bound = 32;
     *rows = 0;
   } else {
     *threads = kMwThreads;
+    *bound = kMwThreads;
     *rows = n <= 96 ? SmallTiles::kNR : LargeTiles::kNR;
   }
   return (n < 2 || n % 2 || n > kMwMaxN) ? 1 : 0;
@@ -537,21 +594,18 @@ int dq_qcqp_bwd_plan(int n, int* threads, long long* smem, int* bound, int* rows
 // from the occupancy calculator after the launch's attributes are set; -1
 // where n is past the plan, or a negated CUDA error code.
 int dq_qcqp_bwd_blocks_per_sm(int n, int schur) {
-  int threads, bound, rows, blocks = 0;
+  int threads, bound, rows;
   long long smem;
   if (dq_qcqp_bwd_plan(n, &threads, &smem, &bound, &rows)) return -1;
   auto occ = [&](auto kernel) {
     const int e = allow_smem(kernel, smem);
     if (e != 0) return -e;
+    int blocks = 0;
     const int e2 =
         (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
     return e2 != 0 ? -e2 : blocks;
   };
-  if (rows == 0) return schur ? occ(qcqp_schur_kernel) : occ(qcqp_bwd_kernel);
-  if (rows == SmallTiles::kNR) {
-    return schur ? occ(qcqp_schur_kernel_mw<SmallTiles>) : occ(qcqp_bwd_kernel_mw<SmallTiles>);
-  }
-  return schur ? occ(qcqp_schur_kernel_mw<LargeTiles>) : occ(qcqp_bwd_kernel_mw<LargeTiles>);
+  return schur ? with_kernel<true>(n, occ) : with_kernel<false>(n, occ);
 }
 
 // Launch K2 on `stream` for B problems of size n = 2 nc. All pointers are
@@ -564,14 +618,10 @@ int dq_qcqp_bwd_f32(const float* P, const float* q, const float* l, const float*
   int threads, bound, rows;
   long long smem;
   if (dq_qcqp_bwd_plan(n, &threads, &smem, &bound, &rows)) return (int)cudaErrorInvalidValue;
-  if (rows == 0) {
-    return launch(qcqp_bwd_kernel, B, threads, smem, stream, P, q, l, g, radius, dgamma_out,
-                  dl_out, gamma_out, n, eps, act_eps, stall_ulps);
-  }
-  return launch(rows == SmallTiles::kNR ? qcqp_bwd_kernel_mw<SmallTiles>
-                                        : qcqp_bwd_kernel_mw<LargeTiles>, B, threads,
-                smem, stream, P, q, l, g, radius, dgamma_out, dl_out, gamma_out, n, eps,
-                act_eps, stall_ulps);
+  return with_kernel<false>(n, [&](auto kernel) {
+    return launch(kernel, B, threads, smem, stream, P, q, l, g, radius, dgamma_out, dl_out,
+                  gamma_out, n, eps, act_eps, stall_ulps);
+  });
 }
 
 // Launch K6 on `stream` for B problems of size n = 2 nc: gamma, s and am are
@@ -582,13 +632,9 @@ int dq_qcqp_schur_f32(const float* P, const float* l, const float* g, const floa
   int threads, bound, rows;
   long long smem;
   if (dq_qcqp_bwd_plan(n, &threads, &smem, &bound, &rows)) return (int)cudaErrorInvalidValue;
-  if (rows == 0) {
-    return launch(qcqp_schur_kernel, B, threads, smem, stream, P, l, g, gamma, s, am,
-                  dgamma_out, dl_out, n);
-  }
-  return launch(rows == SmallTiles::kNR ? qcqp_schur_kernel_mw<SmallTiles>
-                                        : qcqp_schur_kernel_mw<LargeTiles>, B,
-                threads, smem, stream, P, l, g, gamma, s, am, dgamma_out, dl_out, n);
+  return with_kernel<true>(n, [&](auto kernel) {
+    return launch(kernel, B, threads, smem, stream, P, l, g, gamma, s, am, dgamma_out, dl_out, n);
+  });
 }
 
 const char* dq_cuda_error_string(int code) {

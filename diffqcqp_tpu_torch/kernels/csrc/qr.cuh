@@ -16,15 +16,6 @@
 // problem is ~4 us for 4096 systems of m = 36) but the chain of m dependent
 // steps inside each problem, each a pass over column k and over every later
 // column, and the shared-memory loads and issue slots those passes take.
-// Two forms:
-//
-// qr_solve_cols (K2 and K6 at one warp, n <= 32, i.e. nc <= 16: the QCQP
-// flagship's 12 x 13 system; the first form, kept): thread j owns column j;
-// every thread computes each reflector from column k itself with serial
-// sums (two passes over m - k rows), then its dot product and update (two
-// more); one __syncwarp per step. At 13 columns on one warp there is no
-// barrier to save, and the plain version keeps torch.sum's order there
-// (householder_solve(group=None)).
 //
 // qr_solve_lanes (K5 at every m; K2 and K6 above one warp): each reflector
 // is computed once, by the G lanes that own column k, inside their update of
@@ -34,10 +25,14 @@
 // back substitution runs on warp 0 alone with x_k moving by shuffles, no
 // barrier. G trades the per-step chain ((m - k) / G loads and FMAs) against
 // warps per problem: K5 takes G = 2 from m = 32 to 127 and 1 otherwise, K6
-// 4 at n <= 96 and 2 above (timed on an H100). Every lane
-// of a group ends a butterfly with the same bits, so no broadcast is needed,
-// and kernels/qr_solve_cuda.py::householder_solve(group=G) adds in this
-// order. ptxas (sm_90a): K5's instances 30-40 registers, no spill.
+// 4 at n <= 96 and 2 above (timed on an H100). Every lane of a group ends a
+// butterfly with the same bits, so no broadcast is needed, and
+// kernels/qr_solve_cuda.py::householder_solve(group=G) adds in this order.
+// ptxas (sm_90a): K5's instances 30-40 registers, no spill.
+//
+// qr_solve_warp (K2 and K6 at one warp, nc <= 16): the same arithmetic with
+// one lane a column and the columns in registers, so the passes read no
+// shared memory and each reflector is published once; no barrier.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,47 +42,11 @@
 
 namespace dq {
 
-__device__ void qr_solve_cols(const Blk& k, float* sA, int m, int ld, float* s_x) {
-  const int r = k.r;
-  for (int kk = 0; kk < m; ++kk) {
-    const float* ck = sA + kk * ld;
-    float nsq = 0.f;
-    for (int i = kk; i < m; ++i) nsq = nsq + ck[i] * ck[i];
-    const float akk = ck[kk];
-    const float alpha = (akk < 0.f ? 1.f : -1.f) * sqrtf(nsq);   // -sign(akk) |col|
-    const float vk = akk - alpha;
-    float vsq = vk * vk;
-    for (int i = kk + 1; i < m; ++i) vsq = vsq + ck[i] * ck[i];
-    const float beta = vsq > kTiny ? 2.f / fmaxf(vsq, kTiny) : 0.f;
-    if (r > kk && r <= m) {
-      float* cj = sA + r * ld;
-      float wd = vk * cj[kk];
-      for (int i = kk + 1; i < m; ++i) wd = wd + ck[i] * cj[i];
-      const float bw = beta * wd;
-      cj[kk] = cj[kk] - bw * vk;
-      for (int i = kk + 1; i < m; ++i) cj[i] = cj[i] - bw * ck[i];
-    }
-    bsync(k);
-    if (r == kk) sA[kk * ld + kk] = alpha;   // R's diagonal; column kk is read no more this sweep
-  }
-  bsync(k);
-
-  float bi = (r < m) ? sA[m * ld + r] : 0.f;
-  for (int kk = m - 1; kk >= 0; --kk) {
-    if (r == kk) {
-      const float d = sA[kk * ld + kk];
-      s_x[kk] = bi / (fabsf(d) > kTiny ? d : kTiny);
-    }
-    bsync(k);
-    if (r < kk) bi = bi - sA[kk * ld + r] * s_x[kk];
-  }
-}
-
 // Back substitution R x = Q^T b on warp 0 from R (upper triangle) and Q^T b
 // (column m) in shared memory: lanes over rows, b_i in registers (m <= 32
 // kChunks), x_k moving by __shfl_sync, no barrier. The block's other warps
 // wait at the closing __syncthreads. Same operations, in the same order, as
-// qr_solve_cols's back substitution.
+// householder_solve's back substitution.
 template <int kChunks>
 __device__ void back_substitute_warp(const float* sA, int m, int ld, float* s_x) {
   if (threadIdx.x < 32) {
@@ -114,6 +73,78 @@ __device__ void back_substitute_warp(const float* sA, int m, int ld, float* s_x)
     }
   }
   __syncthreads();
+}
+
+// The QR of K2 / K6 at one warp, in registers: lane j (j <= m) holds
+// column j of [A | b] (m <= MMAX <= 16 rows, read from shared memory,
+// column-major stride ld). At step k lane k computes its reflector from its
+// registers (the tail ||c[k+1:]||^2 summed serially in row order, then
+// alpha, v_k and beta as qr_solve_lanes computes them), keeps alpha as R's
+// diagonal and publishes v and beta once (float4 stores into s_pub, 2 x 32
+// floats, double-buffered); after one __syncwarp every later column takes
+// v^T c_j serially in row order from float4 loads and its update. This is
+// qr_solve_lanes's arithmetic with one lane a column, with no shared load
+// in the passes and no barrier. R and Q^T b go back to sA for
+// back_substitute_warp.
+template <int MMAX>
+__device__ void qr_solve_warp(float* sA, int m, int ld, float* s_x, float* s_pub) {
+  static_assert(MMAX <= 16 && MMAX % 4 == 0, "MMAX: a multiple of 4, at most 16");
+  constexpr int kBeta = 31;   // beta's slot in the published buffer
+  const int j = threadIdx.x;
+  const bool mine = j <= m;
+  const float* cs = sA + min(j, m) * ld;
+  float c[MMAX];
+#pragma unroll
+  for (int i = 0; i < MMAX; ++i) c[i] = (mine && i < m) ? cs[i] : 0.f;
+#pragma unroll
+  for (int K = 0; K < MMAX; ++K) {
+    if (K < m) {
+      float* pub = s_pub + (K & 1) * 32;
+      if (j == K) {
+        float tail = 0.f;
+#pragma unroll
+        for (int i = K + 1; i < MMAX; ++i) tail = tail + c[i] * c[i];   // rows past m hold 0
+        const float akk = c[K];
+        const float alpha = (akk < 0.f ? 1.f : -1.f) * sqrtf(akk * akk + tail);
+        const float vk = akk - alpha;
+        const float vsq = vk * vk + tail;
+#pragma unroll
+        for (int q = K / 4; q < MMAX / 4; ++q) {
+          reinterpret_cast<float4*>(pub)[q] =
+              make_float4(4 * q == K ? vk : c[4 * q], 4 * q + 1 == K ? vk : c[4 * q + 1],
+                          4 * q + 2 == K ? vk : c[4 * q + 2], 4 * q + 3 == K ? vk : c[4 * q + 3]);
+        }
+        pub[kBeta] = vsq > kTiny ? 2.f / fmaxf(vsq, kTiny) : 0.f;
+        c[K] = alpha;
+      }
+      __syncwarp();
+      if (mine && j > K) {
+        float v[MMAX];
+#pragma unroll
+        for (int q = K / 4; q < MMAX / 4; ++q) {
+          const float4 v4 = reinterpret_cast<const float4*>(pub)[q];
+          v[4 * q] = v4.x;
+          v[4 * q + 1] = v4.y;
+          v[4 * q + 2] = v4.z;
+          v[4 * q + 3] = v4.w;
+        }
+        float wd = v[K] * c[K];
+#pragma unroll
+        for (int i = K + 1; i < MMAX; ++i) wd = wd + v[i] * c[i];      // rows past m hold 0
+        const float bw = pub[kBeta] * wd;
+#pragma unroll
+        for (int i = K; i < MMAX; ++i) c[i] = c[i] - bw * v[i];
+      }
+    }
+  }
+  if (mine) {
+#pragma unroll
+    for (int i = 0; i < MMAX; ++i) {
+      if (i < m) sA[j * ld + i] = c[i];
+    }
+  }
+  __syncwarp();
+  back_substitute_warp<1>(sA, m, ld, s_x);
 }
 
 // Sum of p over the G lanes of this thread's group (the lanes of `gmask`)
@@ -155,8 +186,8 @@ __device__ __forceinline__ void publish_reflector(float* c, int k, float tail_p,
 // every column j > k takes v^T A_j (each lane adds its rows in order, then
 // the group's butterfly) and its update, reading v from column k: one
 // __syncthreads per step, and per step a chain of about (m - k) / G
-// dependent loads and FMAs per lane instead of qr_solve_cols's four passes
-// of m - k. kernels/qr_solve_cuda.py::householder_solve(group=G) adds in
+// dependent loads and FMAs per lane instead of four passes of m - k with
+// every column computing the reflector itself. kernels/qr_solve_cuda.py::householder_solve(group=G) adds in
 // this order. Then back_substitute_warp. The block has at least
 // max(G (m + 1), 32) threads and m <= 32 kChunks.
 template <int G, int kChunks>

@@ -52,15 +52,18 @@ __all__ = [
 ]
 
 ONE_WARP_MAX_N = 32   # csrc/qcqp_bwd.cu's kOneWarpMaxN: one warp per problem up to here
-MW_THREADS = 256      # kMwThreads: the block-wide path's threads, and every kernel's bound
+MW_THREADS = 256      # kMwThreads: the block-wide path's threads and bound
 MW_MAX_N = 150        # kMwMaxN: the largest n of the block-wide path
 
 
 def qr_group(n: int) -> int | None:
-    """Lanes per column of the kernels' QR of the Schur system at size n
-    (csrc/qcqp_bwd.cu's Tiles::kQG): None at one warp, where qr_solve_cols
-    gives a thread to a column and the plain version keeps ``torch.sum``'s
-    order; 4 up to n = 96, 2 above."""
+    """The order of the plain version's sums in the QR of the Schur system at
+    size n: the kernels' lanes per column above one warp (csrc/qcqp_bwd.cu's
+    Tiles::kQG: 4 up to n = 96, 2 above); None at one warp, ``torch.sum``'s
+    order. The one-warp kernels' QR (csrc/qr.cuh's qr_solve_warp, one lane
+    a column, serial sums with fused multiply-adds) adds in an order of its
+    own there, as the one-warp kernels always have, and is held to the plain
+    version by tolerance on the card."""
     return None if n <= ONE_WARP_MAX_N else (4 if n <= 96 else 2)
 
 
@@ -182,15 +185,15 @@ def _lib():
 
 def smem_bytes(n: int) -> int:
     """Dynamic shared memory of one block of K2 or K6 at problem size n (as
-    ``smem_bytes`` in csrc/qcqp_bwd.cu computes it). One warp (n <= 32): P
-    and the factor (n x (n|1) each), W (n x (nc+1)), [M | y] ((nc|1) x
-    (nc+1)), five n-vectors and three nc-vectors of slots. Block-wide: P
-    and its factor in one n x (n|1) plane, W ((n+1) x (nc+1)), [M | y], four
-    n-vectors (two of them the factor's column buffers), four nc-vectors and
-    six slots."""
+    ``smem_bytes`` in csrc/qcqp_bwd.cu computes it). One warp (n <= 32): two
+    32-float publish slots and l (96 floats), P and its factor in one n x
+    (n|1) plane, [M | y] ((nc|1) x (nc+1)) and three nc-vectors; W stays in
+    registers. Block-wide: P and its factor in one plane,
+    W ((n+1) x (nc+1)), [M | y], four n-vectors (two of them the factor's
+    column buffers), four nc-vectors and six slots."""
     nc, ld, ldm = n // 2, n | 1, (n // 2) | 1
     if n <= ONE_WARP_MAX_N:
-        return 4 * (2 * n * ld + (nc + 1) * n + (nc + 1) * ldm + 5 * n + 3 * nc)
+        return 4 * (96 + n * ld + (nc + 1) * ldm + 3 * nc)
     return 4 * (n * ld + (nc + 1) * (n + 1) + (nc + 1) * ldm + 4 * n + 4 * nc + 6)
 
 
@@ -198,13 +201,13 @@ def launch_plan(n: int) -> tuple[int, int, int, int]:
     """(threads per block, dynamic shared memory per block, the kernel's
     __launch_bounds__, register tile rows of the sweeps) of K2 or K6 at size
     n, as csrc/qcqp_bwd.cu's dq_qcqp_bwd_plan computes them. One warp at n
-    <= 32 (tile rows 0); above, 256 threads, in the small instance up to n =
-    96 (3 rows) and the large one up to ``MW_MAX_N`` = 150 (6 rows). Raises
-    ValueError for an odd n or n > 150."""
+    <= 32 (bound 32, tile rows 0); above, 256 threads, in the small instance
+    up to n = 96 (3 rows) and the large one up to ``MW_MAX_N`` = 150 (6
+    rows). Raises ValueError for an odd n or n > 150."""
     if n < 2 or n % 2 or n > MW_MAX_N:
         raise ValueError(f"n must be even, 2 <= n <= {MW_MAX_N}, got {n}")
     if n <= ONE_WARP_MAX_N:
-        return 32, smem_bytes(n), MW_THREADS, 0
+        return 32, smem_bytes(n), 32, 0
     return MW_THREADS, smem_bytes(n), MW_THREADS, 3 if n <= 96 else 6
 
 

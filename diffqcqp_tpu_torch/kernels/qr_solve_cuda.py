@@ -70,9 +70,10 @@ def householder_solve(Ab: torch.Tensor, group: int | None) -> torch.Tensor:
     run in ``group_sum``'s order, as csrc/qr.cuh's qr_solve_lanes adds them
     (K5; K2 and K6 above one warp): ||A[k+1:, k]||^2 once, which gives
     ||A[k:, k]||^2 = a_kk^2 + tail and ||v||^2 = v_k^2 + tail, and each v^T
-    A_j. With None (K2 and K6 at one warp, whose qr_solve_cols adds
-    serially) the sums are ``torch.sum``'s, as they were before the kernels
-    were redesigned."""
+    A_j. With None (the plain versions of K2 and K6 at one warp, whose
+    kernels add in an order of their own; see ``qcqp_bwd_cuda.qr_group``)
+    the sums are ``torch.sum``'s, as they were before the kernels were
+    redesigned."""
     m = Ab.shape[1]
     for k in range(m):
         ck = Ab[:, k:, k]

@@ -126,7 +126,7 @@ def _c_qcqp_plan(n):
     """csrc/qcqp_bwd.cu's dq_qcqp_bwd_plan, restated."""
     nc, ld, ldm = n // 2, n | 1, (n // 2) | 1
     if n <= 32:
-        return 32, 4 * (2 * n * ld + (nc + 1) * n + (nc + 1) * ldm + 5 * n + 3 * nc), 256, 0
+        return 32, 4 * (96 + n * ld + (nc + 1) * ldm + 3 * nc), 32, 0
     smem = 4 * (n * ld + (nc + 1) * (n + 1) + (nc + 1) * ldm + 4 * n + 4 * nc + 6)
     return 256, smem, 256, 3 if n <= 96 else 6
 

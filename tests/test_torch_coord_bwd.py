@@ -19,6 +19,12 @@ module.
   * ``qp_dual`` / ``box_dual`` / ``signed_box_dual`` against the JAX package's
     in float64 (atol 1e-12), the masked factor against a dense solve of K,
     and K4's wrapper: its CPU dispatch and its input checks.
+  * K4's one-warp kernel, which factors and solves only the free block,
+    emulated per problem in float32 (the free rows gathered in order, the
+    nf x nf block of P factored and solved, dl scattered back, P dl over the
+    free columns alone) gives the plain version's dl, dgamma and gamma bit
+    for bit, apart from the sign of zeros: on every case above, and where
+    no coordinate (nf = 0) or every coordinate (nf = n) is free.
 
 Each problem is solved by the JAX package at eps=1e-8; both sides get the
 same numpy l and cotangent g.
@@ -266,3 +272,67 @@ def test_smem_bytes_bounds():
     # a Hopper block may use
     assert tk.smem_bytes(24) < 6 * 1024
     assert 48 * 1024 < tk.smem_bytes(96) <= 232448
+
+
+def _free_block_k4(P, q, l, g, lo, hi, vs, kind, eps, act_eps):
+    """K4's one-warp kernel (csrc/coord_bwd.cu, coord_bwd_kernel_w) emulated
+    per problem: the free coordinates in row order, the factor and solve of
+    the nf x nf free block of P (fm P fm = P and diag(am) = 0 there), dl 0
+    on the strictly active rows, and P dl over the free columns alone."""
+    am, slots = tk.coord_duals_plain(P, q, l, lo, hi, vs, kind, eps, act_eps)
+    B, n = l.shape
+    dl, pdl = torch.zeros_like(l), torch.zeros_like(l)
+    for b in range(B):
+        free = torch.nonzero(am[b] == 0).flatten()
+        nf = free.numel()
+        if nf:
+            Pf = P[b][free][:, free][None]
+            Lh, dinv = chol_to_unit(chol_factor(Pf, torch.zeros(1, nf, dtype=P.dtype)))
+            dl[b, free] = ldl_solve(Lh, dinv, g[b, free][None])[0]
+        acc = torch.zeros(n, dtype=P.dtype)
+        for c in free.tolist():
+            acc = acc + P[b, :, c] * dl[b, c]
+        pdl[b] = acc
+    if kind == tk.KIND_QP:
+        return (dl,)
+    return (dl,) + tk.coord_dgamma_plain(g, pdl, am, slots)
+
+
+def _same_bits_but_zero_signs(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and torch.equal(a + 0.0, b + 0.0)
+
+
+def test_free_block_factor_and_solve_give_the_plain_bits(case):
+    _, kind, arrs = case
+    args = _t(*_kernel_inputs(arrs)) + (kind, CFG.eps, CFG.act_eps)
+    _same_bits_but_zero_signs(_free_block_k4(*args), tk.coord_kkt_bwd_fused_plain(*args))
+
+
+@pytest.mark.parametrize("free", ["none", "all"])
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_free_block_at_no_and_every_free_coordinate(kind, free):
+    """nf = 0: l on its lower bound (0 for the QP) with q pressing it there;
+    nf = n: l strictly inside and q = -P l."""
+    rng = np.random.default_rng(31 + KINDS[kind])
+    b, n = 6, 10
+    S = rng.standard_normal((b, n, n)) / np.sqrt(n)
+    P = (S @ S.transpose(0, 2, 1) + 0.1 * np.eye(n)).astype(np.float32)
+    lo = -(rng.random((b, n)) * 0.5 + 0.2).astype(np.float32)
+    hi = (rng.random((b, n)) * 0.5 + 0.2).astype(np.float32)
+    base = np.zeros((b, n), np.float32) if kind == "qp" else lo
+    if free == "none":
+        l = base
+        q = (rng.random((b, n)) + 0.5).astype(np.float32) - np.einsum("bij,bj->bi", P, l)
+    else:
+        l = (base + rng.random((b, n)) * 0.1 + 0.05).astype(np.float32)
+        q = -np.einsum("bij,bj->bi", P, l)
+    v = np.ones((b, n), np.float32) if kind == "signed_box" else None   # l <= 0, inactive at l < 0
+    arrs = (P, q.astype(np.float32), l, rng.standard_normal((b, n)).astype(np.float32),
+            None if kind == "qp" else lo, None if kind == "qp" else hi, v)
+    args = _t(*_kernel_inputs(arrs)) + (KINDS[kind], CFG.eps, CFG.act_eps)
+    out = tk.coord_kkt_bwd_fused_plain(*args)
+    assert bool((out[0] == 0).all()) == (free == "none")
+    assert bool((out[0] != 0).all()) == (free == "all")
+    _same_bits_but_zero_signs(_free_block_k4(*args), out)
