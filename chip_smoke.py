@@ -139,6 +139,42 @@ its config 6). Phases, each of which fails the run if its check fails:
      by power iteration): iterations within 4, |dl| <= 1e-4, equal
      ``converged``, with the engine's time per forward; and that TF32
      matmuls stay off throughout;
+  3f. diagonal P (B, N) through the four entry points and autograd (bench.py's
+     generator with P replaced by its diagonal: QP and QCQP at B=4096, N=24,
+     seed 0; the box kinds at B=2048 with config 9's bounds), counters zeroed
+     just before each run and read just after: no kernel launched (the eager
+     engine and the closed-form adjoints, as in the JAX package), in float32
+     and in float64; the gradients against the dense path on diag_embed(P)
+     (K1, then K2 or K4 launched) and against a float64 run of the same
+     diagonal problems (eps=1e-10): per-problem relative error median <=
+     1e-3 over every problem and max <= 2e-3 over the problems whose strict
+     mask agrees (phase 3's bars);
+  3g. the twin of tpu_smoke.py: the float32 K1 solutions of
+     ``solve_*_with_stats`` at the four classes' main-path points (the QCQP
+     flagship, config 10's QP, config 9's box and signed box) certified by
+     ``verify.check_*`` in float64 on the card, per problem: stationarity <
+     2 ``verify.stationarity_bound`` (from the solve's own stats); primal
+     median < 1e-6, max < 1e-5; complementarity median < 5e-4, max < 5e-2;
+     the float32 ``recover_*_duals`` against verify's float64 least-squares
+     multipliers, median relative error < 1e-2 over the strong ones (>
+     max(1e-2, 10 eps)); float32 central differences through the public
+     solve at h=1e-3 of a loss with a linear term, median relative error <
+     1e-2 over the 5 largest coordinates of each checked input;
+  3h. the config-4 system-ID step (benchmarks/run_benchmarks.py config 4: B=2048
+     QPs + 2048 QCQPs, N=24, seed 3, the production schedule, Adam lr 1e-2)
+     through ``models.system_id``'s problem map (P = S S^T + 0.1 I shared):
+     one step (forward, backward, Adam) with the counters zeroed just before
+     and read just after launches K1 twice, K4 once and K2 once and nothing
+     else; its gradients against the same step on float64 inputs (the engine
+     and the generic route, eps=1e-10), phase 3's bars on the problems whose
+     QP and QCQP strict masks both agree; the loss falls over 20 steps;
+  3i. the config-11 contact rollout (B=2048, T=50, seed 11; a diagonal-P QP
+     and a diagonal-P QCQP per body and step), warm starts on and off,
+     counters zeroed just before each and read just after: no kernel; the
+     float32 positions within 1e-4 of a float64 rollout on the card
+     (eps=1e-10); warm and cold within 1e-4; tests/test_contact_sim.py's
+     probes in float64: a resting body stays put (1e-5), a sliding body
+     decelerates at ~mu g and stops;
   4. timing at the flagship point: K1, K2, the forward entry point and the
      forward+backward step per call over back-to-back calls with CUDA events
      (warm-up, median of samples; K1's is the ``ms`` reported),
@@ -166,6 +202,14 @@ its config 6). Phases, each of which fails the run if its check fails:
      share; then K1 alone on those problems against its plain version, its
      device time (whole, and set-up only), its bound and its iterations and
      inverses per problem;
+  4f. timing of this slice's paths, each as the steps above (CUDA events,
+     warm-up, median of 5) with its device time by kernel and the card's
+     idle share: the config-4 system-ID step (problems/s = 4096 / step);
+     the contact rollout warm and cold (steps/s, mean iterations per step);
+     the contact system-ID step (``make_system_id_step``, B=2048, T=50);
+     ``qcqp_jacobian`` at the flagship, l solved inside (K1) and given, held
+     in float64 against ``qcqp_vjp`` of a random cotangent (1e-7); the
+     diagonal-P flagship QCQP step;
   5. one JSON line of every ported kernel, then as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -442,6 +486,27 @@ def per_launch_ms(rows, kernel):
     return next((ms / cnt for name, ms, cnt in rows if kernel in name), None)
 
 
+def timed_step(label, fn, smi, reps=5, calls=1, problems=None, top=0):
+    """``fn`` timed as phase 4 times the steps (CUDA events, warm-up, median
+    of ``reps`` samples of ``calls`` back-to-back calls) with its device
+    time by kernel from torch.profiler (the ``top`` largest kernels listed)
+    and the card's idle share. Returns (ms per call, idle share)."""
+    ms, ts = time_cuda(fn, reps=reps, calls=calls)
+    rows = device_time_by_kernel(fn, calls=calls)
+    dev = sum(r_[1] for r_ in rows)
+    by = {k: sum(r_[1] for r_ in rows if tag in r_[0]) for k, tag in
+          (("K1", "admm_kernel"), ("K2", "qcqp_bwd_kernel"), ("K4", "coord_bwd_kernel"))}
+    rate = "" if problems is None else f" = {problems / ms * 1e3:.1f} problems/s"
+    log(f"  {label} ({smi}): {ms:.4f} ms per call, {calls} back-to-back (CUDA events; samples "
+        f"{[round(t, 4) for t in ts]}){rate}; device time by kernel (torch.profiler, ms per "
+        f"call): total {dev:.4f}, " + ", ".join(f"{k} {v:.4f}" for k, v in by.items())
+        + f", other kernels {dev - sum(by.values()):.4f}; device idle {ms - dev:.4f} ms "
+        f"({(ms - dev) / ms:.1%})")
+    for name_, ms_, cnt in rows[:top]:
+        log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
+    return ms, (ms - dev) / ms
+
+
 # ---------------------------------------------------------------------------
 # The QP family: non-negative, box and signed-box QP (forward K1, backward K4)
 # ---------------------------------------------------------------------------
@@ -578,7 +643,7 @@ def class_referee(c, xs64, rest64, l64, g64):
     if c.name == "qp":
         K, rhs, fm = kkt._qp_kkt_system(P, q, l64, g64, c.cfg)
         dl = solve64(K, rhs) * fm
-        return (_grad_P(dl, l64), -dl), fm == 0
+        return (_grad_P(dl, l64, P), -dl), fm == 0
     if c.name == "box_qp":
         duals = kkt.box_dual(P, q, *bnd, l64, c.cfg)
         ST, rhs, am = kkt._box_kkt_system(P, l64, g64, duals, c.cfg)
@@ -588,7 +653,7 @@ def class_referee(c, xs64, rest64, l64, g64):
     x = solve64(ST, rhs)
     m = am.shape[-1]
     r = kkt.BoxVJP(dl=x[:, m:], dgamma=x[:, :m] * am, gamma=gamma)
-    return (_grad_P(r.dl, l64), -r.dl, *_bound_grads(r, l64.shape[-1])), am > 0
+    return (_grad_P(r.dl, l64, P), -r.dl, *_bound_grads(r, l64.shape[-1])), am > 0
 
 
 def phase_3c(dqt, c, w):
@@ -753,11 +818,6 @@ def phase_4c(c, step, smi):
         A, rhs, *_ = kkt._signed_box_kkt_system(c.P, c.q, *c.params, l, g, c.cfg)
     A, rhs = A.contiguous(), rhs[..., None].contiguous()
     ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(A, rhs), reps=5, calls=20)
-    ev_step, ts_step = time_cuda(step, reps=5, calls=20)
-    by_kernel = device_time_by_kernel(step)
-    dev_total = sum(r_[1] for r_ in by_kernel)
-    dev_k1 = sum(r_[1] for r_ in by_kernel if "admm_kernel" in r_[0])
-    dev_k4s = sum(r_[1] for r_ in by_kernel if "coord_bwd_kernel" in r_[0])
     fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
     log(f"  {c.name} at B={B} N={n} ({smi}):\n"
         f"    K4 device time per launch (torch.profiler): {fmt(dev_k4)}\n"
@@ -766,14 +826,8 @@ def phase_4c(c, step, smi):
         f"    K4 plain version: {ms_p:.2f} ms (samples {[round(t, 2) for t in ts_p]})\n"
         f"    K4 bound {bound:.5f} ms ({bound_by}: {nbytes} bytes, {nflops:.4g} FLOP)\n"
         f"    library call torch.linalg.solve, assembled float32 {tuple(A.shape)}: "
-        f"{ms_lib:.4f} ms (samples {[round(t, 4) for t in ts_lib]})\n"
-        f"    forward+backward step per call, 20 back-to-back (CUDA events): {ev_step:.4f} ms "
-        f"(samples {[round(t, 4) for t in ts_step]}) = {B / ev_step * 1e3:.1f} problems/s\n"
-        f"    step device time by kernel (torch.profiler, ms per step): total {dev_total:.4f}, "
-        f"K1 {dev_k1:.4f}, K4 {dev_k4s:.4f}, other kernels {dev_total - dev_k1 - dev_k4s:.4f}, "
-        f"device idle {ev_step - dev_total:.4f} ({(ev_step - dev_total) / ev_step:.1%})")
-    for name_, ms_, cnt in by_kernel[:8]:
-        log(f"      {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
+        f"{ms_lib:.4f} ms (samples {[round(t, 4) for t in ts_lib]})")
+    timed_step(f"{c.name} forward+backward step", step, smi, calls=20, problems=B, top=8)
     # the device time: back to back, the wrapper's host work outlasts K4
     ms = dev_k4 if dev_k4 is not None else ev_k4
     return dict(ms=ms, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by, library_ms=ms_lib)
@@ -916,7 +970,7 @@ def qcqp_referee(P64, q64, ln64, mu64, l64, g64, cfg, route=None):
     x = solve64(ST, rhs)
     dl, dgamma = x[:, nc:], x[:, :nc] * am
     e1, e2 = kkt.qcqp_radius_factors(ln64, mu64, gamma)
-    return _grad_P(dl, l64), -dl, e2 * dgamma, e1 * dgamma
+    return _grad_P(dl, l64, P64), -dl, e2 * dgamma, e1 * dgamma
 
 
 def check_no_tf32(where):
@@ -939,16 +993,19 @@ def stepped(kernels, solve, xs, cfg, w):
     return l.detach(), st, grads, {name: k_.launches for name, k_ in kernels.items()}
 
 
-def grad_errors(label, grads, ref, names, bar_med, bar_max, floor=None):
-    """Per-problem relative errors of each gradient against its float64
-    referee; fails past the bars (median, max)."""
+def grad_errors(label, grads, ref, names, bar_med, bar_max, floor=None, rows=None):
+    """Per-problem relative errors of each gradient against its referee;
+    fails past the bars (median over every problem, max over the problems
+    ``rows`` selects, default all)."""
     worst = worst_max = 0.0
     for gname, a, b in zip(names, grads, ref):
         e = rel_err(a, b, b.new_tensor(floor) if floor else None)
-        med, mx = float(e.median()), float(e.max())
+        med, mx = float(e.median()), _max(e if rows is None else e[rows])
         worst, worst_max = max(worst, med), max(worst_max, mx)
-        log(f"    {label} grad {gname}: per-problem relative error vs f64 referee median "
-            f"{med:.3e} max {mx:.3e} (|ref|_max {float(b.abs().max()):.3e})")
+        over = "" if rows is None else f" over the {int(rows.sum())}/{rows.numel()} problems " \
+            "whose strict mask agrees"
+        log(f"    {label} grad {gname}: per-problem relative error vs referee median "
+            f"{med:.3e} max {mx:.3e}{over} (|ref|_max {float(b.abs().max()):.3e})")
     if not (worst <= bar_med and worst_max <= bar_max):
         raise AssertionError(f"{label}: gradients disagree with the float64 referee")
 
@@ -1273,6 +1330,393 @@ def phase_4e(cases, smi):
     return out[0]
 
 
+# ---------------------------------------------------------------------------
+# Diagonal P, the KKT oracle, the system-ID step and the contact rollout
+# ---------------------------------------------------------------------------
+
+def strict_mask(name, P, q, params, l, cfg):
+    """(B, slots) strict-complementarity mask the class's adjoint uses at l
+    (P dense or diagonal)."""
+    from diffqcqp_tpu_torch.diff import kkt
+
+    if name == "qp":
+        return kkt.qp_dual(P, q, l, cfg) < -cfg.act_eps
+    if name == "qcqp":
+        r = params[0] * params[1]
+        return kkt.qcqp_strict_active(l, r, kkt.qcqp_dual(P, q, r, l, cfg).gamma, cfg)[1]
+    d = (kkt.box_dual(P, q, *params[:2], l, cfg) if name == "box_qp"
+         else kkt.signed_box_dual(P, q, *params[:3], l, cfg))
+    return torch.cat(d[1:], dim=-1) & (d.gamma > cfg.act_eps)
+
+
+def diag_cases(cfg, qp_cfg, box_cfg, b_flag=B_FLAG, b_box=2048):
+    """The four classes with P replaced by its diagonal, float32 on the card:
+    {name: (differentiable inputs, other inputs, config)}. QP and QCQP:
+    bench.py's generator (seed 0); box and signed box: the generator at seed
+    9 with config 9's bounds."""
+    P, q, l_n, mu = build_problems(b_flag, NC_FLAG)
+    P9, q9, _, _ = build_problems(b_box, NC_FLAG, seed=9)
+    lo, hi, v = box_bounds(np.random.default_rng(9), b_box, 2 * NC_FLAG)
+    Pd, Pd9 = (np.ascontiguousarray(np.diagonal(x, axis1=1, axis2=2)) for x in (P, P9))
+    Pd, q, l_n, mu, Pd9, q9, lo, hi, v = cuda(Pd, q, l_n, mu, Pd9, q9, lo, hi, v)
+    return {"qp": ((Pd, q), (), qp_cfg), "box_qp": ((Pd9, q9, lo, hi), (), box_cfg),
+            "signed_box_qp": ((Pd9, q9, lo, hi), (v,), box_cfg),
+            "qcqp": ((Pd, q, l_n, mu), (), cfg)}
+
+
+def phase_3f(dqt, kernels, cases, rand_g):
+    """Diagonal P through the four entry points and autograd, each run with
+    the launch counters zeroed just before and read just after: no kernel
+    launched in float32 or float64; the gradients against the dense path on
+    diag_embed(P) (K1, then K2 or K4) and against a float64 run of the same
+    diagonal problems (eps=1e-10), phase 3's bars on the problems whose
+    strict mask agrees. Returns {name: the float32 step as a closure}."""
+    steps = {}
+    for name, (diff, rest, c) in cases.items():
+        solve = getattr(dqt, f"solve_{name}_with_stats")
+        f = lambda *a, config, solve=solve, rest=rest: solve(*a, *rest, config=config)  # noqa: E731
+        w = rand_g(diff[1])
+        l, st, grads, got = stepped(kernels, f, diff, c, w)
+        dense = (torch.diag_embed(diff[0]),) + diff[1:]
+        ld, std, gd, got_d = stepped(kernels, f, dense, c, w)
+        c64 = c.replace(eps=1e-10, max_iter=5000)
+        rest64 = tuple(x.double() for x in rest)
+        f64 = lambda *a, config, solve=solve: solve(*a, *rest64, config=config)  # noqa: E731
+        l64, st64, g64, got_64 = stepped(kernels, f64, [x.double() for x in diff], c64, w.double())
+        bwd = "K2" if name == "qcqp" else "K4"
+        conv = [float(s.converged.float().mean()) for s in (st, std, st64)]
+        log(f"  diagonal P, {name} B={diff[1].shape[0]} N={diff[1].shape[1]}: launches "
+            + ", ".join(f"{k} {v}" for k, v in got.items())
+            + f" (float64: {sum(got_64.values())}; dense path on diag_embed(P): "
+            + ", ".join(f"{k} {v}" for k, v in got_d.items())
+            + f"); converged_frac {conv[0]} (dense {conv[1]}, float64 {conv[2]}); mean iters "
+            + " / ".join(f"{float(s_.iterations.float().mean()):.2f}" for s_ in (st, std, st64))
+            + f" (diagonal / dense / float64); max|l - l_dense| "
+            f"{float((l - ld).abs().max()):.3e}, max|l - l_f64| "
+            f"{float((l.double() - l64).abs().max()):.3e}")
+        if any(got.values()) or any(got_64.values()) or got_d["K1"] < 1 or got_d[bwd] < 1:
+            raise AssertionError(f"diagonal P {name}: a kernel ran, or the dense path missed "
+                                 f"K1 or {bwd}")
+        if min(conv) < 1.0 or not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"diagonal P {name}: a solve did not converge or a gradient is "
+                                 f"not finite")
+        names = ("P", "q", "l_n", "mu") if name == "qcqp" else ("P", "q", "l_min", "l_max")
+        params = diff[2:] + rest
+        mask = strict_mask(name, diff[0], diff[1], params, l, c)
+        gd = (torch.diagonal(gd[0], dim1=1, dim2=2),) + gd[1:]
+        grad_errors(f"diagonal P {name} against the dense path", grads, gd, names, 1e-3, 2e-3,
+                    1e-30, ~(mask != strict_mask(name, diff[0], diff[1], params, ld, c)).any(-1))
+        mask64 = strict_mask(name, *(x.double() for x in diff[:2]),
+                             tuple(x.double() for x in params), l64, c64)
+        grad_errors(f"diagonal P {name} against float64", grads, g64, names, 1e-3, 2e-3, 1e-30,
+                    ~(mask != mask64).any(dim=-1))
+        leaves = [x.clone().requires_grad_() for x in diff]
+
+        def step(xs=leaves, f=f, c=c, w=w):
+            lx = f(*xs, config=c)[0]
+            return torch.autograd.grad((lx * lx).sum() + (w * lx).sum(), xs)
+
+        steps[name] = step
+    return steps
+
+
+def fd_median(solve, xs, rest, grads, pi, w, h=1e-3, k=5):
+    """tpu_smoke.py's finite-difference check through the public solve on
+    the card (float32): the median over the k largest coordinates of the
+    analytic gradient of input ``pi`` of |fd - ad| / max(|fd|, |ad|, 1e-3),
+    fd the central difference at step h of the perturbed problem's own
+    loss sum(l^2) + <w, l> (the other problems' terms are unchanged), all
+    2k perturbed problems solved in one call."""
+    g = grads[pi]
+    flat = torch.topk(g.abs().flatten(), k).indices.tolist()
+    per = g[0].numel()
+    jobs = [(idx // per, idx % per, s) for idx in flat for s in (h, -h)]
+    rows = torch.tensor([j[0] for j in jobs], device=g.device)
+    batch = [x[rows].clone() for x in xs]
+    for r_, (_, j_, s_) in enumerate(jobs):
+        batch[pi][r_].view(-1)[j_] += s_
+    l = solve(*batch, *(x[rows] for x in rest))[0].double()
+    f = ((l * l).sum(-1) + (w[rows].double() * l).sum(-1)).tolist()
+    rels = []
+    for r_ in range(0, len(jobs), 2):
+        fd = (f[r_] - f[r_ + 1]) / (2 * h)
+        ad = float(g[jobs[r_][0]].flatten()[jobs[r_][1]])
+        rels.append(abs(fd - ad) / max(abs(fd), abs(ad), 1e-3))
+    return float(np.median(rels))
+
+
+def phase_3g(dqt, kernels, points, rand_g):
+    """The twin of tpu_smoke.py at the four classes' main-path points: the
+    float32 K1 solutions from ``*_with_stats`` (K1 launched) certified by
+    ``verify.check_*`` in float64 on the card, per problem: stationarity <
+    2 ``verify.stationarity_bound``; primal median < 1e-6, max < 1e-5;
+    complementarity median < 5e-4, max < 5e-2; the float32 duals of
+    ``recover_*_duals`` against verify's float64 least-squares multipliers,
+    median relative error < 1e-2 over the strong ones (> max(1e-2, 10 eps));
+    central differences (``fd_median``) < 1e-2 for each checked input."""
+    from diffqcqp_tpu_torch import verify
+
+    check = {"qp": verify.check_qp, "box_qp": verify.check_box_qp,
+             "signed_box_qp": verify.check_signed_box_qp, "qcqp": verify.check_qcqp}
+    for name, (diff, rest, c, fd_inputs) in points.items():
+        solve = getattr(dqt, f"solve_{name}_with_stats")
+        for k_ in kernels.values():
+            k_.launches = 0
+        l, st = solve(*diff, *rest, config=c)
+        torch.cuda.synchronize()
+        n_k1 = kernels["K1"].launches
+        r = check[name](*diff, *rest, l)
+        bound = verify.stationarity_bound(diff[0], diff[1], l, st, alpha=c.alpha_relax,
+                                          mu_prox=c.mu_prox)
+        ratio = r.stationarity / (2.0 * bound)
+        prim, comp = r.primal, r.complementarity
+        rec = getattr(dqt, f"recover_{name}_duals")(*diff, *rest, l, config=c)
+        g32 = torch.cat(rec, dim=-1) if isinstance(rec, tuple) else rec
+        strong = r.gamma > max(1e-2, 10 * c.eps)
+        dual_rel = float(((g32.double() - r.gamma).abs() / r.gamma)[strong].median()) \
+            if bool(strong.any()) else float("inf")
+        w = rand_g(diff[1])
+        leaves = [x.clone().requires_grad_() for x in diff]
+        lx = solve(*leaves, *rest, config=c)[0]
+        grads = torch.autograd.grad((lx * lx).sum() + (w * lx).sum(), leaves)
+        fd = {nm: fd_median(lambda *a: solve(*a, config=c), diff, rest, grads, pi, w)
+              for nm, pi in fd_inputs}
+        log(f"  certified {name} B={diff[1].shape[0]} N={diff[1].shape[1]}: K1 launches {n_k1}; "
+            f"float64 on the card ({r.stationarity.dtype}, {r.stationarity.device}): "
+            f"stationarity median {float(r.stationarity.median()):.3e} max "
+            f"{float(r.stationarity.max()):.3e}, over 2x its bound max {float(ratio.max()):.3f} "
+            f"(bar < 1); primal median {float(prim.median()):.3e} max {float(prim.max()):.3e} "
+            f"(bars 1e-6, 1e-5); complementarity median {float(comp.median()):.3e} max "
+            f"{float(comp.max()):.3e} (bars 5e-4, 5e-2); float32 duals against verify's, "
+            f"{int(strong.sum())} strong multipliers: median relative error {dual_rel:.3e} "
+            f"(bar 1e-2); central differences (h=1e-3, 5 largest coordinates) median relative "
+            f"error " + ", ".join(f"{k}: {v:.3e}" for k, v in fd.items()) + " (bar 1e-2)")
+        if not (n_k1 >= 1 and bool((ratio < 1.0).all()) and float(prim.median()) < 1e-6
+                and float(prim.max()) < 1e-5 and float(comp.median()) < 5e-4
+                and float(comp.max()) < 5e-2 and dual_rel < 1e-2 and max(fd.values()) < 1e-2):
+            raise AssertionError(f"the certification of {name} failed")
+
+
+def sysid_inputs(b=2048, nc=NC_FLAG, seed=3):
+    """run_benchmarks.py config 4's parameters and target, float32 on the
+    card: S ~ N(0, 1) / sqrt(n), q ~ N(0, 0.09), log_l_n = logit_mu = 0,
+    target ~ U(0, 0.1)."""
+    n = 2 * nc
+    rng = np.random.default_rng(seed)
+    S = (rng.standard_normal((b, n, n)) / np.sqrt(n)).astype(np.float32)
+    q = (rng.standard_normal((b, n)) * 0.3).astype(np.float32)
+    target = (rng.random((b, n)) * 0.1).astype(np.float32)
+    zeros = np.zeros((b, nc), np.float32)
+    return cuda(S, q, zeros, zeros.copy()), cuda(target)[0]
+
+
+def sysid_loss(dqt, params, target, qp_cfg, qc_cfg):
+    """Config 4's loss through ``models.system_id``'s problem map: P = S S^T
+    + 0.1 I shared by a non-negative QP and a QCQP, the mean squared error
+    of both solutions against the target."""
+    from diffqcqp_tpu_torch.models.system_id import QCQPSystemIDParams, qcqp_params_to_problem
+
+    P, q, l_n, mu = qcqp_params_to_problem(QCQPSystemIDParams(*params), reg=0.1)
+    l_qp = dqt.solve_qp(P, q, config=qp_cfg)
+    l_qc = dqt.solve_qcqp(P, q, l_n, mu, config=qc_cfg)
+    return torch.mean((l_qp - target) ** 2) + torch.mean((l_qc - target) ** 2), (P, q, l_n, mu,
+                                                                               l_qp, l_qc)
+
+
+def phase_3h(dqt, kernels, sysid, qp_cfg, qc_cfg, steps=20):
+    """The config-4 system-ID step (2048 QPs + 2048 QCQPs, N=24, Adam lr
+    1e-2): its launches, counted from just before one step (forward,
+    backward, Adam) to just after, must be K1 2, K4 1 and K2 1 and no
+    other; its gradients against the same step on float64 inputs (the
+    engine and the generic route, eps=1e-10), phase 3's bars on the problems
+    whose QP and QCQP strict masks both agree; the loss falls over
+    ``steps`` Adam steps. Returns (the launches, the step as a closure)."""
+    (S, q, ln, lm), target = sysid
+    names = ("S", "q", "log_l_n", "logit_mu")
+    leaves = [x.clone().requires_grad_() for x in (S, q, ln, lm)]
+    loss, aux = sysid_loss(dqt, leaves, target, qp_cfg, qc_cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    p64 = [x.double().requires_grad_() for x in (S, q, ln, lm)]
+    c64 = (qp_cfg.replace(eps=1e-10, max_iter=5000), qc_cfg.replace(eps=1e-10, max_iter=5000))
+    loss64, aux64 = sysid_loss(dqt, p64, target.double(), *c64)
+    g64 = torch.autograd.grad(loss64, p64)
+    (P, qq, ln_, mu_, lq, lc), (P64, q64, ln64, mu64, lq64, lc64) = (
+        [x.detach() for x in a] for a in (aux, aux64))
+    shared = ~((strict_mask("qp", P, qq, (), lq, qp_cfg)
+                != strict_mask("qp", P64, q64, (), lq64, c64[0])).any(dim=-1)
+               | (strict_mask("qcqp", P, qq, (ln_, mu_), lc, qc_cfg)
+                  != strict_mask("qcqp", P64, q64, (ln64, mu64), lc64, c64[1])).any(dim=-1))
+    log(f"  config-4 loss float32 {float(loss.detach()):.6e}, float64 {float(loss64.detach()):.6e}")
+    grad_errors("system-ID step", grads, g64, names, 1e-3, 2e-3, 1e-30, shared)
+
+    params = [x.clone().requires_grad_() for x in (S, q, ln, lm)]
+    opt = torch.optim.Adam(params, lr=1e-2)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        value, _ = sysid_loss(dqt, params, target, qp_cfg, qc_cfg)
+        value.backward()
+        opt.step()
+        return value.detach()
+
+    for k_ in kernels.values():
+        k_.launches = 0
+    losses = [step()]
+    torch.cuda.synchronize()
+    got = {name: k_.launches for name, k_ in kernels.items()}
+    losses += [step() for _ in range(steps - 1)]
+    losses = [float(x) for x in losses]
+    log(f"  config-4 system-ID step B=2048+2048 N=24: launches in one step "
+        + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; loss over {steps} Adam steps {losses[0]:.6e} -> {losses[-1]:.6e}")
+    if got != {"K1": 2, "K2": 1, "K4": 1, "K5": 0, "K6": 0}:
+        raise AssertionError(f"the system-ID step's launches are {got}, not K1 2, K4 1, K2 1")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the system-ID loss did not fall")
+    return got, step
+
+
+def rollout_inputs(b=2048, t=50, seed=11):
+    """run_benchmarks.py config 11's bodies and pushes, float32 on the card:
+    (ContactParams, ContactState, f_ext (T, B, 3))."""
+    from diffqcqp_tpu_torch.models import contact_sim as cs
+
+    rng = np.random.default_rng(seed)
+    mass = (rng.random(b) * 2.0 + 0.5).astype(np.float32)
+    mu = (rng.random(b) * 0.6 + 0.2).astype(np.float32)
+    x0 = np.zeros((b, 3), np.float32)
+    v0 = rng.standard_normal((b, 3)).astype(np.float32)
+    v0[:, 2] = 0.0
+    steps = rng.standard_normal((t, b, 3)).astype(np.float32) * 0.15
+    steps[:, :, 2] = 0.0
+    f = np.cumsum(steps, axis=0) + rng.standard_normal((1, b, 3)).astype(
+        np.float32) * np.array([2.0, 2.0, 0.0], np.float32)
+    mass, mu, x0, v0, f = cuda(mass, mu, x0, v0, f.astype(np.float32))
+    return cs.ContactParams(mass, mu), cs.ContactState(x0, v0), f
+
+
+def phase_3i(kernels, rollout):
+    """The config-11 contact rollout (diagonal-P QP and QCQP per body and
+    step) warm and cold, counters zeroed just before each and read just
+    after: no kernel; the float32 positions against a float64 rollout on the
+    card (eps=1e-10) within 1e-4; warm and cold within 1e-4; then
+    tests/test_contact_sim.py's probes in float64: a resting body stays put
+    (1e-5) and a sliding body decelerates at ~mu g and stops."""
+    from diffqcqp_tpu_torch.models import contact_sim as cs
+
+    params, state0, f = rollout
+    trajs = {}
+    for warm in (True, False):
+        for k_ in kernels.values():
+            k_.launches = 0
+        _, traj, st = cs.simulate(params, state0, f, warm_start=warm, return_stats=True)
+        torch.cuda.synchronize()
+        got = {name: k_.launches for name, k_ in kernels.items()}
+        trajs[warm] = traj
+        log(f"  contact rollout B={f.shape[1]} T={f.shape[0]} warm_start={warm}: launches "
+            + ", ".join(f"{k} {v}" for k, v in got.items())
+            + f"; mean iterations per step (steps 1..T-1) QP "
+            f"{float(st['qp_iters'][1:].mean()):.3f}, "
+            f"QCQP {float(st['qcqp_iters'][1:].mean()):.3f}")
+        if any(got.values()) or not bool(torch.isfinite(traj.x).all()):
+            raise AssertionError("the contact rollout launched a kernel or is not finite")
+    cfg64 = dict(qp_cfg=cs.QP_CFG.replace(eps=1e-10, max_iter=5000),
+                 qcqp_cfg=cs.QCQP_CFG.replace(eps=1e-10, max_iter=5000))
+    _, traj64, st64 = cs.simulate(cs.ContactParams(*(x.double() for x in params)),
+                                  cs.ContactState(*(x.double() for x in state0)), f.double(),
+                                  return_stats=True, **cfg64)
+    dev = float((trajs[True].x.double() - traj64.x).abs().max())
+    dev_wc = float((trajs[True].x - trajs[False].x).abs().max())
+    log(f"  max position deviation, float32 warm rollout against float64 (eps=1e-10; mean iters "
+        f"QP {float(st64['qp_iters'].mean()):.2f}, QCQP {float(st64['qcqp_iters'].mean()):.2f}): "
+        f"{dev:.3e} (bar 1e-4); warm against cold {dev_wc:.3e} (bar 1e-4)")
+    if not (dev <= 1e-4 and dev_wc <= 1e-4):
+        raise AssertionError("the contact rollout disagrees with float64 or with itself")
+
+    dt64 = dict(dtype=torch.float64, device=f.device)
+    b = 4
+    rest = cs.ContactParams(torch.ones(b, **dt64), torch.full((b,), 0.5, **dt64))
+    final, traj = cs.simulate(rest, cs.ContactState(torch.zeros(b, 3, **dt64),
+                                                    torch.zeros(b, 3, **dt64)),
+                              torch.zeros(50, b, 3, **dt64))
+    rest_x, rest_vz = float(final.x.abs().max()), float(traj.v[:, :, 2].abs().max())
+    slide = cs.ContactParams(torch.ones(2, **dt64), torch.tensor([0.3, 0.8], **dt64))
+    v0 = torch.tensor([[1.0, 0.0, 0.0], [1.0, 0.0, 0.0]], **dt64)
+    _, traj = cs.simulate(slide, cs.ContactState(torch.zeros(2, 3, **dt64), v0),
+                          torch.zeros(120, 2, 3, **dt64))
+    speeds = traj.v[:, :, :2].norm(dim=-1)
+    stop = (speeds < 1e-3).double().argmax(dim=0)
+    expected = 1.0 - 0.3 * 9.81 * 30 * 0.01
+    log(f"  probes: resting body max|x| {rest_x:.3e}, max|v_z| {rest_vz:.3e} (bars 1e-5); sliding "
+        f"bodies (mu 0.3, 0.8): largest speed increase {float(speeds.diff(dim=0).max()):.3e} "
+        f"(bar 1e-5), final speeds {speeds[-1].tolist()} (bar 1e-4), stop steps {stop.tolist()}, "
+        f"speed at step 30 {float(speeds[29, 0]):.4f} against 1 - mu g t = {expected:.4f} "
+        f"(bar 0.05)")
+    if not (rest_x < 1e-5 and rest_vz < 1e-5 and float(speeds.diff(dim=0).max()) <= 1e-5
+            and bool((speeds[-1] < 1e-4).all()) and int(stop[1]) < int(stop[0])
+            and abs(float(speeds[29, 0]) - expected) < 0.05):
+        raise AssertionError("a contact physics probe failed")
+
+
+def phase_4f(dqt, smi, sysid_step, rollout, diag_step, flag, cfg):
+    """Phase 4's timings of this slice's paths: the config-4 system-ID step;
+    the contact rollout warm and cold (steps/s and mean iterations per
+    step); the contact system-ID step (``make_system_id_step``, lr 0.05,
+    from mass 1 and mu 0.5 towards the rollout's own trajectory);
+    ``qcqp_jacobian`` at the flagship (l solved inside: K1, and l given) and
+    held against ``qcqp_vjp`` in float64; the diagonal-P flagship step."""
+    from diffqcqp_tpu_torch.diff import kkt
+    from diffqcqp_tpu_torch.models import contact_sim as cs
+
+    timed_step("config-4 system-ID step, B=2048 QPs + 2048 QCQPs N=24 (forward, backward, "
+               "Adam)", sysid_step, smi, calls=20, problems=4096)
+    params, state0, f = rollout
+    T, B = f.shape[:2]
+    for warm in (True, False):
+        roll = lambda warm=warm: cs.simulate(params, state0, f, warm_start=warm,  # noqa: E731
+                                             return_stats=True)
+        _, _, st = roll()
+        ms, _ = timed_step(f"contact rollout B={B} T={T} warm_start={warm}", roll, smi)
+        log(f"    = {T / ms * 1e3:.2f} steps/s, {B * T / ms * 1e3:.1f} body-steps/s; mean "
+            f"iterations per step (steps 1..T-1) QP {float(st['qp_iters'][1:].mean()):.3f}, QCQP "
+            f"{float(st['qcqp_iters'][1:].mean()):.3f}")
+    _, traj = cs.simulate(params, state0, f)
+    raw = {"log_mass": torch.zeros(B, device=f.device, requires_grad=True),
+           "logit_mu": torch.zeros(B, device=f.device, requires_grad=True)}
+    cstep, _ = cs.make_system_id_step(raw, state0, f, traj.x.detach(), learning_rate=0.05)
+    losses = []
+    timed_step(f"contact system-ID step B={B} T={T} (rollout, backward through {2 * T} solves, "
+               f"Adam)", lambda: losses.append(float(cstep())), smi)
+    l0, l1 = losses[0], losses[-1]
+    log(f"    contact system-ID loss {l0:.6e} -> {l1:.6e} over {len(losses)} Adam steps")
+    if not (np.isfinite(l1) and l1 < l0):
+        raise AssertionError("the contact system-ID loss did not fall")
+
+    P, q, l_n, mu = flag
+    timed_step("qcqp_jacobian at the flagship B=4096 N=24, l solved inside (K1)",
+               lambda: dqt.qcqp_jacobian(P, q, l_n, mu, config=cfg), smi, calls=5)
+    l = dqt.solve_qcqp(P, q, l_n, mu, config=cfg)
+    timed_step("qcqp_jacobian at the flagship, l given",
+               lambda: dqt.qcqp_jacobian(P, q, l_n, mu, l=l, config=cfg), smi, calls=5)
+    x64 = [x.double() for x in (P, q, l_n, mu, l)]
+    jac = dqt.qcqp_jacobian(*x64[:4], l=x64[4], config=cfg)
+    w = torch.randn(q.shape, generator=torch.Generator().manual_seed(5),
+                    dtype=torch.float64).to(q.device)
+    r = kkt.qcqp_vjp(x64[0], x64[1], x64[2] * x64[3], x64[4], w, cfg)
+    every = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    e = float(per_problem(-(w[:, None, :] @ jac.dl_dq)[:, 0], r.dl, every).max())
+    e2 = kkt.qcqp_radius_factors(x64[2], x64[3], r.gamma)[1]
+    e_ln = float(per_problem((w[:, None, :] @ jac.dl_dl_n)[:, 0], e2 * r.dgamma, every).max())
+    log(f"    qcqp_jacobian in float64 on the card against qcqp_vjp of a random cotangent w (the "
+        f"assembled system by an LU; the Jacobian by a Cholesky of D and the Schur complement): "
+        f"-w^T dl/dq against dl per problem /max(1,|.|_inf) {e:.3e}, w^T dl/dl_n against e2 "
+        f"dgamma {e_ln:.3e} (bars 1e-7: two float64 solves of systems with kappa up to ~4e7)")
+    if not (e <= 1e-7 and e_ln <= 1e-7):
+        raise AssertionError("qcqp_jacobian disagrees with qcqp_vjp")
+    timed_step("diagonal-P flagship QCQP step B=4096 N=24 (the eager engine and the closed form)",
+               diag_step, smi, calls=5, problems=4096)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1280,7 +1724,6 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     import diffqcqp_tpu_torch as dqt
-    from diffqcqp_tpu_torch.api import _grad_P
     from diffqcqp_tpu_torch.diff import kkt
     from diffqcqp_tpu_torch.kernels import _build
     from diffqcqp_tpu_torch.kernels.admm_cuda import (
@@ -1698,6 +2141,35 @@ def main() -> int:
     log("phase 3e: the routes past the kernels' bounds, float64 and backend='xla'")
     ms_engine = phase_3e(dqt, cfg, qp_cfg10, kernels, rand_g, (P, q, l_n, mu), out_k, l64)
 
+    # ---- phase 3f: diagonal P through the four entry points, no kernel
+    log("phase 3f: diagonal P, solve_* + autograd (B=4096 QP and QCQP, B=2048 box kinds, N=24)")
+    diag_steps = phase_3f(dqt, kernels, diag_cases(cfg, qp_cfg10, box_cfg9), rand_g)
+
+    # ---- phase 3g: the twin of tpu_smoke.py, float32 K1 solutions certified
+    # in float64 on the card by the port's KKT oracle
+    log("phase 3g: verify.check_* in float64 on the card of the float32 K1 solutions")
+    phase_3g(dqt, kernels, {
+        "qcqp": ((P, q, l_n, mu), (), cfg, (("q", 1), ("l_n", 2), ("mu", 3))),
+        "qp": ((c10.P, c10.q), (), c10.cfg, (("P", 0), ("q", 1))),
+        "box_qp": ((c9.P, c9.q, lo9, hi9), (), c9.cfg, (("q", 1), ("l_min", 2), ("l_max", 3))),
+        "signed_box_qp": ((c9.P, c9.q, lo9, hi9), (v9,), c9.cfg,
+                          (("q", 1), ("l_min", 2), ("l_max", 3))),
+    }, rand_g)
+
+    # ---- phase 3h: the config-4 system-ID step (K1 x2, K4, K2)
+    log("phase 3h: the config-4 system-ID step through models.system_id's problem map")
+    sysid_cfgs = (
+        dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0, rho_update_period=24),
+        dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0, rho_update_period=24,
+                                  power_iters=10),
+    )
+    launches_sysid, sysid_step = phase_3h(dqt, kernels, sysid_inputs(), *sysid_cfgs)
+
+    # ---- phase 3i: the config-11 contact rollout (no kernel)
+    log("phase 3i: the config-11 contact rollout, models.contact_sim.simulate")
+    rollout = rollout_inputs()
+    phase_3i(kernels, rollout)
+
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
     k1 = lambda: admm_solve_cuda(*args)            # noqa: E731
@@ -1737,12 +2209,6 @@ def main() -> int:
     ST, rhs = ST.contiguous(), rhs[..., None].contiguous()
     ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(ST, rhs), reps=5, calls=20)
 
-    # the forward+backward step, as bench.py times it, and its device time
-    ev_step, ts_step = time_cuda(step, reps=5, calls=20)
-    by_kernel = device_time_by_kernel(step)
-    dev_total = sum(r_[1] for r_ in by_kernel)
-    dev_k1s = sum(r_[1] for r_ in by_kernel if "admm_kernel" in r_[0])
-    dev_k2s = sum(r_[1] for r_ in by_kernel if "qcqp_bwd_kernel" in r_[0])
     log(f"  K2 device time per launch (torch.profiler): {fmt(dev_k2)}\n"
         f"  K2 per call, 20 back-to-back calls (CUDA events): {ev_k2:.4f} ms "
         f"(samples {[round(t, 4) for t in ts_k2]})\n"
@@ -1750,14 +2216,10 @@ def main() -> int:
         f"  K2 bound {bound2:.5f} ms ({bound2_by}: {nbytes2} bytes, {nflops2:.4g} FLOP; "
         f"{int(active.sum())} strictly active contacts)\n"
         f"  library call torch.linalg.solve, assembled float32 (B, 36, 36): "
-        f"{ms_lib:.4f} ms (samples {[round(t, 4) for t in ts_lib]})\n"
-        f"  forward+backward step per call, 20 back-to-back (CUDA events): {ev_step:.4f} ms "
-        f"(samples {[round(t, 4) for t in ts_step]}) = {B_FLAG / ev_step * 1e3:.1f} problems/s\n"
-        f"  step device time by kernel (torch.profiler, ms per step): total {dev_total:.4f}, "
-        f"K1 {dev_k1s:.4f}, K2 {dev_k2s:.4f}, other kernels {dev_total - dev_k1s - dev_k2s:.4f}, "
-        f"device idle {ev_step - dev_total:.4f}")
-    for name_, ms_, cnt in by_kernel[:10]:
-        log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
+        f"{ms_lib:.4f} ms (samples {[round(t, 4) for t in ts_lib]})")
+    # the forward+backward step, as bench.py times it, and its device time
+    timed_step(f"flagship forward+backward step B={B_FLAG} N={2 * NC_FLAG}", step, smi,
+               calls=20, problems=B_FLAG, top=10)
     k4_times = {name_: phase_4c(c, steps[name_][1], smi) for name_, c in families.items()}
     for label, c in fam96.items():
         _, dev96_k4, (ev96_k4, ts96_k4), (b_, b_by, *_) = time_k4(c)
@@ -1807,20 +2269,9 @@ def main() -> int:
     n_96 = {name_: k_.launches for name_, k_ in kernels.items()}
     if n_96["K1"] < 1 or n_96["K2"] < 1 or n_96["K4"] or n_96["K5"] or n_96["K6"]:
         raise AssertionError("the N=96 step did not run through K1 and K2 alone")
-    ev96, ts96 = time_cuda(step96, reps=5, calls=5)
-    rows96 = device_time_by_kernel(step96, calls=5)
-    dev96 = sum(r_[1] for r_ in rows96)
-    dev96_k1 = sum(r_[1] for r_ in rows96 if "admm_kernel" in r_[0])
-    dev96_k2 = sum(r_[1] for r_ in rows96 if "qcqp_bwd_kernel" in r_[0])
-    log(f"  public QCQP step at B=2048 N=96 ({smi}): launches "
-        + ", ".join(f"{k} {v}" for k, v in n_96.items())
-        + f"; per call, 5 back-to-back (CUDA events): {ev96:.4f} ms (samples "
-        f"{[round(t, 4) for t in ts96]}) = {2048 / ev96 * 1e3:.1f} problems/s\n"
-        f"    step device time by kernel (torch.profiler, ms per step): total {dev96:.4f}, "
-        f"K1 {dev96_k1:.4f}, K2 {dev96_k2:.4f}, other kernels {dev96 - dev96_k1 - dev96_k2:.4f}, "
-        f"device idle {ev96 - dev96:.4f} ({(ev96 - dev96) / ev96:.1%})")
-    for name_, ms_, cnt in rows96[:8]:
-        log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
+    timed_step("public QCQP step at B=2048 N=96, launches "
+               + ", ".join(f"{k} {v}" for k, v in n_96.items()), step96, smi, calls=5,
+               problems=2048, top=8)
     # K1 alone on the same problems: its time, bound and counts
     a96 = (P48, q48, torch.zeros_like(q48), PROX_DISK, (r48,), cfg, True, False)
     k1_96 = lambda: admm_solve_cuda(*a96)   # noqa: E731
@@ -1850,6 +2301,12 @@ def main() -> int:
         f"{b96:.5f} ms ({b96_by}: {b96_bytes} bytes, {b96_flops:.4g} FLOP); set-up only "
         f"(max_iter=0) {fmt(dev_k96_setup)}, without the power iteration "
         f"{fmt(dev_k96_setup0)}")
+
+    # this slice's paths: the system-ID steps, the rollout, the Jacobian and
+    # the diagonal-P step
+    log(f"phase 4f: the system-ID and rollout timings (launches in one config-4 step: "
+        f"{launches_sysid})")
+    phase_4f(dqt, smi, sysid_step, rollout, diag_steps["qcqp"], (P, q, l_n, mu), cfg)
 
     # the waves of phase 1: K2, K6 and K4 take one at the main path's sizes
     if any(waves24[name] > 1 for name in waves24 if name != "K1"):

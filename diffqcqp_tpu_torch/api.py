@@ -27,11 +27,14 @@ equilibration) and the mapped-back solution l, and its backward is the
 class's adjoint in ``diff/kkt.py`` with the JAX package's gradient assembly:
 grad_P = -(dl l^T + l dl^T) / 2, grad_q = -dl, grad_l_min = -gamma_lo
 dgamma_lo, grad_l_max = gamma_hi dgamma_hi, and the radius chain rule for
-l_n and mu. The warm start and the signed box's v get zero gradients. The
-backward is not itself differentiable.
+l_n and mu (for a diagonal P, grad_P = -dl * l). The warm start and the
+signed box's v get zero gradients. The backward is not itself
+differentiable.
 
-Diagonal P raises (ROADMAP Queue 1, item 3), and Jacobians, ``verify``,
-``parallel`` and ``models`` are not ported yet (ROADMAP Queue 1).
+A diagonal P (B, N), as in the JAX package, launches no kernel: the eager
+engine solves it and its adjoints are closed form (``diff/kkt.py``);
+``which_backend`` names 'xla' for it, and ``backend='pallas'`` raises on it,
+since K1 takes dense P only.
 """
 
 from __future__ import annotations
@@ -242,9 +245,12 @@ def _qcqp(P, q, l_n, mu, ws, cfg: SolverConfig):
 # Backward: each class's gradients of <g, l> at the solution l
 # --------------------------------------------------------------------------
 
-def _grad_P(dl: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+def _grad_P(dl: torch.Tensor, l: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     """Symmetrised grad_P = -(dl l^T + l dl^T) / 2, the exact VJP of a solver
-    that sees only the symmetric part of P."""
+    that sees only the symmetric part of P; for a diagonal P its diagonal,
+    -dl * l."""
+    if P.ndim == 2:
+        return -dl * l
     return -0.5 * (dl[:, :, None] * l[:, None, :] + l[:, :, None] * dl[:, None, :])
 
 
@@ -258,24 +264,24 @@ def _bound_grads(r, n: int):
 
 def _qp_grads(P, q, l, g, cfg: SolverConfig):
     dl = qp_vjp(P, q, l, g, cfg)
-    return _grad_P(dl, l), -dl
+    return _grad_P(dl, l, P), -dl
 
 
 def _box_qp_grads(P, q, l_min, l_max, l, g, cfg: SolverConfig):
     r = box_vjp(P, q, l_min, l_max, l, g, cfg)
-    return (_grad_P(r.dl, l), -r.dl, *_bound_grads(r, l.shape[-1]))
+    return (_grad_P(r.dl, l, P), -r.dl, *_bound_grads(r, l.shape[-1]))
 
 
 def _signed_box_qp_grads(P, q, l_min, l_max, v, l, g, cfg: SolverConfig):
     r = signed_box_vjp(P, q, l_min, l_max, v, l, g, cfg)
     # v enters only through sign(v): zero gradient almost everywhere
-    return (_grad_P(r.dl, l), -r.dl, *_bound_grads(r, l.shape[-1]), torch.zeros_like(v))
+    return (_grad_P(r.dl, l, P), -r.dl, *_bound_grads(r, l.shape[-1]), torch.zeros_like(v))
 
 
 def _qcqp_grads(P, q, l_n, mu, l, g, cfg: SolverConfig):
     r = qcqp_vjp(P, q, l_n * mu, l, g, cfg)
     e1, e2 = qcqp_radius_factors(l_n, mu, r.gamma)
-    return _grad_P(r.dl, l), -r.dl, e2 * r.dgamma, e1 * r.dgamma
+    return _grad_P(r.dl, l, P), -r.dl, e2 * r.dgamma, e1 * r.dgamma
 
 
 # per class: (forward, gradients); the inputs are (P, q, *params, ws)
@@ -317,14 +323,8 @@ class _Solve(torch.autograd.Function):
 # --------------------------------------------------------------------------
 
 def _problem(P, q, device) -> Canon:
-    """The canonical batched problem on ``device``; diagonal P raises."""
-    c = canon_problem(P, q, device=_device(device))
-    if c.P.ndim != 3:
-        raise NotImplementedError(
-            "diagonal P: its closed-form adjoints are not ported yet (ROADMAP "
-            "Queue 1, item 3); pass dense (B, N, N) P (diag_embed it)"
-        )
-    return c
+    """The canonical batched problem on ``device``."""
+    return canon_problem(P, q, device=_device(device))
 
 
 def _solve(kind: str, cfg: SolverConfig, c: Canon, params, warm_start):

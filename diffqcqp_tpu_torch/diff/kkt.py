@@ -58,10 +58,13 @@ system, the Newton-Schulz inverse in float32 and a batched Cholesky in any
 other dtype; else ``torch.linalg.solve``.
 
 The fused kernels' bounds are the card's own (their shared memory and
-launch plans), not the JAX package's n <= 64, which is the TPU's VMEM. Not
-ported yet (ROADMAP Queue 1, item 3): the diagonal-P closed forms
-(``_diag_coord_adjoint`` and the QCQP's; the port's forward takes dense P
-only).
+launch plans), not the JAX package's n <= 64, which is the TPU's VMEM.
+
+Diagonal P (B, n), as in the JAX package, launches no kernel: without duals
+every class's adjoint is closed form, elementwise (``_diag_coord_adjoint``
+for the QP family; for the QCQP a diagonal D and a diagonal Schur
+complement). With the duals given (``box_vjp(duals=)``, ``qcqp_vjp(duals=)``)
+it takes the generic route on ``_as_dense(P)``.
 """
 
 from __future__ import annotations
@@ -113,16 +116,32 @@ class QCQPVJP(NamedTuple):
     gamma: torch.Tensor      # (B, nc)
 
 
+def _as_dense(P: torch.Tensor) -> torch.Tensor:
+    """A diagonal-P batch (B, n) as dense (B, n, n) for KKT assembly; dense P
+    as it is."""
+    return torch.diag_embed(P) if P.ndim == 2 else P
+
+
 def _pl_plus_q(P: torch.Tensor, l: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    if P.ndim == 2:
+        return P * l + q
     return torch.sum(P * l[:, None, :], dim=-1) + q
 
 
-def _require_dense(P: torch.Tensor) -> None:
-    if P.ndim != 3:
-        raise NotImplementedError(
-            "diagonal P: the closed-form adjoint is not ported yet (the "
-            "port's forward takes dense P only; diag_embed it)"
-        )
+def _diag_coord_adjoint(P: torch.Tensor, g: torch.Tensor, coeffs: list):
+    """Closed-form KKT adjoint for diagonal P with coordinate-wise
+    constraints (QP, box, signed box): a strictly active coordinate pins
+    dl_i = 0, a free one solves P_i dl_i = g_i, and an active row splits its
+    residual g_i at minimal norm across its slots' coefficients.
+
+    ``coeffs``: per constraint block, the B-block coefficient (B, n), already
+    zero at slots that are not strictly active. Returns (dl, [dgamma per
+    block])."""
+    am = torch.clamp_max(sum((c != 0).to(g.dtype) for c in coeffs), 1.0)
+    dl = (1.0 - am) * g / torch.where(P > 0, P, torch.ones_like(P)) * (P > 0)
+    resid = g * am
+    den = torch.clamp_min(sum(c * c for c in coeffs), torch.finfo(g.dtype).tiny)
+    return dl, [c * resid / den for c in coeffs]
 
 
 def _kernel_args(*xs: Optional[torch.Tensor]):
@@ -245,9 +264,12 @@ def qp_vjp(
     P: torch.Tensor, q: torch.Tensor, l: torch.Tensor, g: torch.Tensor, cfg: SolverConfig
 ) -> torch.Tensor:
     """Adjoint dl of the QP solution map (zeros on the strictly active set):
-    K4 (``coord_kkt_bwd_fused_cuda``) where ``_use_fused_kernel`` says so,
-    else the assembled SPD system (``_qp_assembled_vjp``)."""
-    _require_dense(P)
+    for diagonal P the closed form (``_diag_coord_adjoint``); K4
+    (``coord_kkt_bwd_fused_cuda``) where ``_use_fused_kernel`` says so; else
+    the assembled SPD system (``_qp_assembled_vjp``)."""
+    if P.ndim == 2:
+        am = (qp_dual(P, q, l, cfg) < -cfg.act_eps).to(l.dtype)
+        return _diag_coord_adjoint(P, g, [am])[0]
     if not _use_fused_kernel(P, l, cfg, coord_bwd_cuda.fits):
         return _qp_assembled_vjp(P, q, l, g, cfg)
     (dl,) = coord_kkt_bwd_fused_cuda(
@@ -336,10 +358,18 @@ def box_vjp(
     duals: Optional[BoxDuals] = None,
 ) -> BoxVJP:
     """Adjoint of the box-QP solution map: (dl, dgamma, gamma) for the
-    cotangent g. Without ``duals``, where ``_use_fused_kernel`` says so: K4,
+    cotangent g. Without ``duals``: for diagonal P the closed form
+    (``_diag_coord_adjoint``), else, where ``_use_fused_kernel`` says so, K4,
     which recovers the duals itself. Otherwise the assembled system of the
     given duals (or of ``box_dual``'s), solved by ``_solve_direct``."""
-    _require_dense(P)
+    if duals is None and P.ndim == 2:
+        d = box_dual(P, q, l_min, l_max, l, cfg)
+        n = l.shape[-1]
+        g_lo, g_hi = d.gamma[:, :n], d.gamma[:, n:]
+        am_lo = (d.act_lo & (g_lo > cfg.act_eps)).to(l.dtype)
+        am_hi = (d.act_hi & (g_hi > cfg.act_eps)).to(l.dtype)
+        dl, dg = _diag_coord_adjoint(P, g, [-g_lo * am_lo, g_hi * am_hi])
+        return BoxVJP(dl=dl, dgamma=torch.cat(dg, dim=-1), gamma=d.gamma)
     if duals is None and _use_fused_kernel(P, l, cfg, coord_bwd_cuda.fits):
         out = coord_kkt_bwd_fused_cuda(
             *_kernel_args(P, q, l, g, l_min, l_max, None), KIND_BOX, cfg.eps, cfg.act_eps,
@@ -347,7 +377,7 @@ def box_vjp(
         return BoxVJP(*_kernel_out(l.dtype, *out))
     if duals is None:
         duals = box_dual(P, q, l_min, l_max, l, cfg)
-    ST, rhs, am = _box_kkt_system(P, l, g, duals, cfg)
+    ST, rhs, am = _box_kkt_system(_as_dense(P), l, g, duals, cfg)
     x = _solve_direct(ST, rhs, cfg)
     m = am.shape[-1]
     return BoxVJP(dl=x[:, m:], dgamma=x[:, :m] * am, gamma=duals.gamma)
@@ -442,9 +472,18 @@ def signed_box_vjp(
     cfg: SolverConfig,
 ) -> SignedBoxVJP:
     """Adjoint of the signed-box solution map, the sign constraint's dual
-    included: K4 where ``_use_fused_kernel`` says so, else the assembled
-    system (``_signed_box_assembled_vjp``). v enters only through sign(v)."""
-    _require_dense(P)
+    included: for diagonal P the closed form (``_diag_coord_adjoint``); K4
+    where ``_use_fused_kernel`` says so; else the assembled system
+    (``_signed_box_assembled_vjp``). v enters only through sign(v)."""
+    if P.ndim == 2:
+        d = signed_box_dual(P, q, l_min, l_max, v, l, cfg)
+        n = l.shape[-1]
+        g_lo, g_hi, g_sg = d.gamma[:, :n], d.gamma[:, n : 2 * n], d.gamma[:, 2 * n :]
+        am_lo, am_hi, am_sg = ((a & (x > cfg.act_eps)).to(l.dtype) for a, x in
+                               ((d.act_lo, g_lo), (d.act_hi, g_hi), (d.act_sg, g_sg)))
+        dl, dg = _diag_coord_adjoint(
+            P, g, [-g_lo * am_lo, g_hi * am_hi, torch.sign(v) * g_sg * am_sg])
+        return SignedBoxVJP(dl=dl, dgamma=torch.cat(dg, dim=-1), gamma=d.gamma)
     if not _use_fused_kernel(P, l, cfg, coord_bwd_cuda.fits):
         return _signed_box_assembled_vjp(P, q, l_min, l_max, v, l, g, cfg)
     out = coord_kkt_bwd_fused_cuda(
@@ -507,7 +546,7 @@ def _qcqp_kkt_blocks(P, l, gamma, am, nc: int, n: int):
     sel_T = (torch.arange(nc, device=l.device)[:, None] == contact_of[None, :]).to(l.dtype)
     Ct = 2.0 * l[:, None, :] * sel_T * am[:, :, None]
     Bt = 2.0 * l[:, :, None] * sel_T.T * (gamma * am)[:, None, :]
-    D = P + torch.diag_embed(2.0 * torch.repeat_interleave(gamma, 2, dim=-1))
+    D = _as_dense(P) + torch.diag_embed(2.0 * torch.repeat_interleave(gamma, 2, dim=-1))
     return Ct, Bt, D
 
 
@@ -546,7 +585,7 @@ def _qcqp_schur_vjp(P, l, g, s, am, gamma) -> QCQPVJP:
     nc x nc system."""
     n = l.shape[-1]
     if l.dtype == torch.float32 and qcqp_bwd_cuda.fits(n):
-        dgamma, dl = qcqp_kkt_bwd_cuda(*_kernel_args(P, l, g, gamma, s, am))
+        dgamma, dl = qcqp_kkt_bwd_cuda(*_kernel_args(_as_dense(P), l, g, gamma, s, am))
         return QCQPVJP(dl=dl, dgamma=dgamma, gamma=gamma)
     Ct, Bt, D = _qcqp_kkt_blocks(P, l, gamma, am, n // 2, n)
     rhs = torch.cat([g[..., None], Bt], dim=-1)
@@ -567,15 +606,18 @@ def qcqp_vjp(
     duals: Optional[QCQPDuals] = None,
 ) -> QCQPVJP:
     """Adjoint of the QCQP solution map: (dl, dgamma, gamma) for the
-    cotangent g. P (B, n, n) dense; q, l, g (B, n); radius (B, nc).
+    cotangent g. P (B, n, n) dense or (B, n) diagonal; q, l, g (B, n);
+    radius (B, nc).
 
-    Without ``duals``, where ``_use_fused_kernel`` says so: K2
+    Without ``duals``: for diagonal P the closed form (``_qcqp_diag_vjp``);
+    else, where ``_use_fused_kernel`` says so, K2
     (``qcqp_kkt_bwd_fused_cuda``), which recovers the duals itself, with
     the 8-ulp slack floor of l's dtype. Otherwise the generic route, with
     the given duals or ``qcqp_dual``'s: above nc + n = ``QR_MAX_M`` the
     Schur complement (``_qcqp_schur_vjp``), else the assembled (nc + n)
     system through ``_solve_direct`` (K5 on a float32 CUDA tensor)."""
-    _require_dense(P)
+    if duals is None and P.ndim == 2:
+        return _qcqp_diag_vjp(P, q, radius, l, g, cfg)
     if duals is None and _use_fused_kernel(P, l, cfg, qcqp_bwd_cuda.fits):
         dgamma, dl, gamma = _kernel_out(l.dtype, *qcqp_kkt_bwd_fused_cuda(
             *_kernel_args(P, q, l, g, radius), cfg.eps, cfg.act_eps,
@@ -591,6 +633,29 @@ def qcqp_vjp(
     if nc + n > QR_MAX_M:
         return _qcqp_schur_vjp(P, l, g, s, am, duals.gamma)
     return _qcqp_assembled_vjp(P, l, g, duals.gamma, s, am, cfg)
+
+
+def _qcqp_diag_vjp(P, q, radius, l, g, cfg: SolverConfig) -> QCQPVJP:
+    """The QCQP's adjoint for diagonal P, closed form: D = diag(P) + 2 gamma
+    is diagonal and C's columns are disjoint per contact, so the Schur
+    complement M = sigma - C^T D^{-1} B^T is diagonal too. Divisions by D
+    and M are guarded at the dtype's smallest normal number."""
+    B, n = l.shape
+    nc = n // 2
+    duals = qcqp_dual(P, q, radius, l, cfg)
+    s, active = qcqp_strict_active(l, radius, duals.gamma, cfg)
+    am = active.to(l.dtype)
+    tiny = torch.finfo(l.dtype).tiny
+    d = P + 2.0 * torch.repeat_interleave(duals.gamma, 2, dim=-1)
+    d = torch.where(d.abs() > tiny, d, torch.full_like(d, tiny))
+    wg = g / d
+    pts = l.reshape(B, nc, 2)
+    ctd_c = 4.0 * torch.sum(pts * pts * (1.0 / d).reshape(B, nc, 2), dim=-1)  # (C^T D^-1 C)_cc
+    M = s * am + (1.0 - am) - ctd_c * duals.gamma * am
+    y = -2.0 * am * torch.sum(pts * wg.reshape(B, nc, 2), dim=-1)
+    dgamma = am * y / torch.where(M.abs() > tiny, M, torch.full_like(M, tiny))
+    dl = wg - (2.0 * l / d) * torch.repeat_interleave(duals.gamma * am * dgamma, 2, dim=-1)
+    return QCQPVJP(dl=dl, dgamma=dgamma, gamma=duals.gamma)
 
 
 def qcqp_radius_factors(

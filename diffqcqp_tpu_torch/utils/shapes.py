@@ -7,9 +7,9 @@ Accepted layouts, as in the JAX package:
        | (B, N) / (N,) diagonal
 
 Everything is computed over flat batched (B, N) / (B, N, N) tensors, and the
-caller's q layout is restored on output. Diagonal P is canonicalised here
-but the forward kernel path does not take it (the JAX kernel path does not
-either); ``api.py`` raises for it.
+caller's q layout is restored on output. A diagonal P stays (B, N): the
+eager engine and the closed-form adjoints take it, the kernels do not (the
+JAX kernel path does not either).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Canon", "canon_problem", "canon_like"]
+__all__ = ["Canon", "canon_problem", "canon_like", "fields_from_numpy"]
 
 
 class Canon(NamedTuple):
@@ -145,3 +145,11 @@ def canon_like(x, canon: Canon, name: str, width: int | None = None) -> torch.Te
         else:
             raise ValueError(f"{name}: batch {xf.shape[0]} != {B}")
     return xf.to(canon.q.dtype)
+
+
+def fields_from_numpy(cls, p, device, dtype=None):
+    """A ``cls`` (a NamedTuple) from ``p``, any object with the same field
+    names holding arrays: each field a tensor on ``device``, in ``dtype``
+    (default: the arrays')."""
+    return cls(*(torch.as_tensor(np.array(getattr(p, f)), dtype=dtype, device=device)
+                 for f in cls._fields))

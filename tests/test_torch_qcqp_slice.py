@@ -125,9 +125,13 @@ def test_requires_grad_gives_gradients(problems, which):
 
 
 def test_diagonal_P_raises():
-    with pytest.raises(NotImplementedError, match="diagonal P"):
-        dqt.solve_qcqp(np.ones((2, 4)), np.ones((2, 4)), np.ones((2, 2)),
-                       np.ones((2, 2)), device="cpu")
+    """A diagonal P is solved by the eager engine; only the kernel path,
+    backend='pallas', refuses it (K1 takes dense P, as the JAX kernel path)."""
+    args = (np.ones((2, 4)), np.ones((2, 4)), np.ones((2, 2)), np.ones((2, 2)))
+    with pytest.raises(ValueError, match=r"P must be \(B, n, n\)"):
+        dqt.solve_qcqp(*args, config=dqt.QCQP_DEFAULTS.replace(backend="pallas"), device="cpu")
+    l = dqt.solve_qcqp(*args, device="cpu")
+    assert l.shape == (2, 4) and bool(torch.isfinite(l).all())
 
 
 def test_zero_radius_gives_zero_force(problems):

@@ -227,9 +227,15 @@ def _solve_args(cls, problems, P=None):
 
 @pytest.mark.parametrize("cls", CLASSES)
 def test_diagonal_P_raises(problems, cls):
+    """A diagonal P is solved by the eager engine; only the kernel path,
+    backend='pallas', refuses it (K1 takes dense P, as the JAX kernel path)."""
     P_diag = torch.from_numpy(np.ascontiguousarray(np.diagonal(problems[0], axis1=1, axis2=2)))
-    with pytest.raises(NotImplementedError, match="diagonal P"):
-        getattr(dqt, f"solve_{cls}")(*_solve_args(cls, problems, P_diag), device="cpu")
+    solve = getattr(dqt, f"solve_{cls}")
+    with pytest.raises(ValueError, match=r"P must be \(B, n, n\)"):
+        solve(*_solve_args(cls, problems, P_diag),
+              config=_port_cfg(BASE[cls].replace(backend="pallas")), device="cpu")
+    l = solve(*_solve_args(cls, problems, P_diag), device="cpu")
+    assert l.shape == (B, N) and bool(torch.isfinite(l).all())
 
 
 @pytest.mark.parametrize("cls", CLASSES)
