@@ -210,6 +210,47 @@ its config 6). Phases, each of which fails the run if its check fails:
      ``qcqp_jacobian`` at the flagship, l solved inside (K1) and given, held
      in float64 against ``qcqp_vjp`` of a random cotangent (1e-7); the
      diagonal-P flagship QCQP step;
+  3j. the sharded, bucketed and resumed flagship paths and the traces
+     (``parallel``, ``utils``, ``debug``), each with the launch counters
+     zeroed just before and read just after:
+     (a) a mesh of two shards on the one card: the flagship forward+backward
+     step (sum(l^2) + <w, l>) and config 10's QP step in independent mode
+     (K1 2, K2 2 / K4 2), l within 2e-5 of the unsharded step's (with the
+     count of problems equal bit for bit) and the gradients within phase
+     3b's bars of it; then the flagship step in lockstep mode (K1 0, K2 2:
+     the eager engine forward) on the batch sorted by K1's iterations, so
+     that shard 0's slowest problem stops early: each shard thread calls
+     the reducer exactly as often as the batch's slowest problem iterates
+     (and the barrier acts as often), l and per-problem iterations equal bit
+     for bit to each shard's own ``backend='xla'`` solve, and within 1e-5
+     (l) and 4 iterations of one such solve of the whole batch (the engine
+     rounds otherwise at another batch size);
+     (b) a one-rank NCCL process group (``initialize_distributed`` on a free
+     local port): the lockstep flagship solve on ``global_batch_mesh()`` and
+     ``shard_host_local_batch``, one reducer call and one all-reduce an
+     iteration, bit for bit the whole batch's ``backend='xla'`` solve, and
+     within 1e-5 and 4 iterations of (a)'s lockstep run; the group is
+     destroyed after;
+     (c) the flagship generator at B=4000 padded to a bucket of 4096
+     (``pad_to_bucket``): the step launches K1 1, K2 1, the padded problems
+     converge in 1 iteration to l = 0, and the real 4000's l and gradients
+     are held against an unpadded step (2e-5, phase 3b's bars);
+     (d) ``solve_resumed`` at the flagship from ``max_iter=8``, 3 rounds,
+     growth 4: K1 3, everything converged, the problems converged after
+     rounds 1 and 2 unchanged bit for bit by the later rounds, l within 1e-4
+     of the float64 referee;
+     (e) ``trace_qcqp`` at the flagship, 64 iterations (L by power
+     iteration, as K1): its l2 and iterations equal to a ``backend='xla'``
+     solve capped at 64, histories (64, 4096), ``active`` never on again once
+     off, iterations within 1 of K1's (phase 2);
+     (f) ``enable_compilation_cache`` in two fresh processes on one
+     temporary directory: the first builds K5's library, the second loads it
+     with no build (``_build.build`` reports 0 s for it);
+  4g. timing of phase 3j's paths, each through ``timed_step`` (CUDA events,
+     warm-up, median, device time by kernel, the card's idle share): the
+     sharded independent flagship step beside the unsharded one, the
+     lockstep flagship forward, the bucketed step, the resumed solve, and
+     the trace (ms per iteration);
   5. one JSON line of every ported kernel, then as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -219,10 +260,12 @@ when no CUDA device is present or the port cannot be imported.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1717,6 +1760,311 @@ def phase_4f(dqt, smi, sysid_step, rollout, diag_step, flag, cfg):
                diag_step, smi, calls=5, problems=4096)
 
 
+# ---------------------------------------------------------------------------
+# Sharded, bucketed and resumed steps, traces and the build cache
+# ---------------------------------------------------------------------------
+
+def free_port():
+    """A free TCP port on the loopback interface."""
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def l_agree(label, l, ref, bar, st=None, st_ref=None, it_bar=0):
+    """max |l - ref| within ``bar``, with the count of problems equal bit for
+    bit; with stats, every problem converged and per-problem iterations
+    within ``it_bar``. Returns max |dl|."""
+    dl = float((l - ref).abs().max())
+    same = (l == ref).all(dim=-1)
+    msg = f"    {label}: max|dl|={dl:.3e} (bar {bar:g}), problems bit for bit equal " \
+          f"{int(same.sum())}/{same.numel()}"
+    ok = dl <= bar and bool(torch.isfinite(l).all())
+    if st is not None:
+        dit = (st.iterations - st_ref.iterations).abs()
+        msg += (f", max|d iterations|={int(dit.max())} (bar {it_bar}; problems with any: "
+                f"{int((dit > 0).sum())})")
+        ok = ok and int(dit.max()) <= it_bar and bool(st.converged.all())
+    log(msg)
+    if not ok:
+        raise AssertionError(f"{label} disagrees")
+    return dl
+
+
+@contextlib.contextmanager
+def lockstep_rounds():
+    """Count, for the block, the lockstep reducer's calls by shard thread
+    (one an engine iteration) and its barrier actions ("actions": one done
+    flag MIN a round, an all-reduce under a process group)."""
+    from diffqcqp_tpu_torch.parallel import sharding as tsh
+
+    calls, lock = {}, threading.Lock()
+    call, reduce = tsh._LockstepDone.__call__, tsh._LockstepDone._reduce
+
+    def counted_call(self, local_done):
+        with lock:
+            name = threading.current_thread().name
+            calls[name] = calls.get(name, 0) + 1
+        return call(self, local_done)
+
+    def counted_reduce(self):
+        calls["actions"] = calls.get("actions", 0) + 1
+        reduce(self)
+
+    tsh._LockstepDone.__call__, tsh._LockstepDone._reduce = counted_call, counted_reduce
+    try:
+        yield calls
+    finally:
+        tsh._LockstepDone.__call__, tsh._LockstepDone._reduce = call, reduce
+
+
+def in_rounds(label, rounds, k, slowest, own=None):
+    """Every one of the k shard threads made exactly ``slowest`` reducer
+    calls (the batch's slowest problem's iterations), and the barrier acted
+    as often. With ``own``, each shard's own slowest problem, at least one
+    of which stops earlier: a reducer that did not reduce would let that
+    shard's thread leave after its own count."""
+    shards = {f"batch-shard-{i}": rounds.get(f"batch-shard-{i}") for i in range(k)}
+    log(f"    {label}: reducer calls by shard thread {shards}, barrier actions "
+        f"{rounds.get('actions')}; the batch's slowest problem {slowest} iterations"
+        + ("" if own is None else f", each shard's own slowest {own}"))
+    if set(shards.values()) != {slowest} or rounds.get("actions") != slowest \
+            or len(rounds) != k + 1:
+        raise AssertionError(f"{label}: the shards did not reduce once an iteration in step")
+    if own is not None and min(own) >= slowest:
+        raise AssertionError(f"{label}: no shard stops early, so the rounds cannot show a MIN")
+
+
+def phase_3j(dqt, kernels, flag, cfg, c10, W, l64, k1_iters, b_bucket=4000):
+    """Phase 3j: the sharded (independent and lockstep, one process and a
+    one-rank process group), bucketed and resumed flagship paths, the trace,
+    and the build cache in two processes. ``flag`` are the flagship's card
+    tensors, ``W`` the linear term's weights, ``l64`` the float64 referee's
+    l and ``k1_iters`` K1's iterations on the flagship (phase 2). Returns
+    the closures phase 4g times."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from diffqcqp_tpu_torch.parallel import (
+        global_batch_mesh, initialize_distributed, make_batch_mesh, shard_host_local_batch,
+        solve_qcqp_sharded, solve_qp_sharded,
+    )
+    from diffqcqp_tpu_torch.utils.bucketing import pad_to_bucket, unpad
+    from diffqcqp_tpu_torch.utils.retry import solve_resumed
+
+    names = ("P", "q", "l_n", "mu")
+    B = flag[1].shape[0]
+    mesh = make_batch_mesh(["cuda:0", "cuda:0"])
+
+    def sharded(fn, **kw):
+        return lambda *a, config: fn(*a, mesh=mesh, config=config, **kw)
+
+    def counted(label, n, want):
+        log(f"    {label}: launches " + ", ".join(f"{k} {v}" for k, v in n.items()))
+        if n != {**dict.fromkeys(kernels, 0), **want}:
+            raise AssertionError(f"{label} launched {n}, not {want}")
+
+    # (a) two shards on the one card, independent mode, then lockstep
+    log(f"  3j-a: a mesh of two shards on cuda:0, B={B} (two of {B // 2})")
+    l_u, st_u, g_u, n_u = stepped(kernels, dqt.solve_qcqp_with_stats, flag, cfg, W)
+    counted("unsharded flagship step", n_u, {"K1": 1, "K2": 1})
+    l_s, st_s, g_s, n_s = stepped(kernels, sharded(solve_qcqp_sharded), flag, cfg, W)
+    counted("sharded flagship step, independent", n_s, {"K1": 2, "K2": 2})
+    l_agree("sharded vs unsharded l", l_s, l_u, 2e-5, st_s, st_u)
+    grad_errors("sharded vs unsharded", g_s, g_u, names, 1e-3, 2e-3)
+    qp_xs, w10 = (c10.P, c10.q), W[: c10.q.shape[0]]
+    lq_u, stq_u, gq_u, _ = stepped(kernels, dqt.solve_qp_with_stats, qp_xs, c10.cfg, w10)
+    lq_s, stq_s, gq_s, nq_s = stepped(kernels, sharded(solve_qp_sharded), qp_xs, c10.cfg, w10)
+    counted("sharded config-10 QP step, independent", nq_s, {"K1": 2, "K4": 2})
+    l_agree("sharded vs unsharded QP l", lq_s, lq_u, 2e-5, stq_s, stq_u)
+    grad_errors("sharded vs unsharded QP", gq_s, gq_u, ("P", "q"), 1e-3, 2e-3)
+    # lockstep runs the eager engine. Each shard's problems follow the
+    # trajectories of an engine solve of that shard alone (the MIN only
+    # keeps converged problems frozen for longer), so it is held bit for bit
+    # to the shards' own backend='xla' solves; against one solve of the
+    # whole batch only to rounding: the engine's batched eigh and products
+    # round otherwise at B=4096 than at 2048, which moves the float32
+    # stall-floor stop by a few iterations (phase 2's note; bar 4, phase
+    # 3e's engine-against-K1 bar). The batch goes in sorted by K1's
+    # iterations, so shard 0's slowest problem stops well before the
+    # batch's: only a MIN keeps its thread in the barrier rounds until the
+    # batch's slowest problem is done, which the round counts show.
+    xcfg = cfg.replace(backend="xla")
+    l_x, st_x = dqt.solve_qcqp_with_stats(*flag, config=xcfg)
+    order = torch.argsort(k1_iters.to(flag[1].device), stable=True)
+    flag_s, W_s = [x[order] for x in flag], W[order]
+    h = B // 2
+    halves = [dqt.solve_qcqp_with_stats(*(x[i * h:(i + 1) * h] for x in flag_s), config=xcfg)
+              for i in range(2)]
+    l_xh = torch.cat([lh for lh, _ in halves])
+    st_xh = type(st_x)(*(torch.cat([sh[f] for _, sh in halves]) for f in range(len(st_x))))
+    with lockstep_rounds() as rounds:
+        l_lk, st_lk, g_lk, n_lk = stepped(kernels, sharded(solve_qcqp_sharded, lockstep=True),
+                                          flag_s, cfg, W_s)
+    counted("sharded flagship step, lockstep", n_lk, {"K2": 2})
+    in_rounds("two-shard lockstep", rounds, 2, int(st_lk.iterations.max()),
+              [int(sh.iterations.max()) for _, sh in halves])
+    l_agree("lockstep vs each shard's own backend='xla' solve", l_lk, l_xh, 0.0, st_lk, st_xh)
+    l_agree("lockstep vs the whole batch's backend='xla' solve", l_lk, l_x[order], 1e-5, st_lk,
+            type(st_x)(*(f[order] for f in st_x)), it_bar=4)
+    if not all(bool(torch.isfinite(g).all()) for g in g_lk):
+        raise AssertionError("lockstep gradients not finite")
+
+    # (b) a one-rank NCCL process group around the lockstep solve
+    port = free_port()
+    initialize_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                           process_id=0)
+    try:
+        gmesh = global_batch_mesh()
+        log(f"  3j-b: process group {dist.get_backend()} world {dist.get_world_size()} on "
+            f"port {port}, mesh {[str(d) for d in gmesh.devices]}")
+        local = [shard_host_local_batch(x, gmesh) for x in flag]
+        with lockstep_rounds() as rounds:
+            l_g, st_g = solve_qcqp_sharded(*local, mesh=gmesh, config=cfg, lockstep=True)
+            torch.cuda.synchronize()
+        in_rounds("one-rank group lockstep", rounds, 1, int(st_g.iterations.max()))
+        # one shard of the whole batch: the unsharded engine solve's bits
+        l_agree("one-rank group lockstep vs the whole batch's backend='xla' solve", l_g, l_x,
+                0.0, st_g, st_x)
+        l_agree("one-rank group lockstep vs 3j-a's two-shard lockstep", l_g[order], l_lk, 1e-5,
+                type(st_g)(*(f[order] for f in st_g)), st_lk, it_bar=4)
+    finally:
+        dist.destroy_process_group()
+
+    # (c) the flagship generator at b_bucket, padded to a bucket
+    xs_b = cuda(*build_problems(b_bucket, NC_FLAG))
+    padded, info = pad_to_bucket(xs_b, buckets=(512, 1024, 2048, 4096))
+    log(f"  3j-c: B={b_bucket} padded to a bucket of {info.padded}")
+    w_b = W[:b_bucket]
+    w_pad = torch.cat([w_b, w_b.new_zeros(info.padded - b_bucket, w_b.shape[1])])
+    l_b, st_b, g_b, _ = stepped(kernels, dqt.solve_qcqp_with_stats, xs_b, cfg, w_b)
+    l_p, st_p, g_p, n_p = stepped(kernels, dqt.solve_qcqp_with_stats, padded, cfg, w_pad)
+    counted("bucketed step", n_p, {"K1": 1, "K2": 1})
+    pad_it, pad_l = st_p.iterations[b_bucket:], l_p[b_bucket:]
+    log(f"    padded problems: iterations max {int(pad_it.max())}, max|l| "
+        f"{float(pad_l.abs().max()):.3e}, converged {bool(st_p.converged[b_bucket:].all())}")
+    if int(pad_it.max()) != 1 or bool((pad_l != 0).any()):
+        raise AssertionError("the padded problems did not converge in one iteration to 0")
+    st_pu = type(st_p)(*(unpad(x, info) for x in st_p))
+    l_agree("bucketed vs unpadded l", unpad(l_p, info), l_b, 2e-5, st_pu, st_b)
+    grad_errors("bucketed vs unpadded", [unpad(g, info) for g in g_p], g_b, names, 1e-3, 2e-3)
+
+    # (d) resumed from max_iter=8: 3 rounds, growth 4
+    rcfg = cfg.replace(max_iter=8)
+
+    def resumed(rounds=3):
+        return solve_resumed(dqt.solve_qcqp_with_stats, *flag, config=rcfg, rounds=rounds,
+                             growth=4)
+
+    (l_r1, st_r1), (l_r2, st_r2) = (resumed(r) for r in (1, 2))
+    for k_ in kernels.values():
+        k_.launches = 0
+    l_r, st_r = resumed()
+    torch.cuda.synchronize()
+    counted("resumed solve, 3 rounds", {k: k_.launches for k, k_ in kernels.items()},
+            {"K1": 3})
+    frozen = [bool((l_r[st.converged] == l_prev[st.converged]).all())
+              and bool((st_r.iterations[st.converged] == st.iterations[st.converged]).all())
+              for l_prev, st in ((l_r1, st_r1), (l_r2, st_r2))]
+    err_r = float((l_r.double() - l64).abs().max())
+    log(f"    converged after round 1: {int(st_r1.converged.sum())}, after round 2: "
+        f"{int(st_r2.converged.sum())}, after round 3: {int(st_r.converged.sum())}/{B}; "
+        f"those of rounds 1 and 2 unchanged bit for bit: {frozen}; iterations summed mean "
+        f"{float(st_r.iterations.float().mean()):.3f} max {int(st_r.iterations.max())}; "
+        f"max|l - l_f64 referee|={err_r:.3e} (bar 1e-4)")
+    if not (bool(st_r.converged.all()) and all(frozen) and err_r <= 1e-4):
+        raise AssertionError("the resumed solve failed its checks")
+
+    # (e) the trace, 64 iterations, L by power iteration as K1 estimates it
+    tcfg = cfg.replace(lmax_method="power")
+    for k_ in kernels.values():
+        k_.launches = 0
+    tr = dqt.debug.trace_qcqp(*flag, iters=64, config=tcfg)
+    torch.cuda.synchronize()
+    counted("trace_qcqp", {k: k_.launches for k, k_ in kernels.items()}, {})
+    l_t, st_t = dqt.solve_qcqp_with_stats(*flag, config=tcfg.replace(max_iter=64, backend="xla"))
+    act = tr.active
+    back_on = bool((act[1:] & ~act[:-1]).any())
+    d_k1 = int((tr.iterations - k1_iters).abs().max())
+    same = torch.equal(tr.l2, l_t) and torch.equal(tr.iterations, st_t.iterations)
+    log(f"  3j-e: trace_qcqp at the flagship, 64 iterations: histories "
+        f"{tuple(tr.res_dual.shape)}, converged {int(tr.converged.sum())}/{B}; l2 and "
+        f"iterations equal the backend='xla' solve capped at 64: {same}; active on again "
+        f"after off: {back_on}; max|d iterations| against K1: {d_k1} (bar 1)")
+    shapes = all(tuple(x.shape) == (64, B) for x in (tr.res_prim, tr.res_dual, tr.rho, act))
+    if not (same and shapes and not back_on and d_k1 <= 1):
+        raise AssertionError("the trace failed its checks")
+
+    # (f) the build cache in two fresh processes
+    tmp = tempfile.mkdtemp(prefix="dqt_build_cache_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys\n"
+            "import diffqcqp_tpu_torch as dqt\n"
+            "from diffqcqp_tpu_torch.kernels import _build\n"
+            "path = dqt.enable_compilation_cache(sys.argv[1])\n"
+            "secs = _build.build(['qr_solve'])\n"
+            "_build.load('qr_solve')\n"
+            "print(json.dumps({'path': path, 'built': secs, 'dir': sorted(__import__('os')"
+            ".listdir(path))}))\n")
+    try:
+        runs = []
+        for _ in range(2):
+            r = subprocess.run([sys.executable, "-c", code, tmp], cwd=root, capture_output=True,
+                               text=True, timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"the build-cache process failed:\n{r.stdout}{r.stderr}")
+            runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        log(f"  3j-f: enable_compilation_cache({tmp}) in two processes: first "
+            f"{runs[0]['built']} s of nvcc, second {runs[1]['built']} s; files {runs[1]['dir']}")
+        if not (runs[0]["built"]["qr_solve"] > 0 and runs[1]["built"]["qr_solve"] == 0.0
+                and runs[0]["path"] == tmp):
+            raise AssertionError("the second process did not load the first one's build")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    leaves = [x.clone().requires_grad_() for x in flag]
+    leaves_p = [x.clone().requires_grad_() for x in padded]
+
+    def step_with(solve, xs, w):
+        def run():
+            lx, _ = solve(*xs, config=cfg)
+            return torch.autograd.grad((lx * lx).sum() + (w * lx).sum(), xs)
+        return run
+
+    return {
+        "sharded": step_with(sharded(solve_qcqp_sharded), leaves, W),
+        "unsharded": step_with(dqt.solve_qcqp_with_stats, leaves, W),
+        "lockstep": lambda: solve_qcqp_sharded(*flag, mesh=mesh, config=cfg, lockstep=True),
+        "bucketed": step_with(dqt.solve_qcqp_with_stats, leaves_p, w_pad),
+        "resumed": resumed,
+        "trace": lambda: dqt.debug.trace_qcqp(*flag, iters=64, config=tcfg),
+    }
+
+
+def phase_4g(smi, paths, B=B_FLAG):
+    """Phase 4g: phase 3j's paths through ``timed_step``."""
+    ms_u, idle_u = timed_step(f"unsharded flagship step B={B} (K1 + K2)", paths["unsharded"],
+                              smi, calls=20, problems=B)
+    ms_s, idle_s = timed_step(f"sharded flagship step, two shards on one card, independent "
+                              f"(K1 x2 + K2 x2)", paths["sharded"], smi, calls=20, problems=B)
+    log(f"    sharded / unsharded: {ms_s / ms_u:.3f}x wall time")
+    timed_step("lockstep flagship forward, two shards (the eager engine, a barrier an "
+               "iteration)", paths["lockstep"], smi, reps=3, calls=1, problems=B)
+    timed_step("bucketed step, 4000 padded to 4096 (K1 + K2)", paths["bucketed"], smi,
+               calls=20, problems=4000)
+    timed_step("resumed solve from max_iter=8, 3 rounds (K1 x3)", paths["resumed"], smi,
+               calls=5, problems=B)
+    ms_t, _ = timed_step("trace_qcqp, 64 iterations (the eager engine)", paths["trace"], smi,
+                         reps=3, calls=1)
+    log(f"    = {ms_t / 64:.4f} ms per traced iteration")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2170,6 +2518,12 @@ def main() -> int:
     rollout = rollout_inputs()
     phase_3i(kernels, rollout)
 
+    # ---- phase 3j: the sharded, bucketed and resumed flagship paths, the
+    # trace and the build cache
+    log("phase 3j: parallel/, utils/ and debug at the flagship")
+    paths_3j = phase_3j(dqt, kernels, (P, q, l_n, mu), cfg, families["qp"], W, l64,
+                        out_k[1].iterations)
+
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
     k1 = lambda: admm_solve_cuda(*args)            # noqa: E731
@@ -2307,6 +2661,9 @@ def main() -> int:
     log(f"phase 4f: the system-ID and rollout timings (launches in one config-4 step: "
         f"{launches_sysid})")
     phase_4f(dqt, smi, sysid_step, rollout, diag_steps["qcqp"], (P, q, l_n, mu), cfg)
+
+    log(f"phase 4g: the sharded, bucketed, resumed and traced paths")
+    phase_4g(smi, paths_3j)
 
     # the waves of phase 1: K2, K6 and K4 take one at the main path's sizes
     if any(waves24[name] > 1 for name in waves24 if name != "K1"):

@@ -11,9 +11,12 @@ float64, ``backend='xla'``, ``accel``, larger sizes and a diagonal (B, N) P,
 whose adjoints are closed form (``which_backend`` names the forward's
 engine). Around them: the raw duals and derivatives (``duals.py``), the full
 Jacobians (``diff/jacobian.py``: ``*_jacobian``), the KKT-residual oracle
-(``verify``) and the paper's models (``models``: system identification and
-a differentiable contact rollout). The port imports torch and never jax,
-and nothing of the JAX package, which stays beside it as the reference.
+(``verify``), the paper's models (``models``: system identification and
+a differentiable contact rollout), batch sharding over cards and processes
+(``parallel``), per-iteration traces (``debug``) and the ``utils``
+(bucketing, warm-started retries, the build directory). The port imports
+torch and never jax, and nothing of the JAX package, which stays beside it
+as the reference.
 
     import diffqcqp_tpu_torch as dqt
     l, stats = dqt.solve_qcqp_with_stats(P, q, l_n, mu, config=cfg)   # on the card
@@ -56,7 +59,11 @@ from .duals import (
     signed_box_qp_derivatives,
 )
 from .solvers.admm import SolveStats
-from . import verify
+from . import debug, verify
+from .utils.autotune import tune_compact_iters
+from .utils.cache import enable_compilation_cache
+
+__version__ = "0.1.0"
 
 __all__ = [
     "SolverConfig",
@@ -90,4 +97,8 @@ __all__ = [
     "BoxQPDerivatives",
     "SignedBoxQPDerivatives",
     "QCQPDerivatives",
+    "debug",
+    "tune_compact_iters",
+    "enable_compilation_cache",
+    "__version__",
 ]

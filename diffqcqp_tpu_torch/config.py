@@ -22,8 +22,12 @@ What the port does with each field that differs from the JAX package:
     ``diff/kkt.py::_use_fused_kernel``), 'pallas' (the kernels, their plain
     versions on CPU tensors) or 'xla' (the eager engine and the generic
     adjoint route).
-  * ``axis_name`` raises ``NotImplementedError``: cross-shard stopping waits
-    for the port of ``parallel/`` (ROADMAP Queue 1, item 8).
+  * ``axis_name``: the lockstep mode of ``parallel/sharding.py``. The eager
+    engine reduces its done flag with a MIN over every shard of that axis,
+    through the reducer the sharded call registers under the name
+    (``solvers/admm.py::lockstep_axis``); with none registered it raises
+    ``NameError``, as the JAX package's ``lax.pmin`` does for an unbound
+    axis. 'auto' sends such a solve to the engine, as in the JAX package.
 
 See the JAX package's ``SolverConfig`` docstring for what each knob means;
 the semantics are the same.
@@ -43,7 +47,7 @@ class SolverConfig:
 
     Fields, defaults and meaning are those of the JAX package's
     ``SolverConfig``; the module docstring lists what the port ignores or
-    does not support yet.
+    does otherwise.
     """
 
     eps: float = 1e-10
@@ -105,13 +109,7 @@ def _check_compact_iters(k) -> None:
 
 
 def check_supported(cfg: SolverConfig) -> None:
-    """Raise ``NotImplementedError`` for settings the port cannot run yet,
-    ``ValueError`` for an unknown backend."""
-    if cfg.axis_name is not None:
-        raise NotImplementedError(
-            "SolverConfig.axis_name (cross-shard stopping) is not ported yet "
-            "(ROADMAP Queue 1, item 8)"
-        )
+    """Raise ``ValueError`` for an unknown backend."""
     if cfg.backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
 

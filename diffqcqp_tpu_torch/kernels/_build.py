@@ -17,7 +17,12 @@ or collecting its tests, needs no ``nvcc``.
 ``check_launch`` and ``check_rc`` are the checks every kernel wrapper makes
 around a launch: inputs, shared memory and block size (against the
 kernel's own ``__launch_bounds__``) before it, the kernel's
-``cudaGetLastError()`` code after it.
+``cudaGetLastError()`` code after it. ``count_launch`` then adds one to the
+wrapper's ``launches`` counter under one lock, since the shards of a sharded
+solve (``parallel/sharding.py``) launch from several threads.
+
+``BUILD_DIR`` is where the libraries go; ``utils/cache.py::
+enable_compilation_cache`` points it elsewhere.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 
 __all__ = [
     "NVCC_FLAGS", "SOURCES", "build", "load", "library_path", "check_geometry", "check_launch",
-    "check_rc", "fits", "row_threads",
+    "check_rc", "count_launch", "fits", "row_threads",
 ]
 
 ROW_BOUND = 256     # __launch_bounds__ of the thread-per-row kernels (K1; K4 above n = 32)
@@ -56,6 +61,7 @@ NVCC_FLAGS = (
 SOURCE_FLAGS = {"admm": ("-fmad=false",)}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -179,3 +185,10 @@ def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(
             f"{what} kernel launch failed: {lib.dq_cuda_error_string(rc).decode()}"
         )
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch counter),
+    under a lock: a bare ``+= 1`` from two threads can lose one."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -441,7 +441,7 @@ def admm_solve_cuda(
             ptr(stall), B, ctypes.byref(prm), stream,
         )
     _build.check_rc(lib, rc, f"admm (B={B}, n={n})")
-    admm_solve_cuda.launches += 1
+    _build.count_launch(admm_solve_cuda)
     return l2, SolveStats(iters, resp, resd, rho, conv, stall)
 
 

@@ -212,7 +212,7 @@ def coord_kkt_bwd_fused_cuda(
             B, n, kind, eps, act_eps, stream,
         )
     _build.check_rc(lib, rc, f"coord_bwd (kind={kind}, B={B}, n={n})")
-    coord_kkt_bwd_fused_cuda.launches += 1
+    _build.count_launch(coord_kkt_bwd_fused_cuda)
     return (dl,) if kind == KIND_QP else (dl, dgamma, gamma)
 
 

@@ -285,7 +285,7 @@ def qcqp_kkt_bwd_fused_cuda(
             gamma.data_ptr(), B, n, eps, act_eps, stall_ulps, stream,
         )
     _build.check_rc(lib, rc, f"qcqp_bwd (B={B}, n={n})")
-    qcqp_kkt_bwd_fused_cuda.launches += 1
+    _build.count_launch(qcqp_kkt_bwd_fused_cuda)
     return dgamma, dl, gamma
 
 
@@ -345,7 +345,7 @@ def qcqp_kkt_bwd_cuda(
             dl.data_ptr(), B, n, stream,
         )
     _build.check_rc(lib, rc, f"qcqp_schur (B={B}, n={n})")
-    qcqp_kkt_bwd_cuda.launches += 1
+    _build.count_launch(qcqp_kkt_bwd_cuda)
     return dgamma, dl
 
 

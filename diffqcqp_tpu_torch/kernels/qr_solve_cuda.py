@@ -187,7 +187,7 @@ def qr_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dq_qr_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, m, stream)
     _build.check_rc(lib, rc, f"qr_solve (B={B}, m={m})")
-    qr_solve_cuda.launches += 1
+    _build.count_launch(qr_solve_cuda)
     return x
 
 

@@ -31,14 +31,19 @@ Per iteration (Solver.cpp:79-121):
           (QCQP, or any class with primal_check), each with its stall floor
     adaptive rho per problem, gated by rho_sync or the cpt counter
 
-``cfg.accel`` adds fast-ADMM momentum with a per-problem restart. A
-cross-shard ``axis_name`` raises ``NotImplementedError``: it waits for the
-port of ``parallel/`` (ROADMAP Queue 1, item 8).
+``cfg.accel`` adds fast-ADMM momentum with a per-problem restart. With
+``cfg.axis_name`` set (the lockstep mode of ``parallel/sharding.py``) every
+body call reduces its local done flag with a MIN over every shard of that
+axis, once, through the reducer registered under the name by
+``lockstep_axis`` (the JAX package's ``lax.pmin``), so every shard runs the
+same number of iterations.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import contextlib
+import threading
+from typing import Callable, Iterator, NamedTuple, Optional
 
 import torch
 
@@ -53,7 +58,42 @@ from ..ops.linalg import (
     solve_shifted,
 )
 
-__all__ = ["ADMMState", "SolveStats", "admm_solve", "make_admm_step"]
+__all__ = ["ADMMState", "SolveStats", "admm_solve", "lockstep_axis", "make_admm_step"]
+
+# axis name -> the done-flag reducer of the sharded call running over it
+_reducers: dict[str, Callable[[bool], bool]] = {}
+_reducers_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def lockstep_axis(axis_name: str, reduce: Callable[[bool], bool]) -> Iterator[None]:
+    """Bind ``axis_name`` to ``reduce`` for the duration of the block: every
+    engine body run with ``cfg.axis_name == axis_name`` calls
+    ``reduce(local_done)`` once and stops when it returns True. ``reduce``
+    must return the MIN (logical and) of the flags of every shard of the
+    axis. One binding a name at a time, as one ``shard_map`` binds its axis."""
+    with _reducers_lock:
+        if axis_name in _reducers:
+            raise RuntimeError(f"axis name {axis_name!r} is already bound by a running "
+                               "sharded call")
+        _reducers[axis_name] = reduce
+    try:
+        yield
+    finally:
+        with _reducers_lock:
+            del _reducers[axis_name]
+
+
+def _done_reducer(axis_name: str) -> Callable[[bool], bool]:
+    with _reducers_lock:
+        reduce = _reducers.get(axis_name)
+    if reduce is None:
+        raise NameError(
+            f"unbound axis name {axis_name!r}: SolverConfig.axis_name is set but no sharded "
+            "call binds it (run lockstep solves through parallel.solve_*_sharded(..., "
+            "lockstep=True))"
+        )
+    return reduce
 
 
 class SolveStats(NamedTuple):
@@ -219,12 +259,10 @@ def make_admm_step(
     damp_both_taus: bool = True,
 ) -> tuple[Callable, Callable, ADMMState]:
     """(cond, body, initial_state) of the ADMM loop, for callers that drive
-    the iteration themselves; ``admm_solve`` runs ``body`` while ``cond``."""
-    if cfg.axis_name is not None:
-        raise NotImplementedError(
-            "SolverConfig.axis_name (cross-shard stopping) waits for the port of "
-            "parallel/ (ROADMAP Queue 1, item 8)"
-        )
+    the iteration themselves; ``admm_solve`` runs ``body`` while ``cond``.
+    With ``cfg.axis_name`` set it raises ``NameError`` unless a sharded call
+    binds that axis (``lockstep_axis``)."""
+    reduce_done = None if cfg.axis_name is None else _done_reducer(cfg.axis_name)
     use_chol = _use_chol(P, cfg)
     dtype = q.dtype
     if use_chol:
@@ -335,6 +373,9 @@ def make_admm_step(
             l2_c, u_c = l2, u
             acc_a, acc_c, l2_plain, u_plain = s.acc_a, s.acc_c, s.l2_plain, s.u_plain
         converged = s.converged | (active & newly)
+        all_done = bool(converged.all())
+        if reduce_done is not None:
+            all_done = reduce_done(all_done)
         return ADMMState(
             it=s.it + 1,
             l=torch.where(m, l, s.l),
@@ -350,7 +391,7 @@ def make_admm_step(
             res_dual=torch.where(active, res_dual, s.res_dual),
             # the rho these residuals were computed with, before this update
             rho_res=torch.where(active, s.rho, s.rho_res),
-            all_done=bool(converged.all()),
+            all_done=all_done,
             fact_inv=fact_inv,
             l2_plain=l2_plain, u_plain=u_plain, acc_a=acc_a, acc_c=acc_c,
         )

@@ -154,5 +154,5 @@ def test_make_admm_step_drives_the_same_loop():
         s = body(s)
     l, st = t_solve(*args)
     assert torch.equal(s.l2, l) and torch.equal(s.iters, st.iterations)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NameError, match="unbound axis name 'b'"):
         make_admm_step(*args[:4], cfg.replace(axis_name="b"), True, False)
