@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py config6    # phase 1, then config 6's phases alone (2c's
+                                     # block-wide K4 cases, 3k, 4h); no result line
 
 Builds the port's CUDA kernels from ``diffqcqp_tpu_torch/kernels/csrc`` and
 drives the port's paths: the friction-cone QCQP forward solve and the
@@ -12,8 +14,10 @@ run_benchmarks.py): the non-negative QP at B=4096, N=24 (config 10, seed 10)
 and the box and signed-box QP at B=2048, N=24 (config 9, seed 9); and the
 generic adjoint route with the duals given (``kkt.qcqp_vjp`` /
 ``kkt.box_vjp`` with ``duals=``) at the QCQP flagship, at config 9's box
-point and at the JAX package's large-N size (B=2048, N=96, 48 contacts;
-its config 6). Phases, each of which fails the run if its check fails:
+point and at a QCQP of the JAX package's large-N size (B=2048, N=96, 48
+contacts: the port's own point, config 6's width); and config 6 itself,
+the JAX package's large-N QP (B=2048, N=96, seed 6: K1, then K4's
+block-wide path). Phases, each of which fails the run if its check fails:
 
   1. the card: name and power limit (nvidia-smi), the build of every
      ``kernels/_build.SOURCES`` library (one nvcc each, all at once); each
@@ -25,7 +29,8 @@ its config 6). Phases, each of which fails the run if its check fails:
      N=24 and the waves each main-path launch takes, ceil(B / (blocks per
      SM x SMs)) at B=4096 (K1, K2, K6, K4's QP) and B=2048 (K4's box kinds):
      the run fails, after phase 4 so that its times are printed, if K2, K6
-     or K4 takes more than one;
+     or K4 takes more than one; K4's blocks per SM (each kind) at the
+     block-wide sizes N=48, 96 and 168 and the waves at B=2048;
   2. kernel K1 (``admm_solve_cuda``) against its plain PyTorch version
      (``admm_solve_plain``) on the same card inputs: at the flagship point,
      for all four prox kinds and the rho_sync=False, primal_check=False,
@@ -57,7 +62,10 @@ its config 6). Phases, each of which fails the run if its check fails:
      2 l and a random g: the three classes at their benchmark points; tight
      boxes at B=256, N=12 (30 % of the coordinates with l_min = l_max, v with
      20 % zeros); the three at B=256, N=32 (the largest one-warp size) and
-     at B=512, N=96. Bars, on the problems whose
+     at B=512, N=96; then K4's block-wide path, the three kinds at config 6
+     (B=2048, N=96, the box kinds' bounds drawn by ``box_bounds`` from the
+     seed-6 rng), at B=256, N=33 (just past one warp) and at B=256, N=168
+     (the largest N K4 takes). Bars, on the problems whose
      strict mask agrees (the zero pattern of dgamma, or of dl for the QP):
      per problem max |d dl| <= 5e-5 max(1, |dl|_inf); max |d dgamma| <=
      2e-4 max(1, |dgamma|_inf) over the batch and <= 2e-3 max(1,
@@ -105,7 +113,17 @@ its config 6). Phases, each of which fails the run if its check fails:
      relative error median <= 1e-3 and max <= 2e-3 on the problems whose
      strict mask the referee shares; float64 central differences on 4
      problems for q and the bounds; the class's ``*Fn2`` binding in the
-     (B, N, 1) layout against the entry point; K5 and K6 not launched;
+     (B, N, 1) layout against the entry point; K1 and K4 launched once
+     each, K2, K5 and K6 not at all;
+  3k. config 6 (``run_benchmarks.py`` config 6: B=2048, N=96, ``_spd``'s P
+     and q ~ N(0, 1), seed 6, ``QP_DEFAULTS.replace(eps=1e-7, max_iter=400,
+     rho_update_period=24)``): its step, ``solve_qp`` then the gradient of
+     sum(l^2) for P and q, through phase 3c's checks (K1 and K4 once, no
+     other kernel; every problem converged; the float64 referee's bars and
+     central differences); l against scipy's NNLS (an exact active-set
+     solve, config 6's referee in the JAX package) on 256 problems, bar
+     1e-4; the share of free coordinates nf / n of the three kinds, and how
+     many problems take the register factor (nf <= 32);
   3d. the generic route's three calls, g the cotangent of sum(l^2) + <w, l>,
      each with the launch counters zeroed just before and read just after:
      ``qcqp_vjp(duals=qcqp_dual(...))`` at
@@ -246,13 +264,25 @@ its config 6). Phases, each of which fails the run if its check fails:
      (f) ``enable_compilation_cache`` in two fresh processes on one
      temporary directory: the first builds K5's library, the second loads it
      with no build (``_build.build`` reports 0 s for it);
+  3l. config 5's size on one card: examples_torch/sharded_batch.py's
+     problems (B=65,536, N=8) and schedule, each of the four 16,384-problem
+     slices (one card's shard of its four-card run) solved by K1, by the
+     float32 eager engine (``backend='xla'``: what lockstep runs, bit for
+     bit, phase 3j) and in float64 by the engine at eps=1e-10: max |l -
+     l_f64| of K1 and of the engine per slice, both within 1e-4, every
+     solve converged;
+  4h. config 6's timings: K4's QP kind (profiler and CUDA events), its
+     plain version, its bound and ``torch.linalg.solve`` of the assembled
+     (2048, 96, 96) system, the step (CUDA events, problems/s, device time
+     by kernel, idle share); K4's box kinds on the same P and q; the three
+     kinds on config 6's generator at B=2048, N = 33, 48 and 64;
   4g. timing of phase 3j's paths, each through ``timed_step`` (CUDA events,
      warm-up, median, device time by kernel, the card's idle share): the
      sharded independent flagship step beside the unsharded one, the
      lockstep flagship forward, the bucketed step, the resumed solve, and
      the trace (ms per iteration);
-  5. one JSON line of every ported kernel, then as the last line
-     ``{"ok": true, "device": {...}}``.
+  5. one JSON line of every ported kernel (K4's block-wide path at config 6
+     its own entry), then as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch, numpy and the port only. Exits non-zero without a result
 when no CUDA device is present or the port cannot be imported.
@@ -319,6 +349,11 @@ def kkt_problems(b, nc, seed):
 
 def cuda(*xs):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in xs)
+
+
+def rand_g(l):
+    """A random cotangent of l's shape (numpy, seed 3), float32 on the card."""
+    return cuda(np.random.default_rng(3).standard_normal(tuple(l.shape)).astype(np.float32))[0]
 
 
 def compare(name, out_k, out_p, tol=2e-5):
@@ -708,7 +743,7 @@ def phase_3c(dqt, c, w):
     from diffqcqp_tpu_torch import torch_autograd as ta
     from diffqcqp_tpu_torch.kernels.admm_cuda import admm_solve_cuda, admm_solve_plain
     from diffqcqp_tpu_torch.kernels.coord_bwd_cuda import coord_kkt_bwd_fused_cuda
-    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda
     from diffqcqp_tpu_torch.kernels.qr_solve_cuda import qr_solve_cuda
 
     solve = getattr(dqt, f"solve_{c.name}_with_stats")
@@ -721,13 +756,14 @@ def phase_3c(dqt, c, w):
         lx = lx[0] if isinstance(lx, tuple) else lx
         return lx, torch.autograd.grad((lx * lx).sum() + (w.reshape(lx.shape) * lx).sum(), xs)
 
-    kernels = (admm_solve_cuda, coord_kkt_bwd_fused_cuda, qr_solve_cuda, qcqp_kkt_bwd_cuda)
+    kernels = (admm_solve_cuda, coord_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_cuda, qr_solve_cuda,
+               qcqp_kkt_bwd_cuda)
     for k_ in kernels:
         k_.launches = 0
     l, st = solve(*leaves, *rest, config=c.cfg)
     grads = torch.autograd.grad((l * l).sum() + (w * l).sum(), leaves)
     torch.cuda.synchronize()
-    n_k1, n_k4, n_k5, n_k6 = (k_.launches for k_ in kernels)
+    n_k1, n_k4, n_k2, n_k5, n_k6 = (k_.launches for k_ in kernels)
     l = l.detach()
     finite = all(bool(torch.isfinite(x).all()) for x in grads)
     conv = float(st.converged.float().mean())
@@ -744,7 +780,8 @@ def phase_3c(dqt, c, w):
     out_k4 = coord_kkt_bwd_fused_cuda(c.P, c.q, l, (2.0 * l + w).contiguous(), *c.bounds,
                                       c.kind, c.cfg.eps, c.cfg.act_eps)
     shared = ~(k4_mask(c.kind, out_k4) != am_ref).any(dim=-1)
-    log(f"  {c.name}: launches K1 {n_k1}, K4 {n_k4}, K5 {n_k5}, K6 {n_k6}; converged_frac={conv} "
+    log(f"  {c.name}: launches K1 {n_k1}, K4 {n_k4}, K2 {n_k2}, K5 {n_k5}, K6 {n_k6}; "
+        f"converged_frac={conv} "
         f"mean_iters={float(st.iterations.float().mean()):.4f} "
         f"max_iters={int(st.iterations.max())} stalled={float(st.stalled.float().mean()):.4f} "
         f"max feasibility excess={excess:.3e} max|l - l_f64 referee|={err_l:.3e} "
@@ -752,8 +789,8 @@ def phase_3c(dqt, c, w):
         f"{float(st64.iterations.float().mean()):.2f}); gradients finite {finite}; strictly "
         f"active slots {float(am_ref.double().mean()):.4f}; problems whose strict mask the "
         f"referee does not share: {int((~shared).sum())}/{shared.numel()}")
-    if n_k1 < 1 or n_k4 < 1 or n_k5 or n_k6 or not finite:
-        raise AssertionError(f"the {c.name} step did not run through K1 and K4 alone")
+    if n_k1 != 1 or n_k4 != 1 or n_k2 or n_k5 or n_k6 or not finite:
+        raise AssertionError(f"the {c.name} step did not run through K1 and K4 once each alone")
     if conv != 1.0 or excess > 0 or not err_l <= 1e-4 or not bool(st64.converged.all()):
         raise AssertionError(f"{c.name} forward check failed")
     worst = worst_max = 0.0
@@ -874,6 +911,187 @@ def phase_4c(c, step, smi):
     # the device time: back to back, the wrapper's host work outlasts K4
     ms = dev_k4 if dev_k4 is not None else ev_k4
     return dict(ms=ms, plain_ms=ms_p, bound_ms=bound, bound_by=bound_by, library_ms=ms_lib)
+
+
+# ---------------------------------------------------------------------------
+# Config 6: the JAX package's large-N QP (run_benchmarks.py config 6, B=2048,
+# N=96, seed 6), K1 then K4's block-wide path
+# ---------------------------------------------------------------------------
+
+K4_OCC_SIZES = (48, 96, 168)     # K4's block-wide path: blocks per SM printed in phase 1
+
+
+def config6_classes(dqt, b=2048, n=96, seed=6):
+    """Config 6's problems (``spd_problems(2048, 96, seed=6)``) as the three
+    QP-family classes: the QP at config 6's schedule (``QP_DEFAULTS.replace(
+    eps=1e-7, max_iter=400, rho_update_period=24)``), the box kinds with
+    ``box_bounds`` drawn next from the seed-6 rng, at config 9's schedule."""
+    rng, P, q = spd_problems(b, n, seed)
+    lo, hi, v = cuda(*box_bounds(rng, b, n))
+    P, q = cuda(P, q)
+    box_cfg = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=2000)
+    return {"qp": qp_class("qp", P, q, dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400,
+                                                                rho_update_period=24)),
+            "box_qp": qp_class("box_qp", P, q, box_cfg, lo, hi),
+            "signed_box_qp": qp_class("signed_box_qp", P, q, box_cfg, lo, hi, v)}
+
+
+def k4_block_cases(dqt, c6):
+    """Phase 2c's cases on K4's block-wide path: the three kinds at config 6
+    (B=2048, N=96; the QP first), at N=33 (B=256, just past one warp) and at
+    N=168 (B=256, the largest n K4 takes)."""
+    qp_cfg = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0,
+                                     rho_update_period=24, power_iters=10)
+    box_cfg = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=2000)
+    cases = [(f"{name} B=2048 N=96 (config 6)", c) for name, c in c6.items()]
+    for n, seed in ((33, 17), (168, 18)):
+        rng, P, q = spd_problems(256, n, seed)
+        lo, hi, v = cuda(*box_bounds(rng, 256, n))
+        P, q = cuda(P, q)
+        cases += [(f"qp B=256 N={n}", qp_class("qp", P, q, qp_cfg)),
+                  (f"box B=256 N={n}", qp_class("box_qp", P, q, box_cfg, lo, hi)),
+                  (f"signed box B=256 N={n}", qp_class("signed_box_qp", P, q, box_cfg, lo, hi, v))]
+    return cases
+
+
+def k4_occupancy(sms):
+    """Print K4's blocks per SM (the occupancy calculator) and waves at
+    B=2048, ceil(B / (blocks per SM x SMs)), for each kind at the block-wide
+    sizes ``K4_OCC_SIZES``; fail if one does not fit an SM."""
+    from diffqcqp_tpu_torch.kernels import coord_bwd_cuda as k4m
+
+    kinds = (("qp", k4m.KIND_QP), ("box", k4m.KIND_BOX), ("signed box", k4m.KIND_SIGNED_BOX))
+    occ = {}
+    for n in K4_OCC_SIZES:
+        for name, kind in kinds:
+            blk = k4m.c_blocks_per_sm(n, kind)
+            occ[(n, name)] = (blk, -(-2048 // max(blk * sms, 1)))
+    log(f"  K4 block-wide, blocks per SM (occupancy calculator) and waves at B=2048 on {sms} "
+        f"SMs, shared memory {[(n, k4m.smem_bytes(n)) for n in K4_OCC_SIZES]} bytes: "
+        + ", ".join(f"N={n} {name} {blk} ({w} waves)" for (n, name), (blk, w) in occ.items()))
+    if min(blk for blk, _ in occ.values()) < 1:
+        raise AssertionError(f"K4's block-wide path does not fit an SM: {occ}")
+
+
+def nnls_solve_batch(P, q):
+    """Float64 solutions of the non-negative QPs min 1/2 l'Pl + q'l, l >= 0,
+    by scipy's NNLS (Lawson-Hanson, an exact active-set method) on
+    min ||A l - b|| with A = chol(P)^T, b = -A^-T q: a copy of
+    benchmarks/external_oracle.py::nnls_solve_batch (numpy and scipy only),
+    config 6's referee in the JAX package."""
+    from scipy.linalg import cholesky, solve_triangular
+    from scipy.optimize import nnls
+
+    P, q = np.asarray(P, np.float64), np.asarray(q, np.float64)
+    out = np.empty_like(q)
+    for i in range(q.shape[0]):
+        L = cholesky(P[i], lower=True)
+        out[i], _ = nnls(L.T, solve_triangular(L, -q[i], lower=True))
+    return out
+
+
+def phase_3k(dqt, c6, n_nnls=256):
+    """Config 6's step, ``solve_qp`` then ``torch.autograd.grad`` of sum(l^2)
+    for P and q, through phase_3c (launch counters zeroed just before and
+    read just after: K1 and K4 once each, nothing else; every problem
+    converged; the float64 referee, central differences and ``QPFn2``);
+    then l against scipy's NNLS on the first ``n_nnls`` problems (bar 1e-4)
+    and the share of free coordinates nf / n that K4 factors. Returns
+    (launches of K1, of K4, the step)."""
+    from diffqcqp_tpu_torch.kernels.coord_bwd_cuda import coord_kkt_bwd_fused_cuda
+
+    c = c6["qp"]
+    n_k1, n_k4, step = phase_3c(dqt, c, torch.zeros_like(c.q))
+    l, _ = dqt.solve_qp_with_stats(c.P, c.q, config=c.cfg)
+    t0 = time.perf_counter()
+    l_nnls = nnls_solve_batch(c.P[:n_nnls].cpu().numpy(), c.q[:n_nnls].cpu().numpy())
+    err = float((l[:n_nnls].double().cpu() - torch.from_numpy(l_nnls)).abs().max())
+    log(f"  config 6: max|l - l_NNLS| over {n_nnls} problems {err:.3e} (bar 1e-4; scipy NNLS "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not err <= 1e-4:
+        raise AssertionError("config 6's l disagrees with the NNLS referee")
+    for name, ci in c6.items():
+        li = l if name == "qp" else getattr(dqt, f"solve_{name}")(ci.P, ci.q, *ci.params,
+                                                                 config=ci.cfg)
+        out = coord_kkt_bwd_fused_cuda(ci.P, ci.q, li, (2.0 * li).contiguous(), *ci.bounds,
+                                       ci.kind, ci.cfg.eps, ci.cfg.act_eps)
+        am = k4_mask(ci.kind, out)
+        if ci.kind != 0:        # a coordinate is strictly active if any of its slots is
+            am = am.reshape(am.shape[0], -1, c.q.shape[1]).any(dim=1)
+        nf = (~am).sum(dim=1).double()
+        n = c.q.shape[1]
+        log(f"  config 6 {name}: free share nf / n mean {float(nf.mean()) / n:.4f}, min "
+            f"{float(nf.min()) / n:.4f}, max {float(nf.max()) / n:.4f}; problems with nf <= 32 "
+            f"(the register factor): {int((nf <= 32).sum())}/{nf.numel()}")
+    return n_k1, n_k4, step
+
+
+def sharded_example_problems(b, seed=0):
+    """examples_torch/sharded_batch.py's problems (bench.py's generator at
+    nc=4, N=8, its own float32 casts), float32 on the card."""
+    nc, n = 4, 8
+    rng = np.random.default_rng(seed)
+    S = (rng.standard_normal((b, n, n)) / np.sqrt(n)).astype(np.float32)
+    P = S @ S.transpose(0, 2, 1) + 0.1 * np.eye(n, dtype=np.float32)
+    q = (rng.standard_normal((b, n)) * 0.5).astype(np.float32)
+    l_n = (rng.random((b, nc)) * 0.5 + 0.05).astype(np.float32)
+    mu = (rng.random((b, nc)) * 0.5 + 0.05).astype(np.float32)
+    return cuda(P, q, l_n, mu)
+
+
+def phase_3l(dqt, b=65536, slices=4):
+    """Config 5's size on one card: the sharded example's problems (B=65,536,
+    N=8) and schedule (eps=1e-7, max_iter=1000), each of its four
+    16,384-problem slices (one card's shard) solved three ways: K1 (the
+    unsharded reference of the example), the float32 eager engine
+    (``backend='xla'``: lockstep runs it, and its l is bit for bit each
+    shard's own engine solve, phase 3j) and a float64 referee (the engine at
+    eps=1e-10). Prints max |l - l_f64| of K1 and of the engine per slice;
+    fails unless every solve converged and both are within 1e-4 of float64
+    (phase 3's bar). Returns [(K1's, the engine's, |engine - K1|)] a
+    slice."""
+    xs = sharded_example_problems(b)
+    cfg = dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=1000)
+    rows = []
+    for k in range(slices):
+        sl = slice(k * b // slices, (k + 1) * b // slices)
+        part = [x[sl].contiguous() for x in xs]
+        l_k1, st_k1 = dqt.solve_qcqp_with_stats(*part, config=cfg)
+        l_en, st_en = dqt.solve_qcqp_with_stats(*part, config=cfg.replace(backend="xla"))
+        l64, st64 = dqt.solve_qcqp_with_stats(*(x.double() for x in part),
+                                              config=cfg.replace(eps=1e-10, max_iter=5000))
+        e_k1, e_en = (float((x.double() - l64).abs().max()) for x in (l_k1, l_en))
+        e_d = float((l_en - l_k1).abs().max())
+        conv = all(bool(st.converged.all()) for st in (st_k1, st_en, st64))
+        log(f"  slice {k} (problems {sl.start}-{sl.stop - 1}): max|l - l_f64| K1 {e_k1:.3e}, "
+            f"engine {e_en:.3e}; max|l_engine - l_K1| {e_d:.3e}; mean iterations K1 "
+            f"{float(st_k1.iterations.float().mean()):.2f}, engine "
+            f"{float(st_en.iterations.float().mean()):.2f} (max {int(st_en.iterations.max())}), "
+            f"float64 {float(st64.iterations.float().mean()):.2f}; all converged {conv}")
+        if not (conv and e_k1 <= 1e-4 and e_en <= 1e-4):
+            raise AssertionError(f"config 5's slice {k}: a solve did not converge or is past "
+                                 "1e-4 of the float64 referee")
+        rows.append((e_k1, e_en, e_d))
+    return rows
+
+
+def phase_4h(dqt, c6, step6, smi):
+    """Config 6's timings: K4's QP kind, its plain version, bound and library
+    call and the step (``phase_4c``), then K4's box kinds on the same P and
+    q, and the three kinds on config 6's generator at B=2048 and the
+    block-wide path's smaller sizes N = 33, 48, 64 (profiler and events,
+    bound). Returns the QP kind's numbers for the kernels line."""
+    k4_6 = phase_4c(c6["qp"], step6, smi)
+    fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
+    cases = [(f"{name} at config 6, B=2048 N=96", c6[name]) for name in ("box_qp", "signed_box_qp")]
+    for n in (33, 48, 64):
+        cases += [(f"{name} B=2048 N={n}", c) for name, c in config6_classes(dqt, n=n).items()]
+    for label, c in cases:
+        _, dev, (ev, ts), (b_, b_by, *_) = time_k4(c)
+        log(f"  K4 {label} ({smi}): device time per launch (torch.profiler) {fmt(dev)}; per "
+            f"call, 20 back-to-back (CUDA events) {ev:.4f} ms (samples "
+            f"{[round(t, 4) for t in ts]}); bound {b_:.5f} ms ({b_by})")
+    return k4_6
 
 
 # ---------------------------------------------------------------------------
@@ -2132,6 +2350,15 @@ def main() -> int:
     log(f"  blocks per SM at N=24 (occupancy calculator), {sms} SMs: "
         + ", ".join(f"{name} {blk} (B={b_}: {waves24[name]} wave(s))"
                     for name, (blk, b_) in occ24.items()))
+    k4_occupancy(sms)
+    c6 = config6_classes(dqt)
+    if sys.argv[1:] == ["config6"]:
+        # config 6's phases alone (2c's block-wide cases, 3k, 4h): K4's
+        # block-wide path measured before and after a change to it
+        phase_2c(k4_block_cases(dqt, c6), rand_g)
+        phase_4h(dqt, c6, phase_3k(dqt, c6)[2], smi)
+        log(f"chip_smoke: config-6 phases passed, {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     cfg = dqt.QCQP_DEFAULTS.replace(
         eps=1e-7, max_iter=400, rho0_scale=2.0, power_iters=10,
@@ -2201,8 +2428,6 @@ def main() -> int:
     # ---- phase 2b: K2 against its plain version on the card
     log("phase 2b: K2 against qcqp_kkt_bwd_fused_plain on the card")
     f32_ulps = 8.0 * torch.finfo(torch.float32).eps
-    rand_g = lambda l: cuda(np.random.default_rng(3).standard_normal(  # noqa: E731
-        tuple(l.shape)).astype(np.float32))[0]
     P2, q2, ln2, mu2 = build_problems(256, 6, seed=4)
     rng = np.random.default_rng(4)
     ln2 = np.where(rng.random(ln2.shape) < 0.3, 50.0 * ln2, ln2)   # strictly inside: inactive
@@ -2278,6 +2503,8 @@ def main() -> int:
         ("signed box B=256 N=32", qp_class("signed_box_qp", P32, q32, box_cfg9, lo32, hi32, v32)),
         *fam96.items(),
     ], rand_g)
+    # K4's block-wide path: config 6 (B=2048, N=96) first, then N=33 and N=168
+    err_k4_6 = phase_2c(k4_block_cases(dqt, c6), rand_g)
     torch.cuda.synchronize()
 
     # ---- phase 2d: K5 against its plain version on the card, at the two K5
@@ -2459,6 +2686,10 @@ def main() -> int:
         n_k1, n_k4, step_c = phase_3c(dqt, c, rand_g(c.q))
         steps[name_] = (n_k4, step_c)
 
+    # ---- phase 3k: config 6's step (K1, then K4's block-wide path)
+    log("phase 3k: config 6, solve_qp + autograd of sum(l^2) at B=2048 N=96")
+    _, launches_k4_6, step6 = phase_3k(dqt, c6)
+
     # ---- phase 3d: the generic adjoint route, duals given, with problems and
     # l from the entry points (K1): K5 at N=24, K6 at N=96
     log("phase 3d: the generic adjoint route, kkt.qcqp_vjp / kkt.box_vjp with duals given")
@@ -2524,6 +2755,10 @@ def main() -> int:
     paths_3j = phase_3j(dqt, kernels, (P, q, l_n, mu), cfg, families["qp"], W, l64,
                         out_k[1].iterations)
 
+    # ---- phase 3l: config 5's size on one card, K1 and the engine against float64
+    log("phase 3l: config 5's size (B=65,536, N=8), four slices: K1, the float32 engine, float64")
+    phase_3l(dqt)
+
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
     k1 = lambda: admm_solve_cuda(*args)            # noqa: E731
@@ -2580,6 +2815,8 @@ def main() -> int:
         log(f"  K4 at {label} ({smi}): device time per launch (torch.profiler) {fmt(dev96_k4)}; "
             f"per call, 20 back-to-back (CUDA events) {ev96_k4:.4f} ms (samples "
             f"{[round(t, 4) for t in ts96_k4]}); bound {b_:.5f} ms ({b_by})")
+    log("phase 4h: config 6, K4's block-wide path and the step at B=2048 N=96")
+    k4_times_6 = phase_4h(dqt, c6, step6, smi)
 
     # K5 at each phase-2d point; K6 at N=96 and at the flagship beside K2
     # and the library call; the generic route's call against the K2 route
@@ -2706,6 +2943,15 @@ def main() -> int:
         "launches": steps["qp"][0],
         "max_abs_err": err_k4,
         **k4_times["qp"],
+    }, {
+        "name": "coord_kkt_bwd_fused_cuda, block-wide path (K4 at n > 32: the free block "
+                "compacted, factored by register tiles; numbers at config 6, B=2048 N=96)",
+        "route": "cuda",
+        "source": "diffqcqp_tpu_torch/kernels/csrc/coord_bwd.cu",
+        "replaces": "diffqcqp_tpu/kernels/coord_bwd_pallas.py:55",
+        "launches": launches_k4_6,
+        "max_abs_err": err_k4_6,
+        **k4_times_6,
     }, {
         "name": "qr_solve_cuda (K5; numbers at the QCQP flagship's assembled system, "
                 "B=4096 m=36)",

@@ -43,7 +43,7 @@ __all__ = [
     "check_rc", "count_launch", "fits", "row_threads",
 ]
 
-ROW_BOUND = 256     # __launch_bounds__ of the thread-per-row kernels (K1; K4 above n = 32)
+ROW_BOUND = 256     # __launch_bounds__ of K1's thread-per-row kernel
 HOPPER_SMEM_OPTIN = 232448   # dynamic shared memory a block may opt into on sm_90 (227 KB)
 
 CSRC = Path(__file__).resolve().parent / "csrc"

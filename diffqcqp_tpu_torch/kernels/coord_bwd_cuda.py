@@ -14,7 +14,11 @@ the per-coordinate duals and strict mask am, the LDL^T factor of
 K = fm P fm + diag(am) (``kernels/ldl.py``), dl = K^{-1}(g fm) fm, and for
 the box kinds the residual (g - P dl) am split over the strict slots. The
 CPU path and the tests use it; ``chip_smoke.py`` holds the kernel against it
-on the card.
+on the card. The kernel factors only the block of the free coordinates (a
+strictly active coordinate's row and column of K are unit vectors), which
+keeps every free entry's operations in this version's order: the two agree
+bit for bit apart from the sign of zeros (``tests/test_torch_coord_bwd.py``
+emulates the compaction at one warp and block-wide).
 
 Outputs, as the JAX wrapper's: ``(dl,)`` for ``KIND_QP``; ``(dl, dgamma,
 gamma)`` for ``KIND_BOX`` ((B, 2n) blocks [lo | hi]) and ``KIND_SIGNED_BOX``
@@ -32,7 +36,7 @@ from .ldl import TINY, chol_factor, chol_to_unit, ldl_solve
 
 __all__ = [
     "KIND_QP", "KIND_BOX", "KIND_SIGNED_BOX",
-    "coord_kkt_bwd_fused_cuda", "coord_kkt_bwd_fused_plain", "fits", "smem_bytes",
+    "coord_kkt_bwd_fused_cuda", "coord_kkt_bwd_fused_plain", "fits", "smem_bytes", "threads",
 ]
 
 KIND_QP = 0
@@ -120,15 +124,23 @@ def _lib():
     return lib
 
 
-ONE_WARP_MAX_N = 32   # csrc/coord_bwd.cu's kOneWarpMaxN: the free-block kernel up to here
+ONE_WARP_MAX_N = 32   # csrc/coord_bwd.cu's kOneWarpMaxN: the one-warp kernel up to here
+BLOCK_THREADS = 256   # csrc/coord_bwd.cu's kBwThreads: the block-wide kernel's threads
+
+
+def threads(n: int) -> int:
+    """Threads of K4's block at problem size n, which is also the kernel's
+    ``__launch_bounds__``: one warp to n = 32, then eight."""
+    return 32 if n <= ONE_WARP_MAX_N else BLOCK_THREADS
 
 
 def smem_bytes(n: int) -> int:
     """Dynamic shared memory of one block at problem size n (as
-    ``smem_bytes`` in csrc/coord_bwd.cu computes it): P and the factor
-    (n x (n|1) each) and, at one warp (n <= 32), the publish slots, l and
-    the map of free coordinates (128 words); above it six n-vectors of
-    slots."""
+    ``smem_bytes`` in csrc/coord_bwd.cu computes it): P and the free
+    block's factor (n x (n|1) each) and, at one warp (n <= 32), the publish
+    slots, l and the map of free coordinates (128 words); above it six
+    n-vectors (the factor's published columns, l then dl, 1 / L_ff, the
+    map, and slots)."""
     return 4 * (2 * n * (n | 1) + (128 if n <= ONE_WARP_MAX_N else 6 * n))
 
 
@@ -140,9 +152,9 @@ def c_blocks_per_sm(n: int, kind: int) -> int:
 
 def fits(n: int) -> bool:
     """Whether K4 launches at size n on a Hopper card: ``smem_bytes(n)``
-    within the 232,448 bytes a block may opt into and its block within its
-    launch bound (n <= 168); the dispatch rule decides on it."""
-    return _build.fits(_build.row_threads(n), smem_bytes(n), _build.ROW_BOUND)
+    within the 232,448 bytes a block may opt into (n <= 168) and its block
+    within its launch bound; the dispatch rule decides on it."""
+    return _build.fits(threads(n), smem_bytes(n), threads(n))
 
 
 def _bounds(kind, l_min, l_max, v_sign) -> tuple:
@@ -198,7 +210,7 @@ def coord_kkt_bwd_fused_cuda(
     if all(t.device.type == "cpu" for t in tensors):
         return coord_kkt_bwd_fused_plain(P, q, l, g, l_min, l_max, v_sign, kind, eps, act_eps)
     B, n = l.shape
-    dev = _build.check_launch(tensors, _build.row_threads(n), smem_bytes(n), _build.ROW_BOUND)
+    dev = _build.check_launch(tensors, threads(n), smem_bytes(n), threads(n))
 
     lib = _lib()
     dl = torch.empty_like(l)

@@ -47,11 +47,39 @@
 // blocks an SM, one wave at B = 4096. Two instances unroll the register
 // loops to n <= 24 and n <= 32.
 //
-// Above one warp, n > 32 (3 to 6 warps): the first design, kept. The
-// masked factor is ldl.cuh's chol_factor, which applies the mask as it
-// reads P (fm_r fm_j from a shared array of fm; diag(am) is each thread's
-// own shift) and writes the factor to a second shared matrix, so sP keeps
-// the unmasked P that step 5's P dl reads.
+// Above one warp, 32 < n <= 168 (the JAX package's config 6 is N = 96):
+// 256 threads a problem. The first design ran a thread per row over all n
+// coordinates: the masked n x n K factored left-looking (each thread a
+// dependent chain of up to n^2 / 2 shared loads) and solved with a barrier
+// at each of 2n + 1 steps, in blocks of n / 32 warps (nine warps an SM at n
+// = 96). Now:
+//   * the free coordinates are compacted block-wide, one __ballot_sync a
+//     warp and a prefix over the eight warps' counts, and only the nf x nf
+//     free block of P is factored and solved: each free entry keeps the
+//     masked factor's operations in their order, so the bits are the plain
+//     version's bar the sign of zeros, as at one warp, and P dl (box kinds)
+//     runs over the free columns only;
+//   * P comes in by asynchronous copies (cp.async), all of a thread's in
+//     flight at once, where a load then a store keeps one in flight: with
+//     three blocks an SM there are few warps to hide its latency;
+//   * nf > 32 (most QP problems at N = 96, nf ~ n / 2): the free block,
+//     gathered column-major into a second plane, is factored by ldl.cuh's
+//     chol_factor_tiles (right-looking over a 16 x 16 grid of register
+//     tiles, one barrier a column, the smallest tile that holds nf) and
+//     solved by warp 0 alone, ldl_solve_warp_rows (one shuffle a step, no
+//     barrier, where ldl_solve_tiles spends one on each of 2 nf + 1 steps);
+//   * nf <= 32 (most box-kind problems at N = 96): warp 0 factors and solves
+//     it in registers, chol_factor_warp and ldl_solve_warp as at one warp,
+//     with no block-wide barrier;
+//   * eight warps a block: the shared memory, P and the factor's plane
+//     (2 n (n|1) + 6 n words, as before, which sets the dispatch bound n <=
+//     168), still holds three blocks an SM at n = 96, now 24 warps an SM.
+// Three instances: n <= 64 (register tiles to 4 x 4, __launch_bounds__(256,
+// 4): four blocks an SM, where three, at the 80 registers of the next
+// instance, measured slower than the first design at n = 33 on an H100),
+// n <= 96 (to 6 x 6, (256, 3)) and n <= 168 (to 11 x 11; one block an SM,
+// as the shared memory allows). Two warps a problem up to n = 96 (an 8 x 8
+// factor grid, no register bound) measured slower for all three kinds.
 //
 // What differs from the TPU kernel and why it does not change the result:
 // the TPU pads n to a multiple of 8 with unit-diagonal rows (a layout
@@ -63,14 +91,18 @@
 //
 // What bounds it on this card: at B = 4096, N = 24 the bytes (P, q, l, g in,
 // dl out: ~11 MB, ~3.3 us at 3.35 TB/s) are far above the operations
-// (~7 kFLOP per problem, ~0.4 us at 67 TFLOP/s); what bounds the kernel is
-// the dependent chain inside each problem (nf factor steps, 2 nf + 1 sweep
-// steps, P l + q's n rounded adds) with one warp a problem.
+// (~7 kFLOP per problem, ~0.4 us at 67 TFLOP/s); at B = 2048, N = 96 (78.6
+// MB, 23.5 us, against ~10 us of operations) too. What bounds the kernel is
+// the dependent chain inside each problem: nf factor steps (each behind a
+// barrier above nf = 32), 2 nf + 1 sweep steps and P l + q's n rounded
+// adds, with three problems an SM at n = 96.
 //
 // ptxas (sm_90a): one warp, n <= 24: QP 56 registers, box 62, signed box 64
-// with 4 bytes of spill; n <= 32: 64 registers, 4-8 bytes of spill; above
-// one warp 32 / 40 / 40 registers, no spill (the first design, at every n,
-// 32 / 40 / 40).
+// with 4 bytes of spill; n <= 32: 64 registers, 4-8 bytes of spill; block-
+// wide, n <= 64: 63 / 64 / 64 registers (the four-blocks bound), 0 / 68 / 72
+// bytes of spill; n <= 96: 80 (the three-blocks bound), 12 / 28 / 28 bytes;
+// n <= 168: 254 / 255 / 255, no spill (the first design above one warp: 32 /
+// 40 / 40).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -233,40 +265,90 @@ coord_bwd_kernel_w(const float* __restrict__ P, const float* __restrict__ q,
   }
 }
 
-// Above one warp, n > 32 (3 to 6 warps): thread per row over the whole
-// coordinate set, the masked factor chol_factor.
-template <int kKind>
-__global__ void __launch_bounds__(256)
+constexpr int kOneWarpMaxN = 32;   // n <= 32: one warp, coord_bwd_kernel_w
+constexpr int kBwThreads = 256;    // n > 32: eight warps a problem, coord_bwd_kernel
+constexpr int kBwWarps = kBwThreads / 32;
+
+// The block-wide path's three instances: the largest register tile of the
+// factor (NFMAX: nf <= 16 NFMAX) and the blocks an SM the launch bound asks
+// for. Mid: n <= 64, four blocks an SM; small: n <= 96, three (the shared
+// memory's count at n = 96); large: n <= 168, one.
+template <int NFMAX, int MINB>
+struct BwTiles {
+  static constexpr int kNFMax = NFMAX, kMinBlocks = MINB;
+};
+using BwMid = BwTiles<4, 4>;
+using BwSmall = BwTiles<6, 3>;
+using BwLarge = BwTiles<11, 1>;
+constexpr int kBwMidMaxN = 16 * BwMid::kNFMax;       // 64
+constexpr int kBwSmallMaxN = 16 * BwSmall::kNFMax;   // 96
+
+// dst <- *src, 4 bytes from global to shared memory by an asynchronous copy
+// (cp.async): a thread keeps all of its copies in flight at once, where a
+// load then a store keeps one; cp_async_wait_all waits for this thread's.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ldl.cuh's chol_factor_tiles with the smallest register tile that holds
+// nf (33 <= nf <= 16 NFMAX): nf / 16 rounded up, so a step spends
+// ceil(nf / 16)^2 FMAs a thread, not NFMAX^2.
+template <int NF, int NFMAX>
+__device__ void chol_factor_fit(float* sA, int nf, int ld, float* s_rd, float* s_col, float* s_rs) {
+  if constexpr (NF < NFMAX) {
+    if (nf > 16 * NF) {
+      chol_factor_fit<NF + 1, NFMAX>(sA, nf, ld, s_rd, s_col, s_rs);
+      return;
+    }
+  }
+  dq::chol_factor_tiles<NF>(sA, nf, ld, s_rd, s_col, s_rs);
+}
+
+// Above one warp, 32 < n <= 168: 256 threads a problem, thread t < n owning
+// coordinate t for steps 1, 2 and 5; the free block, compacted, factored
+// and solved by the whole block (nf > 32) or by warp 0 in registers (nf <=
+// 32).
+template <int kKind, typename T>
+__global__ void __launch_bounds__(kBwThreads, T::kMinBlocks)
 coord_bwd_kernel(const float* __restrict__ P, const float* __restrict__ q,
                  const float* __restrict__ l, const float* __restrict__ g,
                  const float* __restrict__ l_min, const float* __restrict__ l_max,
                  const float* __restrict__ v_sign, float* __restrict__ dl_out,
                  float* __restrict__ dgamma_out, float* __restrict__ gamma_out, int n,
                  float eps, float act_eps) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem_b[];
   const int ld = n | 1;
-  float* sP = smem;                // n x ld, row-major, unmasked
-  float* sL = sP + n * ld;         // factor of K, column-major
-  float* s_x = sL + n * ld;        // l, later dl: broadcast for P x
-  float* s_fm = s_x + n;           // fm as 0 / 1
-  float* s_fwd = s_fm + n;
-  float* s_bwd = s_fwd + n;
-  float* s_piv = s_bwd + n;
-  float* s_rd = s_piv + n;
+  float* s_col = reinterpret_cast<float*>(smem_b);  // 2n: the factor's published columns
+                                                    // (the register factor's 2 x 32 slots)
+  float* s_x = s_col + 2 * n;                       // n: l, then the free block's g and dl
+  float* s_rd = s_x + n;                            // n: 1 / L_ff of the tile factor
+  int* s_map = reinterpret_cast<int*>(s_rd + n);    // n: row of free coordinate f
+  float* s_rs = reinterpret_cast<float*>(s_map + n);  // 2: the factor's published 1 / sqrt(pivot)
+  int* s_cnt = reinterpret_cast<int*>(s_rs + 2);    // 8: free coordinates a warp (n >= 10 words)
+  float* sP = s_rs + n;                             // n x ld, row-major, unmasked
+  float* sA = sP + n * ld;                          // the free block, then its factor
 
-  const int r = threadIdx.x;
-  const dq::Blk k{r, n, ld, blockDim.x == 32, r < n};
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const bool real = t < n;
   const size_t b = blockIdx.x;
-
   const float* Pb = P + b * n * n;
-  for (int idx = r; idx < n * n; idx += blockDim.x) {
+  for (int idx = t; idx < n * n; idx += kBwThreads) {
     const int i = idx / n;
-    sP[i * ld + (idx - i * n)] = Pb[idx];
+    cp_async_f32(sP + i * ld + (idx - i * n), Pb + idx);
   }
-  const size_t vo = b * n + r;
-  const float lv = k.real ? l[vo] : 0.f;
-  const float gv = k.real ? g[vo] : 0.f;
-  if (k.real) s_x[r] = lv;
+  const size_t vo = b * n + t;
+  const float lv = real ? l[vo] : 0.f;
+  const float gv = real ? g[vo] : 0.f;
+  const float qv = real ? q[vo] : 0.f;
+  if (real) s_x[t] = lv;
+  cp_async_wait_all();
   __syncthreads();
 
   // 1. P l + q, accumulated from q over the columns in order, each product
@@ -274,48 +356,101 @@ coord_bwd_kernel(const float* __restrict__ P, const float* __restrict__ q,
   // a dual gamma = -(Pl+q) near zero is all cancellation, and the dgamma of
   // its slot is 1/gamma-sized, so a changed rounding here moves dgamma far
   // more than anything else the kernel rounds
-  float plq = k.real ? q[vo] : 0.f;
-  if (k.real) {
-    const float* row = sP + r * ld;
+  float plq = qv;
+  const float* row = sP + min(t, n - 1) * ld;
+  if (real) {
+#pragma unroll 4
     for (int c = 0; c < n; ++c) plq = __fadd_rn(plq, __fmul_rn(row[c], s_x[c]));
   }
 
   // 2. this coordinate's duals, slot coefficients and strict mask
   Duals d;
-  const float am = coord_duals<kKind>(k.real, vo, lv, plq, l_min, l_max, v_sign, eps, act_eps, d);
-  const float fm = 1.f - am;
-  if (k.real) s_fm[r] = fm;
-  dq::bsync(k);
+  const float am = coord_duals<kKind>(real, vo, lv, plq, l_min, l_max, v_sign, eps, act_eps, d);
 
-  // 3. K = fm P fm + diag(am): the mask is applied as P is read, and each
-  // thread passes its own am as its row's shift
-  const float dinv = dq::chol_factor(k, sP, sL, am, s_piv, s_rd, s_fm);
+  // 3. compaction: one ballot a warp, then a prefix over the warps' counts;
+  // free coordinate f (fm = 1, in increasing row order) is row s_map[f],
+  // and its right-hand side g fm = g goes to s_x[f] (l is read by now)
+  const unsigned free_mask = __ballot_sync(dq::kFullMask, real && am == 0.f);
+  if (lane == 0) s_cnt[w] = __popc(free_mask);
+  __syncthreads();
+  int base = 0, nf = 0;
+#pragma unroll
+  for (int k = 0; k < kBwWarps; ++k) {
+    const int c = s_cnt[k];
+    base += k < w ? c : 0;
+    nf += c;
+  }
+  const bool is_free = (free_mask >> lane) & 1u;
+  const int f = base + __popc(free_mask & ((1u << lane) - 1u));
+  if (is_free) {
+    s_map[f] = t;
+    s_x[f] = gv;
+  }
+  __syncthreads();
 
-  // 4. dl = K^{-1} (g fm) fm
-  const float dl = dq::ldl_solve(k, sL, dinv, gv * fm, 0, s_fwd, s_bwd) * fm;
-  if (k.real) dl_out[vo] = dl;
+  // 4. dl = K^{-1} (g fm) fm on the free block (there K = P), the strictly
+  // active rows 0; s_x[f] ends as the free coordinate f's dl
+  const int ldf = nf | 1;
+  if (nf > kOneWarpMaxN) {
+    // the nf x nf free block of P, column-major in sA (sA[c * ldf + i] =
+    // P[s_map[i]][s_map[c]]), factored by register tiles, one barrier a
+    // column, and solved by warp 0, one shuffle a step (2 nf + 1 steps)
+    for (int idx = t; idx < nf * nf; idx += kBwThreads) {
+      const int c = idx / nf, i = idx - c * nf;
+      sA[c * ldf + i] = sP[s_map[i] * ld + s_map[c]];
+    }
+    __syncthreads();
+    chol_factor_fit<3, T::kNFMax>(sA, nf, ldf, s_rd, s_col, s_rs);
+    if (w == 0) {
+      constexpr int R = (16 * T::kNFMax + 31) / 32;   // rows a lane: nf <= 32 R
+      float x[R];
+#pragma unroll
+      for (int a = 0; a < R; ++a) x[a] = 32 * a + lane < nf ? s_x[32 * a + lane] : 0.f;
+      dq::ldl_solve_warp_rows<R>(sA, nf, ldf, s_rd, lane, x);
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+        if (32 * a + lane < nf) s_x[32 * a + lane] = x[a];
+      }
+    }
+    __syncthreads();
+  } else if (nf > 0) {
+    // warp 0 alone, as the one-warp kernel: lane f < nf holds row f of the
+    // free block in registers; no barrier until the block's below
+    if (w == 0) {
+      const bool lane_f = lane < nf;
+      const int rf = lane_f ? s_map[lane] : 0;
+      float a[kOneWarpMaxN];
+#pragma unroll
+      for (int k = 0; k < kOneWarpMaxN; ++k) {
+        a[k] = (lane_f && k < nf) ? sP[rf * ld + s_map[k]] : 0.f;
+      }
+      const float dinv = dq::chol_factor_warp<kOneWarpMaxN>(a, nf, lane, sA, ldf, s_col);
+      float x[1] = {lane_f ? s_x[lane] : 0.f};
+      dq::ldl_solve_warp<1>(sA, nf, ldf, lane, dinv, x, s_col);
+      if (lane_f) s_x[lane] = x[0];
+    }
+    __syncthreads();
+  }
+  if (real) dl_out[vo] = is_free ? s_x[f] : 0.f;
 
   if constexpr (kKind != kQP) {
-    // 5. resid = (g - P dl) am, split over the strict slots (P dl
-    // accumulated from its first column, as the TPU kernel does, and like
-    // the sum of squares rounded as the plain version rounds it)
-    if (k.real) s_x[r] = dl;
-    dq::bsync(k);
+    // 5. resid = (g - P dl) am, P dl over the free columns in order (dl is
+    // an exact 0 on the others), accumulated from its first term
     float pdl = 0.f;
-    if (k.real) {
-      const float* row = sP + r * ld;
-      for (int c = 0; c < n; ++c) pdl = __fadd_rn(pdl, __fmul_rn(row[c], s_x[c]));
-      coord_dgamma<kKind>(n, b, r, gv, pdl, am, d, dgamma_out, gamma_out);
+    if (real) {
+#pragma unroll 4
+      for (int k = 0; k < nf; ++k) pdl = __fadd_rn(pdl, __fmul_rn(row[s_map[k]], s_x[k]));
+      coord_dgamma<kKind>(n, b, t, gv, pdl, am, d, dgamma_out, gamma_out);
     }
   }
 }
 
-constexpr int kOneWarpMaxN = 32;   // n <= 32: one warp, coord_bwd_kernel_w
-
 // Dynamic shared memory one block needs for a problem of size n (the
 // wrapper's smem_bytes in kernels/coord_bwd_cuda.py computes the same): P
-// and the factor (n x (n|1) each) and, at one warp, the publish slots, l and
-// the map of free coordinates (128 words); above it six n-vectors of slots.
+// and the free block's factor (n x (n|1) each, the second filled to nf x
+// (nf|1)) and, at one warp, the publish slots, l and the map of free
+// coordinates (128 words); above it six n-vectors (the factor's columns,
+// l and dl, 1 / L_ff, the map, and ten words of slots).
 size_t smem_bytes(int n) {
   const size_t ld = n | 1;
   return sizeof(float) * (2 * n * ld + (n <= kOneWarpMaxN ? 128 : 6 * n));
@@ -326,7 +461,9 @@ template <int kKind, typename F>
 int with_kernel(int n, F f) {
   if (n <= 24) return f(coord_bwd_kernel_w<kKind, 24>, 32);
   if (n <= kOneWarpMaxN) return f(coord_bwd_kernel_w<kKind, 32>, 32);
-  return f(coord_bwd_kernel<kKind>, 32 * ((n + 31) / 32));
+  if (n <= kBwMidMaxN) return f(coord_bwd_kernel<kKind, BwMid>, kBwThreads);
+  if (n <= kBwSmallMaxN) return f(coord_bwd_kernel<kKind, BwSmall>, kBwThreads);
+  return f(coord_bwd_kernel<kKind, BwLarge>, kBwThreads);
 }
 
 // f(K4's instance of `kind` that takes size n, its threads per block), or
@@ -346,12 +483,16 @@ int with_kind(int kind, int n, F f) {
 }
 
 // Opt `kernel` into smem bytes of dynamic shared memory where that is above
-// the default 48 KB; returns a CUDA error code.
+// the default 48 KB, with the whole of the SM's unified memory as shared
+// memory (three blocks at n = 96); returns a CUDA error code.
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+  const int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)smem);
+  if (e != 0) return e;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace

@@ -11,15 +11,14 @@
 // times a column of Lh subtracted from the rest (see the plain versions in
 // kernels/ldl.py, which repeat this arithmetic).
 //
-// Three forms.
-//
-// Thread per row (chol_factor, ldl_solve: K4 above one warp, n > 32):
-// thread r owns row r, left-looking factor columns, one solve per
-// right-hand side; a value moves through a shared slot and one
-// __syncthreads per step, so a solve costs 2n + 1 barriers.
+// Two forms. Both replace a first design of thread per row (thread r owning
+// row r, a left-looking factor and one solve per right-hand side, a value
+// moving through a shared slot and a __syncthreads per step; plain versions
+// in kernels/ldl.py); K4 above one warp, the last of its users, has left
+// it too.
 //
 // Registers at one warp (chol_factor_warp, ldl_solve_warp: K2 and K6 at n
-// <= 32, K4's free block at n <= 32). The thread-per-row form spent two
+// <= 32, K4's free block at nf <= 32). The thread-per-row form spent two
 // shared loads on every FMA of the factor (a serial left-looking chain per
 // column) and one shuffle-then-FMA step per right-hand side and row (K2:
 // ~505 dependent steps for its 13 solves at n = 24). Here lane r holds row
@@ -28,24 +27,26 @@
 // sides in one pair of 2n + 1 steps, each lane applying NC independent FMAs
 // a step from one load of Lh. No barrier: __syncwarp only.
 //
-// Block-wide (chol_factor_tiles, ldl_solve_tiles: K2 and K6 above one warp,
-// 256 threads). There the thread-per-row form paid ~7,400 block-wide
-// barriers per problem at n = 96 (49 solves of up to 2n + 1 steps, each a
-// barrier, one dependent shared load and one FMA per thread) and a serial
-// chain of n^2 / 2 shared loads per thread in the factor. The factor here is
-// right-looking and in place, its trailing update spread over a 16 x 16
-// grid of register tiles: one barrier per column and ~n^3 / 6 / 256 FMAs per
-// thread per problem. The solves are one pair of sweeps for all nc + 1
-// right-hand sides together, 2n + 1 barriers in all, each thread holding a
-// tile of rows x 8 right-hand sides in registers so that one shared load of
-// Lh feeds 8 FMAs.
+// Block-wide (chol_factor_tiles and ldl_solve_tiles: K2 and K6 above one
+// warp; chol_factor_tiles and the one-warp ldl_solve_warp_rows: K4's free
+// block at nf > 32; 256 threads). There the thread-per-row form paid ~7,400
+// block-wide barriers per problem at K2's n = 96 (49 solves of up to 2n + 1
+// steps, each a barrier, one dependent shared load and one FMA per thread)
+// and a serial chain of n^2 / 2 shared loads per thread in the factor. The
+// factor here is right-looking and in place, its trailing update spread
+// over a 16 x 16 grid of register tiles: one barrier per column and ~n^3 /
+// 6 / 256 FMAs per thread per problem. The solves are one pair of sweeps
+// for all nc + 1 right-hand sides together, 2n + 1 barriers in all, each
+// thread holding a tile of rows x 8 right-hand sides in registers so that
+// one shared load of Lh feeds 8 FMAs; a single right-hand side (K4) takes
+// one warp, a shuffle a step, and no barrier.
 //
-// All three give each entry the same operations in the same order
+// Both give each entry the same operations in the same order
 // (fmaf(-L[r][c], L[k][c], a) for c = 0, 1, ...; the sweeps' subtractions
-// by i), so they agree with kernels/ldl.py as the thread-per-row form does;
-// the register and block-wide sweeps also take the steps that
-// kernels/ldl.py's ldl_solve skips by its `start`, which subtract exact
-// zeros. ptxas: see csrc/qcqp_bwd.cu and csrc/coord_bwd.cu.
+// by i) as kernels/ldl.py's left-looking factor and sweeps; the sweeps
+// also take the steps that kernels/ldl.py's ldl_solve skips by its `start`,
+// which subtract exact zeros. ptxas: see csrc/qcqp_bwd.cu and
+// csrc/coord_bwd.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,80 +72,9 @@ __device__ __forceinline__ void bsync(const Blk& k) {
   }
 }
 
-// Value of `v` held by thread `src`, returned to every thread of the block.
-// `slot` is a shared float used only in the multi-warp case. (K4, its one
-// caller, runs it on several warps; dropping the one-warp branch changed
-// the code ptxas generates for K4's box kinds at n = 96 and measured 29 %
-// slower for the box on an H100.)
-__device__ __forceinline__ float bcast(const Blk& k, float v, int src, float* slot) {
-  if (k.one_warp) return __shfl_sync(kFullMask, v, src);
-  if (k.r == src) *slot = v;
-  __syncthreads();
-  return *slot;
-}
-
-// sL <- zero-diagonal unit-lower LDL^T factor of fm P fm + diag(shift), P
-// read from sP (row-major, stride ld) and masked as it is read (`s_fm`
-// holds a 0 / 1 mask per row in shared memory), so sP keeps the unmasked P
-// for later use: K4 above one warp. Left-looking standard Cholesky columns
-// with the pivot floored at kTiny, then the in-place conversion Lh[r][j] =
-// L[r][j] / L_jj (r > j). Returns this thread's dinv = 1 / L_rr^2. `shift`
-// is read only by the thread whose row is the pivot (r == j), so each
-// thread passes its own value (K4's am).
-// Scratch: s_piv[n] (pivot broadcast slots), s_rd[n] (reciprocal diagonal).
-__device__ float chol_factor(const Blk& k, const float* sP, float* sL, float shift,
-                             float* s_piv, float* s_rd, const float* s_fm) {
-  const int n = k.n, ld = k.ld, r = k.r;
-  for (int j = 0; j < n; ++j) {
-    float s = 0.f;
-    if (k.real) {
-      s = sP[r * ld + j] * s_fm[r] * s_fm[j];
-      if (r == j) s = s + shift;
-      for (int c = 0; c < j; ++c) s = s - sL[c * ld + r] * sL[c * ld + j];
-    }
-    const float d = fmaxf(bcast(k, s, j, &s_piv[j]), kTiny);
-    const float col = s * (1.0f / sqrtf(d));
-    if (k.real) sL[j * ld + r] = (r >= j) ? col : 0.f;
-    bsync(k);
-  }
-  float rr = 0.f;
-  if (k.real) {
-    rr = 1.0f / sL[r * ld + r];
-    s_rd[r] = rr;
-  }
-  bsync(k);
-  if (k.real) {
-    for (int j = 0; j < n; ++j) {
-      const float v = sL[j * ld + r];
-      sL[j * ld + r] = (r > j) ? v * s_rd[j] : 0.f;
-    }
-  }
-  bsync(k);
-  return rr * rr;
-}
-
-// x = (L L^T)^{-1} rhs for this thread's row, from the converted factor.
-// Rows below `start` of the right-hand side must be zero (the forward sweep
-// skips them). Scratch: s_fwd[n], s_bwd[n] (broadcast slots, multi-warp).
-__device__ float ldl_solve(const Blk& k, const float* sL, float dinv, float rhs,
-                           int start, float* s_fwd, float* s_bwd) {
-  const int n = k.n, ld = k.ld, r = k.r;
-  float acc = k.real ? rhs : 0.f;
-  for (int i = start; i < n; ++i) {
-    const float v = bcast(k, acc, i, &s_fwd[i]);
-    if (k.real) acc = acc - sL[i * ld + r] * v;      // Lh[r][i]
-  }
-  acc = acc * dinv;
-  for (int i = n - 1; i >= 0; --i) {
-    const float v = bcast(k, acc, i, &s_bwd[i]);
-    if (k.real) acc = acc - sL[r * ld + i] * v;      // Lh[i][r]
-  }
-  return acc;
-}
-
 // ---------------------------------------------------------------------------
-// Register forms for one warp (K2 and K6 at n <= 32, K4's free block at n <=
-// 32). Lane r holds row r in registers, so the factor reads no shared memory
+// Register forms for one warp (K2 and K6 at n <= 32, K4's free block at nf
+// <= 32). Lane r holds row r in registers, so the factor reads no shared memory
 // per FMA and every broadcast is one 16-byte load that all lanes share.
 // ---------------------------------------------------------------------------
 
@@ -154,12 +84,13 @@ constexpr int kPubStride = 32;
 
 // In-place right-looking LDL^T factor on one warp. On entry lane r < n holds
 // row r of A = P + diag(shift) in a[0 .. n - 1] (only a[0 .. r] are read:
-// the lower triangle by rows, as chol_factor reads it) and zeros past n;
-// lanes r >= n hold zeros. At step j the pivot a_jj moves by one shuffle,
+// the lower triangle by rows, as kernels/ldl.py's chol_factor reads it) and
+// zeros past n; lanes r >= n hold zeros. At step j the pivot a_jj moves by
+// one shuffle,
 // every lane forms L[r][j] = a_rj rs_j (rs_j = 1 / sqrt(max(a_jj, 1e-30)))
 // and publishes it, and after one __syncwarp takes a_rk -= L[r][j] L[k][j]
 // for every k > j from the published column, four entries a load. Entry
-// (r, k) meets chol_factor's subtractions in its order (fmaf(-L[r][c],
+// (r, k) meets that chol_factor's subtractions in its order (fmaf(-L[r][c],
 // L[k][c], a) for c = 0, 1, ...) and its scaling, so the two give the same
 // bits. Writes the zero-diagonal unit-lower Lh (Lh[r][j] = L[r][j] / L_jj
 // below the diagonal, zeros on and above it) column-major into sL (sL[j * ld
@@ -471,6 +402,54 @@ __device__ void ldl_solve_tiles(const float* sL, int n, int ld, const float* s_r
     }
   }
   __syncthreads();
+}
+
+// x <- (L L^T)^{-1} x for one right-hand side of size n <= 32 R on one
+// warp, from chol_factor_tiles' converted factor (sL column-major, stride
+// ld; dinv_r = s_rd[r]^2): lane j holds rows j, j + 32, ..., j + 32 (R - 1)
+// in x[0 .. R - 1]. At step i the holder of row i (lane i % 32, slot i /
+// 32) broadcasts it by one shuffle and every lane updates its rows: 2n + 1
+// steps and no barrier, where ldl_solve_tiles spends a __syncthreads a step
+// to share up to 8 right-hand sides among 256 threads (K4's free block
+// above nf = 32 has one). Each entry takes ldl_solve_tiles' operations in
+// its order; a lane skips the slots whose rows are all on or above the
+// step's (forward) or on or below it (backward), where Lh holds zeros, which
+// changes nothing but the sign of a zero. Rows past n read row n - 1 and
+// end as garbage.
+template <int R>
+__device__ void ldl_solve_warp_rows(const float* sL, int n, int ld, const float* s_rd, int lane,
+                                    float (&x)[R]) {
+  int rr[R];
+#pragma unroll
+  for (int a = 0; a < R; ++a) rr[a] = min(32 * a + lane, n - 1);
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+    if (32 * c < n) {
+      const int jn = min(32, n - 32 * c);
+      for (int j = 0; j < jn; ++j) {
+        const int i = 32 * c + j;
+        const float v = __shfl_sync(kFullMask, x[c], j);
+#pragma unroll
+        for (int a = c; a < R; ++a) x[a] = fmaf(-sL[i * ld + rr[a]], v, x[a]);   // Lh[r][i]
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const float d = s_rd[rr[a]];
+    x[a] = x[a] * (d * d);
+  }
+#pragma unroll
+  for (int c = R - 1; c >= 0; --c) {
+    if (32 * c < n) {
+      for (int j = min(32, n - 32 * c) - 1; j >= 0; --j) {
+        const int i = 32 * c + j;
+        const float v = __shfl_sync(kFullMask, x[c], j);
+#pragma unroll
+        for (int a = 0; a <= c; ++a) x[a] = fmaf(-sL[rr[a] * ld + i], v, x[a]);   // Lh[i][r]
+      }
+    }
+  }
 }
 
 }  // namespace dq

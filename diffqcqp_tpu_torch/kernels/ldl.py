@@ -12,10 +12,10 @@ dinv = 1 / L_jj^2, and solve in 2n + 1 steps:
 Because the stored diagonal is zero, row i of the accumulator is final when
 its turn comes, so each step is one broadcast multiply-add. The CUDA
 counterparts are the ``__device__`` helpers in ``kernels/csrc/ldl.cuh``:
-one thread per row (K1, K4, K2 and K6 at one warp), or block-wide with
-register tiles (K2 and K6 above one warp: a right-looking factor and one
-pair of sweeps for all right-hand sides), both giving each entry these
-operations in this order. These functions repeat that arithmetic on whole
+in registers at one warp (K2 and K6 at n <= 32, K4's free block at nf <=
+32), or block-wide with register tiles (K2 and K6 above one warp, K4's free
+block at nf > 32): a right-looking factor and one pair of sweeps for all
+right-hand sides, both giving each entry these operations in this order. These functions repeat that arithmetic on whole
 batches, in any dtype, and are what the CPU path and the tests run.
 
 Layout: ``L``/``Lh`` are (B, n, n) with ``L[:, r, j]`` = row r, column j.

@@ -19,12 +19,17 @@ module.
   * ``qp_dual`` / ``box_dual`` / ``signed_box_dual`` against the JAX package's
     in float64 (atol 1e-12), the masked factor against a dense solve of K,
     and K4's wrapper: its CPU dispatch and its input checks.
-  * K4's one-warp kernel, which factors and solves only the free block,
-    emulated per problem in float32 (the free rows gathered in order, the
-    nf x nf block of P factored and solved, dl scattered back, P dl over the
-    free columns alone) gives the plain version's dl, dgamma and gamma bit
-    for bit, apart from the sign of zeros: on every case above, and where
-    no coordinate (nf = 0) or every coordinate (nf = n) is free.
+  * K4's kernels, which factor and solve only the free block (the one-warp
+    kernel at n <= 32, the block-wide one above, compacting the free
+    coordinates by a ballot a warp and a prefix over the warps), emulated
+    per problem in float32 (the free rows gathered in order, the nf x nf
+    block of P factored and solved, dl scattered back, P dl over the free
+    columns alone) give the plain version's dl, dgamma and gamma bit for
+    bit, apart from the sign of zeros: on every case above, on the three
+    kinds at n = 33, 48, 96 and 168 (the block-wide sizes; B = 6, built at
+    points with a known strict mask, ``_block_problem``), and where no
+    coordinate (nf = 0) or every coordinate (nf = n) is free, at n = 10 and
+    at those four sizes.
 
 Each problem is solved by the JAX package at eps=1e-8; both sides get the
 same numpy l and cotangent g.
@@ -50,6 +55,8 @@ CFG = dq.SolverConfig(eps=1e-8, backend="xla")
 TCFG = dqt.SolverConfig.from_dict(dataclasses.asdict(CFG))
 KINDS = {"qp": tk.KIND_QP, "box": tk.KIND_BOX, "signed_box": tk.KIND_SIGNED_BOX}
 CASES = [f"{kind}_n{n}" for kind in KINDS for n in (6, 8, 11)]
+BLOCK_NS = (33, 48, 96, 168)      # K4's block-wide kernel: just past one warp to its bound
+BLOCK_CASES = [f"{kind}_n{n}" for kind in KINDS for n in BLOCK_NS]
 # the cases with no coordinate whose two slots are strictly active
 F64_CASES = [c for c in CASES if c != "signed_box_n8"]
 
@@ -274,11 +281,60 @@ def test_smem_bytes_bounds():
     assert 48 * 1024 < tk.smem_bytes(96) <= 232448
 
 
+@functools.lru_cache(maxsize=None)
+def _block_problem(name):
+    """A block-wide case (B = 6) built at a point with a known strict mask,
+    not solved: P as in ``_problem``; 45 % of the coordinates on a bound
+    with P l + q = s pressing them there, |s| ~ U(0.05, 1.05) (QP: l = 0,
+    s > 0; box kinds: l = l_min with s > 0 or l = l_max with s < 0; signed
+    box also l = 0 with s = -sign(v) |s|), 5 % on a bound with s = 0
+    (weakly active: rounding decides), the rest strictly inside with s = 0;
+    l_min = l_max on 10 % (box), l_min = 0 on 10 % (signed box; with v < 0
+    the sign slot repeats the lower bound); v with a zero column. Returns
+    what ``_problem`` returns."""
+    kind, n = name.rsplit("_n", 1)
+    n, b = int(n), 6
+    rng = np.random.default_rng(200 + n + 10 * KINDS[kind])
+    S = rng.standard_normal((b, n, n)) / np.sqrt(n)
+    P = S @ S.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    u = rng.random((b, n))
+    mag = rng.random((b, n)) + 0.05
+    lo = -(rng.random((b, n)) * 0.4 + 0.02)
+    hi = rng.random((b, n)) * 0.4 + 0.02
+    inside = lo + (hi - lo) * (0.1 + 0.8 * rng.random((b, n)))
+    strict = u < 0.45
+    v = None
+    if kind == "qp":
+        lo = hi = None
+        l = np.where(u < 0.5, 0.0, np.abs(inside) + 0.05)
+        s = np.where(strict, mag, 0.0)
+    else:
+        pin = rng.random((b, n)) < 0.1
+        if kind == "box":
+            hi = np.where(pin, lo, hi)
+        else:
+            lo = np.where(pin, 0.0, lo)
+            v = rng.standard_normal((b, n))
+            v[:, 0] = 0.0
+        side = rng.integers(0, 3 if kind == "signed_box" else 2, (b, n))   # lo | hi | sign
+        on_bound = np.choose(side, [lo, hi, np.zeros((b, n))])
+        l = np.where(u < 0.5, on_bound, inside)
+        sign = np.choose(side, [np.ones((b, n)), -np.ones((b, n)),
+                                -np.sign(v) if v is not None else np.ones((b, n))])
+        s = np.where(strict, sign * mag, 0.0)
+    q = s - np.einsum("bij,bj->bi", P, l)
+    g = rng.standard_normal((b, n))
+    f32 = lambda x: None if x is None else np.asarray(x, np.float32)  # noqa: E731
+    return KINDS[kind], tuple(f32(x) for x in (P, q, l, g, lo, hi, v))
+
+
 def _free_block_k4(P, q, l, g, lo, hi, vs, kind, eps, act_eps):
-    """K4's one-warp kernel (csrc/coord_bwd.cu, coord_bwd_kernel_w) emulated
-    per problem: the free coordinates in row order, the factor and solve of
-    the nf x nf free block of P (fm P fm = P and diag(am) = 0 there), dl 0
-    on the strictly active rows, and P dl over the free columns alone."""
+    """K4's kernels (csrc/coord_bwd.cu: coord_bwd_kernel_w at one warp,
+    coord_bwd_kernel above it) emulated per problem: the free coordinates in
+    row order (the block-wide kernel's ballot a warp and prefix over the
+    warps give the same order), the factor and solve of the nf x nf free
+    block of P (fm P fm = P and diag(am) = 0 there), dl 0 on the strictly
+    active rows, and P dl over the free columns alone."""
     am, slots = tk.coord_duals_plain(P, q, l, lo, hi, vs, kind, eps, act_eps)
     B, n = l.shape
     dl, pdl = torch.zeros_like(l), torch.zeros_like(l)
@@ -304,19 +360,30 @@ def _same_bits_but_zero_signs(got, want):
         assert a.dtype == torch.float32 and torch.equal(a + 0.0, b + 0.0)
 
 
-def test_free_block_factor_and_solve_give_the_plain_bits(case):
-    _, kind, arrs = case
+@pytest.mark.parametrize("name", CASES + BLOCK_CASES)
+def test_free_block_factor_and_solve_give_the_plain_bits(name):
+    kind, arrs = (_problem if name in CASES else _block_problem)(name)
     args = _t(*_kernel_inputs(arrs)) + (kind, CFG.eps, CFG.act_eps)
-    _same_bits_but_zero_signs(_free_block_k4(*args), tk.coord_kkt_bwd_fused_plain(*args))
+    out = tk.coord_kkt_bwd_fused_plain(*args)
+    if name in BLOCK_CASES:      # every problem has strictly active and free coordinates
+        nf = (out[0] != 0).sum(dim=1)
+        assert bool((nf > 0).all()) and bool((nf < int(name.rsplit("_n", 1)[1])).all())
+    _same_bits_but_zero_signs(_free_block_k4(*args), out)
 
 
-@pytest.mark.parametrize("free", ["none", "all"])
-@pytest.mark.parametrize("kind", list(KINDS))
-def test_free_block_at_no_and_every_free_coordinate(kind, free):
+NO_AND_EVERY = [(kind, free, n) for kind in KINDS for free in ("none", "all")
+                for n in (10,) + BLOCK_NS]
+
+
+@pytest.mark.parametrize(
+    "kind,free,n", NO_AND_EVERY,
+    ids=[f"{k}-{f}" + ("" if n == 10 else f"-n{n}") for k, f, n in NO_AND_EVERY],
+)
+def test_free_block_at_no_and_every_free_coordinate(kind, free, n):
     """nf = 0: l on its lower bound (0 for the QP) with q pressing it there;
     nf = n: l strictly inside and q = -P l."""
-    rng = np.random.default_rng(31 + KINDS[kind])
-    b, n = 6, 10
+    rng = np.random.default_rng(31 + KINDS[kind] + (0 if n == 10 else n))
+    b = 6
     S = rng.standard_normal((b, n, n)) / np.sqrt(n)
     P = (S @ S.transpose(0, 2, 1) + 0.1 * np.eye(n)).astype(np.float32)
     lo = -(rng.random((b, n)) * 0.5 + 0.2).astype(np.float32)

@@ -18,6 +18,14 @@ package's tests run it), ``rho_sync=False`` (the per-problem cpt gate),
 ``warm_start_dual`` from a converged primal, ``max_iter=2`` (``rho_res``
 against the JAX ``rho``, the capped problems' recorded penalty), and a
 diagonal P.
+
+At config 5's size (B = 65,536 QCQPs, N = 8, examples_torch/
+sharded_batch.py's problems and schedule, eps = 1e-7, max_iter = 1000,
+through the public entry points with ``backend='xla'``), the port's float32
+engine and the JAX one, each against the JAX engine in float64 at eps =
+1e-10: on each of the four 16,384-problem slices (one card's shard there)
+the port's max |l - l_f64| is within 10 % of the JAX engine's (both
+~1e-5: the float32 engine's own distance from the solution at this eps).
 """
 
 import dataclasses
@@ -27,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import diffqcqp_tpu as dq
 from diffqcqp_tpu.config import QCQP_DEFAULTS, SolverConfig
 from diffqcqp_tpu.ops import prox as jp
 from diffqcqp_tpu.solvers.admm import admm_solve as j_solve
@@ -156,3 +165,28 @@ def test_make_admm_step_drives_the_same_loop():
     assert torch.equal(s.l2, l) and torch.equal(s.iters, st.iterations)
     with pytest.raises(NameError, match="unbound axis name 'b'"):
         make_admm_step(*args[:4], cfg.replace(axis_name="b"), True, False)
+
+
+def test_engine_float32_error_at_config5_size_matches_jax():
+    b, nc = 65536, 4
+    n = 2 * nc
+    rng = np.random.default_rng(0)              # examples_torch/sharded_batch.py's generator
+    S = (rng.standard_normal((b, n, n)) / np.sqrt(n)).astype(np.float32)
+    P = S @ S.transpose(0, 2, 1) + 0.1 * np.eye(n, dtype=np.float32)
+    q = (rng.standard_normal((b, n)) * 0.5).astype(np.float32)
+    l_n = (rng.random((b, nc)) * 0.5 + 0.05).astype(np.float32)
+    mu = (rng.random((b, nc)) * 0.5 + 0.05).astype(np.float32)
+    xs = (P, q, l_n, mu)
+    cfg = QCQP_DEFAULTS.replace(eps=1e-7, max_iter=1000, backend="xla")
+    l64, s64 = dq.solve_qcqp_with_stats(*(jnp.asarray(x.astype(np.float64)) for x in xs),
+                                        config=cfg.replace(eps=1e-10, max_iter=5000))
+    lj, sj = dq.solve_qcqp_with_stats(*map(jnp.asarray, xs), config=cfg)
+    lt, st = dqt.solve_qcqp_with_stats(*map(torch.from_numpy, xs),
+                                       config=dqt.SolverConfig.from_dict(dataclasses.asdict(cfg)),
+                                       device="cpu")
+    assert bool(np.all(s64.converged)) and bool(np.all(sj.converged)) and bool(st.converged.all())
+    l64, lj, lt = np.asarray(l64), np.asarray(lj), lt.numpy()
+    for k in range(4):
+        sl = slice(k * b // 4, (k + 1) * b // 4)
+        e_j, e_t = (float(np.abs(x[sl] - l64[sl]).max()) for x in (lj, lt))
+        assert e_t <= 1.1 * e_j and e_j <= 1e-4, (k, e_t, e_j)
