@@ -271,16 +271,38 @@ block-wide path). Phases, each of which fails the run if its check fails:
      bit, phase 3j) and in float64 by the engine at eps=1e-10: max |l -
      l_f64| of K1 and of the engine per slice, both within 1e-4, every
      solve converged;
+  3m. the solves under ``torch.func``, each with the launch counters zeroed
+     just before and read just after: ``vmap(grad)`` of sum(l^2) (l the aux
+     output) at the flagship over (2, 2048) groups, gradients for P, q, l_n
+     and mu, launching K1 once and K2 once and nothing else, its l and
+     every gradient bit for bit the flat 4096 step's; the same at config
+     10's QP (P, q; K1 once, K4 once); ``vmap(jacrev(solve_qcqp))`` over the
+     flagship's first 256 problems one at a time: K1 once and K2 once, over
+     24 x 256 problems (a spy on the wrapper's batch), bit for bit the 24
+     basis-cotangent ``torch.autograd.grad`` calls of the flat solve, and
+     against ``dqt.qcqp_jacobian`` in float32 on the same l and a float64
+     referee (``qcqp_jacobian`` of the float64 problems at the float64
+     plain K1's l, eps=1e-10) within phase 3b's bars, per-problem relative
+     error median <= 1e-3 and max <= 2e-3 on the problems whose strict
+     mask each shares, every difference printed; the same for
+     ``solve_qp`` at config 10's first 256 problems with K4;
   4h. config 6's timings: K4's QP kind (profiler and CUDA events), its
      plain version, its bound and ``torch.linalg.solve`` of the assembled
      (2048, 96, 96) system, the step (CUDA events, problems/s, device time
-     by kernel, idle share); K4's box kinds on the same P and q; the three
-     kinds on config 6's generator at B=2048, N = 33, 48 and 64;
+     by kernel, idle share); K1 on config 6's problems against its plain
+     version (phase 2's bars), its time and its bound from its iterations
+     and the plain version's inverses formed; K4's box kinds on the same P
+     and q; the three kinds on config 6's generator at B=2048, N = 33, 48
+     and 64;
   4g. timing of phase 3j's paths, each through ``timed_step`` (CUDA events,
      warm-up, median, device time by kernel, the card's idle share): the
      sharded independent flagship step beside the unsharded one, the
      lockstep flagship forward, the bucketed step, the resumed solve, and
      the trace (ms per iteration);
+  4m. the vmapped flagship step of phase 3m beside the flat one, each
+     through ``timed_step`` (CUDA events, warm-up, median, device time by
+     kernel, the card's idle share), and their difference on a line of its
+     own;
   5. one JSON line of every ported kernel (K4's block-wide path at config 6
      its own entry), then as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1077,12 +1099,34 @@ def phase_3l(dqt, b=65536, slices=4):
 
 def phase_4h(dqt, c6, step6, smi):
     """Config 6's timings: K4's QP kind, its plain version, bound and library
-    call and the step (``phase_4c``), then K4's box kinds on the same P and
-    q, and the three kinds on config 6's generator at B=2048 and the
+    call and the step (``phase_4c``); K1 on config 6's problems against its
+    plain version (``compare``'s bars), its time and its bound
+    (``k1_bound_ms`` from its iterations and the plain version's inverses
+    formed); then K4's box kinds on the same P and q, and the three kinds on config 6's generator at B=2048 and the
     block-wide path's smaller sizes N = 33, 48, 64 (profiler and events,
     bound). Returns the QP kind's numbers for the kernels line."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import admm_solve_cuda, admm_solve_plain
+
     k4_6 = phase_4c(c6["qp"], step6, smi)
     fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
+    # K1 at config 6: its time, and its bound from this run's iterations and
+    # the plain version's count of inverses formed
+    c = c6["qp"]
+    B, n = c.q.shape
+    a = (c.P, c.q, torch.zeros_like(c.q), c.prox, c.prox_args, c.cfg)
+    k1 = lambda: admm_solve_cuda(*a)   # noqa: E731
+    out_k = k1()
+    factors = torch.zeros(B, dtype=torch.int64, device=c.q.device)
+    compare(f"K1 at config 6, B={B} N={n}", out_k, admm_solve_plain(*a, factors=factors))
+    counts(f"config 6, B={B} N={n}", out_k[1].iterations, factors)
+    dev = per_launch_ms(device_time_by_kernel(k1, calls=5), "admm_kernel")
+    ev, ts = time_cuda(k1, reps=5, calls=5)
+    b_, b_by, nbytes, nflops = k1_bound_ms(B, n, 0, out_k[1].iterations, factors,
+                                           c.cfg.power_iters)
+    log(f"  K1 at config 6, B={B} N={n} ({smi}): device time per launch (torch.profiler) "
+        f"{fmt(dev)}; per call, 5 back-to-back (CUDA events) {ev:.4f} ms (samples "
+        f"{[round(t, 4) for t in ts]}); bound {b_:.5f} ms ({b_by}: {nbytes} bytes, "
+        f"{nflops:.4g} FLOP)")
     cases = [(f"{name} at config 6, B=2048 N=96", c6[name]) for name in ("box_qp", "signed_box_qp")]
     for n in (33, 48, 64):
         cases += [(f"{name} B=2048 N={n}", c) for name, c in config6_classes(dqt, n=n).items()]
@@ -2283,6 +2327,192 @@ def phase_4g(smi, paths, B=B_FLAG):
     log(f"    = {ms_t / 64:.4f} ms per traced iteration")
 
 
+# ---------------------------------------------------------------------------
+# torch.func: the solves under vmap, grad and jacrev (the groups folded into
+# the batch: one launch of each kernel)
+# ---------------------------------------------------------------------------
+
+def launched(kernels, fn):
+    """(``fn()``, the launches of each kernel in it): the counters zeroed
+    just before, read just after a synchronisation."""
+    for k_ in kernels.values():
+        k_.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name_: k_.launches for name_, k_ in kernels.items()}
+
+
+def only_launched(label, n, want):
+    """Fail unless the kernels ``want`` names launched exactly so often and
+    no other kernel launched."""
+    if any(n[k] != want.get(k, 0) for k in n):
+        raise AssertionError(f"{label}: launches {n}, want {want} and no other kernel")
+
+
+def vmapped_step(dqt, kernels, label, solve, xs, cfg, want, groups=2):
+    """``torch.func.vmap(torch.func.grad(loss))`` of sum(l^2) over ``groups``
+    groups of the batch (``xs`` reshaped (G, B / G, ...)), l as the aux
+    output, beside the flat step (``solve`` then ``torch.autograd.grad``) on
+    the same inputs. Fails unless the vmapped step launches exactly ``want``
+    and its l and every gradient equal the flat step's bit for bit. Returns
+    (the vmapped step, the flat step) as closures for the timing."""
+    from torch.func import grad, vmap
+
+    def loss(*a):
+        l = solve(*a, config=cfg)
+        return (l * l).sum(), l
+
+    argnums = tuple(range(len(xs)))
+    grouped = [x.reshape(groups, x.shape[0] // groups, *x.shape[1:]) for x in xs]
+    leaves = [x.clone().requires_grad_() for x in xs]
+
+    def step_v():
+        return vmap(grad(loss, argnums=argnums, has_aux=True))(*grouped)
+
+    def step_f():
+        l = solve(*leaves, config=cfg)
+        return torch.autograd.grad((l * l).sum(), leaves), l
+
+    (g_v, l_v), n_v = launched(kernels, step_v)
+    (g_f, l_f), n_f = launched(kernels, step_f)
+    same_l = torch.equal(l_v.reshape(l_f.shape), l_f)
+    same_g = [torch.equal(a.reshape(b.shape), b) for a, b in zip(g_v, g_f)]
+    d_g = [float((a.reshape(b.shape) - b).abs().max()) for a, b in zip(g_v, g_f)]
+    log(f"  {label}: vmap(grad) over {tuple(grouped[1].shape)}: launches {n_v} (the flat "
+        f"step's {n_f}); l bit for bit the flat step's: {same_l}; gradients bit for bit: "
+        f"{same_g} (max |d| {d_g}); finite: {all(bool(torch.isfinite(x).all()) for x in g_v)}")
+    only_launched(label, n_v, want)
+    if not (same_l and all(same_g)):
+        raise AssertionError(f"{label}: the vmapped step is not the flat step bit for bit")
+    return step_v, step_f
+
+
+def jac_errors(label, got, ref, active_got, active_ref, names):
+    """Per-problem relative (Frobenius) error of each Jacobian block against
+    ``ref``: median over every problem and max over the problems whose strict
+    mask (``active_*``, (B, slots) bool) ``ref`` shares. Returns the worst
+    (median, max)."""
+    shared = ~(active_got != active_ref).any(dim=-1)
+    worst = worst_max = 0.0
+    parts = []
+    for name_, a, b in zip(names, got, ref):
+        e = rel_err(a, b.double(), b.new_tensor(1e-30, dtype=torch.float64))
+        med, mx = float(e.median()), _max(e[shared])
+        worst, worst_max = max(worst, med), max(worst_max, mx)
+        parts.append(f"{name_} median {med:.3e} max {mx:.3e}")
+    log(f"    against {label} (problems whose strict mask it shares: {int(shared.sum())}/"
+        f"{shared.numel()}): " + "; ".join(parts))
+    return worst, worst_max
+
+
+def vmapped_jacrev(dqt, kernels, label, cls, xs, cfg, bwd, ref64):
+    """``torch.func.vmap(torch.func.jacrev(solve))`` over the problems of
+    ``xs`` one at a time (counters zeroed just before, read just after):
+    K1 once and the backward kernel ``bwd`` once, over n x B problems (a spy
+    on the wrapper's batch), nothing else; bit for bit the n basis-cotangent
+    ``torch.autograd.grad`` calls of the flat solve; against
+    ``dqt.<cls>_jacobian`` in float32 on the same l and the float64 referee
+    ``ref64`` (``*_jacobian`` of float64 inputs at the float64 plain K1's l),
+    per-problem relative error median <= 1e-3 and max <= 2e-3 on the
+    problems whose strict mask each shares (phase 3b's bars)."""
+    from torch.func import jacrev, vmap
+
+    from diffqcqp_tpu_torch.diff import kkt
+
+    solve = getattr(dqt, f"solve_{cls}")
+    f = lambda *a: solve(*a, config=cfg)  # noqa: E731
+    argnums = tuple(range(len(xs)))
+    wrapper = {"K2": "qcqp_kkt_bwd_fused_cuda", "K4": "coord_kkt_bwd_fused_cuda"}[bwd]
+    orig, seen = getattr(kkt, wrapper), []
+
+    def spy(*a):
+        seen.append(a[0].shape[0])
+        return orig(*a)
+
+    setattr(kkt, wrapper, spy)
+    try:
+        J, n_j = launched(kernels, lambda: vmap(jacrev(f, argnums=argnums))(*xs))
+    finally:
+        setattr(kkt, wrapper, orig)
+    B, n = xs[1].shape
+    leaves = [x.clone().requires_grad_() for x in xs]
+    l = f(*leaves)
+    rows = []
+    for i in range(n):
+        e = torch.zeros_like(l)
+        e[:, i] = 1.0
+        rows.append(torch.autograd.grad(l, leaves, grad_outputs=e, retain_graph=True))
+    basis = [torch.stack([r[k] for r in rows], dim=1) for k in argnums]
+    same = [torch.equal(a, b) for a, b in zip(J, basis)]
+    log(f"  {label}: vmap(jacrev) over {B} problems, N={n}: launches {n_j}, {bwd} over "
+        f"{seen} problems (want [{n * B}]); bit for bit the {n} basis-cotangent "
+        f"autograd.grad calls: {same}")
+    only_launched(label, n_j, {"K1": 1, bwd: 1})
+    if seen != [n * B] or not all(same):
+        raise AssertionError(f"{label}: jacrev is not one {bwd} launch over n x B problems, "
+                             "or not the basis calls bit for bit")
+    fields = {"qp": ("dl_dP", "dl_dq"), "qcqp": ("dl_dP", "dl_dq", "dl_dl_n", "dl_dmu")}[cls]
+    jac32 = getattr(dqt, f"{cls}_jacobian")(*xs, l=l.detach(), config=cfg, include_dP=True)
+
+    def active(jac):            # strict mask: the zero pattern of the Jacobian's blocks
+        if cls == "qp":         # dl_dq's rows and columns vanish at active coordinates
+            return jac[1].abs().amax(dim=1) == 0
+        return jac[2].abs().amax(dim=1) != 0
+
+    worst = [jac_errors(f"dqt.{cls}_jacobian, float32, the same l", J,
+                        [getattr(jac32, k) for k in fields], active(J),
+                        active([getattr(jac32, k) for k in fields]), fields),
+             jac_errors("the float64 referee", J, [getattr(ref64, k) for k in fields],
+                        active(J), active([getattr(ref64, k) for k in fields]), fields)]
+    if not all(med <= 1e-3 and mx <= 2e-3 for med, mx in worst):
+        raise AssertionError(f"{label}: jacrev disagrees with *_jacobian or the float64 "
+                             "referee past phase 3b's bars")
+
+
+def phase_3m(dqt, kernels, flag, cfg, c10, b_jac=256):
+    """The solves under ``torch.func``, each with the launch counters zeroed
+    just before and read just after: ``vmap(grad)`` of sum(l^2) at the
+    flagship over (2, 2048) (P, q, l_n, mu; K1 1, K2 1) and at config 10's QP
+    (P, q; K1 1, K4 1), bit for bit the flat steps; ``vmap(jacrev)`` of
+    ``solve_qcqp`` (K2) and ``solve_qp`` (K4) over the first ``b_jac``
+    problems of each (``vmapped_jacrev``). Returns (the vmapped flagship
+    step, the flat one) for phase 4m."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import PROX_DISK, PROX_NONNEG, admm_solve_plain
+
+    steps = vmapped_step(dqt, kernels, f"flagship B={flag[1].shape[0]} N={flag[1].shape[1]}",
+                         dqt.solve_qcqp, flag, cfg, {"K1": 1, "K2": 1})
+    vmapped_step(dqt, kernels, f"config 10 QP B={c10.q.shape[0]} N={c10.q.shape[1]}",
+                 dqt.solve_qp, (c10.P, c10.q), c10.cfg, {"K1": 1, "K4": 1})
+    ref_cfg = dict(eps=1e-10, max_iter=5000)
+    xs = [x[:b_jac].contiguous() for x in flag]
+    x64 = [x.double() for x in xs]
+    r64 = (x64[2] * x64[3]).contiguous()
+    l64, _ = admm_solve_plain(x64[0], x64[1], torch.zeros_like(x64[1]), PROX_DISK, (r64,),
+                              cfg.replace(**ref_cfg), True, False)
+    vmapped_jacrev(dqt, kernels, "flagship QCQP", "qcqp", xs, cfg, "K2",
+                   dqt.qcqp_jacobian(*x64, l=l64, config=cfg, include_dP=True))
+    xs = [c10.P[:b_jac].contiguous(), c10.q[:b_jac].contiguous()]
+    x64 = [x.double() for x in xs]
+    l64, _ = admm_solve_plain(x64[0], x64[1], torch.zeros_like(x64[1]), PROX_NONNEG, (),
+                              c10.cfg.replace(**ref_cfg))
+    vmapped_jacrev(dqt, kernels, "config 10 QP", "qp", xs, c10.cfg, "K4",
+                   dqt.qp_jacobian(*x64, l=l64, config=c10.cfg, include_dP=True))
+    return steps
+
+
+def phase_4m(smi, steps, B=B_FLAG):
+    """Phase 4m: the vmapped flagship step beside the flat one, each through
+    ``timed_step``, and their ratio on a line of its own."""
+    ms_v, idle_v = timed_step(f"vmap(grad) flagship step, (2, {B // 2}) (K1 + K2)", steps[0],
+                              smi, calls=20, problems=B)
+    ms_f, idle_f = timed_step(f"flat flagship step B={B} (K1 + K2)", steps[1], smi, calls=20,
+                              problems=B)
+    log(f"  phase 4m ({smi}): vmapped flagship step {ms_v:.4f} ms (card idle {idle_v:.1%}), "
+        f"flat {ms_f:.4f} ms (card idle {idle_f:.1%}): {ms_v - ms_f:+.4f} ms, "
+        f"{ms_v / ms_f:.3f}x")
+    return ms_v, idle_v, ms_f, idle_f
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2759,6 +2989,11 @@ def main() -> int:
     log("phase 3l: config 5's size (B=65,536, N=8), four slices: K1, the float32 engine, float64")
     phase_3l(dqt)
 
+    # ---- phase 3m: the solves under torch.func (vmap, grad, jacrev)
+    log("phase 3m: torch.func, vmap(grad) of the flagship and config-10 steps, vmap(jacrev) of "
+        "solve_qcqp and solve_qp")
+    steps_3m = phase_3m(dqt, kernels, (P, q, l_n, mu), cfg, families["qp"])
+
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
     k1 = lambda: admm_solve_cuda(*args)            # noqa: E731
@@ -2901,6 +3136,9 @@ def main() -> int:
 
     log(f"phase 4g: the sharded, bucketed, resumed and traced paths")
     phase_4g(smi, paths_3j)
+
+    log("phase 4m: the vmapped flagship step beside the flat one")
+    phase_4m(smi, steps_3m)
 
     # the waves of phase 1: K2, K6 and K4 take one at the main path's sizes
     if any(waves24[name] > 1 for name in waves24 if name != "K1"):

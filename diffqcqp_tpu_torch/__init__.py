@@ -23,6 +23,20 @@ as the reference.
     (l * l).sum().backward()                                           # grads of P, q, l_n, mu
     l = dqt.solve_box_qp(P, q, l_min, l_max, device="cpu")             # plain version
     r = dqt.verify.check_qcqp(P, q, l_n, mu, l)                        # float64 KKT residuals
+
+The solves compose with ``torch.func`` as the JAX package's do with its
+transforms: ``vmap``, ``grad``, ``vjp``, ``jacrev`` and their nestings
+(``vmap(grad(...))``, ``vmap(jacrev(...))``) over ``solve_*`` and
+``solve_*_with_stats``, the ``*Fn2`` bindings, ``*_jacobian`` and
+``ops.linalg.ns_inverse_shifted``. A vmapped call folds its groups into the
+problem batch, so each kernel launches once over the whole folded batch and
+the results are the flat call's; ``jacrev``'s n basis cotangents are one
+backward launch over n*B problems. Forward mode (``jvp``, ``jacfwd``) and
+second derivatives raise, as in the JAX package (a ``custom_vjp`` has no
+JVP, and the kernels' backward is not differentiable). A lockstep solve
+(``axis_name``) under ``vmap`` raises ``ValueError``.
+
+    g = torch.func.vmap(torch.func.grad(loss))(P, q)     # (G, B, ...) groups: one K1, one K4
 """
 
 from .api import (

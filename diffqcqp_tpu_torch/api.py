@@ -23,13 +23,21 @@ package's kernel path does.
 
 Gradients flow through one ``torch.autograd.Function``, ``_Solve`` (the JAX
 package's ``jax.custom_vjp``s): it saves the caller's inputs (before
-equilibration) and the mapped-back solution l, and its backward is the
-class's adjoint in ``diff/kkt.py`` with the JAX package's gradient assembly:
+equilibration) and the mapped-back solution l, and its backward is a second
+Function, ``_SolveAdjoint``: the class's adjoint in ``diff/kkt.py`` with the
+JAX package's gradient assembly:
 grad_P = -(dl l^T + l dl^T) / 2, grad_q = -dl, grad_l_min = -gamma_lo
 dgamma_lo, grad_l_max = gamma_hi dgamma_hi, and the radius chain rule for
 l_n and mu (for a diagonal P, grad_P = -dl * l). The warm start and the
 signed box's v get zero gradients. The backward is not itself
-differentiable.
+differentiable: a second derivative raises.
+
+Both Functions compose with ``torch.func`` (``vmap``, ``grad``, ``vjp``,
+``jacrev`` and their nestings): their vmap rules fold the vmapped groups
+into the problem batch, so a vmapped solve, or ``jacrev``'s n basis
+cotangents, launch each kernel once over the folded batch, in the flat
+batch's order. Forward mode (``jvp``, ``jacfwd``) raises, as ``jax.jvp`` of
+the JAX package's ``custom_vjp`` does.
 
 A diagonal P (B, N), as in the JAX package, launches no kernel: the eager
 engine solves it and its adjoints are closed form (``diff/kkt.py``);
@@ -43,7 +51,6 @@ import warnings
 from typing import Optional
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from .config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig, check_supported
 from .diff.kkt import box_vjp, qcqp_radius_factors, qcqp_vjp, qp_vjp, signed_box_vjp
@@ -58,7 +65,7 @@ from .kernels.admm_cuda import (
 )
 from .ops.equilibrate import isotropize, ruiz_diag, scale_problem
 from .solvers.admm import SolveStats, admm_solve
-from .utils.shapes import Canon, canon_like, canon_problem
+from .utils.shapes import Canon, canon_like, canon_problem, fold_vmapped, unfold_vmapped
 
 __all__ = [
     "solve_qp",
@@ -293,29 +300,87 @@ _CLASSES = {
 }
 
 
+# the text of ``once_differentiable``'s error, so a second derivative fails
+# alike under ``torch.autograd`` and ``torch.func``
+_TWICE = "trying to differentiate twice a function that was marked with @once_differentiable"
+
+
+def _vmapped(fn, info, in_dims, kind, cfg, xs):
+    """A vmap rule of ``_Solve`` / ``_SolveAdjoint``: one ``fn.apply`` over
+    the G vmapped groups folded into the problem batch (so each kernel
+    launches once), split back into (G, B, ...) outputs."""
+    if cfg.axis_name is not None:
+        raise ValueError(
+            "torch.func.vmap of a lockstep solve (axis_name) is not supported; "
+            "fold the groups into the batch of the sharded call instead"
+        )
+    out = fn.apply(kind, cfg, *fold_vmapped(info.batch_size, in_dims[2:], xs))
+    return unfold_vmapped(info.batch_size, out), (0,) * len(out)
+
+
 class _Solve(torch.autograd.Function):
     """One class's solve with its KKT adjoint as the backward:
-    ``_Solve.apply(kind, cfg, P, q, *params, ws)`` -> (l, *stats)."""
+    ``_Solve.apply(kind, cfg, P, q, *params, ws)`` -> (l, *stats).
+
+    It composes with ``torch.func``: the vmap rule folds the vmapped groups
+    into the batch; the backward is ``_SolveAdjoint``, a Function of its own,
+    because under ``torch.func`` a backward receives functorch-wrapped
+    tensors, which the kernels' wrappers cannot read (only a Function's
+    forward sees plain ones). Forward mode (``jvp``) is not defined and
+    raises, as ``jax.jvp`` of the JAX package's ``custom_vjp`` does."""
 
     @staticmethod
-    def forward(ctx, kind, cfg, *xs):
+    def forward(kind, cfg, *xs):
         l, stats = _CLASSES[kind][0](*xs, cfg)
-        ctx.save_for_backward(*xs[:-1], l)
-        ctx.kind, ctx.cfg = kind, cfg
-        ctx.mark_non_differentiable(*stats)
         return (l, *stats)
 
     @staticmethod
-    @once_differentiable
+    def setup_context(ctx, inputs, output):
+        kind, cfg, *xs = inputs
+        ctx.save_for_backward(*xs[:-1], output[0])
+        ctx.kind, ctx.cfg = kind, cfg
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
     def backward(ctx, g, *_):
         *xs, l = ctx.saved_tensors
         need = ctx.needs_input_grad[2:]
-        grads = _CLASSES[ctx.kind][1](*xs, l, g, ctx.cfg)
+        grads = _SolveAdjoint.apply(ctx.kind, ctx.cfg, g, *xs, l)
         return (
             None, None,
             *(x if want else None for x, want in zip(grads, need)),
             torch.zeros_like(l) if need[-1] else None,
         )
+
+    @staticmethod
+    def vmap(info, in_dims, kind, cfg, *xs):
+        return _vmapped(_Solve, info, in_dims, kind, cfg, xs)
+
+
+class _SolveAdjoint(torch.autograd.Function):
+    """The gradients of <g, l> at the solution l, one per input of the
+    solve but the warm start: ``_SolveAdjoint.apply(kind, cfg, g, P, q,
+    *params, l)``. Its vmap rule folds the vmapped cotangents (and any
+    batched problem) into the batch, so ``jacrev``'s n basis cotangents are
+    one K2 or K4 launch over n*B problems. Not differentiable: its backward
+    raises, as the JAX kernel path (a ``pallas_call`` has no JVP rule)."""
+
+    @staticmethod
+    def forward(kind, cfg, g, *xs):
+        *xs, l = xs
+        return tuple(_CLASSES[kind][1](*xs, l, g, cfg))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *_):
+        raise RuntimeError(_TWICE)
+
+    @staticmethod
+    def vmap(info, in_dims, kind, cfg, *xs):
+        return _vmapped(_SolveAdjoint, info, in_dims, kind, cfg, xs)
 
 
 # --------------------------------------------------------------------------

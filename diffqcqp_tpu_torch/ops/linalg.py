@@ -28,6 +28,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.shapes import fold_vmapped, unfold_vmapped
+
 __all__ = [
     "Factorization",
     "factorize",
@@ -138,18 +140,29 @@ def _ns_adaptive(M: torch.Tensor, x0: torch.Tensor, tol: Optional[float], max_it
 class _NSAdaptive(torch.autograd.Function):
     """The converged result is the inverse, so the backward is the exact
     implicit derivative d(M^{-1}) = -M^{-1} dM M^{-1}: M_bar = -X^T dX X^T
-    (two products); x0 gets no gradient."""
+    (two products); x0 gets no gradient. Under ``torch.func.vmap`` the rule
+    folds the vmapped groups into the batch, so the loop runs once, to the
+    worst residual over all groups, as JAX's batched ``while_loop`` does;
+    the backward is plain torch and batches by itself."""
 
     @staticmethod
-    def forward(ctx, M, x0, tol, max_iters):
-        X = _ns_adaptive(M, x0, tol, max_iters)
-        ctx.save_for_backward(X)
-        return X
+    def forward(M, x0, tol, max_iters):
+        return _ns_adaptive(M, x0, tol, max_iters)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, dX):
         (X,) = ctx.saved_tensors
         return -(X.mT @ dX @ X.mT), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, M, x0, tol, max_iters):
+        X = _NSAdaptive.apply(*fold_vmapped(info.batch_size, in_dims[:2], (M, x0)),
+                              tol, max_iters)
+        return unfold_vmapped(info.batch_size, (X,))[0], 0
 
 
 def newton_schulz_inverse_adaptive(

@@ -10,6 +10,13 @@ Everything is computed over flat batched (B, N) / (B, N, N) tensors, and the
 caller's q layout is restored on output. A diagonal P stays (B, N): the
 eager engine and the closed-form adjoints take it, the kernels do not (the
 JAX kernel path does not either).
+
+``fold_vmapped`` / ``unfold_vmapped`` are the two halves of the port's
+``torch.func.vmap`` rules (``api._Solve``, ``api._SolveAdjoint``,
+``ops.linalg._NSAdaptive``): the vmapped dimension G is folded into the
+leading problem batch, (G, B, ...) -> (G*B, ...), so a vmapped call is one
+call over G*B problems in the order of the flat batch, and split off again
+on the way out.
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Canon", "canon_problem", "canon_like", "fields_from_numpy"]
+__all__ = ["Canon", "canon_problem", "canon_like", "fields_from_numpy", "fold_vmapped",
+           "unfold_vmapped"]
 
 
 class Canon(NamedTuple):
@@ -153,3 +161,21 @@ def fields_from_numpy(cls, p, device, dtype=None):
     (default: the arrays')."""
     return cls(*(torch.as_tensor(np.array(getattr(p, f)), dtype=dtype, device=device)
                  for f in cls._fields))
+
+
+def fold_vmapped(batch_size: int, in_dims, xs) -> list:
+    """The tensors ``xs`` of a vmap rule with their vmapped dimension (at
+    ``in_dims``; None for an unbatched input, which is expanded to
+    ``batch_size``) folded into the leading batch axis: (G, B, ...) ->
+    (G*B, ...), contiguous."""
+    out = []
+    for x, d in zip(xs, in_dims):
+        x = x.movedim(d, 0) if d is not None else x.expand(batch_size, *x.shape)
+        out.append(x.flatten(0, 1).contiguous())
+    return out
+
+
+def unfold_vmapped(batch_size: int, xs) -> tuple:
+    """The inverse of ``fold_vmapped`` on a rule's outputs: (G*B, ...) ->
+    (G, B, ...), the vmapped dimension at 0."""
+    return tuple(x.unflatten(0, (batch_size, x.shape[0] // batch_size)) for x in xs)
