@@ -3,6 +3,9 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py config6    # phase 1, then config 6's phases alone (2c's
                                      # block-wide K4 cases, 3k, 4h); no result line
+    python3 chip_smoke.py staged     # phase 1, then phases 3n and 4n alone, the
+                                     # kernels line (launches read at the staged
+                                     # steps' captures) and the result line
 
 Builds the port's CUDA kernels from ``diffqcqp_tpu_torch/kernels/csrc`` and
 drives the port's paths: the friction-cone QCQP forward solve and the
@@ -303,6 +306,38 @@ block-wide path). Phases, each of which fails the run if its check fails:
      through ``timed_step`` (CUDA events, warm-up, median, device time by
      kernel, the card's idle share), and their difference on a line of its
      own;
+  3n. the steps staged as one CUDA graph each (``utils.staged``, the
+     counterpart of ``jax.jit``): first, before any capture, which calls
+     read the device on the host (``torch.cuda.set_sync_debug_mode("error")``):
+     not the eager flagship and config-10 steps, nor the generic route through
+     K5 (``qcqp_vjp(duals=)`` at the flagship) and K6 (at B=2048 N=96); each
+     route the capture guard refuses does (the eager engine, ``_solve_direct``'s
+     LU, Cholesky and Newton-Schulz inverse, ``_qcqp_schur_vjp``'s Cholesky and
+     LU). Then, staged: the flagship step (bench.py's sum(l^2), gradients for
+     P, q, l_n and mu), config 10's QP step, config 9's box and signed-box
+     steps (phase 3c's loss), config 6's step, the QCQP step at B=2048 N=96
+     and those two generic calls: past the warm-up calls, the capture records
+     exactly the eager step's kernels (K1 1 with K2 1 or K4 1; K5 1; K6 1; no
+     other), a replay counts none, a profiled replay runs the same kernels
+     once each, and the replay's l, stats and gradients equal the eager step's
+     bit for bit on the inputs and on q + 1e-5; the flagship's graph (bucket
+     4096) replayed for B=4000 and 3000 padded by ``pad_to_bucket``, bit for
+     bit the eager bucketed step; the guard's error under capture for the
+     float64 flagship, a diagonal P and ``backend='xla'`` (B=256, staged with
+     one warm-up call) and for the generic route's LU; the config-4
+     system-ID step (forward, backward, ``Adam(capturable=True)``) staged
+     against the same step run eagerly over 20 steps (K1 2, K4 1, K2 1 at
+     capture, none a replay; the same kernels in a profiled replay), and
+     ``SystemID(kind="qcqp").train_step`` (staged by the model on the card)
+     on config 4's QCQP half against the same model stepped eagerly (K1 1,
+     K2 1): losses and parameters bit for bit (whether S S^T in a replay is
+     the eager product's bits is printed); a diagonal-P QP and a float64
+     QCQP ``SystemID`` on the card stage nothing and train eagerly past the
+     warm-up steps;
+  4n. each staged step beside its eager step, both through ``timed_step``
+     (20 back-to-back calls a sample, median of 5; device time and the
+     card's idle share), and a line each: eager and staged ms, device ms and
+     idle share, and their ratio;
   5. one JSON line of every ported kernel (K4's block-wide path at config 6
      its own entry), then as the last line ``{"ok": true, "device": {...}}``.
 
@@ -564,7 +599,10 @@ def rel_err(got, ref, floor=None):
 
 def device_time_by_kernel(fn, calls=10):
     """[(kernel name, ms per call, launches per call)] of the CUDA kernels
-    that ``fn`` runs, from torch.profiler, largest first."""
+    that ``fn`` runs, from torch.profiler, largest first. User annotations
+    (``Optimizer.step#Adam.step`` spans the optimiser's kernels on the
+    device timeline) are left out: they are ranges, not kernels, and
+    counting them would count their kernels twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -576,7 +614,8 @@ def device_time_by_kernel(fn, calls=10):
         torch.cuda.synchronize()
     rows = [(ev.key, ev.device_time_total / 1e3 / calls, ev.count / calls)
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0]
+            if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0
+            and not getattr(ev, "is_user_annotation", False)]
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -2513,6 +2552,583 @@ def phase_4m(smi, steps, B=B_FLAG):
     return ms_v, idle_v, ms_f, idle_f
 
 
+# ---------------------------------------------------------------------------
+# Staged steps: each step captured as one CUDA graph (utils/staging.py), the
+# port's counterpart of jax.jit; phases 3n and 4n
+# ---------------------------------------------------------------------------
+
+# the kernels' names in a profiler trace (K2's tag also matches its
+# block-wide instance, K4's its one-warp one)
+KERNEL_TAGS = (("K1", "admm_kernel"), ("K2", "qcqp_bwd_kernel"), ("K4", "coord_bwd_kernel"),
+               ("K5", "qr_solve_kernel"), ("K6", "qcqp_schur_kernel"))
+
+
+def grad_step(solve, cfg, n_diff, w=None):
+    """A forward+backward step as a function of tensors, for ``staged``: the
+    entry point ``solve`` (a ``*_with_stats``) on its inputs, then the
+    gradient of sum(l^2) (+ <w, l> where ``w`` is given) for the first
+    ``n_diff`` of them. Returns (l, stats, gradients)."""
+    def step(*xs):
+        leaves = [x.detach().requires_grad_() for x in xs[:n_diff]]
+        l, st = solve(*leaves, *xs[n_diff:], config=cfg)
+        v = (l * l).sum() if w is None else (l * l).sum() + (w * l).sum()
+        return l, st, torch.autograd.grad(v, leaves)
+    return step
+
+
+def bit_diffs(got, ref):
+    """[max |d|] over the tensor leaves of two outputs whose bits differ
+    (empty where every leaf is equal bit for bit)."""
+    from torch.utils import _pytree as pytree
+
+    a, b = pytree.tree_leaves(got), pytree.tree_leaves(ref)
+    if len(a) != len(b):
+        raise AssertionError(f"outputs of {len(a)} and {len(b)} tensors")
+    return [float((x.double() - y.double()).abs().max()) for x, y in zip(a, b)
+            if not torch.equal(x, y)]
+
+
+def kernels_in_trace(fn):
+    """{K: launches a call} of the port's kernels in a torch.profiler trace of
+    one call of ``fn`` (``device_time_by_kernel``)."""
+    rows = device_time_by_kernel(fn, calls=1)
+    return {k: round(sum(cnt for name_, _, cnt in rows if tag in name_)) for k, tag in KERNEL_TAGS}
+
+
+def host_reads(fn):
+    """The first line of the error that ``fn`` raises under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a read of the device on the
+    host), or None."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        why = None
+    except RuntimeError as e:
+        why = str(e).strip().splitlines()[0][:120]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return why
+
+
+def refused_under_capture(label, fn, capture=True):
+    """Fail unless ``fn`` raises the guard's error inside a CUDA graph
+    capture: one opened here, or (``capture=False``) the one ``fn`` opens
+    itself, as a staged call does."""
+    try:
+        if capture:
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                fn()
+        else:
+            fn()
+        msg = "nothing raised"
+    except RuntimeError as e:
+        msg = str(e)
+    torch.cuda.synchronize()
+    ok = "cannot run inside a CUDA graph capture" in msg
+    log(f"    {label}: under capture {'the guard raised' if ok else 'NOT the guard'}: {msg[:200]}")
+    if not ok:
+        raise AssertionError(f"{label}: the guard did not refuse the capture")
+
+
+def staged_check(label, kernels, step, xs, want, perturb=1):
+    """Phase 3n's checks of one step staged as a CUDA graph
+    (``utils.staged``): past its warm-up calls, the capture records exactly
+    the kernels ``want`` names ({K: launches}, no other of the port's), a
+    replay counts none, a profiled replay runs the same kernels once each,
+    and the replay's outputs (l, stats, gradients) equal the eager step's
+    bit for bit on ``xs`` and on ``xs`` with input ``perturb`` + 1e-5 (q +
+    1e-5 k at k = 1, as bench.py perturbs it). Returns (the staged step,
+    the launches at capture)."""
+    from diffqcqp_tpu_torch.utils.staging import WARMUP, staged
+
+    s = staged(step)
+    for _ in range(WARMUP):
+        s(*xs)
+    _, n_cap = launched(kernels, lambda: s(*xs))
+    _, n_rep = launched(kernels, lambda: s(*xs))
+    traced = kernels_in_trace(lambda: s(*xs))
+    sets = [xs, [x + 1e-5 if i == perturb else x for i, x in enumerate(xs)]]
+    diffs = [bit_diffs(s(*xk), step(*xk)) for xk in sets]
+    log(f"  {label}: launches at capture {n_cap}, in a replay {n_rep}; a profiled replay runs "
+        f"{traced}; replay against the eager step, leaves whose bits differ (max |d|): "
+        f"{diffs[0]} on the inputs, {diffs[1]} on the second set")
+    only_launched(f"{label} at capture", n_cap, want)
+    only_launched(f"{label}, a replay", n_rep, {})
+    if traced != {k: want.get(k, 0) for k in traced}:
+        raise AssertionError(f"{label}: a profiled replay runs {traced}, want {want}")
+    if any(diffs):
+        raise AssertionError(f"{label}: the replay is not the eager step bit for bit")
+    return s, n_cap
+
+
+def trajectories(label, kernels, eager, staged_step, steps, want):
+    """An optimiser loop run ``steps`` steps eagerly (``eager()``) and
+    staged (``staged_step()``, warm-up calls first), each step returning its
+    loss: the staged step's launches are read at its capture (``want``) and
+    at every replay (none). Returns (the eager losses, the staged losses,
+    the launches at capture)."""
+    from diffqcqp_tpu_torch.utils.staging import WARMUP
+
+    losses_e = torch.stack([eager() for _ in range(steps)])
+    losses_s, n_cap = [], None
+    for k in range(steps):
+        out, n = launched(kernels, staged_step)
+        losses_s.append(out)
+        if k == WARMUP:
+            n_cap = n
+            only_launched(f"{label} at capture", n, want)
+        elif k > WARMUP:
+            only_launched(f"{label}, a replay", n, {})
+    return losses_e, torch.stack(losses_s), n_cap
+
+
+def held_bit_for_bit(label, run_e, run_s, cublas_same):
+    """Staged against eager runs ((parameters, losses) each): bit for bit,
+    and the staged loss falls. The failure names whether cuBLAS gave the
+    capture stream other bits in S S^T (``cublas_same``), the one place a
+    graph could part from the eager step."""
+    (p_e, l_e), (p_s, l_s) = run_e, run_s
+    same = torch.equal(l_e, l_s) and all(torch.equal(a, b) for a, b in zip(p_e, p_s))
+    log(f"  {label}: {len(l_e)} steps, losses {float(l_e[0]):.6e} -> {float(l_e[-1]):.6e} "
+        f"(eager) and {float(l_s[0]):.6e} -> {float(l_s[-1]):.6e} (staged); parameters and "
+        f"losses bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{label}: the staged run is not the eager run bit for bit (S S^T "
+                             f"in a replay bit for bit the eager product: {cublas_same})")
+    if not float(l_s[-1]) < float(l_s[0]):
+        raise AssertionError(f"{label}: the staged loss did not fall")
+
+
+def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_guard=256,
+             b_pads=(4000, 3000), steps=20):
+    """Phase 3n: the steps staged as one CUDA graph each (``utils.staged``).
+    Before any capture, which calls read the device on the host
+    (``set_sync_debug_mode("error")``): not the eager flagship and config-10
+    steps, nor the generic route through K5 and K6; every route the guard
+    refuses does. Then each step through ``staged_check``; the flagship's
+    graph replayed for batches of ``b_pads`` padded to its own batch (the
+    4096 bucket);
+    the guard's error under capture for the float64 flagship, a diagonal P,
+    ``backend='xla'`` and the generic route's LU; the config-4 system-ID
+    step (capturable Adam) staged against the same step run eagerly over
+    ``steps`` steps, and ``SystemID(kind="qcqp").train_step`` on config 4's
+    QCQP half against the same model stepped eagerly; a diagonal-P and a
+    float64 ``SystemID`` train eagerly past the warm-up steps. Returns ({path:
+    launches at capture}, [(label, eager step, staged step, problems)] for
+    phase 4n)."""
+    from diffqcqp_tpu_torch.diff import kkt
+    from diffqcqp_tpu_torch.models.system_id import QCQPSystemIDParams, SystemID
+    from diffqcqp_tpu_torch.utils import pad_to_bucket
+    from diffqcqp_tpu_torch.utils.staging import WARMUP, staged
+
+    P, q, l_n, mu = flag
+    B = q.shape[0]
+    c10, c9, c9s, c6q = families["qp"], families["box_qp"], families["signed_box_qp"], c6["qp"]
+    solve_qc = dqt.solve_qcqp_with_stats
+    flag_step = grad_step(solve_qc, cfg, 4)
+    paths = {       # label: (step, inputs, launches at capture, problems)
+        "flagship QCQP step B=4096 N=24": (flag_step, flag, {"K1": 1, "K2": 1}, B),
+        "config 10 QP step B=4096 N=24": (
+            grad_step(dqt.solve_qp_with_stats, c10.cfg, 2, rand_g(c10.q)), (c10.P, c10.q),
+            {"K1": 1, "K4": 1}, c10.q.shape[0]),
+        "config 9 box step B=2048 N=24": (
+            grad_step(dqt.solve_box_qp_with_stats, c9.cfg, 4, rand_g(c9.q)),
+            (c9.P, c9.q, *c9.params), {"K1": 1, "K4": 1}, c9.q.shape[0]),
+        "config 9 signed-box step B=2048 N=24": (
+            grad_step(dqt.solve_signed_box_qp_with_stats, c9s.cfg, 4, rand_g(c9s.q)),
+            (c9s.P, c9s.q, *c9s.params), {"K1": 1, "K4": 1}, c9s.q.shape[0]),
+        "config 6 step B=2048 N=96": (grad_step(dqt.solve_qp_with_stats, c6q.cfg, 2),
+                                      (c6q.P, c6q.q), {"K1": 1, "K4": 1}, c6q.q.shape[0]),
+        "QCQP step B=2048 N=96": (grad_step(solve_qc, cfg, 4), qc96, {"K1": 1, "K2": 1},
+                                  qc96[1].shape[0]),
+    }
+    # the generic route, duals given: K5 at the flagship, K6 at N=96
+    def generic(P_, q_, r_, l_, g_):
+        return kkt.qcqp_vjp(P_, q_, r_, l_, g_, cfg, duals=kkt.qcqp_dual(P_, q_, r_, l_, cfg))
+
+    for label, (Pg, qg, lng, mug), want in (("flagship B=4096 N=24", flag, {"K5": 1}),
+                                            ("B=2048 N=96", qc96, {"K6": 1})):
+        rg = (lng * mug).contiguous()
+        lg = dqt.solve_qcqp(Pg, qg, lng, mug, config=cfg)
+        paths[f"generic route qcqp_vjp(duals=) at {label}"] = (
+            generic, (Pg, qg, rg, lg, (2.0 * lg + rand_g(lg)).contiguous()), want, qg.shape[0])
+
+    # which calls read the device on the host, before any capture
+    xs64 = [x[:b_guard].double() for x in flag]
+    r64 = xs64[2] * xs64[3]
+    l64 = dqt.solve_qcqp(*xs64, config=cfg)
+    g64 = 2.0 * l64
+    ST64, rhs64, _ = qcqp_system(*xs64[:2], r64, l64, g64, cfg)
+    P10, q10 = c10.P[:b_guard], c10.q[:b_guard]
+    l10 = dqt.solve_qp(P10, q10, config=c10.cfg)
+    K32, rhs32, _ = kkt._qp_kkt_system(P10, q10, l10, 2.0 * l10, c10.cfg)
+    x96 = [x[:b_guard].double() for x in qc96]
+    r96 = x96[2] * x96[3]
+    l96 = dqt.solve_qcqp(*x96, config=cfg)
+    d96 = kkt.qcqp_dual(x96[0], x96[1], r96, l96, cfg)
+    s96, a96 = kkt.qcqp_strict_active(l96, r96, d96.gamma, cfg)
+    free = {name: paths[name] for name in ("flagship QCQP step B=4096 N=24",
+                                           "config 10 QP step B=4096 N=24",
+                                           "generic route qcqp_vjp(duals=) at flagship B=4096 N=24",
+                                           "generic route qcqp_vjp(duals=) at B=2048 N=96")}
+    guarded = {
+        "the eager engine (float64 flagship forward)": lambda: dqt.solve_qcqp(*xs64, config=cfg),
+        "_solve_direct's LU (float64 assembled QCQP system)":
+            lambda: kkt._solve_direct(ST64, rhs64, cfg),
+        "_solve_direct's Cholesky (float64 SPD K of the QP)":
+            lambda: kkt._solve_direct(K32.double(), rhs32.double(), c10.cfg, spd=True),
+        "_solve_direct's Newton-Schulz inverse (float32 SPD K, backend='xla')":
+            lambda: kkt._solve_direct(K32, rhs32, c10.cfg.replace(backend="xla"), spd=True),
+        "_qcqp_schur_vjp's Cholesky and LU (float64, N=96)":
+            lambda: kkt._qcqp_schur_vjp(x96[0], l96, 2.0 * l96, s96, a96.double(), d96.gamma),
+    }
+    for fn, xs, _, _ in free.values():
+        fn(*xs)                                 # lazy state made before the check
+    reads = {label: host_reads(lambda fn=fn, xs=xs: fn(*xs)) for label, (fn, xs, _, _)
+             in free.items()}
+    reads_g = {label: host_reads(fn) for label, fn in guarded.items()}
+    for label, why in {**reads, **reads_g}.items():
+        log(f"  reads the device on the host (set_sync_debug_mode('error')): {label}: "
+            f"{why is not None}{'' if why is None else ' (' + why + ')'}")
+    if any(why is not None for why in reads.values()):
+        raise AssertionError("a route the guard lets into a capture reads the device on the host")
+    if any(why is None for why in reads_g.values()):
+        raise AssertionError("a route the guard refuses does not read the device on the host")
+
+    launches, pairs, staged_steps = {}, [], {}
+    for label, (step, xs, want, problems) in paths.items():
+        s, launches[label] = staged_check(label, kernels, step, xs, want)
+        staged_steps[label] = s
+        pairs.append((label, lambda step=step, xs=xs: step(*xs), lambda s=s, xs=xs: s(*xs),
+                      problems))
+
+    # the flagship's graph, captured at its batch (4096), replayed for
+    # batches of b_pads padded to that bucket
+    s_flag = staged_steps["flagship QCQP step B=4096 N=24"]
+    for b in b_pads:
+        padded, info = pad_to_bucket(cuda(*build_problems(b, NC_FLAG)), buckets=(B,))
+        d = bit_diffs(s_flag(*padded), flag_step(*padded))
+        log(f"  the flagship's graph (bucket {B}) at B={b} padded to {info.padded}: leaves whose "
+            f"bits differ from the eager bucketed step: {d}")
+        if d or len(s_flag.graphs) != 1:
+            raise AssertionError(f"the bucketed replay at B={b} is not the eager step bit for bit")
+
+    # the guard under capture
+    small = [x[:b_guard] for x in flag]
+    for label, xs_, c_ in (("float64 flagship step", xs64, cfg),
+                           ("diagonal-P flagship step",
+                            [torch.diagonal(small[0], dim1=1, dim2=2).contiguous(), *small[1:]],
+                            cfg),
+                           ("backend='xla' flagship step", small, cfg.replace(backend="xla"))):
+        s = staged(grad_step(solve_qc, c_, 4))
+        for _ in range(WARMUP):                   # the warm-up calls run eagerly
+            s(*xs_)
+        refused_under_capture(f"staged {label}", lambda s=s, xs_=xs_: s(*xs_), capture=False)
+    refused_under_capture("the generic route's LU (float64 qcqp_vjp(duals=))",
+                          lambda: generic(xs64[0], xs64[1], r64, l64, g64))
+
+    # the config-4 system-ID step: forward, backward, capturable Adam
+    (S, qs, ln, lm), target = sysid
+
+    def make_sysid():
+        params = [x.clone().requires_grad_() for x in (S, qs, ln, lm)]
+        opt = torch.optim.Adam(params, lr=1e-2, capturable=True)
+
+        def step(target_):
+            opt.zero_grad(set_to_none=True)
+            value, _ = sysid_loss(dqt, params, target_, *sysid_cfgs)
+            value.backward()
+            opt.step()
+            return value.detach()
+        return params, step
+
+    gram = staged(lambda S_: S_ @ S_.mT)
+    for _ in range(WARMUP):
+        gram(S)
+    cublas_same = torch.equal(gram(S), S @ S.mT)
+    log(f"  S S^T (cuBLAS) in a graph replay bit for bit the eager product: {cublas_same}")
+    (p_e, step_e), (p_s, step_s) = make_sysid(), make_sysid()
+    s_sid = staged(step_s)
+    run_e = lambda: step_e(target)    # noqa: E731
+    run_s = lambda: s_sid(target)     # noqa: E731
+    l_e, l_s, launches["config-4 system-ID step"] = trajectories(
+        "config-4 system-ID step", kernels, run_e, run_s, steps,
+        {"K1": 2, "K4": 1, "K2": 1})
+    held_bit_for_bit("config-4 system-ID step, staged against eager (capturable Adam)",
+                     (p_e, l_e), (p_s, l_s), cublas_same)
+    traced = kernels_in_trace(run_s)
+    log(f"  config-4 system-ID step: a profiled replay runs {traced}")
+    if traced != {"K1": 2, "K2": 1, "K4": 1, "K5": 0, "K6": 0}:
+        raise AssertionError(f"the staged system-ID step runs {traced}, not K1 2, K4 1, K2 1")
+    pairs.append(("config-4 system-ID step (forward, backward, Adam)", run_e, run_s, 4096))
+
+    # SystemID(kind="qcqp").train_step on config 4's QCQP half, staged by the
+    # model itself on the card, against the same model stepped eagerly
+    models = [SystemID(kind="qcqp", config=sysid_cfgs[1], learning_rate=1e-2, device="cuda")
+              for _ in range(2)]
+    for m in models:
+        m.set_params(QCQPSystemIDParams(*(x.clone() for x in (S, qs, ln, lm))))
+    m_e, m_s = models
+    if not (m_s.opt.defaults["capturable"] and m_s._staged_step is not None):
+        raise AssertionError("a card SystemID has no capturable Adam or no staged step")
+    run_e = lambda: m_e._train_step(target)    # noqa: E731
+    run_s = lambda: m_s.train_step(target)     # noqa: E731
+    l_e, l_s, launches["SystemID qcqp train_step"] = trajectories(
+        "SystemID(kind='qcqp').train_step", kernels, run_e, run_s, steps, {"K1": 1, "K2": 1})
+    held_bit_for_bit("SystemID(kind='qcqp').train_step, staged against eager",
+                     (list(m_e.params), l_e), (list(m_s.params), l_s), cublas_same)
+    pairs.append(("SystemID(kind='qcqp').train_step, config 4's QCQP half", run_e, run_s, 2048))
+
+    # card models off the kernel route (a diagonal P, float64) stage nothing
+    # and train eagerly past the warm-up steps
+    rng = np.random.default_rng(12)
+    for label, kind, diag, dtype in (("diagonal-P QP", "qp", True, torch.float32),
+                                     ("float64 QCQP", "qcqp", False, torch.float64)):
+        m = SystemID(kind=kind, config=sysid_cfgs[0 if kind == "qp" else 1], learning_rate=5e-2,
+                     device="cuda")
+        gen = torch.Generator().manual_seed(13)
+        if kind == "qp":
+            m.init_qp(gen, batch=b_guard, n=2 * NC_FLAG, diag=diag, dtype=dtype)
+        else:
+            m.init_qcqp(gen, batch=b_guard, nc=NC_FLAG, dtype=dtype)
+        tgt = torch.tensor(rng.random((b_guard, 2 * NC_FLAG)) * 0.1, dtype=dtype).cuda()
+        losses = [float(m.train_step(tgt)) for _ in range(WARMUP + 3)]
+        log(f"  SystemID {label} on the card: staged {m._staged_step is not None}, capturable "
+            f"Adam {m.opt.defaults['capturable']}; losses over {len(losses)} steps "
+            f"{losses[0]:.6e} -> {losses[-1]:.6e}")
+        if (m._staged_step is not None or m.opt.defaults["capturable"]
+                or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]):
+            raise AssertionError(f"SystemID {label}: not trained eagerly past the warm-up")
+    return launches, pairs
+
+
+def phase_4n(smi, pairs):
+    """Phase 4n: each staged step beside its eager step, both through
+    ``timed_step`` (20 back-to-back calls a sample, median of 5; device time
+    by kernel, the six largest listed, and the card's idle share), then one
+    line each."""
+    rows = []
+    for label, eager, st, problems in pairs:
+        ms_e, idle_e = timed_step(f"{label}, eager", eager, smi, calls=20, problems=problems,
+                                  top=6)
+        ms_s, idle_s = timed_step(f"{label}, staged (one CUDA graph)", st, smi, calls=20,
+                                  problems=problems, top=6)
+        rows.append((label, ms_e, idle_e, ms_s, idle_s))
+    log(f"  phase 4n ({smi}), ms per step (device ms, card idle):")
+    for label, ms_e, idle_e, ms_s, idle_s in rows:
+        log(f"    {label}: eager {ms_e:.4f} ({ms_e * (1 - idle_e):.4f}, {idle_e:.1%}), staged "
+            f"{ms_s:.4f} ({ms_s * (1 - idle_s):.4f}, {idle_s:.1%}): {ms_e / ms_s:.3f}x")
+    return rows
+
+
+def flagship_cfg(dqt):
+    """bench.py's flagship configuration."""
+    return dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0, power_iters=10,
+                                     rho_update_period=24)
+
+
+def sysid_configs(dqt):
+    """Config 4's QP and QCQP configurations (the production schedule)."""
+    return (
+        dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0, rho_update_period=24),
+        dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0, rho_update_period=24,
+                                  power_iters=10),
+    )
+
+
+def qp_families(dqt):
+    """The three QP-family classes at their benchmark points: config 10's QP
+    (B=4096, N=24, seed 10) and config 9's box and signed box (B=2048,
+    N=24, seed 9, ``box_bounds``)."""
+    qp_cfg10 = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0,
+                                       rho_update_period=24, power_iters=10)
+    box_cfg9 = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=2000)
+    _, P10, q10 = spd_problems(4096, 24, seed=10)
+    rng9, P9, q9 = spd_problems(2048, 24, seed=9)
+    lo9, hi9, v9 = cuda(*box_bounds(rng9, *q9.shape))
+    P10, q10, P9, q9 = cuda(P10, q10, P9, q9)
+    return {
+        "qp": qp_class("qp", P10, q10, qp_cfg10),
+        "box_qp": qp_class("box_qp", P9, q9, box_cfg9, lo9, hi9),
+        "signed_box_qp": qp_class("signed_box_qp", P9, q9, box_cfg9, lo9, hi9, v9),
+    }
+
+
+# the kernels line's entries: key, name, source, the TPU kernel it replaces
+KERNEL_ENTRIES = (
+    ("K1", "admm_solve_cuda (K1: an explicit inverse and one refined solve per iteration; "
+           "numbers at the flagship, B=4096 N=24)",
+     "diffqcqp_tpu_torch/kernels/csrc/admm.cu", "diffqcqp_tpu/kernels/admm_pallas.py:78"),
+    ("K2", "qcqp_kkt_bwd_fused_cuda (K2, with the K3 LDL^T helpers inlined)",
+     "diffqcqp_tpu_torch/kernels/csrc/qcqp_bwd.cu", "diffqcqp_tpu/kernels/qcqp_bwd_pallas.py:200"),
+    ("K4", "coord_kkt_bwd_fused_cuda (K4, with the K3 LDL^T helpers inlined; numbers at the QP "
+           "point, B=4096 N=24)",
+     "diffqcqp_tpu_torch/kernels/csrc/coord_bwd.cu", "diffqcqp_tpu/kernels/coord_bwd_pallas.py:55"),
+    ("K4bw", "coord_kkt_bwd_fused_cuda, block-wide path (K4 at n > 32: the free block "
+             "compacted, factored by register tiles; numbers at config 6, B=2048 N=96)",
+     "diffqcqp_tpu_torch/kernels/csrc/coord_bwd.cu", "diffqcqp_tpu/kernels/coord_bwd_pallas.py:55"),
+    ("K5", "qr_solve_cuda (K5; numbers at the QCQP flagship's assembled system, B=4096 m=36)",
+     "diffqcqp_tpu_torch/kernels/csrc/qr_solve.cu", "diffqcqp_tpu/kernels/qr_solve_pallas.py:43"),
+    ("K6", "qcqp_kkt_bwd_cuda (K6, K2's steps 4-8 with the duals given; numbers at B=2048 N=96)",
+     "diffqcqp_tpu_torch/kernels/csrc/qcqp_bwd.cu", "diffqcqp_tpu/kernels/qcqp_bwd_pallas.py:44"),
+)
+
+
+def kernels_line(launches, errs, times):
+    """The kernels line: for each of ``KERNEL_ENTRIES`` its launches on the
+    main path, its max |d| against its plain version and its numbers
+    (``times[key]``: ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    return json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[key], "max_abs_err": errs[key], **times[key]}
+        for key, name, src, rep in KERNEL_ENTRIES]})
+
+
+def k1_k2_times(P, q, radius, cfg, out_k, factors, smi):
+    """K1's and K2's numbers in the kernels line at the flagship point, the
+    one function that both phase 4 and ``chip_smoke.py staged`` take them
+    from: K1 by CUDA events (20 calls back to back), K2 by the profiler's
+    device time per launch (back to back the wrapper's host work outlasts
+    K2; CUDA events where the trace lacks it), with the main path's
+    cotangent g = 2 l; their plain versions' times; the bounds from this
+    run's counts (``factors``, the plain K1's) and K2's strictly active
+    contacts; K2's library call, ``torch.linalg.solve`` of the same adjoint
+    system assembled in float32 (the dual recovery not included). Returns
+    {"K1": ..., "K2": ...}, each dict(ms, plain_ms, bound_ms, bound_by,
+    library_ms)."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import PROX_DISK, admm_solve_cuda, admm_solve_plain
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import (
+        qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_plain,
+    )
+
+    B, n = q.shape
+    args = (P, q, torch.zeros_like(q), PROX_DISK, (radius,), cfg, True, False)
+    ev_k, ts_k = time_cuda(lambda: admm_solve_cuda(*args), reps=5, calls=20)
+    ms_p, ts_p = time_cuda(lambda: admm_solve_plain(*args), reps=3)
+    b1, b1_by, b1_bytes, b1_flops = k1_bound_ms(B, n, n // 2, out_k[1].iterations, factors,
+                                                cfg.power_iters)
+    lk = out_k[0]
+    a2 = (P, q, lk, (2.0 * lk).contiguous(), radius, cfg.eps, cfg.act_eps,
+          8.0 * torch.finfo(torch.float32).eps)
+    k2 = lambda: qcqp_kkt_bwd_fused_cuda(*a2)   # noqa: E731
+    dev_k2 = per_launch_ms(device_time_by_kernel(k2), "qcqp_bwd_kernel")
+    ev_k2, ts_k2 = time_cuda(k2, reps=5, calls=20)
+    ms_p2, ts_p2 = time_cuda(lambda: qcqp_kkt_bwd_fused_plain(*a2), reps=3)
+    active = k2()[0] != 0
+    b2, b2_by, b2_bytes, b2_flops = k2_bound_ms(B, n, n // 2, active)
+    ST, rhs, _ = qcqp_system(P, q, radius, lk, a2[3], cfg)
+    ST, rhs = ST.contiguous(), rhs[..., None].contiguous()
+    ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(ST, rhs), reps=5, calls=20)
+    fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
+    samples = lambda ts, d=4: [round(t, d) for t in ts]  # noqa: E731
+    log(f"  K1 at B={B} N={n} ({smi}): per call, 20 back-to-back (CUDA events) {ev_k:.4f} ms "
+        f"(samples {samples(ts_k)}); plain version {ms_p:.2f} ms (samples {samples(ts_p, 2)}); "
+        f"bound {b1:.5f} ms ({b1_by}: {b1_bytes} bytes, {b1_flops:.4g} FLOP)\n"
+        f"  K2 at B={B} N={n}: device time per launch (torch.profiler) {fmt(dev_k2)}; per "
+        f"call, 20 back-to-back (CUDA events) {ev_k2:.4f} ms (samples {samples(ts_k2)}); plain "
+        f"version {ms_p2:.2f} ms (samples {samples(ts_p2, 2)}); bound {b2:.5f} ms ({b2_by}: "
+        f"{b2_bytes} bytes, {b2_flops:.4g} FLOP; {int(active.sum())} strictly active "
+        f"contacts); torch.linalg.solve of the assembled float32 system (B, {ST.shape[-1]}, "
+        f"{ST.shape[-1]}) {ms_lib:.4f} ms (samples {samples(ts_lib)})")
+    return {"K1": dict(ms=ev_k, plain_ms=ms_p, bound_ms=b1, bound_by=b1_by, library_ms=None),
+            "K2": dict(ms=dev_k2 if dev_k2 is not None else ev_k2, plain_ms=ms_p2,
+                       bound_ms=b2, bound_by=b2_by, library_ms=ms_lib)}
+
+
+def kernel_numbers(dqt, flag, cfg, c10, c6q, qc96, step10, step6, smi):
+    """The kernels line's numbers at the main path's points, for
+    ``chip_smoke.py staged``: K1 and K2 at the flagship against their plain
+    versions (``compare``, ``compare_k2``) and their numbers by
+    ``k1_k2_times``, as phase 4 takes them; K4 at config 10 and at config 6
+    (``phase_2c``, ``phase_4c``, which also times the class's eager step
+    ``step10`` / ``step6``); K5 at the flagship's assembled system
+    (``phase_2d``, ``phase_4d``); K6 at B=2048 N=96 (``phase_2e``,
+    ``phase_4e``). Returns (errs, times) keyed as ``KERNEL_ENTRIES``."""
+    from diffqcqp_tpu_torch.diff import kkt
+    from diffqcqp_tpu_torch.kernels.admm_cuda import PROX_DISK, admm_solve_cuda, admm_solve_plain
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import (
+        qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_plain,
+    )
+
+    P, q, l_n, mu = flag
+    radius = (l_n * mu).contiguous()
+    args = (P, q, torch.zeros_like(q), PROX_DISK, (radius,), cfg, True, False)
+    out_k = admm_solve_cuda(*args)
+    factors = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    errs = {"K1": compare("K1 flagship B=4096 N=24 disk", out_k,
+                          admm_solve_plain(*args, factors=factors))}
+    lk = out_k[0]
+    ulps = 8.0 * torch.finfo(torch.float32).eps
+    a2 = (P, q, lk, (2.0 * lk).contiguous(), radius, cfg.eps, cfg.act_eps, ulps)
+    errs["K2"] = compare_k2("K2 flagship B=4096 N=24 g=2l", qcqp_kkt_bwd_fused_cuda(*a2),
+                            qcqp_kkt_bwd_fused_plain(*a2),
+                            qcqp_kkt_bwd_fused_plain(*(x.double() for x in a2[:5]), *a2[5:]))
+    times = k1_k2_times(P, q, radius, cfg, out_k, factors, smi)
+    ST, rhs, _ = qcqp_system(P, q, radius, lk, a2[3], cfg)
+    ST, rhs = ST.contiguous(), rhs.contiguous()
+    for key, label, c, step in (("K4", "qp B=4096 N=24 (config 10)", c10, step10),
+                                ("K4bw", "qp B=2048 N=96 (config 6)", c6q, step6)):
+        errs[key] = phase_2c([(label, c)], rand_g)
+        times[key] = phase_4c(c, step, smi)
+    k5 = [("QCQP flagship B=4096 N=24", ST, rhs)]
+    errs["K5"] = phase_2d(k5)[k5[0][0]]
+    times["K5"] = phase_4d(k5, smi)[k5[0][0]]
+    P48, q48, ln48, mu48 = qc96
+    r48 = (ln48 * mu48).contiguous()
+    l48 = dqt.solve_qcqp(*qc96, config=cfg)
+    errs["K6"] = phase_2e([("B=2048 N=96", (P48, q48, l48, r48))], rand_g, cfg)
+    g48 = (2.0 * l48).contiguous()
+    duals = kkt.qcqp_dual(P48, q48, r48, l48, cfg)
+    s48, act48 = kkt.qcqp_strict_active(l48, r48, duals.gamma, cfg)
+    ST6, rhs6, _ = qcqp_system(P48, q48, r48, l48, g48, cfg)
+    times["K6"] = phase_4e([("B=2048 N=96", (P48, l48, g48, duals.gamma, s48, act48),
+                             (P48, q48, l48, g48, r48, cfg.eps, cfg.act_eps, ulps),
+                             (ST6.contiguous(), rhs6.contiguous()))], smi)
+    return errs, times
+
+
+def staged_run(dqt, c6, smi, dev_name, t_start) -> int:
+    """``python3 chip_smoke.py staged``: after phase 1, phases 3n and 4n
+    alone, then the kernels line (its launches read at the staged steps'
+    captures, its numbers from ``kernel_numbers``) and the result line."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import admm_solve_cuda
+    from diffqcqp_tpu_torch.kernels.coord_bwd_cuda import coord_kkt_bwd_fused_cuda
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda
+    from diffqcqp_tpu_torch.kernels.qr_solve_cuda import qr_solve_cuda
+
+    kernels = {"K1": admm_solve_cuda, "K2": qcqp_kkt_bwd_fused_cuda,
+               "K4": coord_kkt_bwd_fused_cuda, "K5": qr_solve_cuda, "K6": qcqp_kkt_bwd_cuda}
+    cfg = flagship_cfg(dqt)
+    flag = cuda(*build_problems(B_FLAG, NC_FLAG))
+    families = qp_families(dqt)
+    qc96 = cuda(*build_problems(2048, 48, seed=6))
+    log("phase 3n: the steps staged as one CUDA graph each (utils.staged)")
+    launches, pairs = phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid_inputs(),
+                               sysid_configs(dqt))
+    log("phase 4n: each staged step beside its eager step")
+    phase_4n(smi, pairs)
+    eager = {label: fn for label, fn, _, _ in pairs}
+    log("the kernels line's numbers at the main path's points")
+    errs, times = kernel_numbers(dqt, flag, cfg, families["qp"], c6["qp"], qc96,
+                                 eager["config 10 QP step B=4096 N=24"],
+                                 eager["config 6 step B=2048 N=96"], smi)
+    flag_n, qp_n = launches["flagship QCQP step B=4096 N=24"], launches["config 10 QP step B=4096 N=24"]
+    log(f"chip_smoke: staged phases passed, {time.perf_counter() - t_start:.1f} s")
+    print(kernels_line(
+        {"K1": flag_n["K1"], "K2": flag_n["K2"], "K4": qp_n["K4"],
+         "K4bw": launches["config 6 step B=2048 N=96"]["K4"],
+         "K5": launches["generic route qcqp_vjp(duals=) at flagship B=4096 N=24"]["K5"],
+         "K6": launches["generic route qcqp_vjp(duals=) at B=2048 N=96"]["K6"]},
+        errs, times), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev_name, "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2589,11 +3205,10 @@ def main() -> int:
         phase_4h(dqt, c6, phase_3k(dqt, c6)[2], smi)
         log(f"chip_smoke: config-6 phases passed, {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["staged"]:
+        return staged_run(dqt, c6, smi, dev_name, t_start)
 
-    cfg = dqt.QCQP_DEFAULTS.replace(
-        eps=1e-7, max_iter=400, rho0_scale=2.0, power_iters=10,
-        rho_update_period=24,
-    )
+    cfg = flagship_cfg(dqt)
 
     # ---- phase 2: K1 against its plain version on the card
     log("phase 2: K1 against admm_solve_plain on the card")
@@ -2688,18 +3303,9 @@ def main() -> int:
 
     # ---- phase 2c: K4 against its plain version on the card
     log("phase 2c: K4 against coord_kkt_bwd_fused_plain on the card")
-    qp_cfg10 = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0,
-                                       rho_update_period=24, power_iters=10)
-    box_cfg9 = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=2000)
-    _, P10, q10 = spd_problems(4096, 24, seed=10)
-    rng9, P9, q9 = spd_problems(2048, 24, seed=9)
-    lo9, hi9, v9 = cuda(*box_bounds(rng9, *q9.shape))
-    P10, q10, P9, q9 = cuda(P10, q10, P9, q9)
-    families = {                # the three classes at their benchmark points
-        "qp": qp_class("qp", P10, q10, qp_cfg10),
-        "box_qp": qp_class("box_qp", P9, q9, box_cfg9, lo9, hi9),
-        "signed_box_qp": qp_class("signed_box_qp", P9, q9, box_cfg9, lo9, hi9, v9),
-    }
+    families = qp_families(dqt)     # the three classes at their benchmark points
+    qp_cfg10, box_cfg9 = families["qp"].cfg, families["box_qp"].cfg
+    lo9, hi9, v9 = families["signed_box_qp"].params
     # tight boxes at B=256, N=12: spread 0.05, l_min = l_max on 30 % of the
     # coordinates (pinned where the sign constraint allows), v 20 % zeros
     rng, Pt, qt = spd_problems(256, 12, seed=12)
@@ -2967,11 +3573,7 @@ def main() -> int:
 
     # ---- phase 3h: the config-4 system-ID step (K1 x2, K4, K2)
     log("phase 3h: the config-4 system-ID step through models.system_id's problem map")
-    sysid_cfgs = (
-        dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0, rho_update_period=24),
-        dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0, rho_update_period=24,
-                                  power_iters=10),
-    )
+    sysid_cfgs = sysid_configs(dqt)
     launches_sysid, sysid_step = phase_3h(dqt, kernels, sysid_inputs(), *sysid_cfgs)
 
     # ---- phase 3i: the config-11 contact rollout (no kernel)
@@ -2994,6 +3596,11 @@ def main() -> int:
         "solve_qcqp and solve_qp")
     steps_3m = phase_3m(dqt, kernels, (P, q, l_n, mu), cfg, families["qp"])
 
+    # ---- phase 3n: the steps staged as one CUDA graph each
+    log("phase 3n: the steps staged as one CUDA graph each (utils.staged)")
+    _, pairs_3n = phase_3n(dqt, kernels, (P, q, l_n, mu), cfg, families, c6,
+                           (P48, q48, ln48, mu48), sysid_inputs(), sysid_cfgs)
+
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
     k1 = lambda: admm_solve_cuda(*args)            # noqa: E731
@@ -3001,46 +3608,19 @@ def main() -> int:
     api = lambda: dqt.solve_qcqp_with_stats(P, q, l_n, mu, config=cfg)  # noqa: E731
     dev_k = per_launch_ms(device_time_by_kernel(k1), "admm_kernel")
     dev_setup = per_launch_ms(device_time_by_kernel(k1_setup), "admm_kernel")
-    ev_k, ts_k = time_cuda(k1, reps=5, calls=20)
     ev_k1, _ = time_cuda(k1, reps=20, calls=1)
     ev_api, _ = time_cuda(api, reps=5, calls=20)
-    ms_p, ts_p = time_cuda(lambda: admm_solve_plain(*args), reps=5)
-    bound, bound_by, nbytes, nflops = k1_bound_ms(
-        B_FLAG, 2 * NC_FLAG, NC_FLAG, out_k[1].iterations, factors_flag, cfg.power_iters)
     fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
     log(f"phase 4 ({smi}):\n"
         f"  K1 device time per launch (torch.profiler): {fmt(dev_k)}; "
         f"set-up only, max_iter=0: {fmt(dev_setup)}\n"
-        f"  K1 per call, 20 back-to-back calls (CUDA events): {ev_k:.4f} ms "
-        f"(samples {[round(t, 4) for t in ts_k]}); one call at a time: {ev_k1:.4f} ms\n"
-        f"  solve_qcqp_with_stats per call, 20 back-to-back: {ev_api:.4f} ms\n"
-        f"  plain version: {ms_p:.2f} ms (samples {[round(t, 2) for t in ts_p]})\n"
-        f"  bound {bound:.5f} ms ({bound_by}: {nbytes} bytes, {nflops:.4g} FLOP); "
-        f"K1 'ms' below is the back-to-back CUDA-event time")
-
-    # K2 at the flagship point with the main path's cotangent g = 2 l
+        f"  K1 one call at a time (CUDA events): {ev_k1:.4f} ms\n"
+        f"  solve_qcqp_with_stats per call, 20 back-to-back: {ev_api:.4f} ms")
+    # K1's and K2's numbers in the kernels line (K2 with the main path's
+    # cotangent g = 2 l), as ``chip_smoke.py staged`` takes them
+    times_k12 = k1_k2_times(P, q, radius, cfg, out_k, factors_flag, smi)
     lk = out_k[0]
     k2_args = (P, q, lk, (2.0 * lk).contiguous(), radius, cfg.eps, cfg.act_eps, f32_ulps)
-    k2 = lambda: qcqp_kkt_bwd_fused_cuda(*k2_args)   # noqa: E731
-    dev_k2 = per_launch_ms(device_time_by_kernel(k2), "qcqp_bwd_kernel")
-    ev_k2, ts_k2 = time_cuda(k2, reps=5, calls=20)
-    ms_p2, ts_p2 = time_cuda(lambda: qcqp_kkt_bwd_fused_plain(*k2_args), reps=3)
-    active = k2()[0] != 0
-    bound2, bound2_by, nbytes2, nflops2 = k2_bound_ms(B_FLAG, 2 * NC_FLAG, NC_FLAG, active)
-    # the library call: the same adjoint solve, assembled in float32 and
-    # solved by torch.linalg.solve (the dual recovery not included)
-    ST, rhs, _ = qcqp_system(P, q, radius, lk, k2_args[3], cfg)
-    ST, rhs = ST.contiguous(), rhs[..., None].contiguous()
-    ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(ST, rhs), reps=5, calls=20)
-
-    log(f"  K2 device time per launch (torch.profiler): {fmt(dev_k2)}\n"
-        f"  K2 per call, 20 back-to-back calls (CUDA events): {ev_k2:.4f} ms "
-        f"(samples {[round(t, 4) for t in ts_k2]})\n"
-        f"  K2 plain version: {ms_p2:.2f} ms (samples {[round(t, 2) for t in ts_p2]})\n"
-        f"  K2 bound {bound2:.5f} ms ({bound2_by}: {nbytes2} bytes, {nflops2:.4g} FLOP; "
-        f"{int(active.sum())} strictly active contacts)\n"
-        f"  library call torch.linalg.solve, assembled float32 (B, 36, 36): "
-        f"{ms_lib:.4f} ms (samples {[round(t, 4) for t in ts_lib]})")
     # the forward+backward step, as bench.py times it, and its device time
     timed_step(f"flagship forward+backward step B={B_FLAG} N={2 * NC_FLAG}", step, smi,
                calls=20, problems=B_FLAG, top=10)
@@ -3140,75 +3720,22 @@ def main() -> int:
     log("phase 4m: the vmapped flagship step beside the flat one")
     phase_4m(smi, steps_3m)
 
+    log("phase 4n: each staged step beside its eager step")
+    phase_4n(smi, pairs_3n)
+
     # the waves of phase 1: K2, K6 and K4 take one at the main path's sizes
     if any(waves24[name] > 1 for name in waves24 if name != "K1"):
         raise AssertionError(f"K2, K6 or K4 takes more than one wave at N=24: {waves24}")
 
     # ---- phase 5: the kernels line, then the result
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "admm_solve_cuda (K1: an explicit inverse and one refined solve per "
-                "iteration; numbers at the flagship, B=4096 N=24)",
-        "route": "cuda",
-        "source": "diffqcqp_tpu_torch/kernels/csrc/admm.cu",
-        "replaces": "diffqcqp_tpu/kernels/admm_pallas.py:78",
-        "launches": launches_k1,
-        "max_abs_err": err_flag,
-        "ms": ev_k,
-        "plain_ms": ms_p,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }, {
-        "name": "qcqp_kkt_bwd_fused_cuda (K2, with the K3 LDL^T helpers inlined)",
-        "route": "cuda",
-        "source": "diffqcqp_tpu_torch/kernels/csrc/qcqp_bwd.cu",
-        "replaces": "diffqcqp_tpu/kernels/qcqp_bwd_pallas.py:200",
-        "launches": launches_k2,
-        "max_abs_err": errs_k2[0],
-        # the device time: back to back, the wrapper's host work outlasts K2
-        "ms": dev_k2 if dev_k2 is not None else ev_k2,
-        "plain_ms": ms_p2,
-        "bound_ms": bound2,
-        "bound_by": bound2_by,
-        "library_ms": ms_lib,
-    }, {
-        "name": "coord_kkt_bwd_fused_cuda (K4, with the K3 LDL^T helpers inlined; "
-                "numbers at the QP point, B=4096 N=24)",
-        "route": "cuda",
-        "source": "diffqcqp_tpu_torch/kernels/csrc/coord_bwd.cu",
-        "replaces": "diffqcqp_tpu/kernels/coord_bwd_pallas.py:55",
-        "launches": steps["qp"][0],
-        "max_abs_err": err_k4,
-        **k4_times["qp"],
-    }, {
-        "name": "coord_kkt_bwd_fused_cuda, block-wide path (K4 at n > 32: the free block "
-                "compacted, factored by register tiles; numbers at config 6, B=2048 N=96)",
-        "route": "cuda",
-        "source": "diffqcqp_tpu_torch/kernels/csrc/coord_bwd.cu",
-        "replaces": "diffqcqp_tpu/kernels/coord_bwd_pallas.py:55",
-        "launches": launches_k4_6,
-        "max_abs_err": err_k4_6,
-        **k4_times_6,
-    }, {
-        "name": "qr_solve_cuda (K5; numbers at the QCQP flagship's assembled system, "
-                "B=4096 m=36)",
-        "route": "cuda",
-        "source": "diffqcqp_tpu_torch/kernels/csrc/qr_solve.cu",
-        "replaces": "diffqcqp_tpu/kernels/qr_solve_pallas.py:43",
-        "launches": launches_3d["K5"],
-        "max_abs_err": err_k5[k5_points[0][0]],
-        **k5_times[k5_points[0][0]],
-    }, {
-        "name": "qcqp_kkt_bwd_cuda (K6, K2's steps 4-8 with the duals given; numbers at "
-                "B=2048 N=96)",
-        "route": "cuda",
-        "source": "diffqcqp_tpu_torch/kernels/csrc/qcqp_bwd.cu",
-        "replaces": "diffqcqp_tpu/kernels/qcqp_bwd_pallas.py:44",
-        "launches": launches_3d["K6"],
-        "max_abs_err": err_k6,
-        **k6_times,
-    }]}), flush=True)
+    print(kernels_line(
+        {"K1": launches_k1, "K2": launches_k2, "K4": steps["qp"][0], "K4bw": launches_k4_6,
+         "K5": launches_3d["K5"], "K6": launches_3d["K6"]},
+        {"K1": err_flag, "K2": errs_k2[0], "K4": err_k4, "K4bw": err_k4_6,
+         "K5": err_k5[k5_points[0][0]], "K6": err_k6},
+        {**times_k12, "K4": k4_times["qp"], "K4bw": k4_times_6, "K5": k5_times[k5_points[0][0]],
+         "K6": k6_times}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name, "count": torch.cuda.device_count(),

@@ -66,6 +66,7 @@ from .kernels.admm_cuda import (
 from .ops.equilibrate import isotropize, ruiz_diag, scale_problem
 from .solvers.admm import SolveStats, admm_solve
 from .utils.shapes import Canon, canon_like, canon_problem, fold_vmapped, unfold_vmapped
+from .utils.staging import capture_error, capturing
 
 __all__ = [
     "solve_qp",
@@ -134,13 +135,19 @@ def _device(device) -> torch.device:
 
 def _use_kernel(P: torch.Tensor, q: torch.Tensor, cfg: SolverConfig) -> bool:
     """Forward dispatch, the counterpart of the JAX package's
-    ``api.py::_use_pallas``, decided from shapes, dtype and config alone
-    (never from a kernel's error):
+    ``api.py::_use_pallas``: K1 (its plain version on a CPU tensor) iff
+    ``_engine_reason`` finds no reason to take the eager engine."""
+    return _engine_reason(P, q, cfg) is None
 
-      * ``backend='pallas'``: K1 (its plain version on a CPU tensor), in
-        float32 whatever the inputs' dtype, as the JAX package's kernel path
-        (``_forward`` casts the result back); with ``accel`` it raises
-        ``ValueError``, as in the JAX package;
+
+def _engine_reason(P: torch.Tensor, q: torch.Tensor, cfg: SolverConfig) -> Optional[str]:
+    """The forward dispatch's rules, decided from shapes, dtype and config
+    alone (never from a kernel's error): None where the solve takes K1, else
+    why it takes the eager engine, in words (the capture guard's message):
+
+      * ``backend='pallas'``: K1, in float32 whatever the inputs' dtype, as
+        the JAX package's kernel path (``_forward`` casts the result back);
+        with ``accel`` it raises ``ValueError``, as in the JAX package;
       * ``backend='xla'``: the eager engine;
       * ``backend='auto'``: K1 iff P is dense, q is float32, no
         ``axis_name``, no ``accel``, and K1 launches at this n on a Hopper
@@ -157,16 +164,20 @@ def _use_kernel(P: torch.Tensor, q: torch.Tensor, cfg: SolverConfig) -> bool:
                 "SolverConfig.accel is not supported by the pallas backend; "
                 "use backend='xla' (or 'auto', which avoids the kernel)."
             )
-        return True
+        return None
     if cfg.backend != "auto":
-        return False
-    return (
-        P.ndim == 3
-        and q.dtype == torch.float32
-        and cfg.axis_name is None
-        and not cfg.accel
-        and admm_cuda.fits(q.shape[-1])
-    )
+        return f"backend={cfg.backend!r}"
+    if cfg.axis_name is not None:
+        return f"axis_name={cfg.axis_name!r} (the lockstep mode)"
+    if cfg.accel:
+        return "accel"
+    if P.ndim != 3:
+        return "a diagonal P"
+    if q.dtype != torch.float32:
+        return f"{q.dtype} inputs"
+    if not admm_cuda.fits(q.shape[-1]):
+        return f"n = {q.shape[-1]}, past K1's launch bound"
+    return None
 
 
 def which_backend(P, q, config: Optional[SolverConfig] = None) -> str:
@@ -184,10 +195,14 @@ def which_backend(P, q, config: Optional[SolverConfig] = None) -> str:
 
 def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, damp_both):
     """The solve with the given prox and stopping rule, by K1 or the eager
-    engine (``_use_kernel``), on q's device, returned in q's dtype. K1
+    engine (``_engine_reason``), on q's device, returned in q's dtype. K1
     computes in float32 ('auto' sends it float32 only; ``backend='pallas'``
-    casts other inputs, as the JAX package's kernel path does)."""
-    if _use_kernel(P, q, cfg):
+    casts other inputs, as the JAX package's kernel path does). Under a
+    CUDA graph capture the engine raises the guard's error
+    (``utils/staging.py``): it reads its stopping test on the host every
+    iteration."""
+    reason = _engine_reason(P, q, cfg)
+    if reason is None:
         c = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
         l, st = admm_solve_cuda(
             c(P), c(q), c(ws), prox_kind, tuple(map(c, prox_args)), cfg,
@@ -196,6 +211,11 @@ def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, d
         dt = q.dtype
         return l.to(dt), st._replace(res_prim=st.res_prim.to(dt), res_dual=st.res_dual.to(dt),
                                      rho=st.rho.to(dt))
+    if capturing():
+        raise capture_error(
+            "the eager ADMM engine (solvers/admm.py)",
+            f"this solve takes it for {reason}, and it tests convergence on "
+            "the host every iteration")
     return admm_solve(P, q, ws, prox_fn(prox_kind, prox_args), cfg,
                       qcqp_stopping=qcqp_stopping, damp_both_taus=damp_both)
 

@@ -40,6 +40,7 @@ from ..api import _device, solve_box_qp, solve_qcqp, solve_qp, solve_signed_box_
 from ..config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig
 from ..ops.linalg import spd_cholesky_solve
 from ..utils.shapes import canon_like, canon_problem
+from ..utils.staging import capture_error, capturing
 from . import kkt
 
 __all__ = [
@@ -55,7 +56,12 @@ __all__ = [
 
 def _solve_multi(A: torch.Tensor, rhs: torch.Tensor, spd: bool = False) -> torch.Tensor:
     """Batched multi-right-hand-side solve, A (B, m, m), rhs (B, m, k) ->
-    (B, m, k): one Cholesky (SPD) or one LU for all k columns."""
+    (B, m, k): one Cholesky (SPD) or one LU for all k columns. Both check
+    their factor on the host, so under a CUDA graph capture this raises the
+    guard's error (``utils/staging.py``) instead."""
+    if capturing():
+        raise capture_error("the Jacobians' solve (diff/jacobian.py::_solve_multi)",
+                            "its Cholesky or LU checks the factor on the host")
     if spd:
         return spd_cholesky_solve(A, rhs)
     return torch.linalg.solve(A, rhs)

@@ -189,6 +189,8 @@ def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches`` (a kernel wrapper's launch counter),
-    under a lock: a bare ``+= 1`` from two threads can lose one."""
+    under a lock: a bare ``+= 1`` from two threads can lose one. It runs in
+    Python where the wrapper launches, so a launch recorded in a CUDA graph
+    counts once, at capture, and the graph's replays count nothing."""
     with _count_lock:
         wrapper.launches += 1

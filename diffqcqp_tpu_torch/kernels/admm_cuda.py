@@ -400,7 +400,8 @@ def admm_solve_cuda(
     CPU tensors go to ``admm_solve_plain``. CUDA tensors must be contiguous
     float32 on one device; the kernel is launched on the current stream (no
     synchronisation) or this raises. ``admm_solve_cuda.launches`` counts the
-    launches.
+    launches this wrapper issues or, inside a CUDA graph capture, records:
+    a replay of the graph runs the kernel again and counts nothing.
     """
     tensors = (P, q, warm_start) + tuple(prox_args)
     _check(P, q, warm_start, prox_kind, prox_args, cfg)

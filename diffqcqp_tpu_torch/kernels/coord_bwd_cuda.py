@@ -202,7 +202,9 @@ def coord_kkt_bwd_fused_cuda(
     CPU tensors go to ``coord_kkt_bwd_fused_plain``. CUDA tensors must be
     contiguous float32 on one device; the kernel is launched on the current
     stream (no synchronisation) or this raises. ``coord_kkt_bwd_fused_cuda.
-    launches`` counts the launches.
+    launches`` counts the launches this wrapper issues or, inside a CUDA
+    graph capture, records: a replay of the graph runs the kernel again and
+    counts nothing.
     """
     bounds = _bounds(kind, l_min, l_max, v_sign)
     tensors = (P, q, l, g) + bounds

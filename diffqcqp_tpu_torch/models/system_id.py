@@ -13,7 +13,14 @@ defaults b1 = 0.9, b2 = 0.999, eps = 1e-8 are torch's):
         loss = model.train_step(target)
 
 Every solve runs on the model's ``device`` (the card by default, raising
-without CUDA; ``device="cpu"`` for the plain path). ``params_from_numpy``
+without CUDA; ``device="cpu"`` for the plain path). On the card
+``train_step`` is staged, as the JAX package's ``jax.jit(self._train_step)``:
+forward, backward and a capturable Adam step are captured as one CUDA graph
+(``utils/staging.py``) after a few eager steps and replayed from then on.
+Only the kernel route can be staged (``kernel_route``: K1 forward, K4 or K2
+backward); a card model whose problem takes another route (a diagonal P,
+float64, ``accel``, ``backend='xla'``, n past the kernels' bounds) trains
+eagerly, as does every model on the CPU. ``params_from_numpy``
 carries the JAX package's parameters (``QPSystemIDParams`` /
 ``QCQPSystemIDParams`` of arrays) into the port's.
 """
@@ -26,9 +33,12 @@ from typing import NamedTuple, Optional, Union
 import torch
 from torch import nn
 
-from ..api import solve_qcqp, solve_qp
+from ..api import _use_kernel, solve_qcqp, solve_qp
 from ..config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig
-from ..utils.shapes import fields_from_numpy
+from ..diff.kkt import _use_fused_kernel
+from ..kernels import coord_bwd_cuda, qcqp_bwd_cuda
+from ..utils.shapes import canon_problem, fields_from_numpy
+from ..utils.staging import Staged, staged
 
 __all__ = [
     "QPSystemIDParams",
@@ -36,6 +46,7 @@ __all__ = [
     "qp_params_to_problem",
     "qcqp_params_to_problem",
     "params_from_numpy",
+    "kernel_route",
     "SystemID",
 ]
 
@@ -82,11 +93,28 @@ def params_from_numpy(p, device="cuda", dtype: Optional[torch.dtype] = None) -> 
                              p, device, dtype)
 
 
+def kernel_route(kind: str, params: Params, config: SolverConfig) -> bool:
+    """Whether a training step of ``params`` takes the kernel route both
+    ways, K1 forward and K4 (QP) or K2 (QCQP) backward (``api._use_kernel``,
+    ``kkt._use_fused_kernel``): the one route a CUDA graph can hold. Decided
+    from shapes, dtype and config, as the dispatch is, on any device."""
+    if config.accel:
+        return False
+    with torch.no_grad():
+        P, q = (qp_params_to_problem if kind == "qp" else qcqp_params_to_problem)(params)[:2]
+        c = canon_problem(P, q)
+    fits = coord_bwd_cuda.fits if kind == "qp" else qcqp_bwd_cuda.fits
+    return _use_kernel(c.P, c.q, config) and _use_fused_kernel(c.P, c.q, config, fits)
+
+
 class SystemID(nn.Module):
     """Adam system identification over the differentiable solvers: the
     parameters (``params``) are the module's ``nn.Parameter``s, set by
     ``init_qp`` / ``init_qcqp`` or ``set_params``, each of which also makes
-    a fresh ``torch.optim.Adam`` over them (``opt``)."""
+    a fresh ``torch.optim.Adam`` over them (``opt``) and drops any captured
+    step. Where the step is staged (on the card, on the kernel route) the
+    Adam is ``capturable=True``, its state on the device, so that the graph
+    can update it in place."""
 
     def __init__(
         self,
@@ -105,6 +133,7 @@ class SystemID(nn.Module):
         self.device = device
         self._fields = (QPSystemIDParams if kind == "qp" else QCQPSystemIDParams)._fields
         self.opt: Optional[torch.optim.Adam] = None
+        self._staged_step: Optional[Staged] = None
 
     def set_params(self, params: Params) -> Params:
         """Take ``params`` (the kind's named tuple of tensors) as the model's
@@ -114,7 +143,10 @@ class SystemID(nn.Module):
                              f"got {params._fields}")
         for name, x in zip(self._fields, params):
             self.register_parameter(name, nn.Parameter(torch.as_tensor(x, device=self.device)))
-        self.opt = torch.optim.Adam(self.parameters(), lr=self.learning_rate)
+        stage = (torch.device(self.device).type == "cuda"
+                 and kernel_route(self.kind, self.params, self.config))
+        self.opt = torch.optim.Adam(self.parameters(), lr=self.learning_rate, capturable=stage)
+        self._staged_step = staged(self._train_step) if stage else None
         return self.params
 
     @property
@@ -159,12 +191,20 @@ class SystemID(nn.Module):
         """Mean squared error of the solution against ``target``."""
         return torch.mean((self() - target) ** 2)
 
-    def train_step(self, target: torch.Tensor) -> torch.Tensor:
-        """One Adam step; returns the loss before it (detached)."""
-        if self.opt is None:
-            raise RuntimeError("no parameters: call init_qp, init_qcqp or set_params first")
+    def _train_step(self, target: torch.Tensor) -> torch.Tensor:
+        """One Adam step, eagerly; returns the loss before it (detached)."""
         self.opt.zero_grad(set_to_none=True)
         loss = self.loss(target)
         loss.backward()
         self.opt.step()
         return loss.detach()
+
+    def train_step(self, target: torch.Tensor) -> torch.Tensor:
+        """One Adam step; returns the loss before it (detached; where the
+        step is staged, a clone of the graph's loss, see the module's
+        docstring)."""
+        if self.opt is None:
+            raise RuntimeError("no parameters: call init_qp, init_qcqp or set_params first")
+        if self._staged_step is None:
+            return self._train_step(target)
+        return self._staged_step(target)

@@ -1,0 +1,202 @@
+"""Staging: a step captured once as a CUDA graph and replayed, the port's
+counterpart of the JAX package's ``jax.jit`` for the kernel route.
+
+    step = staged(fn)
+    out = step(P, q, l_n, mu)       # CUDA tensors: a graph replay per call
+
+The JAX package runs its main path staged: bench.py times ``jax.jit`` of
+``value_and_grad``, ``SystemID`` jits its training step. Eagerly, the port's
+step is Python, autograd and 20-30 small launches, and at N = 24 the card
+idles most of it. ``staged(fn)`` records the whole step, forward, backward
+and optimiser update included, in one ``torch.cuda.CUDAGraph``; a call then
+costs the input copies, one graph launch and the output copies.
+
+The contract, as ``jax.jit``'s: ``fn`` takes tensors only (a pytree of
+them: tuples, lists, dicts, named tuples), returns tensors only, and reads
+nothing on the host (no ``.item()``, ``bool(tensor)``, ``nonzero``, no
+print of a value): inside a capture such a read fails. The kernel route of
+the solvers (dense float32 P within the kernels' bounds, ``backend`` 'auto'
+or 'pallas', no ``accel``, no ``axis_name``) meets it. The eager engine
+and the generic adjoint route's Newton-Schulz inverse, Cholesky and LU read
+their stopping tests or factor checks on the host: under a capture they
+raise a ``RuntimeError`` that names the route and the reason
+(``capture_error``), before anything is recorded. Nothing falls back
+to an eager run.
+
+Per signature of the arguments (each tensor's shape, dtype, device and
+``requires_grad``, and the pytree's structure; ``signature``), the first
+``WARMUP`` calls run ``fn`` eagerly on a side stream, as PyTorch's
+whole-network capture recipe does (lazy state such as an optimiser's
+moments is made there); the next call captures ``fn`` once on static copies
+of its inputs and replays it; every later call copies its inputs into those
+buffers, replays, and returns clones of the outputs, detached (the graph's
+own outputs are overwritten by the next replay). A new signature gets a
+graph of its own, as ``jit`` retraces. Each call is one call of ``fn``: a
+warm-up call returns its real result, so an optimiser step taken in
+warm-up is a real step, and the capture itself computes nothing (its call
+replays once). With CPU tensors ``fn`` runs eagerly and nothing is
+captured.
+
+State that ``fn`` reads or writes outside its arguments (a module's
+parameters, an optimiser's moments) is captured by address: it must keep
+its storage between calls (``torch.optim.Adam(..., capturable=True)``
+does), and a replay updates it in place.
+
+The kernels' launch counters (``launches`` on each wrapper) are Python
+integers, bumped where a wrapper launches: they count the eager calls and
+the launches recorded at capture, and a replay adds nothing.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable
+
+import torch
+from torch.utils import _pytree as pytree
+
+__all__ = ["WARMUP", "Staged", "capture_error", "capturing", "signature", "staged"]
+
+WARMUP = 3      # eager calls of a signature before its capture (PyTorch's recipe)
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False without
+    CUDA)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def capture_error(route: str, reason: str) -> RuntimeError:
+    """The guard's error for a route that reads the device on the host,
+    naming the route and why it was taken; every such route raises it
+    where ``capturing()``, before it records anything:
+
+        if capturing():
+            raise capture_error("the eager ADMM engine", "float64 inputs ...")
+    """
+    return RuntimeError(
+        f"{route} cannot run inside a CUDA graph capture: {reason}. Only the kernel route "
+        "(dense float32 P within the kernels' bounds, backend 'auto' or 'pallas', no accel, "
+        "no axis_name) can be staged; call this solve outside the capture"
+    )
+
+
+def _leaves(tree) -> tuple[list, Any]:
+    leaves, spec = pytree.tree_flatten(tree)
+    for x in leaves:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"a staged function takes and returns tensors only, got a "
+                            f"{type(x).__name__}")
+    return leaves, spec
+
+
+def signature(*args, **kwargs) -> tuple:
+    """The key a graph is kept under: the pytree structure of the arguments
+    and each tensor's (shape, dtype, device, requires_grad)."""
+    return _key(*_leaves((args, kwargs)))
+
+
+def _key(leaves: list, spec) -> tuple:
+    return spec, tuple((tuple(x.shape), x.dtype, x.device, x.requires_grad) for x in leaves)
+
+
+def _cuda_device(leaves: list) -> torch.device | None:
+    """The one CUDA device that every tensor of ``leaves`` lies on, or None
+    where they all lie on the CPU."""
+    if not leaves:
+        raise ValueError("a staged call takes at least one tensor: its device decides between "
+                         "a graph and an eager call")
+    devices = {x.device for x in leaves}
+    if all(d.type == "cpu" for d in devices):
+        return None
+    if len(devices) != 1:
+        raise ValueError(f"a staged call takes its tensors on one CUDA device, got "
+                         f"{sorted(map(str, devices))}")
+    return devices.pop()
+
+
+class _Graph:
+    """One signature's state: its eager calls so far, then its graph with
+    the static input buffers and the graph's outputs."""
+
+    def __init__(self):
+        self.calls = 0
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.inputs: list = []
+        self.outputs: list = []
+        self.out_spec = None
+
+
+class Staged:
+    """``fn`` staged as one CUDA graph per signature; see the module's
+    docstring. ``graphs`` maps each signature captured so far to its
+    ``torch.cuda.CUDAGraph``."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self._state: dict[tuple, _Graph] = {}
+        self._side: dict[torch.device, torch.cuda.Stream] = {}
+        functools.update_wrapper(self, fn)
+
+    @property
+    def graphs(self) -> dict:
+        return {k: s.graph for k, s in self._state.items() if s.graph is not None}
+
+    def __call__(self, *args, **kwargs):
+        leaves, spec = _leaves((args, kwargs))
+        dev = _cuda_device(leaves)
+        if dev is None:
+            return self.fn(*args, **kwargs)
+        st = self._state.setdefault(_key(leaves, spec), _Graph())
+        with torch.cuda.device(dev):
+            if st.graph is None and st.calls < WARMUP:
+                st.calls += 1
+                return self._eager(dev, args, kwargs)
+            if st.graph is None:
+                self._capture(st, leaves, spec)
+            return self._replay(st, leaves)
+
+    def _eager(self, dev: torch.device, args, kwargs):
+        """One warm-up call on the side stream, ordered after the caller's
+        stream and before its next work."""
+        cur = torch.cuda.current_stream(dev)
+        if dev not in self._side:
+            self._side[dev] = torch.cuda.Stream(dev)
+        side = self._side[dev]
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self.fn(*args, **kwargs)
+        cur.wait_stream(side)
+        for x in _leaves(out)[0]:
+            x.record_stream(cur)        # made on the side stream, used on the caller's
+        return out
+
+    def _capture(self, st: _Graph, leaves: list, spec) -> None:
+        inputs = [x.detach().clone().requires_grad_(x.requires_grad) for x in leaves]
+        args, kwargs = pytree.tree_unflatten(inputs, spec)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self.fn(*args, **kwargs)
+        st.outputs, st.out_spec = _leaves(out)
+        st.inputs, st.graph = inputs, graph
+
+    @staticmethod
+    def _replay(st: _Graph, leaves: list):
+        with torch.no_grad():
+            for buf, x in zip(st.inputs, leaves):
+                buf.copy_(x)
+        st.graph.replay()
+        return pytree.tree_unflatten([x.detach().clone() for x in st.outputs], st.out_spec)
+
+
+def staged(fn: Callable) -> Staged:
+    """``fn`` staged as one CUDA graph per signature (``Staged``), the
+    counterpart of ``jax.jit`` for the kernel route; usable as a decorator:
+
+        @staged
+        def step(P, q, l_n, mu):
+            xs = [x.detach().requires_grad_() for x in (P, q, l_n, mu)]
+            l = solve_qcqp(*xs, config=cfg)
+            return l, torch.autograd.grad((l * l).sum(), xs)
+    """
+    return Staged(fn)

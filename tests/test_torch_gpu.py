@@ -12,7 +12,10 @@ import pytest
 import torch
 
 import diffqcqp_tpu_torch as dqt
+from diffqcqp_tpu_torch.models.system_id import SystemID
 from diffqcqp_tpu_torch.parallel import make_batch_mesh, solve_qcqp_sharded
+from diffqcqp_tpu_torch.utils import staged
+from diffqcqp_tpu_torch.utils.staging import WARMUP
 
 pytestmark = pytest.mark.gpu
 
@@ -61,3 +64,79 @@ def test_sharded_solve_runs_on_the_callers_stream(card, lockstep):
     torch.cuda.synchronize(card)
     assert bool(st.converged.all())
     assert float((l - l_ref).abs().max()) <= 1e-5
+
+
+FLAG_CFG = dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0, power_iters=10,
+                                     rho_update_period=24)
+
+
+def _flagship_step(P, q, l_n, mu):
+    """bench.py's step: the solve and the gradient of sum(l^2) for P, q,
+    l_n and mu, with the stats."""
+    xs = [x.detach().requires_grad_() for x in (P, q, l_n, mu)]
+    l, st = dqt.solve_qcqp_with_stats(*xs, config=FLAG_CFG)
+    return l, st, torch.autograd.grad((l * l).sum(), xs)
+
+
+def test_staged_flagship_step_is_the_eager_step_bit_for_bit(card):
+    """The flagship step at B=64 staged as one CUDA graph: past its warm-up
+    calls (eager) the capture and every replay give the eager step's l,
+    stats and gradients bit for bit, on two input sets (q, then q + 1e-5 k
+    as bench.py perturbs it)."""
+    P, q, l_n, mu = (torch.tensor(x, device=card, dtype=torch.float32) for x in _flagship(64))
+    step = staged(_flagship_step)
+    for k in range(6):
+        xs = (P, q + 1e-5 * (k % 2), l_n, mu)
+        got, want = step(*xs), _flagship_step(*xs)
+        leaves = torch.utils._pytree.tree_leaves
+        assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want))), k
+    assert len(step.graphs) == 1
+
+
+def test_float64_solve_raises_the_guard_under_capture(card):
+    """The eager engine (float64 here) refuses a capture with the guard's
+    error, before it records anything."""
+    P, q, l_n, mu = (torch.tensor(x, device=card, dtype=torch.float64) for x in _flagship(8))
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="eager ADMM engine"):
+        with torch.cuda.graph(g):
+            dqt.solve_qcqp(P, q, l_n, mu, config=FLAG_CFG)
+
+
+@pytest.mark.parametrize("kind, diag, dtype", [
+    ("qp", True, torch.float32),            # a diagonal P: the eager engine, no kernel
+    ("qp", False, torch.float64),           # float64: the eager engine
+    ("qcqp", False, torch.float64),
+])
+def test_system_id_off_the_kernel_route_trains_eagerly_on_the_card(card, kind, diag, dtype):
+    """A card model whose problem takes the eager engine stages nothing (a
+    plain Adam) and trains past the warm-up steps, its loss falling."""
+    m = SystemID(kind=kind, config=(dqt.QP_DEFAULTS if kind == "qp" else FLAG_CFG).replace(
+        eps=1e-7), learning_rate=5e-2, device=card)
+    g = torch.Generator().manual_seed(2)
+    if kind == "qp":
+        m.init_qp(g, batch=8, n=6, diag=diag, dtype=dtype)
+    else:
+        m.init_qcqp(g, batch=8, nc=3, dtype=dtype)
+    target = torch.rand(8, 6, generator=torch.Generator().manual_seed(3), dtype=dtype) * 0.1
+    losses = [float(m.train_step(target.to(card))) for _ in range(WARMUP + 3)]
+    assert m._staged_step is None and m.opt.defaults["capturable"] is False
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_system_id_on_the_kernel_route_is_staged_on_the_card(card):
+    """A dense float32 card model stages its step: one graph after the
+    warm-up, with the losses of the same model trained eagerly (a
+    capturable Adam on both sides)."""
+    def model():
+        m = SystemID(kind="qcqp", config=FLAG_CFG, learning_rate=1e-2, device=card)
+        m.init_qcqp(torch.Generator().manual_seed(4), batch=64, nc=12)
+        return m
+
+    staged_m, eager_m = model(), model()
+    assert staged_m._staged_step is not None and staged_m.opt.defaults["capturable"] is True
+    target = torch.rand(64, 24, generator=torch.Generator().manual_seed(5)).to(card) * 0.1
+    for k in range(WARMUP + 3):
+        got, want = staged_m.train_step(target), eager_m._train_step(target)
+        assert torch.equal(got, want), k
+    assert len(staged_m._staged_step.graphs) == 1

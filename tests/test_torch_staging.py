@@ -1,0 +1,299 @@
+"""Staging (``utils/staging.py``) and the capture guard, on the CPU:
+
+  * the guard, with ``torch.cuda.is_current_stream_capturing`` patched to
+    report a capture: a solve that takes the eager engine raises the
+    guard's ``RuntimeError`` naming the engine and the reason (float64, a
+    diagonal P, dense n = 170, ``accel``, ``backend='xla'``,
+    ``axis_name``), and so does the generic adjoint route where it reaches
+    a Newton-Schulz inverse, a Cholesky or an LU; the float32 dense kernel
+    route (the plain K1, K2 and K4 here) runs and gives the bits it gives
+    without the patch;
+  * ``staged`` on CPU tensors is ``fn``, call for call, and captures
+    nothing; its signature key separates shape, dtype and
+    ``requires_grad``; it takes tensors only;
+  * ``SystemID`` on the CPU keeps a non-capturable Adam and no staged step,
+    with the JAX package's losses (as ``tests/test_torch_models.py``);
+    ``system_id.kernel_route``, which decides whether a card model stages
+    its step, names the kernel route only (dense float32 P within K1's and
+    K4's or K2's bounds).
+
+The staged step on a card is ``tests/test_torch_gpu.py``'s and
+``chip_smoke.py``'s (phases 3n, 4n).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from torch.utils import _pytree as pytree
+
+import diffqcqp_tpu_torch as dqt
+from diffqcqp_tpu_torch.diff import kkt
+from diffqcqp_tpu_torch.models import system_id as tsid
+from diffqcqp_tpu_torch.utils import staged
+from diffqcqp_tpu_torch.utils.staging import Staged, signature
+
+CFG = dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=400)
+
+
+def _problems(b, nc, seed=0, dtype=np.float32):
+    """bench.py's QCQP generator."""
+    n = 2 * nc
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((b, n, n)) / np.sqrt(n)
+    P = s @ s.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    q = rng.standard_normal((b, n)) * 0.5
+    l_n = rng.random((b, nc)) * 0.5 + 0.05
+    mu = rng.random((b, nc)) * 0.5 + 0.05
+    return [torch.tensor(x.astype(dtype)) for x in (P, q, l_n, mu)]
+
+
+def _report_capture(monkeypatch):
+    """Make the CPU report a CUDA graph capture in progress."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+
+
+@pytest.fixture
+def capture(monkeypatch):
+    _report_capture(monkeypatch)
+
+
+def _qcqp(xs, **kw):
+    return dqt.solve_qcqp(*xs, config=CFG, device="cpu", **kw)
+
+
+ENGINE_CASES = {
+    "float64": (lambda xs: _qcqp([x.double() for x in xs]), "torch.float64 inputs"),
+    "diagonal P": (lambda xs: _qcqp([torch.diagonal(xs[0], dim1=1, dim2=2).contiguous(),
+                                     *xs[1:]]), "a diagonal P"),
+    "n=170": (lambda _: _qcqp(_problems(2, 85)), "n = 170, past K1's launch bound"),
+    "accel": (lambda xs: dqt.solve_qcqp(
+        *xs, config=CFG.replace(accel=True, adaptive_rho=False, alpha_relax=1.0),
+        device="cpu"), "accel"),
+    "backend=xla": (lambda xs: dqt.solve_qcqp(*xs, config=CFG.replace(backend="xla"),
+                                              device="cpu"), "backend='xla'"),
+    "axis_name": (lambda xs: _qcqp(xs, axis_name="batch"), "axis_name='batch'"),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_guard_refuses_the_engine_under_capture(capture, case):
+    solve, reason = ENGINE_CASES[case]
+    with pytest.raises(RuntimeError, match="eager ADMM engine") as err:
+        solve(_problems(3, 3))
+    assert reason in str(err.value)
+    assert "cannot run inside a CUDA graph capture" in str(err.value)
+
+
+def _generic_qcqp(xs, dtype):
+    """The generic QCQP adjoint with the duals given, at the problems' l."""
+    P, q, l_n, mu = (x.to(dtype) for x in xs)
+    l = dqt.solve_qcqp(P.float(), q.float(), l_n.float(), mu.float(), config=CFG,
+                       device="cpu").to(dtype)
+    r = l_n * mu
+    return lambda: kkt.qcqp_vjp(P, q, r, l, 2.0 * l, CFG, duals=kkt.qcqp_dual(P, q, r, l, CFG))
+
+
+@pytest.mark.parametrize("nc, dtype, route", [
+    (3, torch.float64, "_solve_direct"),            # nc + n = 9: the assembled system, an LU
+    (3, torch.float32, "_solve_direct"),            # float32 on the CPU: the LU as well
+    (30, torch.float64, "_qcqp_schur_vjp"),         # nc + n = 90 > 88: Cholesky of D, LU
+])
+def test_guard_refuses_the_generic_route_where_it_reads_the_host(monkeypatch, nc, dtype, route):
+    call = _generic_qcqp(_problems(2, nc), dtype)
+    call()                                          # without a capture it runs
+    _report_capture(monkeypatch)
+    with pytest.raises(RuntimeError, match=route):
+        call()
+
+
+def test_guard_refuses_the_float32_newton_schulz_inverse(capture):
+    """The QP's generic route sends a float32 SPD system on the CPU to the
+    Newton-Schulz inverse, whose stopping test reads the host."""
+    P, q = _problems(2, 3)[:2]
+    l = torch.clamp_min(torch.randn(2, 6, generator=torch.Generator().manual_seed(0)), 0)
+    with pytest.raises(RuntimeError, match="Newton-Schulz"):
+        kkt._qp_assembled_vjp(P, q, l, torch.ones_like(l), CFG)
+
+
+@pytest.mark.parametrize("name", ["trace_qp", "qp_jacobian"])
+def test_guard_refuses_traces_and_jacobians(capture, name):
+    """A solve trace steps the engine, and the Jacobians' Cholesky or LU
+    checks its factor on the host: both refuse a capture."""
+    P, q = _problems(2, 3)[:2]
+    call = {"trace_qp": lambda: dqt.debug.trace_qp(P, q, iters=3, device="cpu"),
+            "qp_jacobian": lambda: dqt.qp_jacobian(P, q, l=torch.zeros_like(q), device="cpu")}
+    with pytest.raises(RuntimeError, match="cannot run inside a CUDA graph capture"):
+        call[name]()
+
+
+def _step_qcqp(xs):
+    leaves = [x.clone().requires_grad_() for x in xs]
+    l, st = dqt.solve_qcqp_with_stats(*leaves, config=CFG, device="cpu")
+    return l, st, torch.autograd.grad((l * l).sum(), leaves)
+
+
+def _step_box(xs, signed):
+    P, q = xs[:2]
+    n = q.shape[-1]
+    rng = np.random.default_rng(9)
+    lo = torch.tensor(-(rng.random((q.shape[0], n)) * 0.9 + 0.1), dtype=torch.float32)
+    hi = torch.tensor(rng.random((q.shape[0], n)) * 0.9 + 0.1, dtype=torch.float32)
+    leaves = [x.clone().requires_grad_() for x in (P, q, lo, hi)]
+    cfg = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=2000)
+    if signed:
+        v = torch.tensor(rng.standard_normal((q.shape[0], n)), dtype=torch.float32)
+        l, st = dqt.solve_signed_box_qp_with_stats(*leaves, v, config=cfg, device="cpu")
+    else:
+        l, st = dqt.solve_box_qp_with_stats(*leaves, config=cfg, device="cpu")
+    return l, st, torch.autograd.grad((l * l).sum(), leaves)
+
+
+def _step_qp(xs):
+    leaves = [x.clone().requires_grad_() for x in xs[:2]]
+    l, st = dqt.solve_qp_with_stats(*leaves, config=dqt.QP_DEFAULTS.replace(eps=1e-7),
+                                    device="cpu")
+    return l, st, torch.autograd.grad((l * l).sum(), leaves)
+
+
+STEPS = {"qcqp (K1, K2)": _step_qcqp, "qp (K1, K4)": _step_qp,
+         "box (K1, K4)": lambda xs: _step_box(xs, False),
+         "signed box (K1, K4)": lambda xs: _step_box(xs, True)}
+
+
+@pytest.mark.parametrize("name", list(STEPS))
+def test_guard_lets_the_kernel_route_through(monkeypatch, name):
+    """The float32 dense route (the plain versions of K1 and K2 or K4 on the
+    CPU) runs under the patched capture, with the bits it gives without."""
+    xs = _problems(4, 4, seed=2)
+    want = STEPS[name](xs)
+    _report_capture(monkeypatch)
+    got = STEPS[name](xs)
+    assert all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)))
+
+
+def test_staged_on_the_cpu_is_fn_and_captures_nothing():
+    calls = []
+
+    def step(P, q, l_n, mu):
+        calls.append(1)
+        return _step_qcqp((P, q, l_n, mu))
+
+    s = staged(step)
+    assert isinstance(s, Staged) and s.__name__ == "step"
+    for seed in (0, 1, 2, 3, 4):                   # past the warm-up count
+        xs = _problems(3, 3, seed=seed)
+        got, want = s(*xs), _step_qcqp(xs)
+        assert all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(got),
+                                                     pytree.tree_leaves(want)))
+    assert len(calls) == 5 and s.graphs == {}
+
+
+def test_staged_as_a_decorator():
+    @staged
+    def f(a, b):
+        """The sum."""
+        return {"sum": a + b}
+
+    assert isinstance(f, Staged) and f.__doc__ == "The sum."
+    assert torch.equal(f(torch.ones(2), torch.ones(2))["sum"], torch.full((2,), 2.0))
+
+
+def test_staged_takes_tensors_only():
+    s = staged(lambda a, k: a * k)
+    with pytest.raises(TypeError, match="tensors only"):
+        s(torch.ones(2), 3.0)
+    with pytest.raises(TypeError, match="tensors only"):
+        signature(torch.ones(2), "x")
+
+
+def test_signature_separates_shape_dtype_and_requires_grad():
+    x = torch.zeros(4, 6)
+    base = signature(x, (x, x))
+    assert base == signature(torch.ones(4, 6), (torch.ones(4, 6), torch.ones(4, 6)))
+    assert base != signature(torch.zeros(5, 6), (x, x))                       # shape
+    assert base != signature(x.double(), (x, x))                              # dtype
+    assert base != signature(x.clone().requires_grad_(), (x, x))              # requires_grad
+    assert base != signature(x, [x, x])                                       # structure
+    assert base != signature(x, (x, x), w=x)                                  # keywords
+
+
+def _port_cfg(cfg):
+    return dqt.SolverConfig.from_dict(dataclasses.asdict(cfg))
+
+
+def test_system_id_on_the_cpu_is_eager_and_matches_jax():
+    """A CPU model keeps a non-capturable Adam and stages nothing, and its
+    losses and parameters over 3 Adam steps are the JAX package's (optax
+    Adam; float64 at eps=1e-10, as tests/test_torch_models.py)."""
+    pytest.importorskip("optax")
+    import jax
+    import jax.numpy as jnp
+
+    import diffqcqp_tpu as dq
+    from diffqcqp_tpu.models import system_id as jsid
+
+    jcfg = dq.QCQP_DEFAULTS.replace(eps=1e-10, max_iter=5000)
+    jm = jsid.SystemID(kind="qcqp", config=jcfg, learning_rate=1e-2)
+    params = jm.init_qcqp(jax.random.key(5), batch=4, nc=3)
+    target = np.random.default_rng(6).random((4, 6)) * 0.1
+    tm = tsid.SystemID(kind="qcqp", config=_port_cfg(jcfg), learning_rate=1e-2, device="cpu")
+    tm.set_params(tsid.params_from_numpy(params, device="cpu", dtype=torch.float64))
+    assert tm.opt.defaults["capturable"] is False and tm._staged_step is None
+    state = jm.opt.init(params)
+    for _ in range(3):
+        params, state, jl = jm.train_step(params, state, jnp.asarray(target))
+        tl = tm.train_step(torch.tensor(target))
+        assert abs(float(tl) - float(jl)) <= 1e-8
+    for name, a in zip(tm._fields, params):
+        np.testing.assert_allclose(getattr(tm, name).detach().numpy(), np.asarray(a), atol=1e-6)
+
+
+def _sysid_params(kind, n, diag=False, dtype=torch.float32):
+    m = tsid.SystemID(kind=kind, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    if kind == "qp":
+        return m.init_qp(g, batch=2, n=n, diag=diag, dtype=dtype)
+    return m.init_qcqp(g, batch=2, nc=n // 2, dtype=dtype)
+
+
+QP_CFG = dqt.QP_DEFAULTS.replace(eps=1e-7)
+ROUTE_CASES = {
+    # kind, n, diag, dtype, config, takes the kernel route
+    "qp dense float32": ("qp", 8, False, torch.float32, QP_CFG, True),
+    "qcqp dense float32": ("qcqp", 8, False, torch.float32, CFG, True),
+    "qp at K4's bound n=168": ("qp", 168, False, torch.float32, QP_CFG, True),
+    "qcqp at K2's bound n=150": ("qcqp", 150, False, torch.float32, CFG, True),
+    "qp diagonal P": ("qp", 8, True, torch.float32, QP_CFG, False),
+    "qp float64": ("qp", 8, False, torch.float64, QP_CFG, False),
+    "qcqp float64": ("qcqp", 8, False, torch.float64, CFG, False),
+    "qp accel": ("qp", 8, False, torch.float32,
+                 QP_CFG.replace(accel=True, adaptive_rho=False, alpha_relax=1.0), False),
+    "qcqp backend=xla": ("qcqp", 8, False, torch.float32, CFG.replace(backend="xla"), False),
+    "qp n=169, K1 but past K4": ("qp", 169, False, torch.float32, QP_CFG, False),
+    "qcqp n=152, K1 but past K2": ("qcqp", 152, False, torch.float32, CFG, False),
+    "qp n=170, past K1": ("qp", 170, False, torch.float32, QP_CFG, False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_system_id_stages_only_the_kernel_route(case):
+    """``kernel_route`` is what ``SystemID.set_params`` asks before it
+    stages a card model's step: True exactly where the forward takes K1 and
+    the backward K4 (QP) or K2 (QCQP); every other model trains eagerly."""
+    kind, n, diag, dtype, cfg, want = ROUTE_CASES[case]
+    assert tsid.kernel_route(kind, _sysid_params(kind, n, diag, dtype), cfg) is want
+
+
+@pytest.mark.parametrize("diag, dtype", [(True, torch.float32), (False, torch.float64)])
+def test_system_id_off_the_kernel_route_trains_eagerly_past_the_warm_up(diag, dtype):
+    """A diagonal-P and a float64 model keep training past ``WARMUP`` + 1
+    steps (eagerly), their losses falling as without staging."""
+    m = tsid.SystemID(kind="qp", config=QP_CFG, learning_rate=5e-2, device="cpu")
+    m.init_qp(torch.Generator().manual_seed(2), batch=4, n=6, diag=diag, dtype=dtype)
+    target = torch.rand(4, 6, generator=torch.Generator().manual_seed(3), dtype=dtype) * 0.1
+    losses = [float(m.train_step(target)) for _ in range(6)]
+    assert m._staged_step is None and m.opt.defaults["capturable"] is False
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
