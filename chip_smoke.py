@@ -6,6 +6,10 @@
     python3 chip_smoke.py staged     # phase 1, then phases 3n and 4n alone, the
                                      # kernels line (launches read at the staged
                                      # steps' captures) and the result line
+    python3 chip_smoke.py control    # phase 1, then phases 3o and 4o alone; no
+                                     # result line
+    python3 chip_smoke.py eager ROOT # the port at ROOT times the engine's eager
+                                     # paths (``eager_run``); no result line
 
 Builds the port's CUDA kernels from ``diffqcqp_tpu_torch/kernels/csrc`` and
 drives the port's paths: the friction-cone QCQP forward solve and the
@@ -226,11 +230,10 @@ block-wide path). Phases, each of which fails the run if its check fails:
   4f. timing of this slice's paths, each as the steps above (CUDA events,
      warm-up, median of 5) with its device time by kernel and the card's
      idle share: the config-4 system-ID step (problems/s = 4096 / step);
-     the contact rollout warm and cold (steps/s, mean iterations per step);
-     the contact system-ID step (``make_system_id_step``, B=2048, T=50);
-     ``qcqp_jacobian`` at the flagship, l solved inside (K1) and given, held
-     in float64 against ``qcqp_vjp`` of a random cotangent (1e-7); the
-     diagonal-P flagship QCQP step;
+     ``qcqp_jacobian`` at the flagship, l given, held in float64 against
+     ``qcqp_vjp`` of a random cotangent (1e-7) (the rollout, the contact
+     system-ID step, the diagonal-P step and ``qcqp_jacobian`` with l solved
+     inside: phase 4o);
   3j. the sharded, bucketed and resumed flagship paths and the traces
      (``parallel``, ``utils``, ``debug``), each with the launch counters
      zeroed just before and read just after:
@@ -323,21 +326,53 @@ block-wide path). Phases, each of which fails the run if its check fails:
      bit for bit on the inputs and on q + 1e-5; the flagship's graph (bucket
      4096) replayed for B=4000 and 3000 padded by ``pad_to_bucket``, bit for
      bit the eager bucketed step; the guard's error under capture for the
-     float64 flagship, a diagonal P and ``backend='xla'`` (B=256, staged with
-     one warm-up call) and for the generic route's LU; the config-4
+     float64 flagship and ``backend='xla'`` (B=256, staged with the warm-up
+     calls: the spectral mode); the config-4
      system-ID step (forward, backward, ``Adam(capturable=True)``) staged
      against the same step run eagerly over 20 steps (K1 2, K4 1, K2 1 at
      capture, none a replay; the same kernels in a profiled replay), and
      ``SystemID(kind="qcqp").train_step`` (staged by the model on the card)
      on config 4's QCQP half against the same model stepped eagerly (K1 1,
      K2 1): losses and parameters bit for bit (whether S S^T in a replay is
-     the eager product's bits is printed); a diagonal-P QP and a float64
-     QCQP ``SystemID`` on the card stage nothing and train eagerly past the
-     warm-up steps;
+     the eager product's bits is printed); a float64 QCQP ``SystemID`` (N=24:
+     the spectral mode) on the card stages nothing and trains eagerly past
+     the warm-up steps, and a diagonal-P QP one stages its step;
   4n. each staged step beside its eager step, both through ``timed_step``
      (20 back-to-back calls a sample, median of 5; device time and the
      card's idle share), and a line each: eager and staged ms, device ms and
      idle share, and their ratio;
+  3o. the engine's loops on the card as CUDA graph conditional nodes
+     (``utils/control.py``; phase 1 first prints ``torch.version.cuda``,
+     nvcc's and the driver's versions and fails without CUDA 12.4+ or the
+     private PyTorch APIs it takes), each path staged (``utils.staged``):
+     the config-11 rollout warm and cold (B=2048, T=50), the diagonal-P
+     flagship step, the QCQP at n=170 (``kkt_problems``, B=256) and the QP
+     at N=176 (B=256) past K1's bound, the float64 QCQP step at B=256 N=96
+     (the Cholesky-inverse mode), the generic route's float64 LU
+     (``qcqp_vjp(duals=)``) and Cholesky (the QP's SPD system) at B=4096
+     N=24, ``qcqp_jacobian`` at the flagship (K1 inside) and ``trace_qcqp``
+     (64 iterations, ``linsolve='chol'``): past the warm-up calls the
+     capture records the kernels it must (K1 once in the Jacobian, none
+     elsewhere) and the WHILE nodes it must at the graph's top level (100
+     a rollout, 1 the diagonal-P and float64 steps and the trace, 3 the
+     n=170 and N=176 steps), which the kept graph holds
+     (``control.node_counts``); on two input sets the replay is the eager
+     run bit for bit (l, stats, gradients, trajectories) with each set's
+     own eager iterations, which differ; where cuSOLVER's LU stands in
+     for MAGMA's under the capture (the n=170 and float64 Schur routes,
+     the generic float64 LU) the replay is held to the referee bars
+     instead, and the phase names those paths; a replay under
+     ``set_sync_debug_mode("error")`` reads nothing on the host. Then the
+     contact system-ID step (``make_system_id_step``, staged by the
+     module) against the same ``Adam(capturable=True)`` step run eagerly
+     over 20 steps: losses and parameters bit for bit, 100 WHILE nodes,
+     no host read; and the routes that stay guarded refuse a capture: the
+     spectral mode (the float64 flagship step, ``trace_qcqp`` at its
+     default linsolve) and ``axis_name``;
+  4o. each path of phase 3o eagerly and staged through ``timed_step``
+     (median of 3; device time by kernel; where the graph holds
+     conditional nodes the profiler does not count their bodies' kernels
+     reliably, so the staged line gives the wall time alone);
   5. one JSON line of every ported kernel (K4's block-wide path at config 6
      its own entry), then as the last line ``{"ok": true, "device": {...}}``.
 
@@ -349,6 +384,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -2002,43 +2038,17 @@ def phase_3i(kernels, rollout):
         raise AssertionError("a contact physics probe failed")
 
 
-def phase_4f(dqt, smi, sysid_step, rollout, diag_step, flag, cfg):
+def phase_4f(dqt, smi, sysid_step, flag, cfg):
     """Phase 4's timings of this slice's paths: the config-4 system-ID step;
-    the contact rollout warm and cold (steps/s and mean iterations per
-    step); the contact system-ID step (``make_system_id_step``, lr 0.05,
-    from mass 1 and mu 0.5 towards the rollout's own trajectory);
-    ``qcqp_jacobian`` at the flagship (l solved inside: K1, and l given) and
-    held against ``qcqp_vjp`` in float64; the diagonal-P flagship step."""
+    ``qcqp_jacobian`` at the flagship, l given, and held against
+    ``qcqp_vjp`` in float64. The rollout, the contact system-ID step, the
+    diagonal-P step and ``qcqp_jacobian`` with l solved inside are timed
+    eagerly and staged in phase 4o."""
     from diffqcqp_tpu_torch.diff import kkt
-    from diffqcqp_tpu_torch.models import contact_sim as cs
 
     timed_step("config-4 system-ID step, B=2048 QPs + 2048 QCQPs N=24 (forward, backward, "
                "Adam)", sysid_step, smi, calls=20, problems=4096)
-    params, state0, f = rollout
-    T, B = f.shape[:2]
-    for warm in (True, False):
-        roll = lambda warm=warm: cs.simulate(params, state0, f, warm_start=warm,  # noqa: E731
-                                             return_stats=True)
-        _, _, st = roll()
-        ms, _ = timed_step(f"contact rollout B={B} T={T} warm_start={warm}", roll, smi)
-        log(f"    = {T / ms * 1e3:.2f} steps/s, {B * T / ms * 1e3:.1f} body-steps/s; mean "
-            f"iterations per step (steps 1..T-1) QP {float(st['qp_iters'][1:].mean()):.3f}, QCQP "
-            f"{float(st['qcqp_iters'][1:].mean()):.3f}")
-    _, traj = cs.simulate(params, state0, f)
-    raw = {"log_mass": torch.zeros(B, device=f.device, requires_grad=True),
-           "logit_mu": torch.zeros(B, device=f.device, requires_grad=True)}
-    cstep, _ = cs.make_system_id_step(raw, state0, f, traj.x.detach(), learning_rate=0.05)
-    losses = []
-    timed_step(f"contact system-ID step B={B} T={T} (rollout, backward through {2 * T} solves, "
-               f"Adam)", lambda: losses.append(float(cstep())), smi)
-    l0, l1 = losses[0], losses[-1]
-    log(f"    contact system-ID loss {l0:.6e} -> {l1:.6e} over {len(losses)} Adam steps")
-    if not (np.isfinite(l1) and l1 < l0):
-        raise AssertionError("the contact system-ID loss did not fall")
-
     P, q, l_n, mu = flag
-    timed_step("qcqp_jacobian at the flagship B=4096 N=24, l solved inside (K1)",
-               lambda: dqt.qcqp_jacobian(P, q, l_n, mu, config=cfg), smi, calls=5)
     l = dqt.solve_qcqp(P, q, l_n, mu, config=cfg)
     timed_step("qcqp_jacobian at the flagship, l given",
                lambda: dqt.qcqp_jacobian(P, q, l_n, mu, l=l, config=cfg), smi, calls=5)
@@ -2057,8 +2067,6 @@ def phase_4f(dqt, smi, sysid_step, rollout, diag_step, flag, cfg):
         f"dgamma {e_ln:.3e} (bars 1e-7: two float64 solves of systems with kappa up to ~4e7)")
     if not (e <= 1e-7 and e_ln <= 1e-7):
         raise AssertionError("qcqp_jacobian disagrees with qcqp_vjp")
-    timed_step("diagonal-P flagship QCQP step B=4096 N=24 (the eager engine and the closed form)",
-               diag_step, smi, calls=5, problems=4096)
 
 
 # ---------------------------------------------------------------------------
@@ -2582,10 +2590,10 @@ def bit_diffs(got, ref):
     from torch.utils import _pytree as pytree
 
     a, b = pytree.tree_leaves(got), pytree.tree_leaves(ref)
-    if len(a) != len(b):
+    if len(a) != len(b) or any((x is None) != (y is None) for x, y in zip(a, b)):
         raise AssertionError(f"outputs of {len(a)} and {len(b)} tensors")
     return [float((x.double() - y.double()).abs().max()) for x, y in zip(a, b)
-            if not torch.equal(x, y)]
+            if x is not None and not torch.equal(x, y)]
 
 
 def kernels_in_trace(fn):
@@ -2706,16 +2714,18 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
     """Phase 3n: the steps staged as one CUDA graph each (``utils.staged``).
     Before any capture, which calls read the device on the host
     (``set_sync_debug_mode("error")``): not the eager flagship and config-10
-    steps, nor the generic route through K5 and K6; every route the guard
-    refuses does. Then each step through ``staged_check``; the flagship's
+    steps, nor the generic route through K5 and K6; eagerly, the engine and
+    the generic route's Newton-Schulz inverse, Cholesky and LU do (phase 3o
+    stages their device-side forms). Then each step through
+    ``staged_check``; the flagship's
     graph replayed for batches of ``b_pads`` padded to its own batch (the
     4096 bucket);
-    the guard's error under capture for the float64 flagship, a diagonal P,
-    ``backend='xla'`` and the generic route's LU; the config-4 system-ID
+    the guard's error under capture for the float64 flagship and
+    ``backend='xla'`` (the spectral mode); the config-4 system-ID
     step (capturable Adam) staged against the same step run eagerly over
     ``steps`` steps, and ``SystemID(kind="qcqp").train_step`` on config 4's
-    QCQP half against the same model stepped eagerly; a diagonal-P and a
-    float64 ``SystemID`` train eagerly past the warm-up steps. Returns ({path:
+    QCQP half against the same model stepped eagerly; a float64 ``SystemID``
+    trains eagerly past the warm-up steps, a diagonal-P one staged. Returns ({path:
     launches at capture}, [(label, eager step, staged step, problems)] for
     phase 4n)."""
     from diffqcqp_tpu_torch.diff import kkt
@@ -2773,6 +2783,8 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
                                            "config 10 QP step B=4096 N=24",
                                            "generic route qcqp_vjp(duals=) at flagship B=4096 N=24",
                                            "generic route qcqp_vjp(duals=) at B=2048 N=96")}
+    # run eagerly these read the host; under a capture each but the engine's
+    # spectral mode records a device-side form instead (phase 3o)
     guarded = {
         "the eager engine (float64 flagship forward)": lambda: dqt.solve_qcqp(*xs64, config=cfg),
         "_solve_direct's LU (float64 assembled QCQP system)":
@@ -2795,7 +2807,7 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
     if any(why is not None for why in reads.values()):
         raise AssertionError("a route the guard lets into a capture reads the device on the host")
     if any(why is None for why in reads_g.values()):
-        raise AssertionError("a route the guard refuses does not read the device on the host")
+        raise AssertionError("a route that reads the host eagerly does not")
 
     launches, pairs, staged_steps = {}, [], {}
     for label, (step, xs, want, problems) in paths.items():
@@ -2815,19 +2827,16 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
         if d or len(s_flag.graphs) != 1:
             raise AssertionError(f"the bucketed replay at B={b} is not the eager step bit for bit")
 
-    # the guard under capture
+    # the guard under capture: the spectral mode (the diagonal-P step and
+    # the generic route's LU record since the engine's loops became graph
+    # nodes: phase 3o)
     small = [x[:b_guard] for x in flag]
     for label, xs_, c_ in (("float64 flagship step", xs64, cfg),
-                           ("diagonal-P flagship step",
-                            [torch.diagonal(small[0], dim1=1, dim2=2).contiguous(), *small[1:]],
-                            cfg),
                            ("backend='xla' flagship step", small, cfg.replace(backend="xla"))):
         s = staged(grad_step(solve_qc, c_, 4))
         for _ in range(WARMUP):                   # the warm-up calls run eagerly
             s(*xs_)
         refused_under_capture(f"staged {label}", lambda s=s, xs_=xs_: s(*xs_), capture=False)
-    refused_under_capture("the generic route's LU (float64 qcqp_vjp(duals=))",
-                          lambda: generic(xs64[0], xs64[1], r64, l64, g64))
 
     # the config-4 system-ID step: forward, backward, capturable Adam
     (S, qs, ln, lm), target = sysid
@@ -2881,8 +2890,9 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
                      (list(m_e.params), l_e), (list(m_s.params), l_s), cublas_same)
     pairs.append(("SystemID(kind='qcqp').train_step, config 4's QCQP half", run_e, run_s, 2048))
 
-    # card models off the kernel route (a diagonal P, float64) stage nothing
-    # and train eagerly past the warm-up steps
+    # a card model on a capturable route (a diagonal P: the engine's loop a
+    # graph node) stages its step; one in the spectral mode (float64 at
+    # N=24) stages nothing and trains eagerly past the warm-up steps
     rng = np.random.default_rng(12)
     for label, kind, diag, dtype in (("diagonal-P QP", "qp", True, torch.float32),
                                      ("float64 QCQP", "qcqp", False, torch.float64)):
@@ -2895,12 +2905,14 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
             m.init_qcqp(gen, batch=b_guard, nc=NC_FLAG, dtype=dtype)
         tgt = torch.tensor(rng.random((b_guard, 2 * NC_FLAG)) * 0.1, dtype=dtype).cuda()
         losses = [float(m.train_step(tgt)) for _ in range(WARMUP + 3)]
+        stage = diag
         log(f"  SystemID {label} on the card: staged {m._staged_step is not None}, capturable "
-            f"Adam {m.opt.defaults['capturable']}; losses over {len(losses)} steps "
+            f"Adam {m.opt.defaults['capturable']} (want {stage}); losses over {len(losses)} steps "
             f"{losses[0]:.6e} -> {losses[-1]:.6e}")
-        if (m._staged_step is not None or m.opt.defaults["capturable"]
+        if ((m._staged_step is not None) != stage or m.opt.defaults["capturable"] != stage
                 or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]):
-            raise AssertionError(f"SystemID {label}: not trained eagerly past the warm-up")
+            raise AssertionError(f"SystemID {label}: staged {m._staged_step is not None}, want "
+                                 f"{stage}, or its loss did not fall past the warm-up")
     return launches, pairs
 
 
@@ -2920,6 +2932,289 @@ def phase_4n(smi, pairs):
     for label, ms_e, idle_e, ms_s, idle_s in rows:
         log(f"    {label}: eager {ms_e:.4f} ({ms_e * (1 - idle_e):.4f}, {idle_e:.1%}), staged "
             f"{ms_s:.4f} ({ms_s * (1 - idle_s):.4f}, {idle_s:.1%}): {ms_e / ms_s:.3f}x")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The engine's loops on the card: conditional graph nodes (utils/control.py)
+# ---------------------------------------------------------------------------
+
+def control_requirements():
+    """Phase 1's check of what ``utils/control.py`` records with: the CUDA
+    runtime ``graph_loop.cu`` was built against, the driver's and PyTorch's
+    (conditional WHILE nodes need 12.4 or later), nvcc's and the driver's
+    versions printed, and the private PyTorch APIs it takes (the pool
+    routing, a kept graph). Fails before anything else runs if one lacks."""
+    from diffqcqp_tpu_torch.kernels import _build
+    from diffqcqp_tpu_torch.utils import control
+
+    v = control.versions()
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[-1]
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True, check=True).stdout.strip()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    apis = {name: hasattr(torch._C, name) for name in control.POOL_APIS}
+    apis.update({f"CUDAGraph.{m}": hasattr(g, m) for m in ("instantiate", "raw_cuda_graph")})
+    log(f"  conditional graph nodes: torch.version.cuda {torch.version.cuda}, nvcc '{nvcc}', driver "
+        f"{driver}; versions as integers {v} (need >= {control.MIN_CUDA}); private APIs {apis}")
+    if min(v.values()) < control.MIN_CUDA or not all(apis.values()):
+        raise AssertionError("this CUDA or PyTorch lacks what conditional graph nodes need")
+
+
+def within_bars(label, got, ref):
+    """The referee bars a staged path is held to where a library routine
+    rounds otherwise under capture (printed): integer and bool leaves equal;
+    each float leaf per problem (its leading axis) within 1e-4 of the eager
+    run's scale (l's bar, max(1, |ref|_inf)), and relative errors median <=
+    1e-3, max <= 2e-3 (the gradients' bars; each problem's norm floored at
+    1e-6 of the batch's largest)."""
+    from torch.utils import _pytree as pytree
+
+    worst_abs = worst_med = worst_max = 0.0
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(ref)):
+        if a is None:
+            continue
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: an integer or bool output differs under capture")
+            continue
+        a2, b2 = (x.reshape(x.shape[0] if x.ndim else 1, -1).double() for x in (a, b))
+        worst_abs = max(worst_abs, float(per_problem(a2, b2, slice(None)).max()))
+        # relative to each problem's norm, floored at 1e-6 of the batch's
+        # largest: an all-but-zero gradient row is held to the batch's scale
+        floor = torch.clamp_min(1e-6 * b2.norm(dim=1).max(), 1e-30)
+        e = rel_err(a2, b2, floor)
+        worst_med, worst_max = max(worst_med, float(e.median())), max(worst_max, float(e.max()))
+    log(f"    {label}: held to the referee bars instead: per problem max |d| / max(1, |ref|) "
+        f"{worst_abs:.3e} (bar 1e-4), relative error median {worst_med:.3e} (bar 1e-3), max "
+        f"{worst_max:.3e} (bar 2e-3)")
+    if not (worst_abs <= 1e-4 and worst_med <= 1e-3 and worst_max <= 2e-3):
+        raise AssertionError(f"{label}: the staged path is off the eager run past the bars")
+
+
+def staged_loop_check(label, kernels, step, sets, want, whiles, iters=None):
+    """Phase 3o's gates of one path staged (``utils.staged``): past the
+    warm-up calls the capture records the kernels ``want`` names and no
+    other, and ``whiles`` WHILE nodes at the graph's top level; the kept
+    graph holds one conditional node for each top-level node recorded
+    (``control.node_counts``); each input set of ``sets`` replays the eager
+    run bit for bit (else ``within_bars``, printed) with its own eager
+    iterations (``iters(out)``), which differ between the sets; a replay
+    under ``set_sync_debug_mode("error")`` reads nothing on the host.
+    Returns (the staged step, its launches at capture, the library
+    exception or None)."""
+    from diffqcqp_tpu_torch.utils import control
+    from diffqcqp_tpu_torch.utils.staging import WARMUP, staged
+
+    s = staged(step)
+    for _ in range(WARMUP):
+        s(*sets[0])
+    _, n_cap = launched(kernels, lambda: s(*sets[0]))
+    (key,) = s.graphs
+    rec, nodes = s.nodes[key], control.node_counts(s.graphs[key])
+    top = {k: v for (k, d), v in rec.items() if d == 0}
+    nested = {f"{k}@{d}": v for (k, d), v in sorted(rec.items()) if d > 0}
+    iters_seen, excepted = [], None
+    for i, xs in enumerate(sets):
+        got, ref = s(*xs), step(*xs)
+        d = bit_diffs(got, ref)
+        it_g, it_r = (None, None) if iters is None else (iters(got), iters(ref))
+        same_it = it_g is None or torch.equal(it_g, it_r)
+        log(f"  {label}, input set {i}: replay against eager, leaves whose bits differ (max |d|) "
+            f"{d}; iterations equal to the eager run's: {same_it}"
+            + ("" if it_r is None else f" (mean {float(it_r.double().mean()):.4f})"))
+        if d:
+            excepted = label
+            within_bars(f"{label}, input set {i}", got, ref)
+        if not same_it:
+            raise AssertionError(f"{label}: the replay's iterations are not the eager run's")
+        iters_seen.append(it_r)
+    reads = host_reads(lambda: s(*sets[0]))
+    log(f"  {label}: launches at capture {n_cap}; conditional nodes recorded {dict(top)} at the "
+        f"top level, {nested} nested; the kept graph's top level {nodes}; a replay reads the "
+        f"host: {reads}")
+    only_launched(f"{label} at capture", n_cap, want)
+    if top.get("while", 0) != whiles or nodes["conditional"] != sum(top.values()):
+        raise AssertionError(f"{label}: want {whiles} WHILE nodes at the top level, recorded "
+                             f"{top}, the graph holds {nodes}")
+    if iters is not None and len(sets) > 1 and torch.equal(iters_seen[0], iters_seen[1]):
+        raise AssertionError(f"{label}: the two input sets run the same iterations")
+    if reads is not None:
+        raise AssertionError(f"{label}: a replay reads the device on the host: {reads}")
+    return s, n_cap, excepted
+
+
+def phase_3o(dqt, kernels, cfg, qp_cfg, rollouts, b_past=256, b_trace=4096, steps=20):
+    """Phase 3o: the engine's loops as conditional graph nodes
+    (``utils/control.py``), each path staged through ``staged_loop_check``:
+    the config-11 rollout warm and cold at full size; the contact system-ID
+    step (``make_system_id_step``, staged by the module) against the same
+    Adam(capturable=True) step run eagerly over ``steps`` steps; the
+    diagonal-P flagship step; the QCQP at n=170 and the QP at N=176 past
+    K1's bound; the float64 QCQP step at N=96 (the Cholesky-inverse mode);
+    the generic route's float64 LU (``qcqp_vjp(duals=)`` at the flagship's
+    size) and Cholesky (the QP's assembled SPD system); ``qcqp_jacobian`` at
+    the flagship (K1 inside); ``trace_qcqp``, 64 iterations at the flagship
+    in the inverse mode (``linsolve='chol'``). Then the routes that stay
+    guarded refuse a capture: the spectral mode (the float64 flagship step,
+    ``trace_qcqp`` at its default), and ``axis_name``. Returns ([(label,
+    eager step, staged step, problems)] for phase 4o, the paths held to the
+    referee bars)."""
+    from diffqcqp_tpu_torch.diff import kkt
+    from diffqcqp_tpu_torch.models import contact_sim as cs
+
+    (params, state0, f), (params2, state2, f2) = rollouts
+    T, B = f.shape[:2]
+    flag = cuda(*build_problems(B_FLAG, NC_FLAG))
+    flag2 = cuda(*build_problems(B_FLAG, NC_FLAG, seed=1))
+    solve_qc, solve_qp = dqt.solve_qcqp_with_stats, dqt.solve_qp_with_stats
+    st_iters = lambda out: out[1].iterations                      # noqa: E731
+    roll_iters = lambda out: torch.stack([out[2]["qp_iters"], out[2]["qcqp_iters"]])  # noqa: E731
+    diag = lambda xs: [torch.diagonal(xs[0], dim1=1, dim2=2).contiguous(), *xs[1:]]  # noqa: E731
+    paths, pairs, excepted = {}, [], []
+
+    for warm in (True, False):
+        def roll(mass, mu, x0, v0, f_, warm=warm):
+            return cs.simulate(cs.ContactParams(mass, mu), cs.ContactState(x0, v0), f_,
+                               warm_start=warm, return_stats=True)
+        paths[f"config-11 rollout B={B} T={T} warm_start={warm}"] = (
+            roll, [(*params, *state0, f), (*params2, *state2, f2)], {}, 2 * T, roll_iters, B * T)
+    paths["diagonal-P flagship QCQP step B=4096 N=24"] = (
+        grad_step(solve_qc, cfg, 4), [diag(flag), diag(flag2)], {}, 1, st_iters, B_FLAG)
+    k170 = [cuda(*kkt_problems(b_past, 85, seed=s_)) for s_ in (16, 18)]
+    paths[f"QCQP step B={b_past} n=170 (past K1)"] = (
+        grad_step(solve_qc, cfg, 4), [(P_, q_, r_, torch.ones_like(r_)) for P_, q_, _, r_ in k170],
+        {}, 3, st_iters, b_past)
+    q176 = [cuda(*spd_problems(b_past, 176, seed=s_)[1:]) for s_ in (17, 19)]
+    paths[f"QP step B={b_past} N=176 (past K1)"] = (
+        grad_step(solve_qp, qp_cfg, 2), q176, {}, 3, st_iters, b_past)
+    f96 = [tuple(x.double() for x in cuda(*build_problems(b_past, 48, seed=s_))) for s_ in (6, 7)]
+    paths[f"float64 QCQP step B={b_past} N=96 (Cholesky inverse)"] = (
+        grad_step(solve_qc, cfg, 4), f96, {}, 1, st_iters, b_past)
+
+    def generic_lu(P_, q_, ln_, mu_, l_, g_):
+        r_ = ln_ * mu_
+        return kkt.qcqp_vjp(P_, q_, r_, l_, g_, cfg, duals=kkt.qcqp_dual(P_, q_, r_, l_, cfg))
+
+    def generic_chol(P_, q_, l_, g_):
+        return kkt._qp_assembled_vjp(P_, q_, l_, g_, qp_cfg)
+
+    lu_sets, chol_sets = [], []
+    for xs in (flag, flag2):
+        x64 = [x.double() for x in xs]
+        l64 = dqt.solve_qcqp(*x64[:4], config=cfg.replace(linsolve="chol"))
+        lu_sets.append((*x64, l64, 2.0 * l64 + 1.0))
+        lq = dqt.solve_qp(*x64[:2], config=qp_cfg.replace(linsolve="chol"))
+        chol_sets.append((*x64[:2], lq, 2.0 * lq + 1.0))
+    paths["generic route float64 LU, qcqp_vjp(duals=) B=4096 N=24"] = (
+        generic_lu, lu_sets, {}, 0, None, B_FLAG)
+    paths["generic route float64 Cholesky, the QP's SPD system B=4096 N=24"] = (
+        generic_chol, chol_sets, {}, 0, None, B_FLAG)
+    paths["qcqp_jacobian B=4096 N=24, l solved inside (K1)"] = (
+        lambda *xs: dqt.qcqp_jacobian(*xs, config=cfg), [flag, flag2], {"K1": 1}, 0, None,
+        B_FLAG)
+    tcfg = cfg.replace(linsolve="chol")
+    small = [[x[:b_trace] for x in xs] for xs in (flag, flag2)]
+    paths[f"trace_qcqp 64 iterations B={b_trace} N=24, linsolve='chol'"] = (
+        lambda *xs: dqt.debug.trace_qcqp(*xs, iters=64, config=tcfg), small, {}, 1,
+        lambda tr: tr.iterations, b_trace)
+
+    for label, (step, sets, want, whiles, iters, problems) in paths.items():
+        s, _, exc = staged_loop_check(label, kernels, step, sets, want, whiles, iters)
+        if exc is not None:
+            excepted.append(exc)
+        pairs.append((label, lambda step=step, xs=sets[0]: step(*xs),
+                      lambda s=s, xs=sets[0]: s(*xs), problems, sum(next(iter(s.nodes.values()))
+                                                                   .values())))
+
+    # the contact system-ID step: the module stages it on the card; its twin
+    # here runs the same Adam(capturable=True) step eagerly
+    _, traj = cs.simulate(params, state0, f)
+    target = traj.x.detach()
+
+    def raw():
+        return {"log_mass": torch.zeros(B, device=f.device, requires_grad=True),
+                "logit_mu": torch.zeros(B, device=f.device, requires_grad=True)}
+
+    raw_e, raw_s = raw(), raw()
+    opt = torch.optim.Adam(list(raw_e.values()), lr=0.05, capturable=True)
+
+    def eager_step():
+        opt.zero_grad(set_to_none=True)
+        loss = cs.trajectory_loss(cs.ContactParams(torch.exp(raw_e["log_mass"]),
+                                                   torch.sigmoid(raw_e["logit_mu"])),
+                                  state0, f, target)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    staged_step, _ = cs.make_system_id_step(raw_s, state0, f, target, learning_rate=0.05)
+    label = f"contact system-ID step B={B} T={T} (rollout, backward, Adam)"
+    l_e, l_s, _ = trajectories(label, kernels, eager_step, staged_step, steps, {})
+    held_bit_for_bit(f"{label}, staged against eager over {steps} steps",
+                     (list(raw_e.values()), l_e), (list(raw_s.values()), l_s), True)
+    (key,) = staged_step.staged.graphs
+    rec = staged_step.staged.nodes[key]
+    log(f"  {label}: conditional nodes recorded {dict(rec)}, the kept graph's top level "
+        f"{control_nodes(staged_step.staged.graphs[key])}")
+    if rec.get(("while", 0), 0) != 2 * T:
+        raise AssertionError(f"{label}: want {2 * T} WHILE nodes at the top level, got {rec}")
+    reads = host_reads(staged_step)
+    log(f"  {label}: a replay reads the host: {reads}")
+    if reads is not None:
+        raise AssertionError(f"{label}: a replay reads the device on the host")
+    pairs.append((label, eager_step, staged_step, B, sum(rec.values())))
+
+    # what stays guarded: the spectral mode and the lockstep mode
+    from diffqcqp_tpu_torch.utils.staging import WARMUP, staged
+
+    small = [x[:b_past] for x in flag]
+    s = staged(grad_step(solve_qc, cfg, 4))
+    xs64 = [x.double() for x in small]
+    for _ in range(WARMUP):
+        s(*xs64)
+    refused_under_capture("staged float64 flagship step (the spectral mode: torch.linalg.eigh)",
+                          lambda: s(*xs64), capture=False)
+    refused_under_capture("trace_qcqp at the flagship, the default linsolve (the spectral mode)",
+                          lambda: dqt.debug.trace_qcqp(*small, iters=4, config=cfg))
+    refused_under_capture("solve_qcqp with axis_name='batch' (the lockstep mode)",
+                          lambda: dqt.solve_qcqp(*small, config=cfg.replace(axis_name="batch")))
+    log(f"  paths held to the referee bars (a library routine rounds otherwise under capture): "
+        f"{excepted or 'none'}")
+    return pairs, excepted
+
+
+def control_nodes(graph):
+    from diffqcqp_tpu_torch.utils import control
+
+    return control.node_counts(graph)
+
+
+def phase_4o(smi, pairs):
+    """Phase 4o: each path of phase 3o eagerly and staged, in turn, through
+    ``timed_step`` (CUDA events, median of 3 samples; device time and the
+    card's idle share), one back-to-back call a sample for the rollouts and
+    the contact system-ID step (a second each eagerly), 5 for the others;
+    then a line each. torch.profiler does not count the kernels inside a
+    conditional node's body (a graph the card launches itself) reliably:
+    for the same staged rollout it gave 21.4 ms in one run and 183.5 ms,
+    more than the wall time, in another. Where the staged graph holds
+    nodes, the line gives its wall time alone: its device time and idle
+    share are not measured."""
+    rows = []
+    for label, eager, st, problems, nodes in pairs:
+        slow = "rollout" in label or "contact system-ID" in label
+        kw = dict(reps=3, calls=1 if slow else 5, problems=problems)
+        ms_e, idle_e = timed_step(f"{label}, eager", eager, smi, **kw)
+        ms_s, idle_s = timed_step(f"{label}, staged (one CUDA graph)", st, smi, **kw)
+        rows.append((label, ms_e, idle_e, ms_s, idle_s, nodes))
+    log(f"  phase 4o ({smi}), ms per call (device ms, card idle):")
+    for label, ms_e, idle_e, ms_s, idle_s, nodes in rows:
+        staged_dev = (f"{nodes} conditional nodes: device time and idle not measured" if nodes
+                      else f"{ms_s * (1 - idle_s):.4f}, {idle_s:.1%}")
+        log(f"    {label}: eager {ms_e:.4f} ({ms_e * (1 - idle_e):.4f}, {idle_e:.1%}), staged "
+            f"{ms_s:.4f} ({staged_dev}): {ms_e / ms_s:.3f}x")
     return rows
 
 
@@ -3089,17 +3384,22 @@ def kernel_numbers(dqt, flag, cfg, c10, c6q, qc96, step10, step6, smi):
     return errs, times
 
 
-def staged_run(dqt, c6, smi, dev_name, t_start) -> int:
-    """``python3 chip_smoke.py staged``: after phase 1, phases 3n and 4n
-    alone, then the kernels line (its launches read at the staged steps'
-    captures, its numbers from ``kernel_numbers``) and the result line."""
+def kernels_by_name():
+    """{K: the wrapper whose ``launches`` counts that kernel}."""
     from diffqcqp_tpu_torch.kernels.admm_cuda import admm_solve_cuda
     from diffqcqp_tpu_torch.kernels.coord_bwd_cuda import coord_kkt_bwd_fused_cuda
     from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda
     from diffqcqp_tpu_torch.kernels.qr_solve_cuda import qr_solve_cuda
 
-    kernels = {"K1": admm_solve_cuda, "K2": qcqp_kkt_bwd_fused_cuda,
-               "K4": coord_kkt_bwd_fused_cuda, "K5": qr_solve_cuda, "K6": qcqp_kkt_bwd_cuda}
+    return {"K1": admm_solve_cuda, "K2": qcqp_kkt_bwd_fused_cuda, "K4": coord_kkt_bwd_fused_cuda,
+            "K5": qr_solve_cuda, "K6": qcqp_kkt_bwd_cuda}
+
+
+def staged_run(dqt, c6, smi, dev_name, t_start) -> int:
+    """``python3 chip_smoke.py staged``: after phase 1, phases 3n and 4n
+    alone, then the kernels line (its launches read at the staged steps'
+    captures, its numbers from ``kernel_numbers``) and the result line."""
+    kernels = kernels_by_name()
     cfg = flagship_cfg(dqt)
     flag = cuda(*build_problems(B_FLAG, NC_FLAG))
     families = qp_families(dqt)
@@ -3129,11 +3429,84 @@ def staged_run(dqt, c6, smi, dev_name, t_start) -> int:
     return 0
 
 
+def eager_run(root) -> int:
+    """``python3 chip_smoke.py eager ROOT``: the port found at ROOT (a
+    checkout, such as the parent commit's unpacked beside this one) times
+    the engine's eager paths: the config-11 rollout (B=2048, T=50, warm
+    start; median of 3), the diagonal-P flagship step (B=4096), the QP step
+    at N=176 and the float64 QCQP step at N=96 (B=256; median of 5 samples
+    of 5 calls), CUDA events, and what one call asks of the card
+    (``launch_profile``). Prints one JSON line; run it for two trees in
+    turn (A, B, B, A) to compare them on one card."""
+    sys.path.insert(0, str(pathlib.Path(root).resolve()))
+    import diffqcqp_tpu_torch as dqt
+    from diffqcqp_tpu_torch.kernels import _build
+    from diffqcqp_tpu_torch.models import contact_sim as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    _build.build(list(_build.SOURCES))
+    cfg = flagship_cfg(dqt)
+    params, state0, f = rollout_inputs()
+    P, q, l_n, mu = cuda(*build_problems(B_FLAG, NC_FLAG))
+    diag = (torch.diagonal(P, dim1=1, dim2=2).contiguous(), q, l_n, mu)
+    f96 = tuple(x.double() for x in cuda(*build_problems(256, 48, seed=6)))
+    q176 = cuda(*spd_problems(256, 176, seed=17)[1:])
+    qp_cfg = qp_families(dqt)["qp"].cfg
+    steps = {
+        "config-11 rollout B=2048 T=50 warm_start=True":
+            (lambda: cs.simulate(params, state0, f, warm_start=True), 3, 1),
+        "diagonal-P flagship QCQP step B=4096 N=24":
+            (lambda: grad_step(dqt.solve_qcqp_with_stats, cfg, 4)(*diag), 5, 5),
+        "QP step B=256 N=176 (past K1)":
+            (lambda: grad_step(dqt.solve_qp_with_stats, qp_cfg, 2)(*q176), 5, 5),
+        "float64 QCQP step B=256 N=96 (Cholesky inverse)":
+            (lambda: grad_step(dqt.solve_qcqp_with_stats, cfg, 4)(*f96), 5, 5),
+    }
+    ms, prof = {}, {}
+    for label, (fn, reps, calls) in steps.items():
+        ms[label] = time_cuda(fn, reps=reps, calls=calls)[0]
+        prof[label] = launch_profile(label, fn)
+    print(json.dumps({"tree": str(root), "package": dqt.__file__, "card": smi,
+                      "eager_ms": ms, "per_call": prof}), flush=True)
+    return 0
+
+
+def launch_profile(label, fn, top=12):
+    """What one call of ``fn`` asks of the card, from torch.profiler: its
+    device ms, kernels launched and the host's waits on the device
+    (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
+    ``cudaMemcpyAsync``); logs the ``top`` kernels by launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        fn()
+        torch.cuda.synchronize()
+    evs = trace.key_averages()
+    kernels = sorted(((ev.key, ev.device_time_total / 1e3, ev.count) for ev in evs
+                      if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0
+                      and not getattr(ev, "is_user_annotation", False)), key=lambda r: -r[2])
+    api = {ev.key: ev.count for ev in evs if ev.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")}
+    for name, dev_ms, n in kernels[:top]:
+        log(f"  {label}: {n:6d} x {dev_ms:9.4f} ms  {name[:100]}")
+    return {"device_ms": sum(r[1] for r in kernels), "kernels": sum(r[2] for r in kernels),
+            **api}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["eager"] and len(sys.argv) == 3:
+        return eager_run(sys.argv[2])
     t_start = time.perf_counter()
     import diffqcqp_tpu_torch as dqt
     from diffqcqp_tpu_torch.diff import kkt
@@ -3165,6 +3538,7 @@ def main() -> int:
     _build.build(sources)
     t_build = time.perf_counter() - t0
     log(f"phase 1: built {sources} in {t_build:.1f} s")
+    control_requirements()
     for name in sources:
         log(f"  ptxas ({name}): "
             + ptxas_summary(_build.library_path(name).with_suffix(".log").read_text()))
@@ -3207,6 +3581,15 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["staged"]:
         return staged_run(dqt, c6, smi, dev_name, t_start)
+    if sys.argv[1:] == ["control"]:
+        # phases 3o and 4o alone: the engine's loops as conditional nodes
+        log("phase 3o: the engine's loops on the card, staged (utils.control)")
+        pairs_3o, _ = phase_3o(dqt, kernels_by_name(), flagship_cfg(dqt),
+                               qp_families(dqt)["qp"].cfg, (rollout_inputs(), rollout_inputs(seed=12)))
+        log("phase 4o: each path of phase 3o eagerly and staged")
+        phase_4o(smi, pairs_3o)
+        log(f"chip_smoke: control phases passed, {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     cfg = flagship_cfg(dqt)
 
@@ -3433,8 +3816,7 @@ def main() -> int:
         v = (lx * lx).sum() + ((W.reshape(lx.shape) * lx).sum() if linear else 0.0)
         return lx, torch.autograd.grad(v, xs)
 
-    kernels = {"K1": admm_solve_cuda, "K2": qcqp_kkt_bwd_fused_cuda,
-               "K4": coord_kkt_bwd_fused_cuda, "K5": qr_solve_cuda, "K6": qcqp_kkt_bwd_cuda}
+    kernels = kernels_by_name()
     for k_ in kernels.values():
         k_.launches = 0
     l_sq, g_sq = step()
@@ -3558,7 +3940,7 @@ def main() -> int:
 
     # ---- phase 3f: diagonal P through the four entry points, no kernel
     log("phase 3f: diagonal P, solve_* + autograd (B=4096 QP and QCQP, B=2048 box kinds, N=24)")
-    diag_steps = phase_3f(dqt, kernels, diag_cases(cfg, qp_cfg10, box_cfg9), rand_g)
+    phase_3f(dqt, kernels, diag_cases(cfg, qp_cfg10, box_cfg9), rand_g)
 
     # ---- phase 3g: the twin of tpu_smoke.py, float32 K1 solutions certified
     # in float64 on the card by the port's KKT oracle
@@ -3600,6 +3982,10 @@ def main() -> int:
     log("phase 3n: the steps staged as one CUDA graph each (utils.staged)")
     _, pairs_3n = phase_3n(dqt, kernels, (P, q, l_n, mu), cfg, families, c6,
                            (P48, q48, ln48, mu48), sysid_inputs(), sysid_cfgs)
+
+    # ---- phase 3o: the engine's loops on the card (conditional graph nodes)
+    log("phase 3o: the engine's loops on the card, staged (utils.control)")
+    pairs_3o, _ = phase_3o(dqt, kernels, cfg, qp_cfg10, (rollout, rollout_inputs(seed=12)))
 
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
@@ -3712,7 +4098,7 @@ def main() -> int:
     # the diagonal-P step
     log(f"phase 4f: the system-ID and rollout timings (launches in one config-4 step: "
         f"{launches_sysid})")
-    phase_4f(dqt, smi, sysid_step, rollout, diag_steps["qcqp"], (P, q, l_n, mu), cfg)
+    phase_4f(dqt, smi, sysid_step, (P, q, l_n, mu), cfg)
 
     log(f"phase 4g: the sharded, bucketed, resumed and traced paths")
     phase_4g(smi, paths_3j)
@@ -3722,6 +4108,9 @@ def main() -> int:
 
     log("phase 4n: each staged step beside its eager step")
     phase_4n(smi, pairs_3n)
+
+    log("phase 4o: each path of phase 3o eagerly and staged")
+    phase_4o(smi, pairs_3o)
 
     # the waves of phase 1: K2, K6 and K4 take one at the main path's sizes
     if any(waves24[name] > 1 for name in waves24 if name != "K1"):

@@ -64,9 +64,8 @@ from .kernels.admm_cuda import (
     prox_fn,
 )
 from .ops.equilibrate import isotropize, ruiz_diag, scale_problem
-from .solvers.admm import SolveStats, admm_solve
+from .solvers.admm import SolveStats, admm_solve, capture_reason
 from .utils.shapes import Canon, canon_like, canon_problem, fold_vmapped, unfold_vmapped
-from .utils.staging import capture_error, capturing
 
 __all__ = [
     "solve_qp",
@@ -193,14 +192,23 @@ def which_backend(P, q, config: Optional[SolverConfig] = None) -> str:
     return "pallas" if _use_kernel(c.P, c.q, cfg) else "xla"
 
 
+def capturable(P, q, cfg: SolverConfig) -> bool:
+    """Whether a solve of the canonical (P, q) with ``cfg``, forward and
+    backward, can be recorded in a CUDA graph (``utils/staging.py``): K1,
+    or the engine where ``solvers/admm.py::capture_reason`` names nothing
+    (every adjoint route records). Decided from shapes, dtype and config."""
+    return _engine_reason(P, q, cfg) is None or capture_reason(P, cfg) is None
+
+
 def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, damp_both):
     """The solve with the given prox and stopping rule, by K1 or the eager
     engine (``_engine_reason``), on q's device, returned in q's dtype. K1
     computes in float32 ('auto' sends it float32 only; ``backend='pallas'``
     casts other inputs, as the JAX package's kernel path does). Under a
-    CUDA graph capture the engine raises the guard's error
-    (``utils/staging.py``): it reads its stopping test on the host every
-    iteration."""
+    CUDA graph capture both record; the engine raises the guard's error
+    (``utils/staging.py``) where it reads the device on the host
+    (``solvers/admm.py::capture_reason``: the lockstep mode, the spectral
+    mode's ``torch.linalg.eigh``)."""
     reason = _engine_reason(P, q, cfg)
     if reason is None:
         c = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
@@ -211,11 +219,6 @@ def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, d
         dt = q.dtype
         return l.to(dt), st._replace(res_prim=st.res_prim.to(dt), res_dual=st.res_dual.to(dt),
                                      rho=st.rho.to(dt))
-    if capturing():
-        raise capture_error(
-            "the eager ADMM engine (solvers/admm.py)",
-            f"this solve takes it for {reason}, and it tests convergence on "
-            "the host every iteration")
     return admm_solve(P, q, ws, prox_fn(prox_kind, prox_args), cfg,
                       qcqp_stopping=qcqp_stopping, damp_both_taus=damp_both)
 

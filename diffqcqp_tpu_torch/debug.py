@@ -16,9 +16,10 @@ package's ``debug.py``. A trace always runs the eager engine (never the
 kernel K1), on ``device`` (the card by default, raising without CUDA;
 ``device="cpu"`` for the plain path), in the inputs' dtype; converged
 problems freeze exactly as in production, and the O(iters * B) history
-suits moderate batch sizes. Inside a CUDA graph capture a trace raises the
-guard's error (``utils/staging.py``): the engine tests convergence on the
-host.
+suits moderate batch sizes. Inside a CUDA graph capture a trace records:
+its ``iters`` steps are unrolled, as ``lax.scan`` is, and the body reads
+nothing on the host; the engine's set-up raises the guard's error where it
+reads (``solvers/admm.py::capture_reason``: a dense P in the spectral mode).
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ from .config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig
 from .kernels.admm_cuda import PROX_BOX, PROX_DISK, PROX_NONNEG, PROX_SIGNED_BOX, prox_fn
 from .solvers.admm import make_admm_step
 from .utils.shapes import canon_like, canon_problem
-from .utils.staging import capture_error, capturing
 
 __all__ = ["SolveTrace", "trace_qp", "trace_box_qp", "trace_signed_box_qp", "trace_qcqp"]
 
@@ -53,9 +53,6 @@ class SolveTrace(NamedTuple):
 def _trace(P, q, ws, prox, cfg, iters, d, qcqp_stopping=False, damp_both=True) -> SolveTrace:
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
-    if capturing():
-        raise capture_error("a solve trace (debug.py)",
-                            "it steps the eager engine, which tests convergence on the host")
     _, body, s = make_admm_step(P, q, ws, prox, cfg, qcqp_stopping, damp_both)
     rec = []
     for _ in range(iters):

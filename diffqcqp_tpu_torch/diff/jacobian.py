@@ -18,8 +18,9 @@ chain-rule factors the VJPs use:
 
 with DL[i, :] = dl(e_i), DG[i, :] = dgamma(e_i) the adjoint solutions for
 the basis cotangents. A sensitivity-analysis surface, not the training path:
-the solves are ``spd_cholesky_solve`` (SPD systems) and ``torch.linalg.solve``
-(saddle systems), as the JAX package's run in XLA outside any Pallas kernel;
+the solves are ``spd_cholesky_solve`` (SPD systems) and ``ops.linalg.solve``
+(an LU, saddle systems), as the JAX package's run in XLA outside any Pallas
+kernel; under a CUDA graph capture both record their device-side forms;
 when ``l`` is not given the forward is the port's ``solve_*`` (on the card,
 K1 for dense float32 problems within its bound).
 
@@ -38,9 +39,8 @@ import torch
 
 from ..api import _device, solve_box_qp, solve_qcqp, solve_qp, solve_signed_box_qp
 from ..config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig
-from ..ops.linalg import spd_cholesky_solve
+from ..ops.linalg import solve, spd_cholesky_solve
 from ..utils.shapes import canon_like, canon_problem
-from ..utils.staging import capture_error, capturing
 from . import kkt
 
 __all__ = [
@@ -56,15 +56,10 @@ __all__ = [
 
 def _solve_multi(A: torch.Tensor, rhs: torch.Tensor, spd: bool = False) -> torch.Tensor:
     """Batched multi-right-hand-side solve, A (B, m, m), rhs (B, m, k) ->
-    (B, m, k): one Cholesky (SPD) or one LU for all k columns. Both check
-    their factor on the host, so under a CUDA graph capture this raises the
-    guard's error (``utils/staging.py``) instead."""
-    if capturing():
-        raise capture_error("the Jacobians' solve (diff/jacobian.py::_solve_multi)",
-                            "its Cholesky or LU checks the factor on the host")
+    (B, m, k): one Cholesky (SPD) or one LU for all k columns."""
     if spd:
         return spd_cholesky_solve(A, rhs)
-    return torch.linalg.solve(A, rhs)
+    return solve(A, rhs)
 
 
 def _dl_dP(dl_dq: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
@@ -239,7 +234,7 @@ def qcqp_jacobian(
     X = _solve_multi(D, torch.cat([eye, Bt], dim=-1), spd=True)
     Y, W = X[..., :n], X[..., n:]               # D^{-1}, D^{-1} B^T
     M = torch.diag_embed(sigma) - Ct @ W
-    DG_cols = torch.linalg.solve(M, -(Ct @ Y)) * am[:, :, None]
+    DG_cols = _solve_multi(M, -(Ct @ Y)) * am[:, :, None]
     DL = (Y - W @ DG_cols).mT                   # [i, j] = dl(e_i)_j
     DG = DG_cols.mT                             # [i, c] = dgamma(e_i)_c
     e1, e2 = kkt.qcqp_radius_factors(ln, m, duals.gamma)

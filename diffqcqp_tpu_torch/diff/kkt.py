@@ -60,12 +60,11 @@ other dtype; else ``torch.linalg.solve``.
 The fused kernels' bounds are the card's own (their shared memory and
 launch plans), not the JAX package's n <= 64, which is the TPU's VMEM.
 
-Under a CUDA graph capture (``utils/staging.py``) the fused kernels and the
-generic route through K5 or K6 record as they run. The generic route's
-other solves read the device on the host (the Newton-Schulz inverse its
-residual, a Cholesky or an LU its info), so there ``_solve_direct`` and
-``_qcqp_schur_vjp`` raise the guard's error, naming the route, before they
-record anything.
+Under a CUDA graph capture (``utils/staging.py``) every route records as it
+runs: the fused kernels, K5 and K6, and the generic route's other solves,
+whose host reads have device-side forms there (``ops/linalg.py``: the
+Newton-Schulz loop a WHILE node, the Cholesky and the LU their ``_ex``
+forms).
 
 Diagonal P (B, n), as in the JAX package, launches no kernel: without duals
 every class's adjoint is closed form, elementwise (``_diag_coord_adjoint``
@@ -90,8 +89,7 @@ from ..kernels.coord_bwd_cuda import (
 )
 from ..kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda
 from ..kernels.qr_solve_cuda import qr_solve_cuda
-from ..ops.linalg import newton_schulz_inverse_adaptive, spd_cholesky_solve
-from ..utils.staging import capture_error, capturing
+from ..ops.linalg import newton_schulz_inverse_adaptive, solve, spd_cholesky_solve
 
 __all__ = [
     "qp_dual",
@@ -220,9 +218,8 @@ def _solve_direct(
       * anything else: when ``spd`` (A symmetric positive definite) the
         Newton-Schulz inverse (``_spd_inverse_f32``) in float32 and
         ``spd_cholesky_solve`` in any other dtype, as the JAX package; else
-        ``torch.linalg.solve`` (the JAX package's ``jnp.linalg.solve``);
-        these read the device on the host, so under a CUDA graph capture
-        they raise the guard's error instead.
+        ``ops.linalg.solve`` (``torch.linalg.solve``, the JAX package's
+        ``jnp.linalg.solve``).
     """
     use_kernel = cfg.backend == "pallas" or (
         cfg.backend == "auto"
@@ -233,20 +230,11 @@ def _solve_direct(
     if use_kernel:
         f32 = torch.float32
         return qr_solve_cuda(A.to(f32).contiguous(), rhs.to(f32).contiguous()).to(rhs.dtype)
-    if capturing():
-        method = ("the Newton-Schulz inverse, which tests its residual on the host each step"
-                  if spd and rhs.dtype == torch.float32 else
-                  "a batched Cholesky, which checks its factor on the host" if spd else
-                  "torch.linalg.solve (an LU), which checks its pivots on the host")
-        raise capture_error(
-            "the generic adjoint route's solve (diff/kkt.py::_solve_direct)",
-            f"a {rhs.dtype} system of m = {A.shape[-1]} on {A.device.type} with "
-            f"backend={cfg.backend!r} takes {method}")
     if spd:
         if rhs.dtype == torch.float32:
             return (_spd_inverse_f32(A) @ rhs[..., None])[..., 0]
         return spd_cholesky_solve(A, rhs[..., None])[..., 0]
-    return torch.linalg.solve(A, rhs[..., None])[..., 0]
+    return solve(A, rhs[..., None])[..., 0]
 
 
 # --------------------------------------------------------------------------
@@ -600,26 +588,18 @@ def _qcqp_schur_vjp(P, l, g, s, am, gamma) -> QCQPVJP:
     within K6's bound (n <= 150): kernel K6 (``qcqp_kkt_bwd_cuda``; its
     plain version on a CPU tensor). Otherwise the JAX package's route: D^{-1}
     by its Newton-Schulz inverse (``_spd_inverse_f32``) in float32 or a
-    batched Cholesky in any other dtype, and ``torch.linalg.solve`` of the
-    nc x nc system, which under a CUDA graph capture raises the guard's
-    error instead."""
+    batched Cholesky in any other dtype, and an LU (``ops.linalg.solve``) of
+    the nc x nc system."""
     n = l.shape[-1]
     if l.dtype == torch.float32 and qcqp_bwd_cuda.fits(n):
         dgamma, dl = qcqp_kkt_bwd_cuda(*_kernel_args(_as_dense(P), l, g, gamma, s, am))
         return QCQPVJP(dl=dl, dgamma=dgamma, gamma=gamma)
-    if capturing():
-        raise capture_error(
-            "the generic QCQP adjoint's Schur route (diff/kkt.py::_qcqp_schur_vjp)",
-            f"at {l.dtype}, n = {n} it inverts D by "
-            + ("Newton-Schulz, which tests its residual on the host each step"
-               if l.dtype == torch.float32 else "a Cholesky, which checks its factor on the host")
-            + ", and solves the Schur system by an LU, which checks its pivots on the host")
     Ct, Bt, D = _qcqp_kkt_blocks(P, l, gamma, am, n // 2, n)
     rhs = torch.cat([g[..., None], Bt], dim=-1)
     X = _spd_inverse_f32(D) @ rhs if l.dtype == torch.float32 else spd_cholesky_solve(D, rhs)
     y, W = X[..., 0], X[..., 1:]                # D^{-1} g, D^{-1} B^T
     M = torch.diag_embed(s * am + (1.0 - am)) - Ct @ W
-    dgamma = torch.linalg.solve(M, -(Ct @ y[..., None]))[..., 0] * am
+    dgamma = solve(M, -(Ct @ y[..., None]))[..., 0] * am
     return QCQPVJP(dl=y - (W @ dgamma[..., None])[..., 0], dgamma=dgamma, gamma=gamma)
 
 

@@ -17,10 +17,13 @@ Per step (explicit velocity-level time stepping, dt fixed):
 A diagonal P launches no kernel (the eager engine and the closed-form
 adjoints, as in the JAX package). ``simulate`` rolls the step with a Python
 loop (the JAX package's ``lax.scan``), carrying each step's impulses as the
-next step's primal and dual warm start; ``make_system_id_step`` wraps the
-rollout in an Adam step over (log-mass, logit-mu). Every solve runs on
-``device`` (the card by default, raising without CUDA; ``device="cpu"`` for
-the plain path). ``params_from_numpy`` carries the JAX package's
+next step's primal and dual warm start, and reads nothing on the host, so
+that a CUDA graph can hold the whole rollout (unrolled, as ``lax.scan`` is,
+each solve's loop a WHILE node: ``utils/control.py``);
+``make_system_id_step`` wraps the rollout in an Adam step over (log-mass,
+logit-mu), staged on the card as the JAX package jits it. Every solve runs
+on ``device`` (the card by default, raising without CUDA; ``device="cpu"``
+for the plain path). ``params_from_numpy`` carries the JAX package's
 ``ContactParams`` / ``ContactState`` into the port's.
 """
 
@@ -33,6 +36,7 @@ import torch
 from ..api import solve_qcqp_with_stats, solve_qp_with_stats
 from ..config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig
 from ..utils.shapes import fields_from_numpy
+from ..utils.staging import staged
 
 __all__ = [
     "QP_CFG",
@@ -75,7 +79,8 @@ def _step(params: ContactParams, state: ContactState, f_ext: torch.Tensor, dt: f
     primal-only warm starts do not cut ADMM iterations)."""
     m = params.mass
     B = m.shape[0]
-    g = torch.tensor([0.0, 0.0, -9.81], dtype=state.v.dtype, device=state.v.device)
+    g = torch.zeros(3, dtype=state.v.dtype, device=state.v.device)
+    g[2:].fill_(-9.81)      # a fill on the device: no copy from the host
     v_free = state.v + dt * (f_ext / m[:, None] + g)
     # contact activity: near the plane and approaching it
     touching = (state.x[:, 2] <= 1e-3) & (v_free[:, 2] <= 0.0)
@@ -160,17 +165,28 @@ def make_system_id_step(raw: dict, state0: ContactState, f_ext: torch.Tensor,
     'logit_mu': (B,)}, leaf tensors that require grad and are updated in
     place by ``torch.optim.Adam(learning_rate)`` (optax.adam's defaults).
     Returns (step, raw_to_params); ``step()`` returns the loss before the
-    update (detached)."""
-    optimizer = torch.optim.Adam(list(raw.values()), lr=learning_rate)
+    update (detached). On the card the step is staged as one CUDA graph
+    (``utils.staged``, the JAX package's ``jax.jit``: a few eager steps,
+    then replays) over ``Adam(capturable=True)``, whose state stays on the
+    device; on the CPU it runs eagerly over a plain Adam."""
+    on_card = torch.device(device).type == "cuda"
+    optimizer = torch.optim.Adam(list(raw.values()), lr=learning_rate, capturable=on_card)
 
     def raw_to_params(r: dict) -> ContactParams:
         return ContactParams(mass=torch.exp(r["log_mass"]), mu=torch.sigmoid(r["logit_mu"]))
 
-    def step() -> torch.Tensor:
+    def train(x0, v0, f, target):
         optimizer.zero_grad(set_to_none=True)
-        loss = trajectory_loss(raw_to_params(raw), state0, f_ext, target_x, dt, device=device)
+        loss = trajectory_loss(raw_to_params(raw), ContactState(x0, v0), f, target, dt,
+                               device=device)
         loss.backward()
         optimizer.step()
         return loss.detach()
 
+    run = staged(train) if on_card else train
+
+    def step() -> torch.Tensor:
+        return run(state0.x, state0.v, f_ext, target_x)
+
+    step.staged = run if on_card else None      # the Staged object, or None on the CPU
     return step, raw_to_params

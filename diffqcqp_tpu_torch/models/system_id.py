@@ -17,9 +17,11 @@ without CUDA; ``device="cpu"`` for the plain path). On the card
 ``train_step`` is staged, as the JAX package's ``jax.jit(self._train_step)``:
 forward, backward and a capturable Adam step are captured as one CUDA graph
 (``utils/staging.py``) after a few eager steps and replayed from then on.
-Only the kernel route can be staged (``kernel_route``: K1 forward, K4 or K2
-backward); a card model whose problem takes another route (a diagonal P,
-float64, ``accel``, ``backend='xla'``, n past the kernels' bounds) trains
+A model is staged where its route can be captured (``capturable_route``:
+K1 or the engine outside its spectral mode forward, any adjoint route
+backward; a diagonal P, n past the kernels' bounds and float64 at N > 48
+included); a card model whose forward takes the engine's spectral mode (a
+dense P at N <= 48 in float64, with ``accel`` or ``backend='xla'``) trains
 eagerly, as does every model on the CPU. ``params_from_numpy``
 carries the JAX package's parameters (``QPSystemIDParams`` /
 ``QCQPSystemIDParams`` of arrays) into the port's.
@@ -33,10 +35,8 @@ from typing import NamedTuple, Optional, Union
 import torch
 from torch import nn
 
-from ..api import _use_kernel, solve_qcqp, solve_qp
+from ..api import capturable, solve_qcqp, solve_qp
 from ..config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig
-from ..diff.kkt import _use_fused_kernel
-from ..kernels import coord_bwd_cuda, qcqp_bwd_cuda
 from ..utils.shapes import canon_problem, fields_from_numpy
 from ..utils.staging import Staged, staged
 
@@ -46,7 +46,7 @@ __all__ = [
     "qp_params_to_problem",
     "qcqp_params_to_problem",
     "params_from_numpy",
-    "kernel_route",
+    "capturable_route",
     "SystemID",
 ]
 
@@ -93,18 +93,15 @@ def params_from_numpy(p, device="cuda", dtype: Optional[torch.dtype] = None) -> 
                              p, device, dtype)
 
 
-def kernel_route(kind: str, params: Params, config: SolverConfig) -> bool:
-    """Whether a training step of ``params`` takes the kernel route both
-    ways, K1 forward and K4 (QP) or K2 (QCQP) backward (``api._use_kernel``,
-    ``kkt._use_fused_kernel``): the one route a CUDA graph can hold. Decided
-    from shapes, dtype and config, as the dispatch is, on any device."""
-    if config.accel:
-        return False
+def capturable_route(kind: str, params: Params, config: SolverConfig) -> bool:
+    """Whether a training step of ``params`` takes a route that a CUDA graph
+    can hold, forward and backward (``api.capturable``: the dispatch and
+    the capture guard's rule). Decided from shapes, dtype and config, as
+    the dispatch is, on any device."""
     with torch.no_grad():
         P, q = (qp_params_to_problem if kind == "qp" else qcqp_params_to_problem)(params)[:2]
         c = canon_problem(P, q)
-    fits = coord_bwd_cuda.fits if kind == "qp" else qcqp_bwd_cuda.fits
-    return _use_kernel(c.P, c.q, config) and _use_fused_kernel(c.P, c.q, config, fits)
+    return capturable(c.P, c.q, config)
 
 
 class SystemID(nn.Module):
@@ -112,7 +109,7 @@ class SystemID(nn.Module):
     parameters (``params``) are the module's ``nn.Parameter``s, set by
     ``init_qp`` / ``init_qcqp`` or ``set_params``, each of which also makes
     a fresh ``torch.optim.Adam`` over them (``opt``) and drops any captured
-    step. Where the step is staged (on the card, on the kernel route) the
+    step. Where the step is staged (on the card, on a capturable route) the
     Adam is ``capturable=True``, its state on the device, so that the graph
     can update it in place."""
 
@@ -144,7 +141,7 @@ class SystemID(nn.Module):
         for name, x in zip(self._fields, params):
             self.register_parameter(name, nn.Parameter(torch.as_tensor(x, device=self.device)))
         stage = (torch.device(self.device).type == "cuda"
-                 and kernel_route(self.kind, self.params, self.config))
+                 and capturable_route(self.kind, self.params, self.config))
         self.opt = torch.optim.Adam(self.parameters(), lr=self.learning_rate, capturable=stage)
         self._staged_step = staged(self._train_step) if stage else None
         return self.params

@@ -15,6 +15,14 @@ The engine's two linear-solve modes (``solvers/admm.py``):
 A diagonal P (B, N) takes the element-wise path of ``factorize`` /
 ``solve_shifted`` / ``power_iteration``, as in the JAX package.
 
+Under a CUDA graph capture (``utils/staging.py``) nothing here reads the
+device on the host: the Newton-Schulz loop runs through
+``utils/control.py::while_loop`` (a WHILE node), and the factorizations go
+through ``cholesky`` and ``solve``, which there take the ``_ex`` forms
+without the host's check and give NaN where a factor failed, as the JAX
+package's do. ``factorize``'s ``torch.linalg.eigh`` has no such form: it
+raises the guard's error there.
+
 Every matrix product here is a full float32 (or float64) product: the port
 never turns TF32 on, because the Newton-Schulz inverses and the solves lose
 ~1e-2 of relative accuracy at TF32's ~1e-3 rounding (the JAX package pins
@@ -28,11 +36,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import control
 from ..utils.shapes import fold_vmapped, unfold_vmapped
+from ..utils.staging import capture_error
 
 __all__ = [
     "Factorization",
+    "cholesky",
     "factorize",
+    "solve",
     "solve_shifted",
     "chol_inverse_shifted",
     "spd_cholesky_solve",
@@ -60,10 +72,49 @@ class Factorization(NamedTuple):
         return torch.amax(self.eigvals, dim=-1)
 
 
+def _captured(x: torch.Tensor) -> bool:
+    return control.capturing() and x.is_cuda
+
+
+def _nan_where_failed(x: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
+    return torch.where((info == 0).reshape(info.shape + (1,) * (x.ndim - info.ndim)), x,
+                       torch.full_like(x, float("nan")))
+
+
+def cholesky(A: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.cholesky(A)``; under a CUDA graph capture
+    ``cholesky_ex`` (the same factor, no check on the host), NaN for a
+    matrix that is not positive definite."""
+    if not _captured(A):
+        return torch.linalg.cholesky(A)
+    return _nan_where_failed(*torch.linalg.cholesky_ex(A))
+
+
+def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.solve(A, B)`` (an LU); under a CUDA graph capture
+    ``solve_ex`` with PyTorch's linear algebra library set to cuSOLVER for
+    the call (its batched LU is cuBLAS's getrf: the default heuristic's
+    MAGMA LU synchronises with the host), NaN for a singular matrix. Where
+    the default takes MAGMA, the captured solve rounds otherwise than the
+    eager one (~1e-8 relative in float32 on an H100)."""
+    if not _captured(A):
+        return torch.linalg.solve(A, B)
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return _nan_where_failed(*torch.linalg.solve_ex(A, B, check_errors=False))
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
 def factorize(P: torch.Tensor) -> Factorization:
-    """P (B, N, N) -> eigendecomposition; (B, N) -> the diagonal path."""
+    """P (B, N, N) -> eigendecomposition; (B, N) -> the diagonal path. A
+    dense P raises the guard's error under a CUDA graph capture."""
     if P.ndim == 2:
         return Factorization(eigvals=P, eigvecs=None, diag=P)
+    if _captured(P):
+        raise capture_error("the spectral factorization (ops/linalg.py::factorize)",
+                            "torch.linalg.eigh checks its info on the host")
     eigvals, eigvecs = torch.linalg.eigh(P)
     return Factorization(eigvals=eigvals, eigvecs=eigvecs, diag=None)
 
@@ -85,7 +136,7 @@ def chol_inverse_shifted(P: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     inverse, Solver.cpp:76)."""
     n = P.shape[-1]
     eye = torch.eye(n, dtype=P.dtype, device=P.device)
-    L = torch.linalg.cholesky(P + shift[:, None, None] * eye)
+    L = cholesky(P + shift[:, None, None] * eye)
     inv_L = torch.linalg.solve_triangular(L, eye.expand(P.shape), upper=False)
     return inv_L.mT @ inv_L
 
@@ -94,7 +145,7 @@ def spd_cholesky_solve(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Batched SPD multi-right-hand-side solve: A (B, m, m), rhs (B, m, k) ->
     (B, m, k). One batched Cholesky factor A = L L^T, then the two triangular
     solves L y = rhs and L^T x = y over all k columns."""
-    L = torch.linalg.cholesky(A)
+    L = cholesky(A)
     y = torch.linalg.solve_triangular(L, rhs, upper=False)
     return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
@@ -119,22 +170,31 @@ def newton_schulz_inverse(
 
 def _ns_adaptive(M: torch.Tensor, x0: torch.Tensor, tol: Optional[float], max_iters: int):
     """The cubic Newton-Schulz loop with the measured stopping rule (see
-    ``newton_schulz_inverse_adaptive``)."""
+    ``newton_schulz_inverse_adaptive``), through ``control.while_loop`` as
+    the JAX package's ``lax.while_loop``: the residual stays on the device
+    and is compared with ``tol`` in float64, as a host float would be."""
     n = M.shape[-1]
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
     if tol is None:
         tol = float(np.cbrt(torch.finfo(M.dtype).eps) * 0.9)
-    X, resid, k = x0, float("inf"), 0
-    # the carried residual belongs to the iterate the just-applied update
-    # contracted from, so exiting at resid <= tol leaves X at ~resid^3
-    while k < max_iters and resid > tol:
+
+    def cond(s):
+        k, _, resid = s
+        return (k < max_iters) & (resid.to(torch.float64) > tol)
+
+    def body(s):
+        k, X, _ = s
         R = eye - M @ X
         X = X @ (eye + R + R @ R)
         r1 = torch.amax(torch.sum(torch.abs(R), dim=-2))
         rinf = torch.amax(torch.sum(torch.abs(R), dim=-1))
-        resid = float(torch.sqrt(r1 * rinf))
-        k += 1
-    return X
+        return k + 1, X, torch.sqrt(r1 * rinf)
+
+    # the carried residual belongs to the iterate the just-applied update
+    # contracted from, so exiting at resid <= tol leaves X at ~resid^3
+    k0 = torch.zeros((), dtype=torch.int32, device=M.device)
+    inf = torch.full((), float("inf"), dtype=M.dtype, device=M.device)
+    return control.while_loop(cond, body, (k0, x0, inf))[1]
 
 
 class _NSAdaptive(torch.autograd.Function):

@@ -10,8 +10,13 @@ device and in their dtype:
   * every step is a batched matrix-vector product or an element-wise op over
     (B, N) tensors; each problem carries its own (rho, tau, counters) and
     converges on its own iteration, converged problems are frozen by
-    masking, and the Python loop runs until every problem converged or
-    ``max_iter`` (the JAX package's ``lax.while_loop``);
+    masking, and the loop runs until every problem converged or
+    ``max_iter``, through ``utils/control.py::while_loop`` (the JAX
+    package's ``lax.while_loop``): a Python loop that reads its predicate
+    on the host once an iteration, or inside a CUDA graph capture a WHILE
+    node decided on the card. The body reads nothing on the host: the
+    iteration counter and the done flag are 0-d device tensors, and the
+    inverse mode's recompute goes through ``control.cond`` (``lax.cond``);
   * the linear solve has two modes (``SolverConfig.linsolve``): the SPECTRAL
     handle (one eigh, every rho change free) and, for dense N > 48 or
     ``linsolve='chol'``, an explicit inverse of P + (rho + mu) I,
@@ -36,7 +41,14 @@ Per iteration (Solver.cpp:79-121):
 body call reduces its local done flag with a MIN over every shard of that
 axis, once, through the reducer registered under the name by
 ``lockstep_axis`` (the JAX package's ``lax.pmin``), so every shard runs the
-same number of iterations.
+same number of iterations; that reducer runs on the host, so the lockstep
+loop stays a host loop.
+
+Under a CUDA graph capture (``utils/staging.py``) the engine records itself,
+except where it reads the device on the host (``capture_reason``): the
+lockstep mode and the spectral mode's set-up, ``torch.linalg.eigh``, which
+checks its info on the host. There it raises the guard's error before it
+records anything.
 """
 
 from __future__ import annotations
@@ -48,6 +60,8 @@ from typing import Callable, Iterator, NamedTuple, Optional
 import torch
 
 from ..config import SolverConfig
+from ..utils import control
+from ..utils.staging import capture_error
 from ..ops.linalg import (
     Factorization,
     chol_inverse_shifted,
@@ -58,7 +72,8 @@ from ..ops.linalg import (
     solve_shifted,
 )
 
-__all__ = ["ADMMState", "SolveStats", "admm_solve", "lockstep_axis", "make_admm_step"]
+__all__ = ["ADMMState", "SolveStats", "admm_solve", "capture_reason", "lockstep_axis",
+           "make_admm_step"]
 
 # axis name -> the done-flag reducer of the sharded call running over it
 _reducers: dict[str, Callable[[bool], bool]] = {}
@@ -110,7 +125,7 @@ class SolveStats(NamedTuple):
 
 
 class ADMMState(NamedTuple):
-    it: int                    # global iteration counter
+    it: torch.Tensor           # () int32: global iteration counter
     l: torch.Tensor            # (B, N) primal iterate
     l2: torch.Tensor           # (B, N) constraint-satisfying iterate (the output)
     u: torch.Tensor            # (B, N) scaled dual iterate
@@ -127,7 +142,8 @@ class ADMMState(NamedTuple):
     res_dual: torch.Tensor     # (B,)
     rho_res: torch.Tensor      # (B,) the rho the recorded residuals were
                                # computed with (frozen with them)
-    all_done: bool
+    all_done: torch.Tensor     # () bool: every problem converged (lockstep: every
+                               # shard's, a host tensor)
     fact_inv: Optional[torch.Tensor]   # (B, N, N) inverse of P + (rho+mu) I in
                                        # the inverse mode, None otherwise
     l2_plain: Optional[torch.Tensor]   # accel: the un-extrapolated l2 (the
@@ -146,6 +162,20 @@ def _use_chol(P: torch.Tensor, cfg: SolverConfig) -> bool:
     if cfg.linsolve == "chol":
         return True
     return cfg.linsolve == "auto" and P.shape[-1] > 48
+
+
+def capture_reason(P: torch.Tensor, cfg: SolverConfig) -> Optional[str]:
+    """Why a solve of P with ``cfg`` cannot be recorded in a CUDA graph (it
+    reads the device on the host), or None where it can: the lockstep mode
+    (its done flag's reducer runs on the host) and the spectral mode of a
+    dense P (``torch.linalg.eigh`` checks its info on the host)."""
+    if cfg.axis_name is not None:
+        return (f"axis_name={cfg.axis_name!r} (the lockstep mode) reduces its done flag on "
+                "the host every iteration")
+    if P.ndim == 3 and not _use_chol(P, cfg):
+        return (f"a dense P of N = {P.shape[-1]} takes the spectral mode, whose set-up "
+                "torch.linalg.eigh checks its info on the host")
+    return None
 
 
 def _make_inverse_fn(P: torch.Tensor, dtype) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -187,7 +217,7 @@ def _initial_state(
         u0 = zeros
     i32 = dict(dtype=torch.int32, device=dev)
     return ADMMState(
-        it=0,
+        it=torch.zeros((), dtype=torch.int32, device=dev),
         l=zeros,
         l2=ws,
         u=u0,
@@ -203,7 +233,7 @@ def _initial_state(
         res_prim=torch.full((B,), float("inf"), dtype=dtype, device=dev),
         res_dual=torch.full((B,), float("inf"), dtype=dtype, device=dev),
         rho_res=rho,
-        all_done=False,
+        all_done=torch.zeros((), dtype=torch.bool, device=dev),
         fact_inv=inv_fn(rho + cfg.mu_prox) if use_chol else None,
         l2_plain=ws if cfg.accel else None,
         u_plain=u0 if cfg.accel else None,
@@ -238,8 +268,14 @@ def admm_solve(
       (l2, SolveStats) with l2 the per-problem solution (B, N).
     """
     cond, body, s = make_admm_step(P, q, warm_start, prox, cfg, qcqp_stopping, damp_both_taus)
-    while cond(s):
-        s = body(s)
+    if cfg.axis_name is None:
+        s = control.while_loop(cond, body, s)
+    else:
+        # lockstep: a host loop, its done flag the reducer's (a host bool)
+        for _ in range(cfg.max_iter):
+            s = body(s)
+            if bool(s.all_done):
+                break
     stats = SolveStats(
         iterations=s.iters, res_prim=s.res_prim, res_dual=s.res_dual,
         rho=s.rho_res, converged=s.converged, stalled=s.stalled,
@@ -259,9 +295,16 @@ def make_admm_step(
     damp_both_taus: bool = True,
 ) -> tuple[Callable, Callable, ADMMState]:
     """(cond, body, initial_state) of the ADMM loop, for callers that drive
-    the iteration themselves; ``admm_solve`` runs ``body`` while ``cond``.
-    With ``cfg.axis_name`` set it raises ``NameError`` unless a sharded call
-    binds that axis (``lockstep_axis``)."""
+    the iteration themselves; ``admm_solve`` runs ``body`` while ``cond``
+    (a 0-d bool tensor). With ``cfg.axis_name`` set it raises ``NameError``
+    unless a sharded call binds that axis (``lockstep_axis``). Under a CUDA
+    graph capture it raises the guard's error where ``capture_reason``
+    names one. In the inverse mode ``body`` recomputes ``fact_inv`` in
+    place: a state and the states after it share that matrix."""
+    if control.capturing():
+        reason = capture_reason(P, cfg)
+        if reason is not None:
+            raise capture_error("the eager ADMM engine (solvers/admm.py)", reason)
     reduce_done = None if cfg.axis_name is None else _done_reducer(cfg.axis_name)
     use_chol = _use_chol(P, cfg)
     dtype = q.dtype
@@ -276,8 +319,8 @@ def make_admm_step(
     floor = cfg.stall_tol * torch.finfo(dtype).eps
     alpha, mu_prox, damp = cfg.alpha_relax, cfg.mu_prox, cfg.tau_damping
 
-    def cond(s: ADMMState) -> bool:
-        return s.it < cfg.max_iter and not s.all_done
+    def cond(s: ADMMState) -> torch.Tensor:
+        return (s.it < cfg.max_iter) & ~s.all_done
 
     def body(s: ADMMState) -> ADMMState:
         active = ~s.converged
@@ -323,7 +366,7 @@ def make_admm_step(
             if cfg.rho_sync:
                 # batch-synchronous: every rho change on a shared iteration;
                 # it = 0 excluded (rho0 was applied that very iteration)
-                apply = fire & (s.it % cfg.rho_update_period == 0 and s.it > 0)
+                apply = fire & ((s.it % cfg.rho_update_period == 0) & (s.it > 0))
             else:
                 apply = fire & (s.cpt % cfg.rho_update_period == 0)
             app_inc, app_dec = apply & inc, apply & dec
@@ -342,10 +385,14 @@ def make_admm_step(
                               torch.where(app_dec, s.rho / tau_dec, s.rho))
             rho_up = torch.where(app_inc, 1, torch.where(app_dec, -1, s.rho_up)).to(torch.int32)
             cpt = s.cpt + fire.to(torch.int32)
-            if use_chol and bool((app_inc | app_dec).any()):
+            if use_chol:
                 # the inverse is a pure function of (P, rho): recomputing it
-                # for the whole batch leaves the unchanged problems' as it was
-                fact_inv = inv_fn(rho + mu_prox)
+                # for the whole batch leaves the unchanged problems' as it was.
+                # It is recomputed into the carried matrix, so both branches
+                # return that one tensor and neither copies it
+                fact_inv = control.cond((app_inc | app_dec).any(),
+                                        lambda: s.fact_inv.copy_(inv_fn(rho + mu_prox)),
+                                        lambda: s.fact_inv)
         else:
             tau_inc, tau_dec, rho, rho_up, cpt = s.tau_inc, s.tau_dec, s.rho, s.rho_up, s.cpt
 
@@ -373,9 +420,9 @@ def make_admm_step(
             l2_c, u_c = l2, u
             acc_a, acc_c, l2_plain, u_plain = s.acc_a, s.acc_c, s.l2_plain, s.u_plain
         converged = s.converged | (active & newly)
-        all_done = bool(converged.all())
+        all_done = converged.all()
         if reduce_done is not None:
-            all_done = reduce_done(all_done)
+            all_done = torch.tensor(reduce_done(bool(all_done)))
         return ADMMState(
             it=s.it + 1,
             l=torch.where(m, l, s.l),

@@ -1,5 +1,5 @@
 """Staging: a step captured once as a CUDA graph and replayed, the port's
-counterpart of the JAX package's ``jax.jit`` for the kernel route.
+counterpart of the JAX package's ``jax.jit``.
 
     step = staged(fn)
     out = step(P, q, l_n, mu)       # CUDA tensors: a graph replay per call
@@ -12,16 +12,20 @@ and optimiser update included, in one ``torch.cuda.CUDAGraph``; a call then
 costs the input copies, one graph launch and the output copies.
 
 The contract, as ``jax.jit``'s: ``fn`` takes tensors only (a pytree of
-them: tuples, lists, dicts, named tuples), returns tensors only, and reads
+them: tuples, lists, dicts, named tuples), returns tensors only (None may
+stand for one, as a Jacobian's ``dl_dP`` does), and reads
 nothing on the host (no ``.item()``, ``bool(tensor)``, ``nonzero``, no
-print of a value): inside a capture such a read fails. The kernel route of
-the solvers (dense float32 P within the kernels' bounds, ``backend`` 'auto'
-or 'pallas', no ``accel``, no ``axis_name``) meets it. The eager engine
-and the generic adjoint route's Newton-Schulz inverse, Cholesky and LU read
-their stopping tests or factor checks on the host: under a capture they
-raise a ``RuntimeError`` that names the route and the reason
-(``capture_error``), before anything is recorded. Nothing falls back
-to an eager run.
+print of a value): inside a capture such a read fails. The solvers meet it
+on every route but two: the kernels K1-K6; the eager engine, whose loop
+and inverse recompute become conditional nodes (``utils/control.py``, the
+counterparts of ``lax.while_loop`` and ``lax.cond``); the generic adjoint
+route's Newton-Schulz loop, Cholesky and LU (``ops/linalg.py``); the
+Jacobians, the traces and the contact rollout (``models/contact_sim.py``).
+The two that read the host, the engine's lockstep mode (``axis_name``) and
+its spectral mode's ``torch.linalg.eigh`` (a dense P at N <= 48 off K1:
+float64, ``backend='xla'``, ``accel``), raise a ``RuntimeError`` under a
+capture that names the route and the reason (``capture_error``), before
+anything is recorded. Nothing falls back to an eager run.
 
 Per signature of the arguments (each tensor's shape, dtype, device and
 ``requires_grad``, and the pytree's structure; ``signature``), the first
@@ -31,7 +35,10 @@ moments is made there); the next call captures ``fn`` once on static copies
 of its inputs and replays it; every later call copies its inputs into those
 buffers, replays, and returns clones of the outputs, detached (the graph's
 own outputs are overwritten by the next replay). A new signature gets a
-graph of its own, as ``jit`` retraces. Each call is one call of ``fn``: a
+graph of its own, as ``jit`` retraces. The capture is opened by
+``control.graph`` and kept (``keep_graph=True``), so that
+``control.node_counts`` can read it; ``nodes`` gives the conditional nodes
+each signature's capture recorded. Each call is one call of ``fn``: a
 warm-up call returns its real result, so an optimiser step taken in
 warm-up is a real step, and the capture itself computes nothing (its call
 replays once). With CPU tensors ``fn`` runs eagerly and nothing is
@@ -55,36 +62,34 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
-__all__ = ["WARMUP", "Staged", "capture_error", "capturing", "signature", "staged"]
+from . import control
+
+__all__ = ["WARMUP", "Staged", "capture_error", "signature", "staged"]
 
 WARMUP = 3      # eager calls of a signature before its capture (PyTorch's recipe)
-
-
-def capturing() -> bool:
-    """Whether the current CUDA stream is capturing a graph (False without
-    CUDA)."""
-    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def capture_error(route: str, reason: str) -> RuntimeError:
     """The guard's error for a route that reads the device on the host,
     naming the route and why it was taken; every such route raises it
-    where ``capturing()``, before it records anything:
+    where ``control.capturing()``, before it records anything:
 
-        if capturing():
-            raise capture_error("the eager ADMM engine", "float64 inputs ...")
+        if control.capturing():
+            raise capture_error("the eager ADMM engine", "axis_name='batch' ...")
     """
     return RuntimeError(
-        f"{route} cannot run inside a CUDA graph capture: {reason}. Only the kernel route "
-        "(dense float32 P within the kernels' bounds, backend 'auto' or 'pallas', no accel, "
-        "no axis_name) can be staged; call this solve outside the capture"
+        f"{route} cannot run inside a CUDA graph capture: {reason}. Every route of the "
+        "solvers can be staged but the engine's lockstep mode (axis_name) and its spectral "
+        "mode (torch.linalg.eigh: a dense P at N <= 48 off the kernel K1, e.g. float64, "
+        "backend='xla' or accel; linsolve='chol' takes the inverse mode instead); call this "
+        "solve outside the capture"
     )
 
 
-def _leaves(tree) -> tuple[list, Any]:
+def _leaves(tree, none_ok: bool = False) -> tuple[list, Any]:
     leaves, spec = pytree.tree_flatten(tree)
     for x in leaves:
-        if not isinstance(x, torch.Tensor):
+        if not (isinstance(x, torch.Tensor) or (none_ok and x is None)):
             raise TypeError(f"a staged function takes and returns tensors only, got a "
                             f"{type(x).__name__}")
     return leaves, spec
@@ -122,6 +127,7 @@ class _Graph:
     def __init__(self):
         self.calls = 0
         self.graph: torch.cuda.CUDAGraph | None = None
+        self.nodes: dict = {}
         self.inputs: list = []
         self.outputs: list = []
         self.out_spec = None
@@ -141,6 +147,12 @@ class Staged:
     @property
     def graphs(self) -> dict:
         return {k: s.graph for k, s in self._state.items() if s.graph is not None}
+
+    @property
+    def nodes(self) -> dict:
+        """{signature: {(kind, depth): count}} of the conditional nodes each
+        capture recorded (``control.Scope.recorded``)."""
+        return {k: s.nodes for k, s in self._state.items() if s.graph is not None}
 
     def __call__(self, *args, **kwargs):
         leaves, spec = _leaves((args, kwargs))
@@ -167,18 +179,20 @@ class Staged:
         with torch.cuda.stream(side):
             out = self.fn(*args, **kwargs)
         cur.wait_stream(side)
-        for x in _leaves(out)[0]:
-            x.record_stream(cur)        # made on the side stream, used on the caller's
+        for x in _leaves(out, none_ok=True)[0]:
+            if x is not None:
+                x.record_stream(cur)    # made on the side stream, used on the caller's
         return out
 
     def _capture(self, st: _Graph, leaves: list, spec) -> None:
         inputs = [x.detach().clone().requires_grad_(x.requires_grad) for x in leaves]
         args, kwargs = pytree.tree_unflatten(inputs, spec)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with control.graph(graph) as scope:
             out = self.fn(*args, **kwargs)
-        st.outputs, st.out_spec = _leaves(out)
-        st.inputs, st.graph = inputs, graph
+        graph.instantiate()
+        st.outputs, st.out_spec = _leaves(out, none_ok=True)
+        st.inputs, st.graph, st.nodes = inputs, graph, dict(scope.recorded)
 
     @staticmethod
     def _replay(st: _Graph, leaves: list):
@@ -186,12 +200,13 @@ class Staged:
             for buf, x in zip(st.inputs, leaves):
                 buf.copy_(x)
         st.graph.replay()
-        return pytree.tree_unflatten([x.detach().clone() for x in st.outputs], st.out_spec)
+        return pytree.tree_unflatten([None if x is None else x.detach().clone()
+                                      for x in st.outputs], st.out_spec)
 
 
 def staged(fn: Callable) -> Staged:
     """``fn`` staged as one CUDA graph per signature (``Staged``), the
-    counterpart of ``jax.jit`` for the kernel route; usable as a decorator:
+    counterpart of ``jax.jit``; usable as a decorator:
 
         @staged
         def step(P, q, l_n, mu):

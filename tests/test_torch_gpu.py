@@ -94,7 +94,8 @@ def test_staged_flagship_step_is_the_eager_step_bit_for_bit(card):
 
 
 def test_float64_solve_raises_the_guard_under_capture(card):
-    """The eager engine (float64 here) refuses a capture with the guard's
+    """The eager engine's spectral mode (float64 at N=24 here: its
+    torch.linalg.eigh reads the host) refuses a capture with the guard's
     error, before it records anything."""
     P, q, l_n, mu = (torch.tensor(x, device=card, dtype=torch.float64) for x in _flagship(8))
     g = torch.cuda.CUDAGraph()
@@ -103,25 +104,41 @@ def test_float64_solve_raises_the_guard_under_capture(card):
             dqt.solve_qcqp(P, q, l_n, mu, config=FLAG_CFG)
 
 
-@pytest.mark.parametrize("kind, diag, dtype", [
-    ("qp", True, torch.float32),            # a diagonal P: the eager engine, no kernel
-    ("qp", False, torch.float64),           # float64: the eager engine
-    ("qcqp", False, torch.float64),
-])
-def test_system_id_off_the_kernel_route_trains_eagerly_on_the_card(card, kind, diag, dtype):
-    """A card model whose problem takes the eager engine stages nothing (a
-    plain Adam) and trains past the warm-up steps, its loss falling."""
+@pytest.mark.parametrize("kind", ["qp", "qcqp"])
+def test_system_id_in_the_spectral_mode_trains_eagerly_on_the_card(card, kind):
+    """A float64 card model at N=6 takes the engine's spectral mode, whose
+    torch.linalg.eigh reads the host: it stages nothing (a plain Adam) and
+    trains past the warm-up steps, its loss falling."""
+    dtype = torch.float64
     m = SystemID(kind=kind, config=(dqt.QP_DEFAULTS if kind == "qp" else FLAG_CFG).replace(
         eps=1e-7), learning_rate=5e-2, device=card)
     g = torch.Generator().manual_seed(2)
     if kind == "qp":
-        m.init_qp(g, batch=8, n=6, diag=diag, dtype=dtype)
+        m.init_qp(g, batch=8, n=6, dtype=dtype)
     else:
         m.init_qcqp(g, batch=8, nc=3, dtype=dtype)
     target = torch.rand(8, 6, generator=torch.Generator().manual_seed(3), dtype=dtype) * 0.1
     losses = [float(m.train_step(target.to(card))) for _ in range(WARMUP + 3)]
     assert m._staged_step is None and m.opt.defaults["capturable"] is False
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_system_id_with_a_diagonal_p_is_staged_on_the_card(card):
+    """A diagonal-P card model (the engine, its loop a WHILE node) stages
+    its step, with the losses of the same model trained eagerly."""
+    def model():
+        m = SystemID(kind="qp", config=dqt.QP_DEFAULTS.replace(eps=1e-7), learning_rate=5e-2,
+                     device=card)
+        m.init_qp(torch.Generator().manual_seed(2), batch=8, n=6, diag=True)
+        return m
+
+    staged_m, eager_m = model(), model()
+    assert staged_m._staged_step is not None and staged_m.opt.defaults["capturable"] is True
+    target = torch.rand(8, 6, generator=torch.Generator().manual_seed(3)).to(card) * 0.1
+    for k in range(WARMUP + 3):
+        got, want = staged_m.train_step(target), eager_m._train_step(target)
+        assert torch.equal(got, want), k
+    assert len(staged_m._staged_step.graphs) == 1
 
 
 def test_system_id_on_the_kernel_route_is_staged_on_the_card(card):
@@ -140,3 +157,82 @@ def test_system_id_on_the_kernel_route_is_staged_on_the_card(card):
         got, want = staged_m.train_step(target), eager_m._train_step(target)
         assert torch.equal(got, want), k
     assert len(staged_m._staged_step.graphs) == 1
+
+
+def test_while_loop_is_decided_on_the_card_at_every_replay(card):
+    """``control.while_loop`` under a capture opened by ``control.graph`` is
+    one WHILE node: each replay runs as many iterations as its inputs
+    need, with the eager loop's bits, and reads nothing on the host."""
+    from diffqcqp_tpu_torch.utils import control
+
+    def loop(x, lim):
+        return control.while_loop(lambda s: s[1].max() < lim,
+                                  lambda s: (s[0] + 1, s[1] * 2.0 + 1.0),
+                                  (torch.zeros((), dtype=torch.int32, device=card), x))
+
+    x = torch.rand(64, device=card)
+    sx, sl = x.clone(), torch.tensor(1000.0, device=card)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with control.graph(g) as scope:
+        k, y = loop(sx, sl)
+    g.instantiate()
+    assert dict(scope.recorded) == {("while", 0): 1}
+    assert control.node_counts(g)["conditional"] == 1
+    for lim in (10.0, 1e5, 0.0):
+        sl.fill_(lim)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        k_e, y_e = loop(x, torch.tensor(lim, device=card))
+        assert torch.equal(k, k_e) and torch.equal(y, y_e), lim
+
+
+@pytest.mark.parametrize("identity", ["true_fn", "false_fn"])
+def test_cond_writes_nothing_into_a_returned_operand(card, identity):
+    """``control.cond`` under a capture opened by ``control.graph``, with
+    one branch that returns its operand: a replay leaves the operand as it
+    is, whichever branch the predicate picks, and gives the eager
+    result."""
+    from diffqcqp_tpu_torch.utils import control
+
+    fns = (lambda x: x, lambda x: x + 1.0)
+    if identity == "false_fn":
+        fns = fns[::-1]
+    x = torch.rand(64, device=card)
+    x0, p = x.clone(), torch.tensor(True, device=card)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with control.graph(g) as scope:
+        y = control.cond(p, *fns, (x,))
+    g.instantiate()
+    assert dict(scope.recorded) == {("if", 0): 2}
+    for pred in (False, True, False):
+        p.fill_(pred)
+        g.replay()
+        torch.cuda.synchronize(card)
+        assert torch.equal(x, x0), pred
+        assert torch.equal(y, (fns[0] if pred else fns[1])(x0)), pred
+
+
+def test_cond_returns_the_buffer_both_branches_return(card):
+    """The engine's recompute: one branch writes a buffer in place, the
+    other returns it. Under a capture ``cond`` returns that buffer itself
+    (no copy into another), and a replay writes it only where the predicate
+    holds."""
+    from diffqcqp_tpu_torch.utils import control
+
+    buf, src = torch.zeros(64, device=card), torch.rand(64, device=card)
+    p = torch.tensor(False, device=card)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with control.graph(g):
+        out = control.cond(p, lambda: buf.copy_(src * 2.0), lambda: buf)
+    g.instantiate()
+    assert out is buf
+    g.replay()
+    torch.cuda.synchronize(card)
+    assert torch.equal(buf, torch.zeros_like(buf))
+    p.fill_(True)
+    g.replay()
+    torch.cuda.synchronize(card)
+    assert torch.equal(buf, src * 2.0)

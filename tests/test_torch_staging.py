@@ -1,24 +1,28 @@
 """Staging (``utils/staging.py``) and the capture guard, on the CPU:
 
   * the guard, with ``torch.cuda.is_current_stream_capturing`` patched to
-    report a capture: a solve that takes the eager engine raises the
-    guard's ``RuntimeError`` naming the engine and the reason (float64, a
-    diagonal P, dense n = 170, ``accel``, ``backend='xla'``,
-    ``axis_name``), and so does the generic adjoint route where it reaches
-    a Newton-Schulz inverse, a Cholesky or an LU; the float32 dense kernel
-    route (the plain K1, K2 and K4 here) runs and gives the bits it gives
-    without the patch;
+    report a capture: a solve that takes the engine's spectral mode (a dense
+    P at n = 6 in float64, with ``accel`` or ``backend='xla'``: its
+    ``torch.linalg.eigh``) or its lockstep mode (``axis_name``) raises the
+    guard's ``RuntimeError`` naming the engine and the reason, and so does a
+    trace in the spectral mode; every other route runs and gives the bits
+    it gives without the patch: the float32 dense kernel route (the plain
+    K1, K2 and K4 here), the engine with a diagonal P and in its inverse
+    modes, the generic adjoint route's Newton-Schulz inverse, Cholesky and
+    LU, a trace in the inverse mode and the Jacobians (on CPU tensors these
+    take their eager forms; their capture forms run on the card,
+    ``chip_smoke.py`` phase 3o);
   * ``staged`` on CPU tensors is ``fn``, call for call, and captures
     nothing; its signature key separates shape, dtype and
     ``requires_grad``; it takes tensors only;
   * ``SystemID`` on the CPU keeps a non-capturable Adam and no staged step,
     with the JAX package's losses (as ``tests/test_torch_models.py``);
-    ``system_id.kernel_route``, which decides whether a card model stages
-    its step, names the kernel route only (dense float32 P within K1's and
-    K4's or K2's bounds).
+    ``system_id.capturable_route``, which decides whether a card model
+    stages its step, names every route but the engine's spectral and
+    lockstep modes.
 
 The staged step on a card is ``tests/test_torch_gpu.py``'s and
-``chip_smoke.py``'s (phases 3n, 4n).
+``chip_smoke.py``'s (phases 3n, 4n, 3o, 4o).
 """
 
 import dataclasses
@@ -64,27 +68,58 @@ def _qcqp(xs, **kw):
     return dqt.solve_qcqp(*xs, config=CFG, device="cpu", **kw)
 
 
+# the engine's routes that read the host: refused under a capture
 ENGINE_CASES = {
-    "float64": (lambda xs: _qcqp([x.double() for x in xs]), "torch.float64 inputs"),
-    "diagonal P": (lambda xs: _qcqp([torch.diagonal(xs[0], dim1=1, dim2=2).contiguous(),
-                                     *xs[1:]]), "a diagonal P"),
-    "n=170": (lambda _: _qcqp(_problems(2, 85)), "n = 170, past K1's launch bound"),
+    "float64": (lambda xs: _qcqp([x.double() for x in xs]), "spectral mode"),
     "accel": (lambda xs: dqt.solve_qcqp(
         *xs, config=CFG.replace(accel=True, adaptive_rho=False, alpha_relax=1.0),
-        device="cpu"), "accel"),
+        device="cpu"), "spectral mode"),
     "backend=xla": (lambda xs: dqt.solve_qcqp(*xs, config=CFG.replace(backend="xla"),
-                                              device="cpu"), "backend='xla'"),
+                                              device="cpu"), "spectral mode"),
     "axis_name": (lambda xs: _qcqp(xs, axis_name="batch"), "axis_name='batch'"),
 }
 
 
 @pytest.mark.parametrize("case", list(ENGINE_CASES))
 def test_guard_refuses_the_engine_under_capture(capture, case):
+    """The lockstep mode and the spectral mode (N = 6 here: its set-up's
+    torch.linalg.eigh checks its info on the host) refuse a capture."""
     solve, reason = ENGINE_CASES[case]
     with pytest.raises(RuntimeError, match="eager ADMM engine") as err:
         solve(_problems(3, 3))
     assert reason in str(err.value)
     assert "cannot run inside a CUDA graph capture" in str(err.value)
+    assert "torch.linalg.eigh" in str(err.value) or case == "axis_name"
+
+
+def _same(monkeypatch, call):
+    """``call()`` gives the same bits under the patched capture as without."""
+    want = call()
+    with monkeypatch.context() as m:
+        _report_capture(m)
+        got = call()
+    leaves = pytree.tree_leaves(got), pytree.tree_leaves(want)
+    assert len(leaves[0]) == len(leaves[1])
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(*leaves))
+
+
+# the engine's routes that record under a capture (the loop a WHILE node,
+# the inverse's recompute two IF nodes): each runs with its eager bits
+CAPTURED_ENGINE = {
+    "diagonal P": lambda: _step_qcqp([torch.diagonal(_problems(3, 3)[0], dim1=1, dim2=2)
+                                      .contiguous(), *_problems(3, 3)[1:]]),
+    "n=170, the float32 Newton-Schulz inverse": lambda: _step_qcqp(_problems(2, 85)),
+    "float64 n=50, the Cholesky inverse": lambda: _step_qcqp(
+        [x.double() for x in _problems(2, 25)]),
+    "accel at n=50": lambda: _step_qcqp(_problems(2, 25), CFG.replace(
+        accel=True, adaptive_rho=False, alpha_relax=1.0)),
+    "linsolve='chol' at n=6": lambda: _step_qcqp(_problems(3, 3), CFG.replace(linsolve="chol")),
+}
+
+
+@pytest.mark.parametrize("case", list(CAPTURED_ENGINE))
+def test_capture_lets_the_engine_through(monkeypatch, case):
+    _same(monkeypatch, CAPTURED_ENGINE[case])
 
 
 def _generic_qcqp(xs, dtype):
@@ -96,42 +131,49 @@ def _generic_qcqp(xs, dtype):
     return lambda: kkt.qcqp_vjp(P, q, r, l, 2.0 * l, CFG, duals=kkt.qcqp_dual(P, q, r, l, CFG))
 
 
-@pytest.mark.parametrize("nc, dtype, route", [
-    (3, torch.float64, "_solve_direct"),            # nc + n = 9: the assembled system, an LU
-    (3, torch.float32, "_solve_direct"),            # float32 on the CPU: the LU as well
-    (30, torch.float64, "_qcqp_schur_vjp"),         # nc + n = 90 > 88: Cholesky of D, LU
+@pytest.mark.parametrize("nc, dtype", [
+    (3, torch.float64),             # nc + n = 9: the assembled system, an LU
+    (3, torch.float32),             # float32 on the CPU: the LU as well
+    (30, torch.float64),            # nc + n = 90 > 88: Cholesky of D, LU
 ])
-def test_guard_refuses_the_generic_route_where_it_reads_the_host(monkeypatch, nc, dtype, route):
-    call = _generic_qcqp(_problems(2, nc), dtype)
-    call()                                          # without a capture it runs
-    _report_capture(monkeypatch)
-    with pytest.raises(RuntimeError, match=route):
-        call()
+def test_capture_lets_the_generic_route_through(monkeypatch, nc, dtype):
+    _same(monkeypatch, _generic_qcqp(_problems(2, nc), dtype))
 
 
-def test_guard_refuses_the_float32_newton_schulz_inverse(capture):
+def test_capture_lets_the_float32_newton_schulz_inverse_through(monkeypatch):
     """The QP's generic route sends a float32 SPD system on the CPU to the
-    Newton-Schulz inverse, whose stopping test reads the host."""
+    Newton-Schulz inverse, whose loop records as a WHILE node."""
     P, q = _problems(2, 3)[:2]
     l = torch.clamp_min(torch.randn(2, 6, generator=torch.Generator().manual_seed(0)), 0)
-    with pytest.raises(RuntimeError, match="Newton-Schulz"):
-        kkt._qp_assembled_vjp(P, q, l, torch.ones_like(l), CFG)
+    _same(monkeypatch, lambda: kkt._qp_assembled_vjp(P, q, l, torch.ones_like(l), CFG))
 
 
-@pytest.mark.parametrize("name", ["trace_qp", "qp_jacobian"])
-def test_guard_refuses_traces_and_jacobians(capture, name):
-    """A solve trace steps the engine, and the Jacobians' Cholesky or LU
-    checks its factor on the host: both refuse a capture."""
-    P, q = _problems(2, 3)[:2]
+@pytest.mark.parametrize("name", ["trace_qp", "trace_qp, linsolve='chol'", "qp_jacobian",
+                                  "qcqp_jacobian"])
+def test_guard_refuses_traces_and_jacobians(monkeypatch, name):
+    """A trace in the spectral mode (N = 6) refuses a capture, as its
+    set-up's torch.linalg.eigh reads the host; a trace in the inverse mode
+    and the Jacobians (a Cholesky and an LU) run with their eager bits."""
+    P, q, l_n, mu = _problems(2, 3)
+    qc = dqt.QCQP_DEFAULTS.replace(eps=1e-7)
     call = {"trace_qp": lambda: dqt.debug.trace_qp(P, q, iters=3, device="cpu"),
-            "qp_jacobian": lambda: dqt.qp_jacobian(P, q, l=torch.zeros_like(q), device="cpu")}
-    with pytest.raises(RuntimeError, match="cannot run inside a CUDA graph capture"):
+            "trace_qp, linsolve='chol'": lambda: dqt.debug.trace_qp(
+                P, q, iters=3, config=dqt.QP_DEFAULTS.replace(linsolve="chol"), device="cpu"),
+            "qp_jacobian": lambda: dqt.qp_jacobian(P, q, l=torch.zeros_like(q), device="cpu"),
+            "qcqp_jacobian": lambda: dqt.qcqp_jacobian(P, q, l_n, mu, config=qc.replace(
+                backend="pallas"), device="cpu")}
+    if name != "trace_qp":
+        _same(monkeypatch, call[name])
+        return
+    _report_capture(monkeypatch)
+    with pytest.raises(RuntimeError, match="cannot run inside a CUDA graph capture") as err:
         call[name]()
+    assert "torch.linalg.eigh" in str(err.value)
 
 
-def _step_qcqp(xs):
+def _step_qcqp(xs, cfg=CFG):
     leaves = [x.clone().requires_grad_() for x in xs]
-    l, st = dqt.solve_qcqp_with_stats(*leaves, config=CFG, device="cpu")
+    l, st = dqt.solve_qcqp_with_stats(*leaves, config=cfg, device="cpu")
     return l, st, torch.autograd.grad((l * l).sum(), leaves)
 
 
@@ -261,30 +303,35 @@ def _sysid_params(kind, n, diag=False, dtype=torch.float32):
 
 QP_CFG = dqt.QP_DEFAULTS.replace(eps=1e-7)
 ROUTE_CASES = {
-    # kind, n, diag, dtype, config, takes the kernel route
+    # kind, n, diag, dtype, config, a CUDA graph can hold its step
     "qp dense float32": ("qp", 8, False, torch.float32, QP_CFG, True),
     "qcqp dense float32": ("qcqp", 8, False, torch.float32, CFG, True),
     "qp at K4's bound n=168": ("qp", 168, False, torch.float32, QP_CFG, True),
     "qcqp at K2's bound n=150": ("qcqp", 150, False, torch.float32, CFG, True),
-    "qp diagonal P": ("qp", 8, True, torch.float32, QP_CFG, False),
+    "qp diagonal P": ("qp", 8, True, torch.float32, QP_CFG, True),
     "qp float64": ("qp", 8, False, torch.float64, QP_CFG, False),
     "qcqp float64": ("qcqp", 8, False, torch.float64, CFG, False),
     "qp accel": ("qp", 8, False, torch.float32,
                  QP_CFG.replace(accel=True, adaptive_rho=False, alpha_relax=1.0), False),
     "qcqp backend=xla": ("qcqp", 8, False, torch.float32, CFG.replace(backend="xla"), False),
-    "qp n=169, K1 but past K4": ("qp", 169, False, torch.float32, QP_CFG, False),
-    "qcqp n=152, K1 but past K2": ("qcqp", 152, False, torch.float32, CFG, False),
-    "qp n=170, past K1": ("qp", 170, False, torch.float32, QP_CFG, False),
+    "qp n=169, K1 but past K4": ("qp", 169, False, torch.float32, QP_CFG, True),
+    "qcqp n=152, K1 but past K2": ("qcqp", 152, False, torch.float32, CFG, True),
+    "qp n=170, past K1": ("qp", 170, False, torch.float32, QP_CFG, True),
+    "qcqp float64 n=50, the Cholesky inverse": ("qcqp", 50, False, torch.float64, CFG, True),
+    "qp float64 linsolve='chol'": ("qp", 8, False, torch.float64,
+                                   QP_CFG.replace(linsolve="chol"), True),
+    "qp axis_name": ("qp", 8, False, torch.float32, QP_CFG.replace(axis_name="batch"), False),
 }
 
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
-def test_system_id_stages_only_the_kernel_route(case):
-    """``kernel_route`` is what ``SystemID.set_params`` asks before it
-    stages a card model's step: True exactly where the forward takes K1 and
-    the backward K4 (QP) or K2 (QCQP); every other model trains eagerly."""
+def test_system_id_stages_a_capturable_route(case):
+    """``capturable_route`` is what ``SystemID.set_params`` asks before it
+    stages a card model's step: True unless the forward takes the engine's
+    spectral mode (a dense P at N <= 48 off K1) or its lockstep mode; every
+    other model trains eagerly."""
     kind, n, diag, dtype, cfg, want = ROUTE_CASES[case]
-    assert tsid.kernel_route(kind, _sysid_params(kind, n, diag, dtype), cfg) is want
+    assert tsid.capturable_route(kind, _sysid_params(kind, n, diag, dtype), cfg) is want
 
 
 @pytest.mark.parametrize("diag, dtype", [(True, torch.float32), (False, torch.float64)])
