@@ -8,6 +8,8 @@
                                      # steps' captures) and the result line
     python3 chip_smoke.py control    # phase 1, then phases 3o and 4o alone; no
                                      # result line
+    python3 chip_smoke.py eigh       # phase 1, then phases 2p, 3p and 4p alone;
+                                     # no result line
     python3 chip_smoke.py eager ROOT # the port at ROOT times the engine's eager
                                      # paths (``eager_run``); no result line
 
@@ -30,7 +32,8 @@ block-wide path). Phases, each of which fails the run if its check fails:
      ``kernels/_build.SOURCES`` library (one nvcc each, all at once); each
      kernel's launch plan (threads, shared memory, bound) as the built library
      computes it against the Python wrapper's, for K2 / K6 at n = 24, 34, 96,
-     142 and K5 at m = 5, 33, 36, 72, 88, and three blocks of K6, K2 and K1
+     142, K5 at m = 5, 33, 36, 72, 88 and E1 at N = 2 to 170 (either side of
+     its shared-memory bounds, 119 in float64 and 169 in float32), and three blocks of K6, K2 and K1
      on an SM at N=96 (the occupancy calculator); ptxas's registers and
      spills per kernel; blocks per SM of K1, K2, K6 and K4 (each kind) at
      N=24 and the waves each main-path launch takes, ceil(B / (blocks per
@@ -96,6 +99,18 @@ block-wide path). Phases, each of which fails the run if its check fails:
      s and the strict mask from ``qcqp_dual`` / ``qcqp_strict_active``, g =
      2 l and a random g, with phase 2b's bars; then K6 fed K2's own gamma
      against K2 at the flagship, on the problems whose mask agrees;
+  2p. kernel E1 (``eigh_cuda``, the spectral mode's batched Jacobi
+     eigendecomposition) against its plain version (``jacobi_eigh_plain``)
+     on the same card inputs (``eigh_points``): the flagship's P (B=4096
+     N=24) in float32 and as the float64 referee takes it; B=256 at N = 2,
+     7, 48 and 130 (past the shared-memory bound in float64: the global
+     workspace) in both dtypes; repeated eigenvalues and a diagonal dense P;
+     a P with a NaN and an inf. For each: the sweeps a problem (max, mean),
+     the problems bit for bit the plain version's, max |d| against it, and
+     both outputs against ``torch.linalg.eigh`` in float64: ||V diag(lam)
+     V^T - P||_F / ||P||_F, max |V^T V - I| and |lam - lam_eigh| / ||P||_2,
+     each <= 50 N u (u the dtype's unit roundoff); ascending; a non-finite
+     problem all NaN, the others finite;
   3. the slice through ``solve_qcqp_with_stats`` (launch counters zeroed
      just before, read just after): K1 launched, every problem converged,
      every contact feasible, and max |dl| <= 1e-4 against the plain version
@@ -158,7 +173,8 @@ block-wide path). Phases, each of which fails the run if its check fails:
      autograd at B=256, N=176 (no kernel: the eager engine and the
      assembled system), l within 1e-4 of the float64 plain K1 and the
      gradients at phase 3c's bars; a float64 ``solve_qcqp`` + autograd on
-     the card at B=256, N=24 (no kernel; float64 results within 1e-8 (l)
+     the card at B=256, N=24 (none of K1-K6; its spectral set-up is E1,
+     counted in phase 3p; float64 results within 1e-8 (l)
      and 1e-7 (gradients, of each problem's scale) of the float64 referee);
      ``backend='xla'`` float32 at the flagship against K1 (both estimate L
      by power iteration): iterations within 4, |dl| <= 1e-4, equal
@@ -313,10 +329,10 @@ block-wide path). Phases, each of which fails the run if its check fails:
      counterpart of ``jax.jit``): first, before any capture, which calls
      read the device on the host (``torch.cuda.set_sync_debug_mode("error")``):
      not the eager flagship and config-10 steps, nor the generic route through
-     K5 (``qcqp_vjp(duals=)`` at the flagship) and K6 (at B=2048 N=96); each
-     route the capture guard refuses does (the eager engine, ``_solve_direct``'s
-     LU, Cholesky and Newton-Schulz inverse, ``_qcqp_schur_vjp``'s Cholesky and
-     LU). Then, staged: the flagship step (bench.py's sum(l^2), gradients for
+     K5 (``qcqp_vjp(duals=)`` at the flagship) and K6 (at B=2048 N=96), nor
+     ``_solve_direct``'s LU (cuSOLVER's, no check on the host); the others do
+     (the eager engine, ``_solve_direct``'s Cholesky and Newton-Schulz
+     inverse, ``_qcqp_schur_vjp``'s Cholesky and LU). Then, staged: the flagship step (bench.py's sum(l^2), gradients for
      P, q, l_n and mu), config 10's QP step, config 9's box and signed-box
      steps (phase 3c's loss), config 6's step, the QCQP step at B=2048 N=96
      and those two generic calls: past the warm-up calls, the capture records
@@ -325,9 +341,7 @@ block-wide path). Phases, each of which fails the run if its check fails:
      once each, and the replay's l, stats and gradients equal the eager step's
      bit for bit on the inputs and on q + 1e-5; the flagship's graph (bucket
      4096) replayed for B=4000 and 3000 padded by ``pad_to_bucket``, bit for
-     bit the eager bucketed step; the guard's error under capture for the
-     float64 flagship and ``backend='xla'`` (B=256, staged with the warm-up
-     calls: the spectral mode); the config-4
+     bit the eager bucketed step; the config-4
      system-ID step (forward, backward, ``Adam(capturable=True)``) staged
      against the same step run eagerly over 20 steps (K1 2, K4 1, K2 1 at
      capture, none a replay; the same kernels in a profiled replay), and
@@ -335,8 +349,8 @@ block-wide path). Phases, each of which fails the run if its check fails:
      on config 4's QCQP half against the same model stepped eagerly (K1 1,
      K2 1): losses and parameters bit for bit (whether S S^T in a replay is
      the eager product's bits is printed); a float64 QCQP ``SystemID`` (N=24:
-     the spectral mode) on the card stages nothing and trains eagerly past
-     the warm-up steps, and a diagonal-P QP one stages its step;
+     the spectral mode, its set-up E1) and a diagonal-P QP one on the card
+     stage their steps, their losses falling past the warm-up steps;
   4n. each staged step beside its eager step, both through ``timed_step``
      (20 back-to-back calls a sample, median of 5; device time and the
      card's idle share), and a line each: eager and staged ms, device ms and
@@ -358,23 +372,42 @@ block-wide path). Phases, each of which fails the run if its check fails:
      n=170 and N=176 steps), which the kept graph holds
      (``control.node_counts``); on two input sets the replay is the eager
      run bit for bit (l, stats, gradients, trajectories) with each set's
-     own eager iterations, which differ; where cuSOLVER's LU stands in
-     for MAGMA's under the capture (the n=170 and float64 Schur routes,
-     the generic float64 LU) the replay is held to the referee bars
-     instead, and the phase names those paths; a replay under
+     own eager iterations, which differ (the LU paths included: the port
+     takes cuSOLVER's LU eagerly too, ``ops/linalg.py::solve``); a replay under
      ``set_sync_debug_mode("error")`` reads nothing on the host. Then the
      contact system-ID step (``make_system_id_step``, staged by the
      module) against the same ``Adam(capturable=True)`` step run eagerly
      over 20 steps: losses and parameters bit for bit, 100 WHILE nodes,
-     no host read; and the routes that stay guarded refuse a capture: the
-     spectral mode (the float64 flagship step, ``trace_qcqp`` at its
-     default linsolve) and ``axis_name``;
+     no host read; and the route that stays guarded refuses a capture:
+     ``axis_name`` (the spectral mode stages: phase 3p);
   4o. each path of phase 3o eagerly and staged through ``timed_step``
      (median of 3; device time by kernel; where the graph holds
      conditional nodes the profiler does not count their bodies' kernels
      reliably, so the staged line gives the wall time alone);
+  3p. the spectral mode's routes staged, their set-up E1 (``phase_3p``):
+     the float64 flagship step (B=4096 N=24), the ``backend='xla'``
+     flagship step, an ``accel`` flagship forward, ``trace_qcqp`` at the
+     flagship (64 iterations, the default ``linsolve``), a float64
+     ``SystemID(kind="qcqp")`` at config 4's QCQP half (B=2048 N=24, 20 Adam
+     steps) and ``linsolve='spectral'`` at B=256 N=130 in float64. Each
+     eagerly launches E1 once a solve and calls ``torch.linalg.eigh`` never
+     (a spy); staged, the capture records the eager launches and the WHILE
+     nodes, a replay reads nothing on the host and is the eager run bit for
+     bit on the inputs and on q + 1e-5, each with its eager iterations; each
+     solution within 1e-4 of the float64 referee and of K1 on the same
+     problems (iterations within 4 of K1's where both estimate L by power
+     iteration: the ``backend='xla'`` step); a float64 flagship solve at
+     the referee's eps printed beside it (phase 3e gates that route at
+     1e-8);
+  4p. each path of phase 3p eagerly and staged (phase 4o's timing); E1
+     alone at B=4096 N=24 and B=2048 N=48 in float32 and float64 (profiler
+     and CUDA events), its plain version, its bound (``e1_bound_ms``) and
+     ``torch.linalg.eigh`` of the same P, and what one such call launches
+     at N=48;
   5. one JSON line of every ported kernel (K4's block-wide path at config 6
-     its own entry), then as the last line ``{"ok": true, "device": {...}}``.
+     its own entry; E1, the spectral mode's eigendecomposition, which
+     replaces XLA's ``eigh`` and no Pallas kernel), then as the last line
+     ``{"ok": true, "device": {...}}``.
 
 Imports torch, numpy and the port only. Exits non-zero without a result
 when no CUDA device is present or the port cannot be imported.
@@ -401,7 +434,13 @@ FP32_FLOPS = 67e12         # H100 SXM data sheet, float32 outside the tensor cor
 DGAMMA_CAP = 1e-2          # phase 3d: the most dgamma's bar may grow to, of the problem's scale
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print at once; a phase's heading carries the script's seconds so far."""
+    if a and isinstance(a[0], str) and a[0].startswith("phase "):
+        a = (f"[{time.perf_counter() - _T0:.1f} s] {a[0]}", *a[1:])
     print(*a, flush=True)
 
 
@@ -515,11 +554,11 @@ def counts(label, iters, factors):
         f"{int(factors.max())}")
 
 
-def bound_ms(bytes_, flops):
+def bound_ms(bytes_, flops, peak=FP32_FLOPS):
     """(ms, what bounds it, bytes, FLOPs): the larger of the bytes over the
-    memory rate and the FLOPs over the float32 peak."""
+    memory rate and the FLOPs over ``peak`` (the float32 one by default)."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), bytes_, flops
 
 
@@ -1480,7 +1519,8 @@ def phase_3e(dqt, cfg, qp_cfg, kernels, rand_g, flag, out_k, l64_flag):
                 1e-3, 2e-3, floor=1e-30)
 
     # (c) a float64 QCQP on the card: the engine and the generic route in
-    # float64, no kernel, against the float64 referee (plain K1 at eps=1e-10)
+    # float64, none of K1-K6 (the spectral set-up is E1, counted in phase
+    # 3p), against the float64 referee (plain K1 at eps=1e-10)
     P, q, l_n, mu = (x[:256].double() for x in flag)
     w = rand_g(q).double()
     c64 = cfg.replace(eps=1e-10, max_iter=5000)
@@ -2568,7 +2608,7 @@ def phase_4m(smi, steps, B=B_FLAG):
 # the kernels' names in a profiler trace (K2's tag also matches its
 # block-wide instance, K4's its one-warp one)
 KERNEL_TAGS = (("K1", "admm_kernel"), ("K2", "qcqp_bwd_kernel"), ("K4", "coord_bwd_kernel"),
-               ("K5", "qr_solve_kernel"), ("K6", "qcqp_schur_kernel"))
+               ("K5", "qr_solve_kernel"), ("K6", "qcqp_schur_kernel"), ("E1", "jacobi_eigh_kernel"))
 
 
 def grad_step(solve, cfg, n_diff, w=None):
@@ -2714,18 +2754,20 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
     """Phase 3n: the steps staged as one CUDA graph each (``utils.staged``).
     Before any capture, which calls read the device on the host
     (``set_sync_debug_mode("error")``): not the eager flagship and config-10
-    steps, nor the generic route through K5 and K6; eagerly, the engine and
-    the generic route's Newton-Schulz inverse, Cholesky and LU do (phase 3o
-    stages their device-side forms). Then each step through
+    steps, nor the generic route through K5 and K6, nor (since the LU is
+    cuSOLVER's eagerly) its LU; eagerly, the engine and the generic route's
+    Newton-Schulz inverse and Cholesky do (phase 3o stages their
+    device-side forms). Then each step through
     ``staged_check``; the flagship's
     graph replayed for batches of ``b_pads`` padded to its own batch (the
-    4096 bucket);
-    the guard's error under capture for the float64 flagship and
-    ``backend='xla'`` (the spectral mode); the config-4 system-ID
+    4096 bucket); the config-4 system-ID
     step (capturable Adam) staged against the same step run eagerly over
     ``steps`` steps, and ``SystemID(kind="qcqp").train_step`` on config 4's
-    QCQP half against the same model stepped eagerly; a float64 ``SystemID``
-    trains eagerly past the warm-up steps, a diagonal-P one staged. Returns ({path:
+    QCQP half against the same model stepped eagerly; a diagonal-P and a
+    float64 ``SystemID`` (the spectral mode, E1) staged, their losses falling
+    past the warm-up steps (phase 3p holds a float64 one to its eager twin
+    bit for bit). The float64 flagship and ``backend='xla'`` steps, which
+    refused a capture here before E1, stage in phase 3p. Returns ({path:
     launches at capture}, [(label, eager step, staged step, problems)] for
     phase 4n)."""
     from diffqcqp_tpu_torch.diff import kkt
@@ -2783,12 +2825,13 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
                                            "config 10 QP step B=4096 N=24",
                                            "generic route qcqp_vjp(duals=) at flagship B=4096 N=24",
                                            "generic route qcqp_vjp(duals=) at B=2048 N=96")}
-    # run eagerly these read the host; under a capture each but the engine's
-    # spectral mode records a device-side form instead (phase 3o)
+    # run eagerly these read the host; under a capture each records a
+    # device-side form instead (phase 3o). The LU does not: on the card it is
+    # cuSOLVER's without the host's check, eagerly as under a capture
+    lu_free = {"_solve_direct's LU (float64 assembled QCQP system)":
+               lambda: kkt._solve_direct(ST64, rhs64, cfg)}
     guarded = {
         "the eager engine (float64 flagship forward)": lambda: dqt.solve_qcqp(*xs64, config=cfg),
-        "_solve_direct's LU (float64 assembled QCQP system)":
-            lambda: kkt._solve_direct(ST64, rhs64, cfg),
         "_solve_direct's Cholesky (float64 SPD K of the QP)":
             lambda: kkt._solve_direct(K32.double(), rhs32.double(), c10.cfg, spd=True),
         "_solve_direct's Newton-Schulz inverse (float32 SPD K, backend='xla')":
@@ -2800,6 +2843,7 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
         fn(*xs)                                 # lazy state made before the check
     reads = {label: host_reads(lambda fn=fn, xs=xs: fn(*xs)) for label, (fn, xs, _, _)
              in free.items()}
+    reads.update({label: host_reads(fn) for label, fn in lu_free.items()})
     reads_g = {label: host_reads(fn) for label, fn in guarded.items()}
     for label, why in {**reads, **reads_g}.items():
         log(f"  reads the device on the host (set_sync_debug_mode('error')): {label}: "
@@ -2826,17 +2870,6 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
             f"bits differ from the eager bucketed step: {d}")
         if d or len(s_flag.graphs) != 1:
             raise AssertionError(f"the bucketed replay at B={b} is not the eager step bit for bit")
-
-    # the guard under capture: the spectral mode (the diagonal-P step and
-    # the generic route's LU record since the engine's loops became graph
-    # nodes: phase 3o)
-    small = [x[:b_guard] for x in flag]
-    for label, xs_, c_ in (("float64 flagship step", xs64, cfg),
-                           ("backend='xla' flagship step", small, cfg.replace(backend="xla"))):
-        s = staged(grad_step(solve_qc, c_, 4))
-        for _ in range(WARMUP):                   # the warm-up calls run eagerly
-            s(*xs_)
-        refused_under_capture(f"staged {label}", lambda s=s, xs_=xs_: s(*xs_), capture=False)
 
     # the config-4 system-ID step: forward, backward, capturable Adam
     (S, qs, ln, lm), target = sysid
@@ -2869,7 +2902,7 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
                      (p_e, l_e), (p_s, l_s), cublas_same)
     traced = kernels_in_trace(run_s)
     log(f"  config-4 system-ID step: a profiled replay runs {traced}")
-    if traced != {"K1": 2, "K2": 1, "K4": 1, "K5": 0, "K6": 0}:
+    if traced != {"K1": 2, "K2": 1, "K4": 1, "K5": 0, "K6": 0, "E1": 0}:
         raise AssertionError(f"the staged system-ID step runs {traced}, not K1 2, K4 1, K2 1")
     pairs.append(("config-4 system-ID step (forward, backward, Adam)", run_e, run_s, 4096))
 
@@ -2890,9 +2923,9 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
                      (list(m_e.params), l_e), (list(m_s.params), l_s), cublas_same)
     pairs.append(("SystemID(kind='qcqp').train_step, config 4's QCQP half", run_e, run_s, 2048))
 
-    # a card model on a capturable route (a diagonal P: the engine's loop a
-    # graph node) stages its step; one in the spectral mode (float64 at
-    # N=24) stages nothing and trains eagerly past the warm-up steps
+    # a card model on a capturable route stages its step: a diagonal P (the
+    # engine's loop a graph node) and float64 at N=24 (the spectral mode,
+    # its set-up E1)
     rng = np.random.default_rng(12)
     for label, kind, diag, dtype in (("diagonal-P QP", "qp", True, torch.float32),
                                      ("float64 QCQP", "qcqp", False, torch.float64)):
@@ -2905,7 +2938,7 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
             m.init_qcqp(gen, batch=b_guard, nc=NC_FLAG, dtype=dtype)
         tgt = torch.tensor(rng.random((b_guard, 2 * NC_FLAG)) * 0.1, dtype=dtype).cuda()
         losses = [float(m.train_step(tgt)) for _ in range(WARMUP + 3)]
-        stage = diag
+        stage = True
         log(f"  SystemID {label} on the card: staged {m._staged_step is not None}, capturable "
             f"Adam {m.opt.defaults['capturable']} (want {stage}); losses over {len(losses)} steps "
             f"{losses[0]:.6e} -> {losses[-1]:.6e}")
@@ -3002,8 +3035,8 @@ def staged_loop_check(label, kernels, step, sets, want, whiles, iters=None):
     run bit for bit (else ``within_bars``, printed) with its own eager
     iterations (``iters(out)``), which differ between the sets; a replay
     under ``set_sync_debug_mode("error")`` reads nothing on the host.
-    Returns (the staged step, its launches at capture, the library
-    exception or None)."""
+    Returns (the staged step, its launches at capture, the label where a
+    replay's bits differ, else None)."""
     from diffqcqp_tpu_torch.utils import control
     from diffqcqp_tpu_torch.utils.staging import WARMUP, staged
 
@@ -3038,8 +3071,11 @@ def staged_loop_check(label, kernels, step, sets, want, whiles, iters=None):
     if top.get("while", 0) != whiles or nodes["conditional"] != sum(top.values()):
         raise AssertionError(f"{label}: want {whiles} WHILE nodes at the top level, recorded "
                              f"{top}, the graph holds {nodes}")
-    if iters is not None and len(sets) > 1 and torch.equal(iters_seen[0], iters_seen[1]):
-        raise AssertionError(f"{label}: the two input sets run the same iterations")
+    if iters is not None and len(sets) > 1:
+        same_sets = torch.equal(iters_seen[0], iters_seen[1])
+        log(f"  {label}: the input sets' iterations differ: {not same_sets}")
+        if same_sets:
+            raise AssertionError(f"{label}: the two input sets run the same iterations")
     if reads is not None:
         raise AssertionError(f"{label}: a replay reads the device on the host: {reads}")
     return s, n_cap, excepted
@@ -3056,11 +3092,11 @@ def phase_3o(dqt, kernels, cfg, qp_cfg, rollouts, b_past=256, b_trace=4096, step
     the generic route's float64 LU (``qcqp_vjp(duals=)`` at the flagship's
     size) and Cholesky (the QP's assembled SPD system); ``qcqp_jacobian`` at
     the flagship (K1 inside); ``trace_qcqp``, 64 iterations at the flagship
-    in the inverse mode (``linsolve='chol'``). Then the routes that stay
-    guarded refuse a capture: the spectral mode (the float64 flagship step,
-    ``trace_qcqp`` at its default), and ``axis_name``. Returns ([(label,
-    eager step, staged step, problems)] for phase 4o, the paths held to the
-    referee bars)."""
+    in the inverse mode (``linsolve='chol'``). Then the route that stays
+    guarded refuses a capture: ``axis_name``; the spectral mode stages
+    (phase 3p). Every replay is its eager run bit for bit, the LU paths
+    included (cuSOLVER's LU eagerly too). Returns [(label, eager step,
+    staged step, problems, conditional nodes)] for phase 4o."""
     from diffqcqp_tpu_torch.diff import kkt
     from diffqcqp_tpu_torch.models import contact_sim as cs
 
@@ -3166,23 +3202,16 @@ def phase_3o(dqt, kernels, cfg, qp_cfg, rollouts, b_past=256, b_trace=4096, step
         raise AssertionError(f"{label}: a replay reads the device on the host")
     pairs.append((label, eager_step, staged_step, B, sum(rec.values())))
 
-    # what stays guarded: the spectral mode and the lockstep mode
-    from diffqcqp_tpu_torch.utils.staging import WARMUP, staged
-
+    # what stays guarded: the lockstep mode (the spectral mode stages, phase 3p)
     small = [x[:b_past] for x in flag]
-    s = staged(grad_step(solve_qc, cfg, 4))
-    xs64 = [x.double() for x in small]
-    for _ in range(WARMUP):
-        s(*xs64)
-    refused_under_capture("staged float64 flagship step (the spectral mode: torch.linalg.eigh)",
-                          lambda: s(*xs64), capture=False)
-    refused_under_capture("trace_qcqp at the flagship, the default linsolve (the spectral mode)",
-                          lambda: dqt.debug.trace_qcqp(*small, iters=4, config=cfg))
     refused_under_capture("solve_qcqp with axis_name='batch' (the lockstep mode)",
                           lambda: dqt.solve_qcqp(*small, config=cfg.replace(axis_name="batch")))
-    log(f"  paths held to the referee bars (a library routine rounds otherwise under capture): "
-        f"{excepted or 'none'}")
-    return pairs, excepted
+    # cuSOLVER's LU runs eagerly too (ops/linalg.py::solve): every path is
+    # its eager run bit for bit, the LU paths included
+    log(f"  paths whose replay is not the eager run bit for bit: {excepted or 'none'}")
+    if excepted:
+        raise AssertionError(f"replays not the eager run bit for bit: {excepted}")
+    return pairs
 
 
 def control_nodes(graph):
@@ -3191,7 +3220,7 @@ def control_nodes(graph):
     return control.node_counts(graph)
 
 
-def phase_4o(smi, pairs):
+def phase_4o(smi, pairs, calls=None):
     """Phase 4o: each path of phase 3o eagerly and staged, in turn, through
     ``timed_step`` (CUDA events, median of 3 samples; device time and the
     card's idle share), one back-to-back call a sample for the rollouts and
@@ -3201,11 +3230,12 @@ def phase_4o(smi, pairs):
     for the same staged rollout it gave 21.4 ms in one run and 183.5 ms,
     more than the wall time, in another. Where the staged graph holds
     nodes, the line gives its wall time alone: its device time and idle
-    share are not measured."""
+    share are not measured. ``calls`` sets the calls a sample for every
+    path (phase 4p: 1)."""
     rows = []
     for label, eager, st, problems, nodes in pairs:
         slow = "rollout" in label or "contact system-ID" in label
-        kw = dict(reps=3, calls=1 if slow else 5, problems=problems)
+        kw = dict(reps=3, calls=calls or (1 if slow else 5), problems=problems)
         ms_e, idle_e = timed_step(f"{label}, eager", eager, smi, **kw)
         ms_s, idle_s = timed_step(f"{label}, staged (one CUDA graph)", st, smi, **kw)
         rows.append((label, ms_e, idle_e, ms_s, idle_s, nodes))
@@ -3216,6 +3246,385 @@ def phase_4o(smi, pairs):
         log(f"    {label}: eager {ms_e:.4f} ({ms_e * (1 - idle_e):.4f}, {idle_e:.1%}), staged "
             f"{ms_s:.4f} ({staged_dev}): {ms_e / ms_s:.3f}x")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The spectral mode's eigendecomposition on the card: the Jacobi kernel E1
+# ---------------------------------------------------------------------------
+
+FP64_FLOPS = 34e12         # H100 SXM data sheet, float64 outside the tensor cores
+
+
+def e1_bound_ms(B, n, dtype, rotations):
+    """Least time of an E1 call on an H100 SXM: the larger of the bytes (P
+    read once, V and the eigenvalues written once) over the memory rate and
+    the operations this run's data needs over the dtype's peak (float32 67
+    TFLOP/s, float64 34 TFLOP/s outside the tensor cores): the Jacobi
+    rotations the plain version applies on the same P (``rotations``), 12 N
+    flops each, the least a rotation needs: rows p and q of V^T and of A, 6
+    N each, A's columns p and q being its rows by symmetry (the kernel
+    rotates them too, 18 N). Returns (ms, what bounds it, bytes, FLOPs)."""
+    f64 = dtype == torch.float64
+    return bound_ms((8 if f64 else 4) * B * (2 * n * n + n), 12.0 * n * float(rotations.sum()),
+                    FP64_FLOPS if f64 else FP32_FLOPS)
+
+
+def with_spectrum(lams, b, seed):
+    """Q diag(lams) Q^T, float64 numpy, for a random orthogonal Q a problem."""
+    rng = np.random.default_rng(seed)
+    n = len(lams)
+    Q = np.linalg.qr(rng.standard_normal((b, n, n)))[0]
+    P = Q @ (np.asarray(lams, dtype=np.float64)[None, :, None] * Q.transpose(0, 2, 1))
+    return 0.5 * (P + P.transpose(0, 2, 1))
+
+
+def eigh_points(P_flag):
+    """Phase 2p's points: the flagship's P (B=4096 N=24) in float32 and as the
+    float64 referee takes it; B=256 at N = 2, 7, 48 and 130 (past the
+    shared-memory bound in float64) in both dtypes; repeated eigenvalues
+    and a diagonal dense P (float64 and float32, B=256 N=24); the flagship's
+    first 256 P with a NaN in problem 3 and an inf in problem 7."""
+    pts = [("flagship B=4096 N=24 float32", P_flag),
+           ("the float64 referee's P, flagship B=4096 N=24 float64", P_flag.double())]
+    for n in (2, 7, 48, 130):
+        P = cuda(spd_problems(256, n, seed=20 + n)[1])[0]
+        pts += [(f"B=256 N={n} float64", P.double()), (f"B=256 N={n} float32", P)]
+    rep = cuda(with_spectrum([1.0] * 6 + [2.0] * 6 + [0.5] * 6 + list(np.linspace(3, 4, 6)),
+                             256, 21))[0]
+    diag = torch.diag_embed(cuda(np.random.default_rng(22).random((256, 24)) + 0.1)[0])
+    for label, P in (("repeated eigenvalues B=256 N=24", rep), ("diagonal dense P B=256 N=24",
+                                                               diag)):
+        pts += [(f"{label} float64", P), (f"{label} float32", P.float())]
+    bad = P_flag[:256].clone()
+    bad[3, 2, 5] = float("nan")
+    bad[7, 0, 0] = float("inf")
+    pts.append(("flagship's first 256 P, a NaN in problem 3 and an inf in problem 7", bad))
+    return pts
+
+
+def phase_2p(points):
+    """Phase 2p: E1 (``eigh_cuda``) against its plain version
+    (``jacobi_eigh_plain``) on the same card inputs, at each point of
+    ``points`` ([(label, P)]): the sweeps a problem (max, mean), the problems
+    whose eigenvalues, eigenvectors and sweeps are the plain version's bit
+    for bit (gated: every problem), max |d lam| and |d V| against it (gated:
+    0, as the two round alike under -fmad=false), and both outputs' residuals
+    against ``torch.linalg.eigh`` of the same P in float64 (on the host's
+    LAPACK), with u the dtype's unit roundoff: ||V diag(lam) V^T - P||_F /
+    ||P||_F <= 50 N u, max |V^T V - I| <= 50 N u, |lam - lam_eigh| <= 50 N u
+    ||P||_2; the eigenvalues ascending; a problem with a non-finite P all
+    NaN, the others finite. Returns ({label: max |d| against the plain
+    version}, {label: the plain version's rotations a problem})."""
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda, jacobi_eigh_plain
+
+    errs, rotations = {}, {}
+    for label, P in points:
+        B, n, _ = P.shape
+        bar = 50 * n * torch.finfo(P.dtype).eps / 2
+        wk, Vk, sk = eigh_cuda(P, stats=True)
+        wp, Vp, sp, rot = jacobi_eigh_plain(P, stats=True)
+        torch.cuda.synchronize()
+        same = lambda a, b: (a == b) | (torch.isnan(a) & torch.isnan(b))   # noqa: E731
+        bits = int((same(wk, wp).all(1) & same(Vk, Vp).flatten(1).all(1) & (sk == sp)).sum())
+        fin = torch.isfinite(P).flatten(1).all(1)
+        nan_ok = (bool(torch.isnan(wk[~fin]).all() and torch.isnan(Vk[~fin]).all())
+                  and bool(torch.isfinite(wk[fin]).all() and torch.isfinite(Vk[fin]).all()))
+        d = max(float((wk[fin].double() - wp[fin].double()).abs().max()),
+                float((Vk[fin].double() - Vp[fin].double()).abs().max()))
+        P64 = P[fin].double().cpu()
+        w_ref = torch.linalg.eigh(P64)[0]
+        norm2 = w_ref.abs().amax(dim=1)
+        eye = torch.eye(n, dtype=torch.float64)
+
+        def resid(w, V):
+            w, V = w[fin].double().cpu(), V[fin].double().cpu()
+            r = (torch.linalg.matrix_norm(V @ (w[:, :, None] * V.mT) - P64)
+                 / torch.linalg.matrix_norm(P64))
+            return (float(r.max()), float((V.mT @ V - eye).abs().max()),
+                    float(((w - w_ref).abs().amax(dim=1) / norm2).max()))
+
+        rk, rp = resid(wk, Vk), resid(wp, Vp)
+        asc = bool((wk[fin][:, 1:] >= wk[fin][:, :-1]).all())
+        log(f"  E1 {label}: sweeps a problem max {int(sk.max())} mean "
+            f"{float(sk[fin].double().mean()):.3f}; problems bit for bit the plain version's "
+            f"{bits}/{B}; max |d| against it {d:.3e}; against torch.linalg.eigh (bar 50 N u = "
+            f"{bar:.3e}): kernel residual {rk[0]:.3e}, orthogonality {rk[1]:.3e}, |d lam| / "
+            f"||P||_2 {rk[2]:.3e}; plain {rp[0]:.3e}, {rp[1]:.3e}, {rp[2]:.3e}; ascending "
+            f"{asc}; non-finite problems all NaN, the rest finite: {nan_ok}")
+        if not (bits == B and d == 0.0 and all(x <= bar for x in rk + rp) and asc and nan_ok):
+            raise AssertionError(f"E1 at {label} is past its bars")
+        errs[label], rotations[label] = d, rot
+    return errs, rotations
+
+
+def spectral_bars(label, l, iters, ok, l64, k1, bar64=1e-4, gate=True):
+    """Phase 3p's accuracy gates of one path's solution ``l`` (its
+    iterations ``iters``) on the problems it converged (``ok``): within
+    ``bar64`` of the float64 referee ``l64``, and against K1 on the same
+    problems (``k1`` = (l, stats, iterations bar)) |dl| <= 1e-4 with the
+    iterations within the bar (None: printed only). With ``gate`` off the
+    numbers are printed only."""
+    l = l.detach()
+    e64 = float((l[ok].double() - l64[ok]).abs().max())
+    lk, sk, it_bar = k1
+    dk = float((l[ok].double() - lk[ok].double()).abs().max())
+    dit = int((iters - sk.iterations).abs().max())
+    log(f"    {label}: converged {int(ok.sum())}/{ok.numel()}; max |l - l_f64 referee| {e64:.3e} "
+        f"({'bar ' + format(bar64, 'g') if gate else 'printed only'}); against K1 max |dl| "
+        f"{dk:.3e} (bar 1e-4), max |d iterations| {dit} (bar {it_bar}); mean iterations "
+        f"{float(iters.double().mean()):.4f} (K1 {float(sk.iterations.double().mean()):.4f})")
+    if gate and not (e64 <= bar64 and dk <= 1e-4 and (it_bar is None or dit <= it_bar)):
+        raise AssertionError(f"{label}: past the referee or K1 bars")
+
+
+@contextlib.contextmanager
+def eigh_spy():
+    """Count the calls of ``torch.linalg.eigh`` inside the block (a list of
+    one int), the port's included."""
+    calls = [0]
+    real = torch.linalg.eigh
+
+    def spy(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    torch.linalg.eigh = spy
+    try:
+        yield calls
+    finally:
+        torch.linalg.eigh = real
+
+
+def phase_3p(dqt, kernels, cfg, flag, out_k, l64, sysid, qc_cfg, b_past=256, steps=20):
+    """Phase 3p: the spectral mode's routes staged (``utils.staged``), its
+    set-up the Jacobi kernel E1: the float64 flagship step (B=4096 N=24,
+    ``grad_step``), the ``backend='xla'`` flagship step (L by power
+    iteration, as K1), an ``accel`` flagship forward (``accel=True,
+    adaptive_rho=False, alpha_relax=1.0``), ``trace_qcqp`` at the flagship
+    (64 iterations, the default ``linsolve``), a float64
+    ``SystemID(kind="qcqp")`` at config 4's QCQP half (B=2048 N=24, 20 Adam
+    steps, staged by the model against the same model stepped eagerly) and
+    ``linsolve='spectral'`` at B=256 N=130 in float64 (``kkt_problems``).
+    Each eagerly: E1 once a solve, ``torch.linalg.eigh`` never (a spy);
+    staged through ``staged_loop_check`` on the inputs and on q + 1e-5 (q +
+    1e-3 at N=130): the
+    capture records the eager step's launches (E1 among them), the replay
+    is the eager run bit for bit with its iterations, reads nothing on the
+    host; each solution, on the problems it converged, within 1e-4 of the
+    float64 referee (the plain K1 in float64 at eps=1e-10) and of K1 on the
+    same problems, the iterations within 4 of K1's where both estimate L by
+    power iteration (the ``backend='xla'`` step), printed elsewhere; a
+    float64 flagship solve at the referee's eps printed beside it (phase 3e
+    gates the float64 route at 1e-8 on its 256 problems). Returns [(label,
+    eager, staged, problems, conditional nodes)] for phase 4p and the
+    float64 flagship step's eager launches (the kernels line's E1 count)."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import PROX_DISK, admm_solve_cuda, admm_solve_plain
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda
+    from diffqcqp_tpu_torch.models.system_id import (
+        QCQPSystemIDParams, SystemID, qcqp_params_to_problem,
+    )
+
+    kern = {**kernels, "E1": eigh_cuda}
+    P, q, l_n, mu = flag
+    flag64 = tuple(x.double() for x in flag)
+    perturb = lambda xs, h=1e-5: [xs[0], xs[1] + h, *xs[2:]]          # noqa: E731
+    solve_qc = dqt.solve_qcqp_with_stats
+    st_iters = lambda out: out[1].iterations                          # noqa: E731
+    k1_flag = (out_k[0], out_k[1], None)
+    whole = lambda out: (out[0], out[1])                              # noqa: E731
+    paths = {      # label: (step, sets, iterations, (l, stats), referee, K1, problems)
+        "float64 flagship step B=4096 N=24": (
+            grad_step(solve_qc, cfg, 4), [flag64, perturb(flag64)], st_iters, whole, l64,
+            k1_flag, B_FLAG),
+        "backend='xla' flagship step B=4096 N=24 (L by power iteration, as K1)": (
+            grad_step(solve_qc, cfg.replace(backend="xla", lmax_method="power"), 4),
+            [flag, perturb(flag)], st_iters, whole, l64, (out_k[0], out_k[1], 4), B_FLAG),
+        "accel flagship forward B=4096 N=24": (
+            lambda *xs: solve_qc(*xs, config=cfg.replace(accel=True, adaptive_rho=False,
+                                                         alpha_relax=1.0)),
+            [flag, perturb(flag)], st_iters, whole, l64, k1_flag, B_FLAG),
+        "trace_qcqp 64 iterations B=4096 N=24, the default linsolve": (
+            lambda *xs: dqt.debug.trace_qcqp(*xs, iters=64, config=cfg), [flag, perturb(flag)],
+            lambda tr: tr.iterations, None, l64, k1_flag, B_FLAG),
+    }
+    P130, q130, _, r130 = (x.double() for x in cuda(*kkt_problems(b_past, 65, seed=23)))
+    x130 = (P130, q130, r130, torch.ones_like(r130))
+    l130_64 = admm_solve_plain(P130, q130, torch.zeros_like(q130), PROX_DISK, (r130,),
+                               cfg.replace(eps=1e-10, max_iter=5000), True, False)[0]
+    k130 = admm_solve_cuda(*(x.float().contiguous() for x in (P130, q130)),
+                           torch.zeros_like(q130).float(), PROX_DISK, (r130.float().contiguous(),),
+                           cfg, True, False)
+    # at N=130, q + 1e-5 runs the same iterations (an H100 run): q + 1e-3
+    # moves them on ~20 of the 256 problems
+    paths[f"linsolve='spectral' step B={b_past} N=130 float64 (E1 on its global workspace)"] = (
+        grad_step(solve_qc, cfg.replace(linsolve="spectral"), 4), [x130, perturb(x130, 1e-3)],
+        st_iters, whole, l130_64, (k130[0], k130[1], None), b_past)
+
+    pairs = []
+    for label, (step, sets, iters, sol, ref, k1, problems) in paths.items():
+        t0 = time.perf_counter()
+        with eigh_spy() as calls:
+            out, n_e = launched(kern, lambda: step(*sets[0]))
+        log(f"  {label}: eagerly launches {n_e}; torch.linalg.eigh called {calls[0]} times")
+        if n_e["E1"] != 1 or calls[0]:
+            raise AssertionError(f"{label}: E1 not once a solve eagerly, or torch.linalg.eigh "
+                                 "called")
+        if label.startswith("float64 flagship step"):
+            launches_f64 = n_e
+        with eigh_spy() as calls:
+            s, _, exc = staged_loop_check(label, kern, step, sets, n_e, 0 if sol is None else 1,
+                                          iters)
+        if exc is not None or calls[0]:
+            raise AssertionError(f"{label}: the replay is not the eager run bit for bit, or "
+                                 "torch.linalg.eigh called")
+        if sol is None:          # the trace: its l2 on the problems it converged
+            spectral_bars(label, out.l2, out.iterations, out.converged, ref, k1)
+        else:
+            l_, st_ = sol(out)
+            spectral_bars(label, l_, st_.iterations, st_.converged, ref, k1)
+        pairs.append((label, lambda step=step, xs=sets[0]: step(*xs),
+                      lambda s=s, xs=sets[0]: s(*xs), problems,
+                      sum(next(iter(s.nodes.values())).values())))
+        log(f"  {label}: checks took {time.perf_counter() - t0:.1f} s")
+
+    # the float64 flagship at the referee's own eps, over the whole batch:
+    # printed (phase 3e gates the float64 route, E1 its set-up, at 1e-8 on
+    # its 256 problems; here 4096 problems)
+    t0 = time.perf_counter()
+    l_f64, st_f64 = solve_qc(*flag64, config=cfg.replace(eps=1e-10, max_iter=5000))
+    spectral_bars("float64 flagship solve at eps=1e-10 (the referee's eps), B=4096", l_f64,
+                  st_f64.iterations, st_f64.converged, l64, k1_flag, gate=False)
+
+    # a float64 SystemID on config 4's QCQP half: staged by the model, against
+    # the same model stepped eagerly
+    (S, qs, ln, lm), target = sysid
+    tgt = target.double()
+    label = "float64 SystemID(kind='qcqp').train_step, config 4's QCQP half B=2048 N=24"
+
+    def model():
+        m = SystemID(kind="qcqp", config=qc_cfg, learning_rate=1e-2, device="cuda")
+        m.set_params(QCQPSystemIDParams(*(x.double().clone() for x in (S, qs, ln, lm))))
+        return m
+
+    probe, m_e, m_s = model(), model(), model()
+    if not (m_s.opt.defaults["capturable"] and m_s._staged_step is not None):
+        raise AssertionError(f"{label}: no capturable Adam or no staged step")
+    with torch.no_grad():
+        P0, q0, ln0, mu0 = qcqp_params_to_problem(probe.params)
+        l0, st0 = solve_qc(P0, q0, ln0, mu0, config=qc_cfg)
+        r0 = ln0 * mu0
+        l0_64 = admm_solve_plain(P0, q0, torch.zeros_like(q0), PROX_DISK, (r0,),
+                                 qc_cfg.replace(eps=1e-10, max_iter=5000), True, False)[0]
+        k0 = admm_solve_cuda(P0.float(), q0.float(), torch.zeros_like(q0).float(), PROX_DISK,
+                             (r0.float(),), qc_cfg, True, False)
+    spectral_bars(f"{label}, the first step's solve", l0, st0.iterations, st0.converged, l0_64,
+                  (k0[0], k0[1], None))
+    log(f"  the eps=1e-10 solve and the system-ID referees took {time.perf_counter() - t0:.1f} s")
+    with eigh_spy() as calls:
+        _, n_e = launched(kern, lambda: probe._train_step(tgt))
+        run_e = lambda: m_e._train_step(tgt)    # noqa: E731
+        run_s = lambda: m_s.train_step(tgt)     # noqa: E731
+        l_e, l_s, _ = trajectories(label, kern, run_e, run_s, steps, n_e)
+    log(f"  {label}: eagerly launches {n_e} a step; torch.linalg.eigh called {calls[0]} times")
+    if n_e["E1"] != 1 or calls[0]:
+        raise AssertionError(f"{label}: E1 not once a step eagerly, or torch.linalg.eigh called")
+    held_bit_for_bit(f"{label}, staged against eager over {steps} steps",
+                     (list(m_e.params), l_e), (list(m_s.params), l_s), True)
+    (key,) = m_s._staged_step.graphs
+    rec = m_s._staged_step.nodes[key]
+    reads = host_reads(run_s)
+    log(f"  {label}: conditional nodes recorded {dict(rec)}, the kept graph's top level "
+        f"{control_nodes(m_s._staged_step.graphs[key])}; a replay reads the host: {reads}")
+    if rec.get(("while", 0), 0) != 1 or reads is not None:
+        raise AssertionError(f"{label}: want 1 WHILE node and no host read, got {rec}, {reads}")
+    pairs.append((label, run_e, run_s, 2048, sum(rec.values())))
+    return pairs, launches_f64
+
+
+def phase_4p(smi, pairs, P_flag, rotations):
+    """Phase 4p: each path of phase 3p eagerly and staged (``phase_4o``'s
+    timing); then E1 alone (``e1_times``) at B=4096 N=24 in float32 and
+    float64, with the rotations of phase 2p's plain run there, and at
+    B=2048 N=48 in both. Returns the float64 flagship point's numbers for
+    the kernels line."""
+    phase_4o(smi, pairs, calls=1)
+    P48 = cuda(spd_problems(2048, 48, seed=24)[1])[0]
+    points = [("B=4096 N=24 float32", P_flag, rotations[0]),
+              ("B=4096 N=24 float64", P_flag.double(), rotations[1]),
+              ("B=2048 N=48 float32", P48, None), ("B=2048 N=48 float64", P48.double(), None)]
+    out = {label: e1_times(label, P, rot, smi) for label, P, rot in points}
+    return out["B=4096 N=24 float64"]
+
+
+def e1_times(label, P, rot, smi):
+    """E1's numbers at one point: its device time per launch
+    (torch.profiler) and per call over 20 back-to-back calls (CUDA events),
+    its plain version's time (one call), its bound (``e1_bound_ms`` with
+    ``rot``, the plain version's rotations a problem, or this call's plain
+    run's where None) and ``torch.linalg.eigh`` of the same P (CUDA events;
+    at N=48 one call, and at N=48 in float32 what one call launches on the
+    first 256 problems: ``launch_profile``). Returns dict(ms, plain_ms,
+    bound_ms, bound_by, library_ms)."""
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda, jacobi_eigh_plain
+
+    B, n, _ = P.shape
+    t0 = time.perf_counter()
+    rot_ = jacobi_eigh_plain(P, stats=True)[3]
+    torch.cuda.synchronize()
+    ms_p = (time.perf_counter() - t0) * 1e3
+    rot = rot_ if rot is None else rot
+    rows = device_time_by_kernel(lambda: eigh_cuda(P))
+    dev = per_launch_ms(rows, "jacobi_eigh_kernel")
+    if dev is None:
+        log(f"  E1 at {label}: the profiler's kernels {[r_[0][:80] for r_ in rows[:3]]}")
+    ev, ts = time_cuda(lambda: eigh_cuda(P), reps=5, calls=20)
+    # at N=48 torch.linalg.eigh takes ~1.5 s a call: one timed call
+    lib_calls, lib_reps = (20, 3) if n <= 24 else (1, 1)
+    ms_lib, ts_lib = time_cuda(lambda: torch.linalg.eigh(P), reps=lib_reps, calls=lib_calls)
+    b_, b_by, b_bytes, b_flops = e1_bound_ms(B, n, P.dtype, rot)
+    log(f"  E1 at {label} ({smi}): device time per launch (torch.profiler) "
+        f"{'not in the trace' if dev is None else f'{dev:.4f} ms'}; per call, 20 "
+        f"back-to-back (CUDA events) {ev:.4f} ms (samples {[round(t, 4) for t in ts]}); "
+        f"plain version {ms_p:.1f} ms (one call); bound {b_:.5f} ms ({b_by}: {b_bytes} "
+        f"bytes, {b_flops:.4g} FLOP, {float(rot.double().mean()):.1f} rotations a problem); "
+        f"torch.linalg.eigh {ms_lib:.4f} ms per call ({lib_calls} a sample, samples "
+        f"{[round(t, 3) for t in ts_lib]})")
+    if label == "B=2048 N=48 float32":
+        # what one call launches, on the first 256 problems (the profiler
+        # holds ~18 launches of each batched-Jacobi kernel a problem)
+        P256 = P[:256].contiguous()
+        launch_profile("torch.linalg.eigh B=256 N=48 float32", lambda: torch.linalg.eigh(P256),
+                       top=6)
+    return dict(ms=dev if dev is not None else ev, plain_ms=ms_p, bound_ms=b_, bound_by=b_by,
+                library_ms=ms_lib)
+
+
+def eigh_run(dqt, smi, t_start) -> int:
+    """``python3 chip_smoke.py eigh``: after phase 1, phases 2p, 3p and 4p
+    alone; no result line."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import PROX_DISK, admm_solve_cuda, admm_solve_plain
+
+    cfg = flagship_cfg(dqt)
+    flag = cuda(*build_problems(B_FLAG, NC_FLAG))
+    P, q, l_n, mu = flag
+    log("phase 2p: E1 (eigh_cuda) against jacobi_eigh_plain on the card")
+    _, rotations = phase_2p(eigh_points(P))
+    log(f"  phase 2p done at {time.perf_counter() - t_start:.1f} s")
+    args = (P, q, torch.zeros_like(q), PROX_DISK, ((l_n * mu).contiguous(),), cfg, True, False)
+    out_k = admm_solve_cuda(*args)
+    l64, _ = admm_solve_plain(*(x.double() for x in args[:3]), PROX_DISK,
+                              ((l_n * mu).double(),), cfg.replace(eps=1e-10, max_iter=5000),
+                              True, False)
+    log("phase 3p: the spectral mode's routes staged, E1 their set-up")
+    log(f"  the referee done at {time.perf_counter() - t_start:.1f} s")
+    pairs, _ = phase_3p(dqt, kernels_by_name(), cfg, flag, out_k, l64, sysid_inputs(),
+                        sysid_configs(dqt)[1])
+    log(f"  phase 3p done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 4p: the spectral routes eagerly and staged, E1 and torch.linalg.eigh")
+    phase_4p(smi, pairs, P, (rotations["flagship B=4096 N=24 float32"],
+                             rotations["the float64 referee's P, flagship B=4096 N=24 float64"]))
+    log(f"chip_smoke: eigh phases passed, {time.perf_counter() - t_start:.1f} s")
+    return 0
 
 
 def flagship_cfg(dqt):
@@ -3268,13 +3677,18 @@ KERNEL_ENTRIES = (
      "diffqcqp_tpu_torch/kernels/csrc/qr_solve.cu", "diffqcqp_tpu/kernels/qr_solve_pallas.py:43"),
     ("K6", "qcqp_kkt_bwd_cuda (K6, K2's steps 4-8 with the duals given; numbers at B=2048 N=96)",
      "diffqcqp_tpu_torch/kernels/csrc/qcqp_bwd.cu", "diffqcqp_tpu/kernels/qcqp_bwd_pallas.py:44"),
+    ("E1", "eigh_cuda (E1: the spectral mode's batched Jacobi eigendecomposition; numbers at "
+           "the float64 flagship, B=4096 N=24)",
+     "diffqcqp_tpu_torch/kernels/csrc/jacobi_eigh.cu",
+     "diffqcqp_tpu/ops/linalg.py:63 (jnp.linalg.eigh; XLA, no Pallas kernel)"),
 )
 
 
 def kernels_line(launches, errs, times):
-    """The kernels line: for each of ``KERNEL_ENTRIES`` its launches on the
-    main path, its max |d| against its plain version and its numbers
-    (``times[key]``: ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    """The kernels line: for each of ``KERNEL_ENTRIES`` its launches on
+    the main path (``launches[key]``), its
+    max |d| against its plain version and its numbers (``times[key]``: ms,
+    plain_ms, bound_ms, bound_by, library_ms)."""
     return json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[key], "max_abs_err": errs[key], **times[key]}
@@ -3384,6 +3798,21 @@ def kernel_numbers(dqt, flag, cfg, c10, c6q, qc96, step10, step6, smi):
     return errs, times
 
 
+def e1_numbers(dqt, flag, cfg, smi):
+    """E1's entry in the kernels line for ``chip_smoke.py staged``, at the
+    float64 flagship as the whole run takes it: its launches in one eager
+    float64 flagship step, max |d| against its plain version (``phase_2p``
+    at that point, gated) and its numbers (``e1_times``)."""
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda
+
+    label = "the float64 referee's P, flagship B=4096 N=24 float64"
+    flag64 = tuple(x.double() for x in flag)
+    errs, rotations = phase_2p([(label, flag64[0])])
+    _, n_e = launched({"E1": eigh_cuda},
+                      lambda: grad_step(dqt.solve_qcqp_with_stats, cfg, 4)(*flag64))
+    return n_e["E1"], errs[label], e1_times("B=4096 N=24 float64", flag64[0], rotations[label], smi)
+
+
 def kernels_by_name():
     """{K: the wrapper whose ``launches`` counts that kernel}."""
     from diffqcqp_tpu_torch.kernels.admm_cuda import admm_solve_cuda
@@ -3398,7 +3827,8 @@ def kernels_by_name():
 def staged_run(dqt, c6, smi, dev_name, t_start) -> int:
     """``python3 chip_smoke.py staged``: after phase 1, phases 3n and 4n
     alone, then the kernels line (its launches read at the staged steps'
-    captures, its numbers from ``kernel_numbers``) and the result line."""
+    captures, E1's in an eager float64 flagship step; its numbers from
+    ``kernel_numbers`` and ``e1_numbers``) and the result line."""
     kernels = kernels_by_name()
     cfg = flagship_cfg(dqt)
     flag = cuda(*build_problems(B_FLAG, NC_FLAG))
@@ -3415,12 +3845,13 @@ def staged_run(dqt, c6, smi, dev_name, t_start) -> int:
                                  eager["config 10 QP step B=4096 N=24"],
                                  eager["config 6 step B=2048 N=96"], smi)
     flag_n, qp_n = launches["flagship QCQP step B=4096 N=24"], launches["config 10 QP step B=4096 N=24"]
+    n_e1, errs["E1"], times["E1"] = e1_numbers(dqt, flag, cfg, smi)
     log(f"chip_smoke: staged phases passed, {time.perf_counter() - t_start:.1f} s")
     print(kernels_line(
         {"K1": flag_n["K1"], "K2": flag_n["K2"], "K4": qp_n["K4"],
          "K4bw": launches["config 6 step B=2048 N=96"]["K4"],
          "K5": launches["generic route qcqp_vjp(duals=) at flagship B=4096 N=24"]["K5"],
-         "K6": launches["generic route qcqp_vjp(duals=) at B=2048 N=96"]["K6"]},
+         "K6": launches["generic route qcqp_vjp(duals=) at B=2048 N=96"]["K6"], "E1": n_e1},
         errs, times), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3434,14 +3865,21 @@ def eager_run(root) -> int:
     checkout, such as the parent commit's unpacked beside this one) times
     the engine's eager paths: the config-11 rollout (B=2048, T=50, warm
     start; median of 3), the diagonal-P flagship step (B=4096), the QP step
-    at N=176 and the float64 QCQP step at N=96 (B=256; median of 5 samples
+    at N=176, the QCQP step at n=170 and the float64 QCQP step at N=96
+    (B=256), the spectral mode's float64 and ``backend='xla'`` flagship
+    steps and ``backend='xla'`` flagship forward (B=4096), the generic
+    route's float64 LU (``qcqp_vjp(duals=)`` at B=4096 N=24),
+    ``qcqp_jacobian`` at the flagship, and ``ops.linalg.solve`` alone on
+    random systems of each shape those paths hand it (median of 5 samples
     of 5 calls), CUDA events, and what one call asks of the card
     (``launch_profile``). Prints one JSON line; run it for two trees in
     turn (A, B, B, A) to compare them on one card."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import diffqcqp_tpu_torch as dqt
+    from diffqcqp_tpu_torch.diff import kkt
     from diffqcqp_tpu_torch.kernels import _build
     from diffqcqp_tpu_torch.models import contact_sim as cs
+    from diffqcqp_tpu_torch.ops.linalg import solve
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -3456,6 +3894,29 @@ def eager_run(root) -> int:
     f96 = tuple(x.double() for x in cuda(*build_problems(256, 48, seed=6)))
     q176 = cuda(*spd_problems(256, 176, seed=17)[1:])
     qp_cfg = qp_families(dqt)["qp"].cfg
+    x64 = [x.double() for x in (P, q, l_n, mu)]
+    r64 = x64[2] * x64[3]
+    l64 = dqt.solve_qcqp(*x64, config=cfg.replace(linsolve="chol"))
+    g64 = 2.0 * l64 + 1.0
+    P170, q170, _, r170 = cuda(*kkt_problems(256, 85, seed=16))
+    xla = cfg.replace(backend="xla", lmax_method="power")
+    rng = np.random.default_rng(25)
+
+    def lu(b, m, k, dtype):
+        A = rng.standard_normal((b, m, m)) + m * np.eye(m)
+        return tuple(x.to(dtype) for x in cuda(A, rng.standard_normal((b, m, k))))
+
+    # ops.linalg.solve's systems on these paths: the n=170 step's and the
+    # float64 N=96 step's Schur systems (nc x nc), the float64 and xla
+    # flagship steps' assembled systems (nc + n), qcqp_jacobian's Schur
+    # system (nc x nc, n columns)
+    lus = {f"ops.linalg.solve alone B={b} m={m} {k} column(s) {str(dt)[6:]} ({what})":
+           lu(b, m, k, dt) for b, m, k, dt, what in (
+               (256, 85, 1, torch.float32, "the n=170 step's Schur system"),
+               (256, 48, 1, torch.float64, "the float64 N=96 step's Schur system"),
+               (4096, 36, 1, torch.float64, "the float64 flagship step's assembled system"),
+               (4096, 36, 1, torch.float32, "the backend='xla' flagship step's assembled system"),
+               (4096, 12, 24, torch.float32, "qcqp_jacobian's Schur system"))}
     steps = {
         "config-11 rollout B=2048 T=50 warm_start=True":
             (lambda: cs.simulate(params, state0, f, warm_start=True), 3, 1),
@@ -3463,8 +3924,23 @@ def eager_run(root) -> int:
             (lambda: grad_step(dqt.solve_qcqp_with_stats, cfg, 4)(*diag), 5, 5),
         "QP step B=256 N=176 (past K1)":
             (lambda: grad_step(dqt.solve_qp_with_stats, qp_cfg, 2)(*q176), 5, 5),
+        "QCQP step B=256 n=170 (past K1)":
+            (lambda: grad_step(dqt.solve_qcqp_with_stats, cfg, 4)(
+                P170, q170, r170, torch.ones_like(r170)), 5, 5),
         "float64 QCQP step B=256 N=96 (Cholesky inverse)":
             (lambda: grad_step(dqt.solve_qcqp_with_stats, cfg, 4)(*f96), 5, 5),
+        "float64 flagship QCQP step B=4096 N=24 (spectral)":
+            (lambda: grad_step(dqt.solve_qcqp_with_stats, cfg, 4)(*x64), 5, 5),
+        "backend='xla' flagship step B=4096 N=24 (spectral, L by power iteration)":
+            (lambda: grad_step(dqt.solve_qcqp_with_stats, xla, 4)(P, q, l_n, mu), 5, 5),
+        "backend='xla' flagship forward B=4096 N=24 (spectral)":
+            (lambda: dqt.solve_qcqp_with_stats(P, q, l_n, mu, config=cfg.replace(backend="xla")),
+             5, 5),
+        "generic route float64 LU, qcqp_vjp(duals=) B=4096 N=24":
+            (lambda: kkt.qcqp_vjp(x64[0], x64[1], r64, l64, g64, cfg,
+                                  duals=kkt.qcqp_dual(x64[0], x64[1], r64, l64, cfg)), 5, 5),
+        "qcqp_jacobian B=4096 N=24": (lambda: dqt.qcqp_jacobian(P, q, l_n, mu, config=cfg), 5, 5),
+        **{label: (lambda xs=xs: solve(*xs), 5, 5) for label, xs in lus.items()},
     }
     ms, prof = {}, {}
     for label, (fn, reps, calls) in steps.items():
@@ -3547,6 +4023,9 @@ def main() -> int:
     from diffqcqp_tpu_torch.kernels import qcqp_bwd_cuda as k26, qr_solve_cuda as k5m
     plans = [(f"K2/K6 n={n}", k26.launch_plan(n), k26.c_launch_plan(n)) for n in (24, 34, 96, 142)]
     plans += [(f"K5 m={m}", k5m.launch_plan(m), k5m.c_launch_plan(m)) for m in (5, 33, 36, 72, 88)]
+    from diffqcqp_tpu_torch.kernels import eigh_cuda as e1m
+    plans += [(f"E1 N={n} {dt}", e1m.launch_plan(n, dt), e1m.c_launch_plan(n, dt))
+              for dt in (torch.float32, torch.float64) for n in (2, 24, 48, 119, 120, 169, 170)]
     for label, py, c in plans:
         log(f"  launch plan {label}: (threads, smem bytes, bound, tile) wrapper {py} library {c}")
     from diffqcqp_tpu_torch.kernels import admm_cuda as k1m
@@ -3584,12 +4063,14 @@ def main() -> int:
     if sys.argv[1:] == ["control"]:
         # phases 3o and 4o alone: the engine's loops as conditional nodes
         log("phase 3o: the engine's loops on the card, staged (utils.control)")
-        pairs_3o, _ = phase_3o(dqt, kernels_by_name(), flagship_cfg(dqt),
+        pairs_3o = phase_3o(dqt, kernels_by_name(), flagship_cfg(dqt),
                                qp_families(dqt)["qp"].cfg, (rollout_inputs(), rollout_inputs(seed=12)))
         log("phase 4o: each path of phase 3o eagerly and staged")
         phase_4o(smi, pairs_3o)
         log(f"chip_smoke: control phases passed, {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["eigh"]:
+        return eigh_run(dqt, smi, t_start)
 
     cfg = flagship_cfg(dqt)
 
@@ -3771,6 +4252,10 @@ def main() -> int:
                       rand_g, cfg)
     k6_against_k2(P, q, lk, radius, (2.0 * lk).contiguous(), cfg, f32_ulps)
     torch.cuda.synchronize()
+
+    # ---- phase 2p: E1 against its plain version on the card
+    log("phase 2p: E1 (eigh_cuda) against jacobi_eigh_plain on the card")
+    errs_e1, rotations_e1 = phase_2p(eigh_points(P))
 
     # ---- phase 3: the slice through the public entry point
     log("phase 3: solve_qcqp_with_stats at B=4096 N=24")
@@ -3985,7 +4470,12 @@ def main() -> int:
 
     # ---- phase 3o: the engine's loops on the card (conditional graph nodes)
     log("phase 3o: the engine's loops on the card, staged (utils.control)")
-    pairs_3o, _ = phase_3o(dqt, kernels, cfg, qp_cfg10, (rollout, rollout_inputs(seed=12)))
+    pairs_3o = phase_3o(dqt, kernels, cfg, qp_cfg10, (rollout, rollout_inputs(seed=12)))
+
+    # ---- phase 3p: the spectral mode's routes staged, E1 their set-up
+    log("phase 3p: the spectral mode's routes staged, E1 their set-up")
+    pairs_3p, launches_e1 = phase_3p(dqt, kernels, cfg, (P, q, l_n, mu), out_k, l64,
+                                     sysid_inputs(), sysid_cfgs[1])
 
     # ---- phase 4: timing at the flagship point
     args0 = args[:5] + (cfg.replace(max_iter=0),) + args[6:]
@@ -4112,6 +4602,11 @@ def main() -> int:
     log("phase 4o: each path of phase 3o eagerly and staged")
     phase_4o(smi, pairs_3o)
 
+    log("phase 4p: the spectral routes eagerly and staged, E1 and torch.linalg.eigh")
+    e1_times = phase_4p(smi, pairs_3p, P, (rotations_e1["flagship B=4096 N=24 float32"],
+                                           rotations_e1["the float64 referee's P, flagship B=4096 "
+                                                        "N=24 float64"]))
+
     # the waves of phase 1: K2, K6 and K4 take one at the main path's sizes
     if any(waves24[name] > 1 for name in waves24 if name != "K1"):
         raise AssertionError(f"K2, K6 or K4 takes more than one wave at N=24: {waves24}")
@@ -4120,11 +4615,12 @@ def main() -> int:
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     print(kernels_line(
         {"K1": launches_k1, "K2": launches_k2, "K4": steps["qp"][0], "K4bw": launches_k4_6,
-         "K5": launches_3d["K5"], "K6": launches_3d["K6"]},
+         "K5": launches_3d["K5"], "K6": launches_3d["K6"], "E1": launches_e1["E1"]},
         {"K1": err_flag, "K2": errs_k2[0], "K4": err_k4, "K4bw": err_k4_6,
-         "K5": err_k5[k5_points[0][0]], "K6": err_k6},
+         "K5": err_k5[k5_points[0][0]], "K6": err_k6,
+         "E1": errs_e1["the float64 referee's P, flagship B=4096 N=24 float64"]},
         {**times_k12, "K4": k4_times["qp"], "K4bw": k4_times_6, "K5": k5_times[k5_points[0][0]],
-         "K6": k6_times}), flush=True)
+         "K6": k6_times, "E1": e1_times}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name, "count": torch.cuda.device_count(),

@@ -197,7 +197,7 @@ def capturable(P, q, cfg: SolverConfig) -> bool:
     backward, can be recorded in a CUDA graph (``utils/staging.py``): K1,
     or the engine where ``solvers/admm.py::capture_reason`` names nothing
     (every adjoint route records). Decided from shapes, dtype and config."""
-    return _engine_reason(P, q, cfg) is None or capture_reason(P, cfg) is None
+    return _engine_reason(P, q, cfg) is None or capture_reason(cfg) is None
 
 
 def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, damp_both):
@@ -207,8 +207,7 @@ def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, d
     casts other inputs, as the JAX package's kernel path does). Under a
     CUDA graph capture both record; the engine raises the guard's error
     (``utils/staging.py``) where it reads the device on the host
-    (``solvers/admm.py::capture_reason``: the lockstep mode, the spectral
-    mode's ``torch.linalg.eigh``)."""
+    (``solvers/admm.py::capture_reason``: the lockstep mode)."""
     reason = _engine_reason(P, q, cfg)
     if reason is None:
         c = lambda x: x.to(torch.float32).contiguous()  # noqa: E731

@@ -16,10 +16,12 @@ package's ``debug.py``. A trace always runs the eager engine (never the
 kernel K1), on ``device`` (the card by default, raising without CUDA;
 ``device="cpu"`` for the plain path), in the inputs' dtype; converged
 problems freeze exactly as in production, and the O(iters * B) history
-suits moderate batch sizes. Inside a CUDA graph capture a trace records:
-its ``iters`` steps are unrolled, as ``lax.scan`` is, and the body reads
-nothing on the host; the engine's set-up raises the guard's error where it
-reads (``solvers/admm.py::capture_reason``: a dense P in the spectral mode).
+suits moderate batch sizes. Inside a CUDA graph capture a trace records,
+in both linear-solve modes (the spectral one's set-up is the Jacobi kernel
+E1 on the card): its ``iters`` steps are unrolled, as ``lax.scan`` is, and
+the body reads nothing on the host; the engine's set-up raises the guard's
+error where it reads (``solvers/admm.py::capture_reason``: the lockstep
+mode).
 """
 
 from __future__ import annotations

@@ -55,10 +55,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# flags of one source on top of NVCC_FLAGS: K1 contracts no product and sum
-# into a fused multiply-add (only its explicit fmaf / fma calls are fused),
-# so that its plain version's torch ops round as it does (csrc/admm.cu)
-SOURCE_FLAGS = {"admm": ("-fmad=false",)}
+# flags of one source on top of NVCC_FLAGS: K1 and E1 contract no product and
+# sum into a fused multiply-add (only K1's explicit fmaf / fma calls are
+# fused), so that their plain versions' torch ops round as they do
+# (csrc/admm.cu, csrc/jacobi_eigh.cu)
+SOURCE_FLAGS = {"admm": ("-fmad=false",), "jacobi_eigh": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

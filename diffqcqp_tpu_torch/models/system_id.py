@@ -18,10 +18,10 @@ without CUDA; ``device="cpu"`` for the plain path). On the card
 forward, backward and a capturable Adam step are captured as one CUDA graph
 (``utils/staging.py``) after a few eager steps and replayed from then on.
 A model is staged where its route can be captured (``capturable_route``:
-K1 or the engine outside its spectral mode forward, any adjoint route
-backward; a diagonal P, n past the kernels' bounds and float64 at N > 48
-included); a card model whose forward takes the engine's spectral mode (a
-dense P at N <= 48 in float64, with ``accel`` or ``backend='xla'``) trains
+K1 or the engine outside its lockstep mode forward, any adjoint route
+backward; a diagonal P, n past the kernels' bounds, float64, ``accel`` and
+``backend='xla'`` included, the engine's spectral mode through the Jacobi
+kernel E1); a card model in the lockstep mode (``axis_name``) trains
 eagerly, as does every model on the CPU. ``params_from_numpy``
 carries the JAX package's parameters (``QPSystemIDParams`` /
 ``QCQPSystemIDParams`` of arrays) into the port's.

@@ -17,11 +17,15 @@ A diagonal P (B, N) takes the element-wise path of ``factorize`` /
 
 Under a CUDA graph capture (``utils/staging.py``) nothing here reads the
 device on the host: the Newton-Schulz loop runs through
-``utils/control.py::while_loop`` (a WHILE node), and the factorizations go
-through ``cholesky`` and ``solve``, which there take the ``_ex`` forms
-without the host's check and give NaN where a factor failed, as the JAX
-package's do. ``factorize``'s ``torch.linalg.eigh`` has no such form: it
-raises the guard's error there.
+``utils/control.py::while_loop`` (a WHILE node); ``factorize`` takes the
+hand-written Jacobi kernel E1 (``kernels/eigh_cuda.py``) on the card,
+eagerly and under a capture alike, since ``torch.linalg.eigh`` checks its
+info on the host; the factorizations go through ``cholesky`` and
+``solve``, which take the forms without the host's check (``cholesky``
+under a capture, ``solve`` on the card eagerly too, so that a staged step
+gives the eager step's bits) and give NaN where a factor failed, as the
+JAX package's do. On CPU tensors ``factorize`` keeps ``torch.linalg.eigh``
+(LAPACK), the counterpart of the JAX package's ``jnp.linalg.eigh`` there.
 
 Every matrix product here is a full float32 (or float64) product: the port
 never turns TF32 on, because the Newton-Schulz inverses and the solves lose
@@ -31,14 +35,15 @@ never turns TF32 on, because the Newton-Schulz inverses and the solves lose
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..kernels.eigh_cuda import eigh_cuda
 from ..utils import control
 from ..utils.shapes import fold_vmapped, unfold_vmapped
-from ..utils.staging import capture_error
 
 __all__ = [
     "Factorization",
@@ -91,31 +96,42 @@ def cholesky(A: torch.Tensor) -> torch.Tensor:
 
 
 def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """``torch.linalg.solve(A, B)`` (an LU); under a CUDA graph capture
+    """``torch.linalg.solve(A, B)`` (an LU) on CPU tensors. On the card
     ``solve_ex`` with PyTorch's linear algebra library set to cuSOLVER for
     the call (its batched LU is cuBLAS's getrf: the default heuristic's
-    MAGMA LU synchronises with the host), NaN for a singular matrix. Where
-    the default takes MAGMA, the captured solve rounds otherwise than the
-    eager one (~1e-8 relative in float32 on an H100)."""
-    if not _captured(A):
+    MAGMA LU synchronises with the host, which a capture refuses), eagerly
+    and under a CUDA graph capture alike, so that a staged step gives the
+    eager step's bits; NaN for a singular matrix, no check on the host."""
+    if not A.is_cuda:
         return torch.linalg.solve(A, B)
-    prev = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        return _nan_where_failed(*torch.linalg.solve_ex(A, B, check_errors=False))
-    finally:
-        torch.backends.cuda.preferred_linalg_library(prev)
+    return _solve_cusolver(A, B)
+
+
+# The library is a process-wide setting: a solve holds this lock while it
+# has cuSOLVER set, so that solves on other threads (autograd runs a
+# backward thread a card) neither run with the setting restored under them
+# nor save cuSOLVER as the setting to restore.
+_LIBRARY_LOCK = threading.Lock()
+
+
+def _solve_cusolver(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    with _LIBRARY_LOCK:
+        prev = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            return _nan_where_failed(*torch.linalg.solve_ex(A, B, check_errors=False))
+        finally:
+            torch.backends.cuda.preferred_linalg_library(prev)
 
 
 def factorize(P: torch.Tensor) -> Factorization:
     """P (B, N, N) -> eigendecomposition; (B, N) -> the diagonal path. A
-    dense P raises the guard's error under a CUDA graph capture."""
+    dense P on the card goes to E1 (``eigh_cuda``: no read on the host, so
+    it records under a capture; a failed build or launch raises), on the
+    CPU to ``torch.linalg.eigh``."""
     if P.ndim == 2:
         return Factorization(eigvals=P, eigvecs=None, diag=P)
-    if _captured(P):
-        raise capture_error("the spectral factorization (ops/linalg.py::factorize)",
-                            "torch.linalg.eigh checks its info on the host")
-    eigvals, eigvecs = torch.linalg.eigh(P)
+    eigvals, eigvecs = eigh_cuda(P) if P.is_cuda else torch.linalg.eigh(P)
     return Factorization(eigvals=eigvals, eigvecs=eigvecs, diag=None)
 
 

@@ -18,7 +18,8 @@ device and in their dtype:
     iteration counter and the done flag are 0-d device tensors, and the
     inverse mode's recompute goes through ``control.cond`` (``lax.cond``);
   * the linear solve has two modes (``SolverConfig.linsolve``): the SPECTRAL
-    handle (one eigh, every rho change free) and, for dense N > 48 or
+    handle (one eigh, every rho change free; on the card the Jacobi kernel
+    E1, ``ops/linalg.py::factorize``) and, for dense N > 48 or
     ``linsolve='chol'``, an explicit inverse of P + (rho + mu) I,
     Newton-Schulz in float32 and Cholesky in float64, recomputed for the
     batch whenever some problem's rho changed (with ``rho_sync`` those land
@@ -45,10 +46,9 @@ same number of iterations; that reducer runs on the host, so the lockstep
 loop stays a host loop.
 
 Under a CUDA graph capture (``utils/staging.py``) the engine records itself,
-except where it reads the device on the host (``capture_reason``): the
-lockstep mode and the spectral mode's set-up, ``torch.linalg.eigh``, which
-checks its info on the host. There it raises the guard's error before it
-records anything.
+in both linear-solve modes, except where it reads the device on the host
+(``capture_reason``): the lockstep mode. There it raises the guard's error
+before it records anything.
 """
 
 from __future__ import annotations
@@ -164,17 +164,14 @@ def _use_chol(P: torch.Tensor, cfg: SolverConfig) -> bool:
     return cfg.linsolve == "auto" and P.shape[-1] > 48
 
 
-def capture_reason(P: torch.Tensor, cfg: SolverConfig) -> Optional[str]:
-    """Why a solve of P with ``cfg`` cannot be recorded in a CUDA graph (it
-    reads the device on the host), or None where it can: the lockstep mode
-    (its done flag's reducer runs on the host) and the spectral mode of a
-    dense P (``torch.linalg.eigh`` checks its info on the host)."""
+def capture_reason(cfg: SolverConfig) -> Optional[str]:
+    """Why a solve with ``cfg`` cannot be recorded in a CUDA graph (it reads
+    the device on the host), or None where it can: the lockstep mode, whose
+    done flag's reducer runs on the host. Every other mode records, the
+    spectral one through the Jacobi kernel E1."""
     if cfg.axis_name is not None:
         return (f"axis_name={cfg.axis_name!r} (the lockstep mode) reduces its done flag on "
                 "the host every iteration")
-    if P.ndim == 3 and not _use_chol(P, cfg):
-        return (f"a dense P of N = {P.shape[-1]} takes the spectral mode, whose set-up "
-                "torch.linalg.eigh checks its info on the host")
     return None
 
 
@@ -302,7 +299,7 @@ def make_admm_step(
     names one. In the inverse mode ``body`` recomputes ``fact_inv`` in
     place: a state and the states after it share that matrix."""
     if control.capturing():
-        reason = capture_reason(P, cfg)
+        reason = capture_reason(cfg)
         if reason is not None:
             raise capture_error("the eager ADMM engine (solvers/admm.py)", reason)
     reduce_done = None if cfg.axis_name is None else _done_reducer(cfg.axis_name)

@@ -44,6 +44,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import gc
 import threading
 import weakref
 from typing import Any, Callable
@@ -141,15 +142,30 @@ def _scope() -> Scope | None:
 def graph(cuda_graph: torch.cuda.CUDAGraph):
     """``torch.cuda.graph(cuda_graph)`` that lets ``while_loop`` and
     ``cond`` record their nodes. Yields the ``Scope``; the pools of the
-    nodes' bodies are given back when ``cuda_graph`` is collected."""
-    with torch.cuda.graph(cuda_graph):
-        scope = Scope(torch.device("cuda", torch.cuda.current_device()))
-        try:
-            with _open(torch.cuda.current_stream(), scope):
-                yield scope
-        finally:
-            weakref.finalize(cuda_graph, _release, scope.device.index,
-                             dict(scope.entered)).atexit = False
+    nodes' bodies are given back when ``cuda_graph`` is collected.
+
+    Dead reference cycles are collected before the capture begins, and the
+    cyclic garbage collector is off while it runs (PyTorch's own
+    ``torch.cuda.graph`` no longer collects): a cycle that holds a graph of
+    its own (a card ``SystemID`` and its staged step) collected in the
+    middle of a capture destroys that graph and gives back its pools inside
+    the capture, and the process died at the capture's end (a segmentation
+    fault on an H100)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(cuda_graph):
+            scope = Scope(torch.device("cuda", torch.cuda.current_device()))
+            try:
+                with _open(torch.cuda.current_stream(), scope):
+                    yield scope
+            finally:
+                weakref.finalize(cuda_graph, _release, scope.device.index,
+                                 dict(scope.entered)).atexit = False
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _lib():

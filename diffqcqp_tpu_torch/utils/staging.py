@@ -16,16 +16,18 @@ them: tuples, lists, dicts, named tuples), returns tensors only (None may
 stand for one, as a Jacobian's ``dl_dP`` does), and reads
 nothing on the host (no ``.item()``, ``bool(tensor)``, ``nonzero``, no
 print of a value): inside a capture such a read fails. The solvers meet it
-on every route but two: the kernels K1-K6; the eager engine, whose loop
+on every route but one: the kernels K1-K6; the eager engine, whose loop
 and inverse recompute become conditional nodes (``utils/control.py``, the
-counterparts of ``lax.while_loop`` and ``lax.cond``); the generic adjoint
+counterparts of ``lax.while_loop`` and ``lax.cond``) and whose spectral
+mode's eigendecomposition is the Jacobi kernel E1 (a dense P at N <= 48
+off K1: float64, ``backend='xla'``, ``accel``, the traces at their default
+``linsolve``; ``linsolve='spectral'`` at any N); the generic adjoint
 route's Newton-Schulz loop, Cholesky and LU (``ops/linalg.py``); the
 Jacobians, the traces and the contact rollout (``models/contact_sim.py``).
-The two that read the host, the engine's lockstep mode (``axis_name``) and
-its spectral mode's ``torch.linalg.eigh`` (a dense P at N <= 48 off K1:
-float64, ``backend='xla'``, ``accel``), raise a ``RuntimeError`` under a
-capture that names the route and the reason (``capture_error``), before
-anything is recorded. Nothing falls back to an eager run.
+The one that reads the host, the engine's lockstep mode (``axis_name``),
+raises a ``RuntimeError`` under a capture that names the route and the
+reason (``capture_error``), before anything is recorded. Nothing falls
+back to an eager run.
 
 Per signature of the arguments (each tensor's shape, dtype, device and
 ``requires_grad``, and the pytree's structure; ``signature``), the first
@@ -79,10 +81,8 @@ def capture_error(route: str, reason: str) -> RuntimeError:
     """
     return RuntimeError(
         f"{route} cannot run inside a CUDA graph capture: {reason}. Every route of the "
-        "solvers can be staged but the engine's lockstep mode (axis_name) and its spectral "
-        "mode (torch.linalg.eigh: a dense P at N <= 48 off the kernel K1, e.g. float64, "
-        "backend='xla' or accel; linsolve='chol' takes the inverse mode instead); call this "
-        "solve outside the capture"
+        "solvers can be staged but the engine's lockstep mode (axis_name); call this solve "
+        "outside the capture"
     )
 
 

@@ -30,7 +30,9 @@ The capture path (conditional graph nodes) runs on the card only:
 
 import contextlib
 import dataclasses
+import gc
 import threading
+import weakref
 from typing import NamedTuple, Optional
 
 import jax.numpy as jnp
@@ -411,3 +413,46 @@ def test_contact_system_id_step_reads_nothing_on_the_host_and_matches_jax(no_hos
         assert abs(tl - float(jl)) <= 1e-6 * abs(float(jl))
     for k in raw:
         np.testing.assert_allclose(raw[k].detach().numpy(), np.asarray(jraw[k]), atol=1e-6)
+
+
+def test_graph_collects_dead_cycles_before_the_capture_and_none_during_it(monkeypatch):
+    """``control.graph`` collects the dead reference cycles before the
+    capture begins (a cycle may hold a graph of its own, whose collection
+    inside another capture killed the process on the card) and keeps the
+    cyclic collector off until the capture ends, then restores it. The
+    capture is stood in for by a context that records what it sees."""
+    seen = {}
+
+    class Capture:                    # torch.cuda.graph's stand-in
+        def __init__(self, g):
+            pass
+
+        def __enter__(self):
+            seen["begin"] = (gc.isenabled(), ref() is None)
+
+        def __exit__(self, *exc):
+            seen["end"] = gc.isenabled()
+
+    class Node:
+        pass
+
+    monkeypatch.setattr(torch.cuda, "graph", Capture)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: None)
+    monkeypatch.setattr(control, "_open", lambda *a: contextlib.nullcontext())
+    for enabled in (False, True):
+        cycle = Node()
+        cycle.self = cycle
+        ref = weakref.ref(cycle)
+        del cycle
+        gc.disable()                  # the cycle lives until graph collects it
+        try:
+            if enabled:
+                gc.enable()
+            with control.graph(Node()) as scope:
+                assert not gc.isenabled() and scope.depth == 0
+            assert seen == {"begin": (False, True), "end": False}
+            assert gc.isenabled() is enabled
+        finally:
+            gc.enable()
+

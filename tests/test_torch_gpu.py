@@ -7,6 +7,9 @@ without one. They import no JAX; run them on a card with
 files).
 """
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -93,22 +96,73 @@ def test_staged_flagship_step_is_the_eager_step_bit_for_bit(card):
     assert len(step.graphs) == 1
 
 
-def test_float64_solve_raises_the_guard_under_capture(card):
-    """The eager engine's spectral mode (float64 at N=24 here: its
-    torch.linalg.eigh reads the host) refuses a capture with the guard's
-    error, before it records anything."""
-    P, q, l_n, mu = (torch.tensor(x, device=card, dtype=torch.float64) for x in _flagship(8))
-    g = torch.cuda.CUDAGraph()
-    with pytest.raises(RuntimeError, match="eager ADMM engine"):
-        with torch.cuda.graph(g):
-            dqt.solve_qcqp(P, q, l_n, mu, config=FLAG_CFG)
+def test_float64_flagship_step_is_staged_bit_for_bit(card, monkeypatch):
+    """The float64 flagship step at B=64 takes the engine's spectral mode,
+    its set-up the Jacobi kernel E1: staged as one CUDA graph, past its
+    warm-up calls every replay gives the eager step's l, stats and
+    gradients bit for bit, on two input sets, and the capture records E1
+    once and no call of torch.linalg.eigh."""
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda
+
+    def no_eigh(*a, **k):
+        raise AssertionError("torch.linalg.eigh called on the card")
+
+    monkeypatch.setattr(torch.linalg, "eigh", no_eigh)
+    P, q, l_n, mu = (torch.tensor(x, device=card, dtype=torch.float64) for x in _flagship(64))
+    step = staged(_flagship_step)
+    for k in range(6):
+        xs = (P, q + 1e-5 * (k % 2), l_n, mu)
+        eigh_cuda.launches = 0
+        got = step(*xs)
+        if k == WARMUP:
+            assert eigh_cuda.launches == 1
+        want = _flagship_step(*xs)
+        leaves = torch.utils._pytree.tree_leaves
+        assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want))), k
+    assert len(step.graphs) == 1
+
+
+@pytest.mark.parametrize("n, dtype", [(24, torch.float32), (24, torch.float64),
+                                      (7, torch.float32), (130, torch.float64)])
+def test_jacobi_eigh_is_its_plain_version_bit_for_bit(card, n, dtype):
+    """E1 against its plain version on the card (at N=130 in float64 past
+    the shared-memory bound, on its global workspace): eigenvalues,
+    eigenvectors and sweeps bit for bit, eigenvalues ascending, and V
+    orthonormal and V diag(lam) V^T = P within 50 N u."""
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda, jacobi_eigh_plain
+
+    P = torch.tensor(_flagship(16, (n + 1) // 2)[0][:, :n, :n], dtype=dtype, device=card)
+    w, V, sw = eigh_cuda(P, stats=True)
+    wp, Vp, swp, _ = jacobi_eigh_plain(P, stats=True)
+    assert torch.equal(w, wp) and torch.equal(V, Vp) and torch.equal(sw, swp)
+    assert bool((w[:, 1:] >= w[:, :-1]).all())
+    u = torch.finfo(dtype).eps / 2
+    V64, P64 = V.double(), P.double()
+    res = torch.linalg.matrix_norm(V64 @ torch.diag_embed(w.double()) @ V64.mT - P64)
+    assert float((res / torch.linalg.matrix_norm(P64)).max()) <= 50 * n * u
+    assert float((V64.mT @ V64 - torch.eye(n, dtype=torch.float64, device=card)).abs().max()) \
+        <= 50 * n * u
+
+
+def test_jacobi_eigh_gives_nan_for_a_non_finite_problem(card):
+    """A problem whose P holds a NaN or an inf gives NaN eigenvalues and
+    eigenvectors and no error; the others are untouched."""
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda
+
+    P = torch.tensor(_flagship(4, 3)[0], device=card)
+    P[1, 2, 3] = float("nan")
+    P[2, 0, 0] = float("inf")
+    w, V = eigh_cuda(P)
+    bad = torch.tensor([False, True, True, False], device=card)
+    assert bool(torch.isnan(w[bad]).all()) and bool(torch.isnan(V[bad]).all())
+    assert bool(torch.isfinite(w[~bad]).all()) and bool(torch.isfinite(V[~bad]).all())
 
 
 @pytest.mark.parametrize("kind", ["qp", "qcqp"])
-def test_system_id_in_the_spectral_mode_trains_eagerly_on_the_card(card, kind):
+def test_system_id_in_the_spectral_mode_is_staged_on_the_card(card, kind):
     """A float64 card model at N=6 takes the engine's spectral mode, whose
-    torch.linalg.eigh reads the host: it stages nothing (a plain Adam) and
-    trains past the warm-up steps, its loss falling."""
+    set-up is the Jacobi kernel E1: it stages its step (a capturable Adam)
+    and trains past the warm-up steps, its loss falling."""
     dtype = torch.float64
     m = SystemID(kind=kind, config=(dqt.QP_DEFAULTS if kind == "qp" else FLAG_CFG).replace(
         eps=1e-7), learning_rate=5e-2, device=card)
@@ -119,7 +173,8 @@ def test_system_id_in_the_spectral_mode_trains_eagerly_on_the_card(card, kind):
         m.init_qcqp(g, batch=8, nc=3, dtype=dtype)
     target = torch.rand(8, 6, generator=torch.Generator().manual_seed(3), dtype=dtype) * 0.1
     losses = [float(m.train_step(target.to(card))) for _ in range(WARMUP + 3)]
-    assert m._staged_step is None and m.opt.defaults["capturable"] is False
+    assert m._staged_step is not None and m.opt.defaults["capturable"] is True
+    assert len(m._staged_step.graphs) == 1
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
@@ -236,3 +291,40 @@ def test_cond_returns_the_buffer_both_branches_return(card):
     g.replay()
     torch.cuda.synchronize(card)
     assert torch.equal(buf, src * 2.0)
+
+
+def test_a_dead_staged_model_is_collected_before_a_capture_not_inside_it(card):
+    """A card ``SystemID`` and its staged step form a reference cycle that
+    holds a CUDA graph. Dropped, it is collected when ``control.graph``
+    opens the next capture, not by a collection inside that capture (which
+    destroyed its graph mid-capture and killed the process at the
+    capture's end); the capture records and replays as it should."""
+    from diffqcqp_tpu_torch.utils import control
+
+    def dead_model():
+        m = SystemID(kind="qp", config=dqt.QP_DEFAULTS.replace(eps=1e-7), device=card)
+        m.init_qp(torch.Generator().manual_seed(2), batch=8, n=6)
+        target = torch.zeros(8, 6, device=card)
+        for _ in range(WARMUP + 1):
+            m.train_step(target)
+        assert len(m._staged_step.graphs) == 1
+        return weakref.ref(m._staged_step)
+
+    gc.disable()
+    try:
+        ref = dead_model()
+        assert ref() is not None
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        x = torch.ones(64, device=card)
+        with control.graph(g):
+            assert ref() is None and not gc.isenabled()
+            junk = [[] for _ in range(100_000)]     # past the collector's thresholds
+            y = x * 2.0
+        del junk
+        g.instantiate()
+        g.replay()
+        torch.cuda.synchronize(card)
+        assert torch.equal(y, torch.full_like(x, 2.0))
+    finally:
+        gc.enable()
+

@@ -137,3 +137,46 @@ def test_spd_inverse_f32_matches_jax():
     got = tkkt._spd_inverse_f32(torch.from_numpy(K))
     _close(got, jkkt._spd_inverse_f32(jnp.asarray(K)), np.float32)
     _close(got.double().numpy(), np.linalg.inv(K.astype(np.float64)), np.float64, 2e-5)
+
+
+def test_card_solve_holds_its_library_setting_across_threads(monkeypatch):
+    """ops/linalg.py::_solve_cusolver, the card's LU, sets PyTorch's
+    process-wide linear algebra library for its call: two threads' solves
+    (autograd runs a backward thread a card) each run with cuSOLVER set and
+    leave the setting as they found it. The setting and ``solve_ex`` are
+    stand-ins here (a CPU build cannot select cuSOLVER); ``solve_ex`` sleeps
+    so that the threads' calls would overlap without the lock."""
+    import threading
+    import time
+
+    lib, seen = ["default"], []
+
+    def preferred(backend=None):
+        if backend is not None:
+            lib[0] = backend
+        return lib[0]
+
+    def solve_ex(A, B, check_errors=True):
+        seen.append(lib[0])
+        time.sleep(0.05)
+        seen.append(lib[0])
+        return torch.linalg.solve(A, B), torch.zeros(A.shape[:-2], dtype=torch.int32)
+
+    monkeypatch.setattr(torch.backends.cuda, "preferred_linalg_library", preferred)
+    monkeypatch.setattr(torch.linalg, "solve_ex", solve_ex)
+    P, _, rhs = _spd(10)
+    A, b = torch.from_numpy(P), torch.from_numpy(rhs)[..., None]
+    out = [None, None]
+
+    def run(i):
+        out[i] = T._solve_cusolver(A, b)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert seen == ["cusolver"] * 4
+    assert lib[0] == "default"
+    for x in out:
+        _close(x[..., 0], np.linalg.solve(P, rhs[..., None])[..., 0], np.float64)

@@ -1,25 +1,24 @@
 """Staging (``utils/staging.py``) and the capture guard, on the CPU:
 
   * the guard, with ``torch.cuda.is_current_stream_capturing`` patched to
-    report a capture: a solve that takes the engine's spectral mode (a dense
-    P at n = 6 in float64, with ``accel`` or ``backend='xla'``: its
-    ``torch.linalg.eigh``) or its lockstep mode (``axis_name``) raises the
-    guard's ``RuntimeError`` naming the engine and the reason, and so does a
-    trace in the spectral mode; every other route runs and gives the bits
-    it gives without the patch: the float32 dense kernel route (the plain
-    K1, K2 and K4 here), the engine with a diagonal P and in its inverse
-    modes, the generic adjoint route's Newton-Schulz inverse, Cholesky and
-    LU, a trace in the inverse mode and the Jacobians (on CPU tensors these
-    take their eager forms; their capture forms run on the card,
-    ``chip_smoke.py`` phase 3o);
+    report a capture: a solve or a trace in the engine's lockstep mode
+    (``axis_name``) raises the guard's ``RuntimeError`` naming the engine and
+    the reason; every other route runs and gives the bits it gives without
+    the patch: the float32 dense kernel route (the plain K1, K2 and K4
+    here), the engine with a diagonal P, in its inverse modes and in its
+    spectral mode (a dense P at n = 6 in float64, with ``accel`` or
+    ``backend='xla'``), the generic adjoint route's Newton-Schulz inverse,
+    Cholesky and LU, a trace in either mode and the Jacobians (on CPU
+    tensors these take their eager forms, the spectral mode LAPACK's eigh;
+    their capture forms run on the card, the spectral mode's through the
+    Jacobi kernel E1: ``chip_smoke.py`` phases 3o and 3p);
   * ``staged`` on CPU tensors is ``fn``, call for call, and captures
     nothing; its signature key separates shape, dtype and
     ``requires_grad``; it takes tensors only;
   * ``SystemID`` on the CPU keeps a non-capturable Adam and no staged step,
     with the JAX package's losses (as ``tests/test_torch_models.py``);
     ``system_id.capturable_route``, which decides whether a card model
-    stages its step, names every route but the engine's spectral and
-    lockstep modes.
+    stages its step, names every route but the engine's lockstep mode.
 
 The staged step on a card is ``tests/test_torch_gpu.py``'s and
 ``chip_smoke.py``'s (phases 3n, 4n, 3o, 4o).
@@ -68,28 +67,21 @@ def _qcqp(xs, **kw):
     return dqt.solve_qcqp(*xs, config=CFG, device="cpu", **kw)
 
 
-# the engine's routes that read the host: refused under a capture
+# the engine's route that reads the host: refused under a capture
 ENGINE_CASES = {
-    "float64": (lambda xs: _qcqp([x.double() for x in xs]), "spectral mode"),
-    "accel": (lambda xs: dqt.solve_qcqp(
-        *xs, config=CFG.replace(accel=True, adaptive_rho=False, alpha_relax=1.0),
-        device="cpu"), "spectral mode"),
-    "backend=xla": (lambda xs: dqt.solve_qcqp(*xs, config=CFG.replace(backend="xla"),
-                                              device="cpu"), "spectral mode"),
     "axis_name": (lambda xs: _qcqp(xs, axis_name="batch"), "axis_name='batch'"),
 }
 
 
 @pytest.mark.parametrize("case", list(ENGINE_CASES))
 def test_guard_refuses_the_engine_under_capture(capture, case):
-    """The lockstep mode and the spectral mode (N = 6 here: its set-up's
-    torch.linalg.eigh checks its info on the host) refuse a capture."""
+    """The lockstep mode refuses a capture: its done flag's reducer runs on
+    the host every iteration."""
     solve, reason = ENGINE_CASES[case]
     with pytest.raises(RuntimeError, match="eager ADMM engine") as err:
         solve(_problems(3, 3))
     assert reason in str(err.value)
     assert "cannot run inside a CUDA graph capture" in str(err.value)
-    assert "torch.linalg.eigh" in str(err.value) or case == "axis_name"
 
 
 def _same(monkeypatch, call):
@@ -104,8 +96,14 @@ def _same(monkeypatch, call):
 
 
 # the engine's routes that record under a capture (the loop a WHILE node,
-# the inverse's recompute two IF nodes): each runs with its eager bits
+# the inverse's recompute two IF nodes, the spectral set-up the Jacobi
+# kernel E1 on the card): each runs with its eager bits
 CAPTURED_ENGINE = {
+    "float64, the spectral mode": lambda: _step_qcqp([x.double() for x in _problems(3, 3)]),
+    "accel, the spectral mode": lambda: _step_qcqp(_problems(3, 3), CFG.replace(
+        accel=True, adaptive_rho=False, alpha_relax=1.0)),
+    "backend=xla, the spectral mode": lambda: _step_qcqp(_problems(3, 3),
+                                                         CFG.replace(backend="xla")),
     "diagonal P": lambda: _step_qcqp([torch.diagonal(_problems(3, 3)[0], dim1=1, dim2=2)
                                       .contiguous(), *_problems(3, 3)[1:]]),
     "n=170, the float32 Newton-Schulz inverse": lambda: _step_qcqp(_problems(2, 85)),
@@ -149,11 +147,12 @@ def test_capture_lets_the_float32_newton_schulz_inverse_through(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["trace_qp", "trace_qp, linsolve='chol'", "qp_jacobian",
-                                  "qcqp_jacobian"])
+                                  "qcqp_jacobian", "trace_qp, axis_name='batch'"])
 def test_guard_refuses_traces_and_jacobians(monkeypatch, name):
-    """A trace in the spectral mode (N = 6) refuses a capture, as its
-    set-up's torch.linalg.eigh reads the host; a trace in the inverse mode
-    and the Jacobians (a Cholesky and an LU) run with their eager bits."""
+    """A trace in the lockstep mode refuses a capture, as its done flag's
+    reducer reads the host; a trace in the spectral mode (N = 6) or the
+    inverse mode and the Jacobians (a Cholesky and an LU) run with their
+    eager bits."""
     P, q, l_n, mu = _problems(2, 3)
     qc = dqt.QCQP_DEFAULTS.replace(eps=1e-7)
     call = {"trace_qp": lambda: dqt.debug.trace_qp(P, q, iters=3, device="cpu"),
@@ -161,14 +160,16 @@ def test_guard_refuses_traces_and_jacobians(monkeypatch, name):
                 P, q, iters=3, config=dqt.QP_DEFAULTS.replace(linsolve="chol"), device="cpu"),
             "qp_jacobian": lambda: dqt.qp_jacobian(P, q, l=torch.zeros_like(q), device="cpu"),
             "qcqp_jacobian": lambda: dqt.qcqp_jacobian(P, q, l_n, mu, config=qc.replace(
-                backend="pallas"), device="cpu")}
-    if name != "trace_qp":
+                backend="pallas"), device="cpu"),
+            "trace_qp, axis_name='batch'": lambda: dqt.debug.trace_qp(
+                P, q, iters=3, config=dqt.QP_DEFAULTS.replace(axis_name="batch"), device="cpu")}
+    if name != "trace_qp, axis_name='batch'":
         _same(monkeypatch, call[name])
         return
     _report_capture(monkeypatch)
     with pytest.raises(RuntimeError, match="cannot run inside a CUDA graph capture") as err:
         call[name]()
-    assert "torch.linalg.eigh" in str(err.value)
+    assert "axis_name='batch'" in str(err.value)
 
 
 def _step_qcqp(xs, cfg=CFG):
@@ -309,11 +310,11 @@ ROUTE_CASES = {
     "qp at K4's bound n=168": ("qp", 168, False, torch.float32, QP_CFG, True),
     "qcqp at K2's bound n=150": ("qcqp", 150, False, torch.float32, CFG, True),
     "qp diagonal P": ("qp", 8, True, torch.float32, QP_CFG, True),
-    "qp float64": ("qp", 8, False, torch.float64, QP_CFG, False),
-    "qcqp float64": ("qcqp", 8, False, torch.float64, CFG, False),
+    "qp float64": ("qp", 8, False, torch.float64, QP_CFG, True),
+    "qcqp float64": ("qcqp", 8, False, torch.float64, CFG, True),
     "qp accel": ("qp", 8, False, torch.float32,
-                 QP_CFG.replace(accel=True, adaptive_rho=False, alpha_relax=1.0), False),
-    "qcqp backend=xla": ("qcqp", 8, False, torch.float32, CFG.replace(backend="xla"), False),
+                 QP_CFG.replace(accel=True, adaptive_rho=False, alpha_relax=1.0), True),
+    "qcqp backend=xla": ("qcqp", 8, False, torch.float32, CFG.replace(backend="xla"), True),
     "qp n=169, K1 but past K4": ("qp", 169, False, torch.float32, QP_CFG, True),
     "qcqp n=152, K1 but past K2": ("qcqp", 152, False, torch.float32, CFG, True),
     "qp n=170, past K1": ("qp", 170, False, torch.float32, QP_CFG, True),
@@ -328,8 +329,8 @@ ROUTE_CASES = {
 def test_system_id_stages_a_capturable_route(case):
     """``capturable_route`` is what ``SystemID.set_params`` asks before it
     stages a card model's step: True unless the forward takes the engine's
-    spectral mode (a dense P at N <= 48 off K1) or its lockstep mode; every
-    other model trains eagerly."""
+    lockstep mode (the spectral mode, a dense P at N <= 48 off K1, stages
+    through the Jacobi kernel E1); a lockstep model trains eagerly."""
     kind, n, diag, dtype, cfg, want = ROUTE_CASES[case]
     assert tsid.capturable_route(kind, _sysid_params(kind, n, diag, dtype), cfg) is want
 
