@@ -10,6 +10,11 @@
                                      # result line
     python3 chip_smoke.py eigh       # phase 1, then phases 2p, 3p and 4p alone;
                                      # no result line
+    python3 chip_smoke.py lockstep   # phase 1, then phases 3q and 4q alone and,
+                                     # with two cards or more, two NCCL ranks a
+                                     # card each, eager lockstep and the refusal
+                                     # of its capture (``lockstep_ranks``); no
+                                     # result line
     python3 chip_smoke.py eager ROOT # the port at ROOT times the engine's eager
                                      # paths (``eager_run``); no result line
 
@@ -259,15 +264,15 @@ block-wide path). Phases, each of which fails the run if its check fails:
      count of problems equal bit for bit) and the gradients within phase
      3b's bars of it; then the flagship step in lockstep mode (K1 0, K2 2:
      the eager engine forward) on the batch sorted by K1's iterations, so
-     that shard 0's slowest problem stops early: each shard thread calls
-     the reducer exactly as often as the batch's slowest problem iterates
-     (and the barrier acts as often), l and per-problem iterations equal bit
+     that shard 0's slowest problem stops early: the joint loop steps both
+     shards exactly as often as the batch's slowest problem iterates
+     (``lockstep_rounds``), l and per-problem iterations equal bit
      for bit to each shard's own ``backend='xla'`` solve, and within 1e-5
      (l) and 4 iterations of one such solve of the whole batch (the engine
      rounds otherwise at another batch size);
      (b) a one-rank NCCL process group (``initialize_distributed`` on a free
      local port): the lockstep flagship solve on ``global_batch_mesh()`` and
-     ``shard_host_local_batch``, one reducer call and one all-reduce an
+     ``shard_host_local_batch``, one joint step and one all-reduce an
      iteration, bit for bit the whole batch's ``backend='xla'`` solve, and
      within 1e-5 and 4 iterations of (a)'s lockstep run; the group is
      destroyed after;
@@ -378,8 +383,8 @@ block-wide path). Phases, each of which fails the run if its check fails:
      contact system-ID step (``make_system_id_step``, staged by the
      module) against the same ``Adam(capturable=True)`` step run eagerly
      over 20 steps: losses and parameters bit for bit, 100 WHILE nodes,
-     no host read; and the route that stays guarded refuses a capture:
-     ``axis_name`` (the spectral mode stages: phase 3p);
+     no host read (the spectral mode stages in phase 3p, the lockstep mode
+     in phase 3q);
   4o. each path of phase 3o eagerly and staged through ``timed_step``
      (median of 3; device time by kernel; where the graph holds
      conditional nodes the profiler does not count their bodies' kernels
@@ -404,6 +409,23 @@ block-wide path). Phases, each of which fails the run if its check fails:
      and CUDA events), its plain version, its bound (``e1_bound_ms``) and
      ``torch.linalg.eigh`` of the same P, and what one such call launches
      at N=48;
+  3q. the lockstep mode staged, one loop over every shard, inside a
+     one-rank NCCL group (``lockstep_phases``, ``phase_3q``): on two shards
+     of cuda:0, the flagship step (B=4096, seeds 0 and 1) and config 10's
+     QP step (seeds 10 and 11), each eagerly on both sets: E1 2 and K2 2 /
+     K4 2 (one a shard) and no other kernel, the joint loop's steps the
+     slowest problem's iterations (which differ between the sets), l and
+     stats bit for bit each shard's own ``backend='xla'`` solve; staged
+     (``staged_loop_check``): the same launches at capture, one WHILE node,
+     the replay bit for bit the eager step on both sets, no host read. The
+     flagship forward alone staged alike; the flagship step over the NCCL
+     group: its ``all_reduce`` recorded once, in the body, the replay bit
+     for bit its eager run and the step without a group. Then a capture
+     refuses, naming each reason, a mesh over cuda:0 and the CPU and a gloo
+     group;
+  4q. each path of phase 3q eagerly and staged through ``timed_step``
+     (median of 5; the eager path's device time and idle share; the staged
+     graph's wall time alone);
   5. one JSON line of every ported kernel (K4's block-wide path at config 6
      its own entry; E1, the spectral mode's eigendecomposition, which
      replaces XLA's ``eigh`` and no Pallas kernel), then as the last line
@@ -421,7 +443,6 @@ import pathlib
 import re
 import subprocess
 import sys
-import threading
 import time
 
 import numpy as np
@@ -2144,46 +2165,39 @@ def l_agree(label, l, ref, bar, st=None, st_ref=None, it_bar=0):
 
 @contextlib.contextmanager
 def lockstep_rounds():
-    """Count, for the block, the lockstep reducer's calls by shard thread
-    (one an engine iteration) and its barrier actions ("actions": one done
-    flag MIN a round, an all-reduce under a process group)."""
+    """Count, for the block, the steps of the lockstep joint loop
+    (``parallel.sharding.Lockstep._step``: one engine iteration of every
+    shard of the process, then one done-flag MIN, an all-reduce under a
+    process group): a list with the number of shards each step stepped."""
     from diffqcqp_tpu_torch.parallel import sharding as tsh
 
-    calls, lock = {}, threading.Lock()
-    call, reduce = tsh._LockstepDone.__call__, tsh._LockstepDone._reduce
+    steps = []
+    inner = tsh.Lockstep._step
 
-    def counted_call(self, local_done):
-        with lock:
-            name = threading.current_thread().name
-            calls[name] = calls.get(name, 0) + 1
-        return call(self, local_done)
+    def counted(self, bodies, states):
+        steps.append(len(states))
+        return inner(self, bodies, states)
 
-    def counted_reduce(self):
-        calls["actions"] = calls.get("actions", 0) + 1
-        reduce(self)
-
-    tsh._LockstepDone.__call__, tsh._LockstepDone._reduce = counted_call, counted_reduce
+    tsh.Lockstep._step = counted
     try:
-        yield calls
+        yield steps
     finally:
-        tsh._LockstepDone.__call__, tsh._LockstepDone._reduce = call, reduce
+        tsh.Lockstep._step = inner
 
 
 def in_rounds(label, rounds, k, slowest, own=None):
-    """Every one of the k shard threads made exactly ``slowest`` reducer
-    calls (the batch's slowest problem's iterations), and the barrier acted
-    as often. With ``own``, each shard's own slowest problem, at least one
-    of which stops earlier: a reducer that did not reduce would let that
-    shard's thread leave after its own count."""
-    shards = {f"batch-shard-{i}": rounds.get(f"batch-shard-{i}") for i in range(k)}
-    log(f"    {label}: reducer calls by shard thread {shards}, barrier actions "
-        f"{rounds.get('actions')}; the batch's slowest problem {slowest} iterations"
+    """The joint loop made exactly ``slowest`` steps (the batch's slowest
+    problem's iterations), each over all k shards. With ``own``, each
+    shard's own slowest problem, at least one of which stops earlier: a loop
+    that did not take the MIN would stop there."""
+    log(f"    {label}: joint loop steps {len(rounds)}, shards a step {sorted(set(rounds))}; the "
+        f"batch's slowest problem {slowest} iterations"
         + ("" if own is None else f", each shard's own slowest {own}"))
-    if set(shards.values()) != {slowest} or rounds.get("actions") != slowest \
-            or len(rounds) != k + 1:
-        raise AssertionError(f"{label}: the shards did not reduce once an iteration in step")
+    if rounds != [k] * slowest:
+        raise AssertionError(f"{label}: the joint loop did not step every shard once an "
+                             "iteration until the slowest problem converged")
     if own is not None and min(own) >= slowest:
-        raise AssertionError(f"{label}: no shard stops early, so the rounds cannot show a MIN")
+        raise AssertionError(f"{label}: no shard stops early, so the steps cannot show a MIN")
 
 
 def phase_3j(dqt, kernels, flag, cfg, c10, W, l64, k1_iters, b_bucket=4000):
@@ -2240,8 +2254,8 @@ def phase_3j(dqt, kernels, flag, cfg, c10, W, l64, k1_iters, b_bucket=4000):
     # stall-floor stop by a few iterations (phase 2's note; bar 4, phase
     # 3e's engine-against-K1 bar). The batch goes in sorted by K1's
     # iterations, so shard 0's slowest problem stops well before the
-    # batch's: only a MIN keeps its thread in the barrier rounds until the
-    # batch's slowest problem is done, which the round counts show.
+    # batch's: only a MIN keeps the joint loop stepping it until the batch's
+    # slowest problem is done, which the step counts show.
     xcfg = cfg.replace(backend="xla")
     l_x, st_x = dqt.solve_qcqp_with_stats(*flag, config=xcfg)
     order = torch.argsort(k1_iters.to(flag[1].device), stable=True)
@@ -2389,7 +2403,6 @@ def phase_3j(dqt, kernels, flag, cfg, c10, W, l64, k1_iters, b_bucket=4000):
     return {
         "sharded": step_with(sharded(solve_qcqp_sharded), leaves, W),
         "unsharded": step_with(dqt.solve_qcqp_with_stats, leaves, W),
-        "lockstep": lambda: solve_qcqp_sharded(*flag, mesh=mesh, config=cfg, lockstep=True),
         "bucketed": step_with(dqt.solve_qcqp_with_stats, leaves_p, w_pad),
         "resumed": resumed,
         "trace": lambda: dqt.debug.trace_qcqp(*flag, iters=64, config=tcfg),
@@ -2403,8 +2416,6 @@ def phase_4g(smi, paths, B=B_FLAG):
     ms_s, idle_s = timed_step(f"sharded flagship step, two shards on one card, independent "
                               f"(K1 x2 + K2 x2)", paths["sharded"], smi, calls=20, problems=B)
     log(f"    sharded / unsharded: {ms_s / ms_u:.3f}x wall time")
-    timed_step("lockstep flagship forward, two shards (the eager engine, a barrier an "
-               "iteration)", paths["lockstep"], smi, reps=3, calls=1, problems=B)
     timed_step("bucketed step, 4000 padded to 4096 (K1 + K2)", paths["bucketed"], smi,
                calls=20, problems=4000)
     timed_step("resumed solve from max_iter=8, 3 rounds (K1 x3)", paths["resumed"], smi,
@@ -3092,9 +3103,8 @@ def phase_3o(dqt, kernels, cfg, qp_cfg, rollouts, b_past=256, b_trace=4096, step
     the generic route's float64 LU (``qcqp_vjp(duals=)`` at the flagship's
     size) and Cholesky (the QP's assembled SPD system); ``qcqp_jacobian`` at
     the flagship (K1 inside); ``trace_qcqp``, 64 iterations at the flagship
-    in the inverse mode (``linsolve='chol'``). Then the route that stays
-    guarded refuses a capture: ``axis_name``; the spectral mode stages
-    (phase 3p). Every replay is its eager run bit for bit, the LU paths
+    in the inverse mode (``linsolve='chol'``). The spectral mode stages in
+    phase 3p, the lockstep mode in phase 3q. Every replay is its eager run bit for bit, the LU paths
     included (cuSOLVER's LU eagerly too). Returns [(label, eager step,
     staged step, problems, conditional nodes)] for phase 4o."""
     from diffqcqp_tpu_torch.diff import kkt
@@ -3202,10 +3212,6 @@ def phase_3o(dqt, kernels, cfg, qp_cfg, rollouts, b_past=256, b_trace=4096, step
         raise AssertionError(f"{label}: a replay reads the device on the host")
     pairs.append((label, eager_step, staged_step, B, sum(rec.values())))
 
-    # what stays guarded: the lockstep mode (the spectral mode stages, phase 3p)
-    small = [x[:b_past] for x in flag]
-    refused_under_capture("solve_qcqp with axis_name='batch' (the lockstep mode)",
-                          lambda: dqt.solve_qcqp(*small, config=cfg.replace(axis_name="batch")))
     # cuSOLVER's LU runs eagerly too (ops/linalg.py::solve): every path is
     # its eager run bit for bit, the LU paths included
     log(f"  paths whose replay is not the eager run bit for bit: {excepted or 'none'}")
@@ -3624,6 +3630,288 @@ def eigh_run(dqt, smi, t_start) -> int:
     phase_4p(smi, pairs, P, (rotations["flagship B=4096 N=24 float32"],
                              rotations["the float64 referee's P, flagship B=4096 N=24 float64"]))
     log(f"chip_smoke: eigh phases passed, {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# The lockstep mode staged: one loop over every shard of the process
+# (parallel/sharding.py::Lockstep), its done flag's MIN a device op;
+# phases 3q and 4q, and two NCCL ranks a card each
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def all_reduce_spy():
+    """Count ``torch.distributed.all_reduce`` calls in the block: [made
+    eagerly, recorded in a CUDA graph capture]."""
+    import torch.distributed as dist
+
+    calls = [0, 0]
+    inner = dist.all_reduce
+
+    def spy(t, *a, **kw):
+        calls[1 if torch.cuda.is_current_stream_capturing() else 0] += 1
+        return inner(t, *a, **kw)
+
+    dist.all_reduce = spy
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = inner
+
+
+def lockstep_check(label, kern, solve, own, sets, cfg, n_diff, mesh, want):
+    """Phase 3q's gates of one lockstep step (``solve``, a ``solve_*_sharded``,
+    with ``lockstep=True`` on ``mesh``, then the gradient of sum(l^2) for its
+    first ``n_diff`` inputs): eagerly on each input set, exactly the kernels
+    ``want`` names (E1 and K2 or K4 once a shard), the joint loop's steps the
+    batch's slowest problem's iterations over every shard, and l and stats
+    bit for bit each shard's own ``backend='xla'`` solve (``own``); the two
+    sets' loops run different iteration counts; then staged through
+    ``staged_loop_check``: the same kernels at capture, one WHILE node at
+    the graph's top level, the replay the eager step bit for bit on both
+    sets, no host read in a replay. Returns (eager step, staged step, the
+    conditional nodes recorded)."""
+    step = grad_step(lambda *a, config: solve(*a, mesh=mesh, config=config, lockstep=True),
+                     cfg, n_diff)
+    k, slowest = len(mesh.devices), []
+    for i, xs in enumerate(sets):
+        with lockstep_rounds() as rounds:
+            (l, st, _), n_e = launched(kern, lambda: step(*xs))
+        log(f"  {label}, input set {i}: eagerly launches {n_e}")
+        only_launched(f"{label}, eagerly", n_e, want)
+        h = xs[1].shape[0] // k
+        halves = [own(*(x[j * h:(j + 1) * h] for x in xs), config=cfg.replace(backend="xla"))
+                  for j in range(k)]
+        slowest.append(int(st.iterations.max()))
+        in_rounds(f"{label}, input set {i}", rounds, k, slowest[-1],
+                  [int(sh.iterations.max()) for _, sh in halves])
+        st_own = type(st)(*(torch.cat([sh[f] for _, sh in halves]) for f in range(len(st))))
+        l_agree(f"{label}, input set {i}: eager lockstep vs each shard's own backend='xla' "
+                "solve", l.detach(), torch.cat([lh for lh, _ in halves]), 0.0, st, st_own)
+    log(f"  {label}: the joint loop's iterations on the two input sets {slowest}")
+    if slowest[0] == slowest[1]:
+        raise AssertionError(f"{label}: the two input sets' loops run the same iterations")
+    st_iters = lambda out: out[1].iterations        # noqa: E731
+    s, _, exc = staged_loop_check(label, kern, step, sets, want, 1, st_iters)
+    if exc is not None:
+        raise AssertionError(f"{label}: the replay is not the eager step bit for bit")
+    return (lambda: step(*sets[0])), (lambda: s(*sets[0])), sum(next(iter(s.nodes.values()))
+                                                                 .values())
+
+
+def phase_3q(dqt, kernels, cfg, qp_cfg, b=B_FLAG):
+    """Phase 3q: the lockstep mode staged (``utils.staged``), each shard's
+    loop one loop of the process, one WHILE node. Needs a one-rank NCCL
+    process group (``lockstep_phases`` makes it). Through ``lockstep_check``
+    on two shards of cuda:0 (a mesh without a group): the flagship QCQP step
+    (B=4096, bench.py's generator at seeds 0 and 1, its config) and config
+    10's QP step (seeds 10 and 11); the flagship forward alone (E1 once a
+    shard, no kernel else; phase 4g's lockstep path before the joint loop).
+    Then the flagship step over the NCCL group (``make_batch_mesh`` takes the world group): its
+    ``all_reduce`` recorded once, in the loop's body, the replay bit for
+    bit its eager run and the step without a group. Then the refusals a
+    capture keeps, each printing its reason: a mesh over cuda:0 and the
+    CPU, and a gloo group. Returns [(label, eager, staged, problems,
+    conditional nodes)] for phase 4q."""
+    import torch.distributed as dist
+
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda
+    from diffqcqp_tpu_torch.parallel import (
+        BatchMesh, make_batch_mesh, solve_qcqp_sharded, solve_qp_sharded,
+    )
+
+    kern = {**kernels, "E1": eigh_cuda}
+    card = torch.device("cuda:0")
+    mesh = BatchMesh((card, card), "batch")
+    flag_sets = [cuda(*build_problems(b, NC_FLAG, seed=s_)) for s_ in (0, 1)]
+    qp_sets = [cuda(*spd_problems(b, 24, seed=s_)[1:]) for s_ in (10, 11)]
+    label_f = f"two-shard lockstep flagship QCQP step B={b}"
+    pairs = []
+    for label, solve, own, sets, c, n_diff, want in (
+            (label_f, solve_qcqp_sharded, dqt.solve_qcqp_with_stats, flag_sets, cfg, 4,
+             {"K2": 2, "E1": 2}),
+            (f"two-shard lockstep config-10 QP step B={b}", solve_qp_sharded,
+             dqt.solve_qp_with_stats, qp_sets, qp_cfg, 2, {"K4": 2, "E1": 2})):
+        t0 = time.perf_counter()
+        eager, staged_step, nodes = lockstep_check(label, kern, solve, own, sets, c, n_diff,
+                                                   mesh, want)
+        pairs.append((label, eager, staged_step, b, nodes))
+        log(f"  {label}: checks took {time.perf_counter() - t0:.1f} s")
+
+    # the forward alone, as phase 4g timed it before the joint loop
+    label = f"two-shard lockstep flagship forward B={b}"
+    fwd = lambda *xs: solve_qcqp_sharded(*xs, mesh=mesh, config=cfg, lockstep=True)  # noqa: E731
+    s_fwd, _, exc = staged_loop_check(label, kern, fwd, flag_sets, {"E1": 2}, 1,
+                                      lambda out: out[1].iterations)
+    if exc is not None:
+        raise AssertionError(f"{label}: the replay is not the eager forward bit for bit")
+    pairs.append((label, lambda: fwd(*flag_sets[0]), lambda: s_fwd(*flag_sets[0]), b, 1))
+
+    # the same step over the one-rank NCCL group: the done flag's all_reduce
+    # recorded in the WHILE node's body
+    gmesh = make_batch_mesh([card, card])
+    backend = dist.get_backend(gmesh.group)
+    label = f"two-shard lockstep flagship QCQP step B={b}, {backend} group of one rank"
+    gstep = grad_step(lambda *a, config: solve_qcqp_sharded(*a, mesh=gmesh, config=config,
+                                                            lockstep=True), cfg, 4)
+    with all_reduce_spy() as ar:
+        s_g, _, exc = staged_loop_check(label, kern, gstep, flag_sets, {"K2": 2, "E1": 2}, 1,
+                                        lambda out: out[1].iterations)
+    d_nogroup = bit_diffs(s_g(*flag_sets[0]), pairs[0][2]())
+    log(f"  {label}: all_reduce calls eagerly {ar[0]}, recorded in the capture {ar[1]}; the "
+        f"replay against the staged step without a group, leaves whose bits differ: "
+        f"{d_nogroup}")
+    if backend != "nccl" or exc is not None or ar[1] != 1 or d_nogroup:
+        raise AssertionError(f"{label}: want an NCCL group, its all_reduce recorded once and "
+                             "the replay bit for bit the eager step and the step without a "
+                             "group")
+    pairs.append((label, lambda: gstep(*flag_sets[0]), lambda: s_g(*flag_sets[0]), b, 1))
+
+    # what a capture refuses, each with its reason
+    small = [x[:256] for x in flag_sets[0]]
+    refused_under_capture("two-shard lockstep over cuda:0 and the CPU", lambda: solve_qcqp_sharded(
+        *small, mesh=make_batch_mesh([card, "cpu"]), config=cfg, lockstep=True))
+    gloo = BatchMesh(gmesh.devices, gmesh.axis_name, dist.new_group(backend="gloo"))
+    refused_under_capture("two-shard lockstep over a gloo group", lambda: solve_qcqp_sharded(
+        *small, mesh=gloo, config=cfg, lockstep=True))
+    return pairs
+
+
+def phase_4q(smi, pairs):
+    """Phase 4q: each path of phase 3q eagerly, then staged, through
+    ``timed_step`` (CUDA events, median of 5 samples of one call; the eager
+    path's device time and idle share by torch.profiler; the staged graph
+    holds a WHILE node, whose kernels the profiler does not count reliably:
+    its wall time alone)."""
+    rows = []
+    for label, eager, st, problems, nodes in pairs:
+        ms_e, idle_e = timed_step(f"{label}, eager", eager, smi, reps=5, problems=problems)
+        ms_s, _ = timed_step(f"{label}, staged (one CUDA graph)", st, smi, reps=5,
+                             problems=problems)
+        rows.append((label, ms_e, idle_e, ms_s, nodes))
+    log(f"  phase 4q ({smi}), ms per call (eager device ms, card idle):")
+    for label, ms_e, idle_e, ms_s, nodes in rows:
+        log(f"    {label}: eager {ms_e:.4f} ({ms_e * (1 - idle_e):.4f}, {idle_e:.1%}), staged "
+            f"{ms_s:.4f} ({nodes} conditional node: device time and idle not measured): "
+            f"{ms_e / ms_s:.3f}x")
+    return rows
+
+
+def lockstep_phases(dqt, kernels, smi, t_start):
+    """Phases 3q and 4q inside a one-rank NCCL process group on a free
+    loopback port, destroyed after."""
+    import torch.distributed as dist
+
+    from diffqcqp_tpu_torch.parallel import initialize_distributed
+
+    port = free_port()
+    initialize_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                           process_id=0)
+    try:
+        log(f"phase 3q: the lockstep mode staged, one loop over every shard (process group "
+            f"{dist.get_backend()} of {dist.get_world_size()} rank on port {port})")
+        pairs = phase_3q(dqt, kernels, flagship_cfg(dqt), qp_families(dqt)["qp"].cfg)
+        log(f"  phase 3q done at {time.perf_counter() - t_start:.1f} s")
+        log("phase 4q: each path of phase 3q eagerly and staged")
+        phase_4q(smi, pairs)
+        log(f"  phase 4q done at {time.perf_counter() - t_start:.1f} s")
+    finally:
+        dist.destroy_process_group()
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock milliseconds of ``fn`` then a synchronisation,
+    after one warm-up call (examples_torch/sharded_batch.py's ``_ms``)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def lockstep_rank(rank, world, port, b_global):
+    """One rank of ``lockstep_ranks`` (its own process and card): config 5's
+    problems (``sharded_example_problems``, B=65,536 over the ranks, N=8,
+    eps=1e-7, max_iter=1000), this rank's slice solved through
+    ``global_batch_mesh()``: collective-free (K1) and lockstep, eagerly.
+    Gates: the joint loop's steps the global batch's slowest problem's
+    iterations, one all-reduce a step; a capture of the lockstep solve
+    refused with the guard's error naming NCCL across ranks (an NCCL
+    all-reduce inside a WHILE node's body fails to record across ranks).
+    Prints one line of times (the host clock, as
+    ``examples_torch/sharded_batch.py`` times, and CUDA events; median of
+    5)."""
+    torch.cuda.set_device(rank)
+    import torch.distributed as dist
+
+    import diffqcqp_tpu_torch as dqt
+    from diffqcqp_tpu_torch.parallel import (
+        global_batch_mesh, initialize_distributed, shard_host_local_batch, solve_qcqp_sharded,
+    )
+
+    initialize_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=world,
+                           process_id=rank)
+    try:
+        mesh = global_batch_mesh()
+        h = b_global // world
+        local = [shard_host_local_batch(x[rank * h:(rank + 1) * h], mesh)
+                 for x in sharded_example_problems(b_global)]
+        cfg = dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=1000)
+        fwd = lambda: solve_qcqp_sharded(*local, mesh=mesh, config=cfg, lockstep=True)  # noqa: E731
+        free = lambda: solve_qcqp_sharded(*local, mesh=mesh, config=cfg)  # noqa: E731
+        with lockstep_rounds() as rounds, all_reduce_spy() as ar:
+            l_e, st_e = fwd()
+        slowest = st_e.iterations.max().to(torch.int64)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+        refused_under_capture(f"rank {rank}: the lockstep forward over an NCCL group of {world} "
+                              "ranks", fwd)
+        out = {"rank": rank, "card": torch.cuda.current_device(), "local_batch": h,
+               "joint_steps": len(rounds), "global_slowest": int(slowest),
+               "all_reduce_eager": ar[0], "converged": bool(st_e.converged.all()),
+               "max_abs_dl_vs_free": float((l_e - free()[0]).abs().max()),
+               "host_ms": {"free": host_ms(free), "lockstep_eager": host_ms(fwd)},
+               "event_ms": {"free": time_cuda(free, reps=5)[0],
+                            "lockstep_eager": time_cuda(fwd, reps=5)[0]}}
+        print(f"    rank {rank}: " + json.dumps(out), flush=True)
+        if not (len(rounds) == int(slowest) == ar[0] and out["converged"]):
+            raise AssertionError(f"rank {rank}: the cross-rank lockstep solve failed its gates")
+    finally:
+        dist.destroy_process_group()
+
+
+def lockstep_ranks(smi, world=2, b_global=65536, limit_s=300):
+    """Two NCCL ranks, one card each, spawned with torch.multiprocessing:
+    ``lockstep_rank`` on each (config 5's size), within ``limit_s``
+    seconds or both are killed and the run fails."""
+    import torch.multiprocessing as mp
+
+    log(f"  two NCCL ranks, one card each ({smi}), config 5's size: B={b_global} over the "
+        f"ranks, N=8, the lockstep forward eagerly; a capture of it refused")
+    ctx = mp.start_processes(lockstep_rank, args=(world, free_port(), b_global), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + limit_s
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the {world} NCCL ranks did not finish in {limit_s} s")
+
+
+def lockstep_run(dqt, smi, t_start) -> int:
+    """``python3 chip_smoke.py lockstep``: after phase 1, phases 3q and 4q
+    alone; where the machine shows two cards or more, two NCCL ranks a card
+    each (``lockstep_ranks``); no result line."""
+    lockstep_phases(dqt, kernels_by_name(), smi, t_start)
+    if torch.cuda.device_count() >= 2:
+        lockstep_ranks(smi)
+    else:
+        log(f"  two NCCL ranks, one card each: not run (this machine shows "
+            f"{torch.cuda.device_count()} card)")
+    log(f"chip_smoke: lockstep phases passed, {time.perf_counter() - t_start:.1f} s")
     return 0
 
 
@@ -4071,6 +4359,8 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["eigh"]:
         return eigh_run(dqt, smi, t_start)
+    if sys.argv[1:] == ["lockstep"]:
+        return lockstep_run(dqt, smi, t_start)
 
     cfg = flagship_cfg(dqt)
 
@@ -4606,6 +4896,9 @@ def main() -> int:
     e1_times = phase_4p(smi, pairs_3p, P, (rotations_e1["flagship B=4096 N=24 float32"],
                                            rotations_e1["the float64 referee's P, flagship B=4096 "
                                                         "N=24 float64"]))
+
+    # ---- phases 3q and 4q: the lockstep mode staged, one loop over every shard
+    lockstep_phases(dqt, kernels, smi, t_start)
 
     # the waves of phase 1: K2, K6 and K4 take one at the main path's sizes
     if any(waves24[name] > 1 for name in waves24 if name != "K1"):

@@ -196,7 +196,10 @@ def capturable(P, q, cfg: SolverConfig) -> bool:
     """Whether a solve of the canonical (P, q) with ``cfg``, forward and
     backward, can be recorded in a CUDA graph (``utils/staging.py``): K1,
     or the engine where ``solvers/admm.py::capture_reason`` names nothing
-    (every adjoint route records). Decided from shapes, dtype and config."""
+    (every adjoint route records): every mode, the lockstep one unless the
+    mesh bound to its axis names a reason (shards on more than one card in
+    one process, NCCL across ranks, a gloo group; an axis bound later is
+    checked at the capture). Decided from shapes, dtype, config and that binding."""
     return _engine_reason(P, q, cfg) is None or capture_reason(cfg) is None
 
 
@@ -206,8 +209,8 @@ def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, d
     computes in float32 ('auto' sends it float32 only; ``backend='pallas'``
     casts other inputs, as the JAX package's kernel path does). Under a
     CUDA graph capture both record; the engine raises the guard's error
-    (``utils/staging.py``) where it reads the device on the host
-    (``solvers/admm.py::capture_reason``: the lockstep mode)."""
+    (``utils/staging.py``) where its lockstep axis's mesh cannot record
+    (``solvers/admm.py::capture_reason``)."""
     reason = _engine_reason(P, q, cfg)
     if reason is None:
         c = lambda x: x.to(torch.float32).contiguous()  # noqa: E731

@@ -23,9 +23,10 @@ What the port does with each field that differs from the JAX package:
     versions on CPU tensors) or 'xla' (the eager engine and the generic
     adjoint route).
   * ``axis_name``: the lockstep mode of ``parallel/sharding.py``. The eager
-    engine reduces its done flag with a MIN over every shard of that axis,
-    through the reducer the sharded call registers under the name
-    (``solvers/admm.py::lockstep_axis``); with none registered it raises
+    engine hands its loop to the coordinator that the sharded call (or
+    ``parallel.lockstep``) binds to the name
+    (``solvers/admm.py::lockstep_axis``), which steps every shard's loop
+    together, the done flag a MIN over them; with none bound it raises
     ``NameError``, as the JAX package's ``lax.pmin`` does for an unbound
     axis. 'auto' sends such a solve to the engine, as in the JAX package.
 

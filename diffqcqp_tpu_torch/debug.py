@@ -19,9 +19,11 @@ problems freeze exactly as in production, and the O(iters * B) history
 suits moderate batch sizes. Inside a CUDA graph capture a trace records,
 in both linear-solve modes (the spectral one's set-up is the Jacobi kernel
 E1 on the card): its ``iters`` steps are unrolled, as ``lax.scan`` is, and
-the body reads nothing on the host; the engine's set-up raises the guard's
-error where it reads (``solvers/admm.py::capture_reason``: the lockstep
-mode).
+the body reads nothing on the host. In the lockstep mode (``axis_name``) a
+trace runs inside a binding of that axis (``parallel.lockstep``) and, as in
+the JAX package, stays ``iters`` body steps: the body computes its own
+done flag and hands no loop to the axis; it records under a capture where
+the binding's mesh does (``solvers/admm.py::capture_reason``).
 """
 
 from __future__ import annotations

@@ -18,13 +18,15 @@ without CUDA; ``device="cpu"`` for the plain path). On the card
 forward, backward and a capturable Adam step are captured as one CUDA graph
 (``utils/staging.py``) after a few eager steps and replayed from then on.
 A model is staged where its route can be captured (``capturable_route``:
-K1 or the engine outside its lockstep mode forward, any adjoint route
-backward; a diagonal P, n past the kernels' bounds, float64, ``accel`` and
-``backend='xla'`` included, the engine's spectral mode through the Jacobi
-kernel E1); a card model in the lockstep mode (``axis_name``) trains
-eagerly, as does every model on the CPU. ``params_from_numpy``
-carries the JAX package's parameters (``QPSystemIDParams`` /
-``QCQPSystemIDParams`` of arrays) into the port's.
+K1 or the engine forward, any adjoint route backward; a diagonal P, n past
+the kernels' bounds, float64, ``accel`` and ``backend='xla'`` included, the
+engine's spectral mode through the Jacobi kernel E1, and the lockstep mode
+(``axis_name``), whose steps run inside ``parallel.lockstep(mesh)`` on a
+one-card mesh with no group or a one-rank NCCL one; across ranks or over
+gloo the capture raises the guard's error). Every model on the CPU trains
+eagerly.
+``params_from_numpy`` carries the JAX package's parameters
+(``QPSystemIDParams`` / ``QCQPSystemIDParams`` of arrays) into the port's.
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ from .multihost import (
 from .sharding import (
     BATCH_AXIS,
     BatchMesh,
+    lockstep,
     make_batch_mesh,
     shard_batch,
     solve_box_qp_sharded,

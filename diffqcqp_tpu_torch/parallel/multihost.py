@@ -17,8 +17,14 @@ package. The steps:
      card, checked to be as large as every other rank's.
 
 Nothing else is coordinated: by default the solves run no collective;
-``lockstep=True`` adds one all-reduce MIN of the done flag an iteration
-(NCCL between cards, gloo between CPU processes).
+``lockstep=True`` (or a lockstep solve inside ``lockstep(mesh)``) adds one
+all-reduce MIN of the done flag an iteration (NCCL between cards, gloo
+between CPU processes). Which groups stage a lockstep solve as one CUDA
+graph (``utils.staged``): an NCCL group of one rank, whose all-reduce is
+recorded in the body of the loop's WHILE node; not NCCL across ranks, whose
+all-reduce fails to record inside a node's body, nor gloo, whose all-reduce
+runs on the host (a capture raises the guard's error naming each). Across
+ranks a lockstep solve runs eagerly.
 """
 
 from __future__ import annotations
@@ -52,7 +58,9 @@ def initialize_distributed(
     process_id: Optional[int] = None,
 ) -> None:
     """Join the process group (call once per rank, before any sharded
-    solve): NCCL when CUDA is present, gloo otherwise. ``coordinator_address``
+    solve): NCCL when CUDA is present, gloo otherwise. A lockstep solve
+    stages over an NCCL group of one rank (its done flag's all-reduce
+    recorded in the loop's body), not across ranks and not over gloo. ``coordinator_address``
     ("host:port") becomes ``tcp://host:port`` with ``num_processes`` ranks,
     this one ``process_id``; without it the standard launch environment
     (MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK, as torchrun sets them).

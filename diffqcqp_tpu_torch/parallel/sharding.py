@@ -16,33 +16,60 @@ different cards overlap.
 
 ``lockstep=True`` sets ``cfg.axis_name`` instead, so every solve takes the
 eager engine (as in the JAX package), whose done flag becomes a MIN over
-every shard of the axis once per iteration: a ``threading.Barrier`` over
-one thread a shard, whose action takes the MIN and, when the mesh holds a
-process group, does one ``torch.distributed.all_reduce(MIN)`` over the
-ranks (the JAX package's ``lax.pmin``). The engine waits for the card every
-iteration, so here the shards need threads of their own; each runs on the
-caller's current stream of its device (a thread's current stream is its
-own). Every shard then runs the same number of iterations. A shard that
-raises aborts the barrier, so the other threads raise too, and the caller
-gets the first shard's error, never a partial batch. (Across processes a
-rank whose shard failed leaves the other ranks waiting in their all-reduce
-until the process group's timeout.)
+every shard of the axis once per iteration (the JAX package's ``lax.pmin``):
+
+  * each shard's call stack (canonicalise, equilibrate, the engine's
+    set-up, ``_Solve``) runs on a thread of its own, on the caller's
+    current stream of its device, up to the engine's loop, which it hands
+    over to the axis's coordinator (``Lockstep``); the threads are call
+    stacks, not concurrency: shard i + 1 starts only once shard i has
+    handed over its loop, so one thread works at any moment;
+  * the calling thread then runs one ``utils/control.py::while_loop`` over
+    the tuple of the shards' states: each iteration runs every shard's body
+    in turn, then ANDs their done flags on the first shard's device (a
+    device op, no host read) and, when the mesh holds a process group, takes
+    one ``torch.distributed.all_reduce(MIN)`` of that flag over the ranks;
+  * then each thread gets its final state back and runs its epilogue (the
+    stats, the map back, autograd's records), one at a time.
+
+Every shard then runs the same number of iterations: the slowest problem's.
+Eagerly the loop reads its predicate on the host once an iteration; inside
+a CUDA graph capture it records one WHILE node (with a one-rank NCCL group,
+the all-reduce inside its body). A capture refuses, with the guard's error,
+shards on more than one card in one process (a node's body is one card's
+graph), an NCCL group of more than one rank (NCCL fails to record an
+all-reduce inside a node's body across ranks) and a gloo group (its
+all-reduce runs on the host); those run eagerly. A shard that raises,
+before or after the loop, makes the caller raise that shard's error, never
+a partial batch; the shards that handed over their loops are released
+without running it. (Across processes a rank
+whose shard failed leaves the other ranks waiting in their all-reduce until
+the process group's timeout.)
+
+``lockstep(mesh)`` binds the axis of a mesh of one shard a process (one
+card a rank, ``global_batch_mesh()``) for a block, so that the solves the
+calling thread makes there in the lockstep mode (``axis_name``), a
+``SystemID``'s or a trace's, run their loops over the ranks the same way.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence
 
 import torch
 
 from .. import api
 from ..config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig
-from ..solvers.admm import SolveStats, lockstep_axis
+from ..solvers.admm import ADMMState, SolveStats, lockstep_axis
+from ..utils import control
+from ..utils.staging import capture_error
 
 __all__ = [
-    "BATCH_AXIS", "BatchMesh", "make_batch_mesh", "shard_batch", "solve_qp_sharded",
-    "solve_box_qp_sharded", "solve_signed_box_qp_sharded", "solve_qcqp_sharded",
+    "BATCH_AXIS", "BatchMesh", "lockstep", "make_batch_mesh", "shard_batch",
+    "solve_qp_sharded", "solve_box_qp_sharded", "solve_signed_box_qp_sharded",
+    "solve_qcqp_sharded",
 ]
 
 BATCH_AXIS = "batch"
@@ -92,75 +119,178 @@ def shard_batch(x, mesh: BatchMesh) -> torch.Tensor:
     return x.to(mesh.devices[0])
 
 
-class _LockstepDone:
-    """The done-flag MIN over this process's k shard threads (one barrier
-    round per engine iteration) and, with a process group, over the ranks."""
+class _Aborted(Exception):
+    """Raised in a shard thread whose loop will not run: another shard
+    failed."""
+
+
+class _Slot:
+    """One shard thread's hand-over to the calling thread."""
+
+    def __init__(self):
+        self.ready = threading.Event()    # the shard handed over its loop, or ended
+        self.resume = threading.Event()   # its final state is set, or it was aborted
+        self.loop: Optional[tuple] = None          # (cond, body, initial state)
+        self.final: Optional[ADMMState] = None     # None when released: aborted
+
+
+def _on(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class Lockstep:
+    """The coordinator of a mesh's lockstep axis (what
+    ``solvers/admm.py::lockstep_axis`` binds): it runs the loops the engine
+    hands it as one loop over every shard of this process, their done flags
+    ANDed and, with the mesh's process group, MINed across the ranks."""
 
     def __init__(self, mesh: BatchMesh):
-        self._group = mesh.group
-        self._device = torch.device("cpu")
-        if mesh.group is not None:
+        self.mesh = mesh
+        self._local = threading.local()   # .slot: the shard thread's hand-over
+
+    def capture_reason(self) -> Optional[str]:
+        devices = sorted({str(d) for d in self.mesh.devices})
+        if len(devices) > 1:
+            return (f"the mesh puts this process's shards on {len(devices)} devices "
+                    f"({', '.join(devices)}), and one loop records on one card (one rank a "
+                    "card stages, each rank its own graph)")
+        backend = self._backend()
+        if backend not in (None, "nccl"):
+            return (f"the mesh's process group is {backend}, whose all_reduce of the done flag "
+                    "runs on the host (a one-rank NCCL group records it in the loop's body)")
+        if backend == "nccl":
             import torch.distributed as dist
 
-            if dist.get_backend(mesh.group) == "nccl":
-                self._device = mesh.devices[0]
-        self._lock = threading.Lock()
-        self._acc, self._done = True, False
-        self._barrier = threading.Barrier(len(mesh.devices), action=self._reduce)
+            ranks = dist.get_world_size(self.mesh.group)
+            if ranks > 1:
+                # NCCL 2.28 on two H100s: "CUDA error: invalid argument" at the
+                # capture of an all_reduce inside a WHILE node's body
+                return (f"the mesh's NCCL group spans {ranks} ranks, and an NCCL all_reduce "
+                        "inside a WHILE node's body fails to record across ranks")
+        return None
 
-    def _reduce(self) -> None:
-        # runs once a round, after every thread arrived and before any leaves
-        done, self._acc = self._acc, True
-        if self._group is not None:
+    def _backend(self) -> Optional[str]:
+        if self.mesh.group is None:
+            return None
+        import torch.distributed as dist
+
+        return dist.get_backend(self.mesh.group)
+
+    def loop(self, cond: Callable, body: Callable, state: ADMMState) -> ADMMState:
+        slot = getattr(self._local, "slot", None)
+        if slot is None:            # a solve made by the thread that bound the axis
+            return self.run([(cond, body, state)])[0]
+        slot.loop = (cond, body, state)
+        slot.ready.set()
+        slot.resume.wait()
+        if slot.final is None:
+            raise _Aborted("another shard of the lockstep solve failed")
+        return slot.final
+
+    def run(self, loops: Sequence[tuple]) -> tuple:
+        """One ``control.while_loop`` over the states of ``loops`` ((cond,
+        body, state) each), on the first state's device: ``cond`` is the
+        first shard's (every state carries the same iteration count and
+        done flag). Returns the final states."""
+        conds, bodies, states = zip(*loops)
+        return control.while_loop(lambda ss: conds[0](ss[0]),
+                                  lambda ss: self._step(bodies, ss), tuple(states))
+
+    def _step(self, bodies: Sequence[Callable], states: tuple) -> tuple:
+        """One iteration of the joint loop: every shard's body in turn, each
+        on its own device, then the done flag's MIN, a device op: the AND of
+        the shards' flags on the first shard's device and, with a process
+        group, one ``all_reduce(MIN)`` over the ranks (NCCL on that card;
+        gloo on the host, a host read)."""
+        new = []
+        for body, s in zip(bodies, states):
+            with _on(s.it.device):
+                new.append(body(s))
+        dev = new[0].all_done.device
+        done = new[0].all_done
+        for s in new[1:]:
+            done = done & s.all_done.to(dev)
+        backend = self._backend()
+        if backend is not None:
             import torch.distributed as dist
 
-            t = torch.tensor([int(done)], dtype=torch.int32, device=self._device)
-            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self._group)
-            done = bool(t.item())
-        self._done = done
-
-    def __call__(self, local_done: bool) -> bool:
-        with self._lock:
-            self._acc = self._acc and local_done
-        self._barrier.wait()
-        return self._done
-
-    def abort(self) -> None:
-        self._barrier.abort()
+            flag = done.to("cpu" if backend != "nccl" else dev, torch.int32)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.mesh.group)
+            done = flag.to(dev, torch.bool)
+        return tuple(s._replace(all_done=done.to(s.all_done.device)) for s in new)
 
 
 def _lockstep(shard: Callable[[int], tuple], mesh: BatchMesh) -> list:
-    """``shard(i)`` for every shard, one thread each, with the axis bound to
-    a done-flag MIN over them; the first shard's error is raised."""
+    """``shard(i)`` for every shard, each on a thread of its own, with the
+    axis bound to a ``Lockstep`` coordinator; one thread works at a time
+    (see the module's docstring). The first failing shard's error is
+    raised."""
     k = len(mesh.devices)
-    reducer = _LockstepDone(mesh)
-    streams = [torch.cuda.current_stream(d) if d.type == "cuda" else None
-               for d in mesh.devices]
+    coordinator = Lockstep(mesh)
+    # each shard on the caller's current stream of its device
+    streams = [torch.cuda.stream(torch.cuda.current_stream(d)) if d.type == "cuda"
+               else contextlib.nullcontext() for d in mesh.devices]
     grad = torch.is_grad_enabled()
+    slots = [_Slot() for _ in range(k)]
     results: list = [None] * k
     errors: list = [None] * k
 
     def run(i: int) -> None:
+        coordinator._local.slot = slots[i]
         try:
-            with torch.set_grad_enabled(grad), torch.cuda.stream(streams[i]):
+            with torch.set_grad_enabled(grad), streams[i]:
                 results[i] = shard(i)
         except BaseException as e:  # handed to the caller below
             errors[i] = e
-            reducer.abort()
+        finally:
+            slots[i].ready.set()
 
-    with lockstep_axis(mesh.axis_name, reducer):
-        threads = [threading.Thread(target=run, args=(i,), name=f"{mesh.axis_name}-shard-{i}")
-                   for i in range(k)]
-        for t in threads:
-            t.start()
+    threads: list = []
+    loop_error: Optional[BaseException] = None
+    with lockstep_axis(mesh.axis_name, coordinator):
+        for i in range(k):      # each shard up to its loop, in turn
+            threads.append(threading.Thread(target=run, args=(i,), daemon=True,
+                                            name=f"{mesh.axis_name}-shard-{i}"))
+            threads[i].start()
+            slots[i].ready.wait()
+            if errors[i] is not None:
+                break
+        waiting = [i for i in range(len(threads)) if slots[i].loop is not None]
+        finals: Sequence = ()
+        if len(threads) == k and errors[k - 1] is None and waiting:
+            try:
+                finals = coordinator.run([slots[i].loop for i in waiting])
+            except BaseException as e:  # raised below, once every thread ended
+                loop_error = e
+        for j, i in enumerate(waiting):   # the epilogues, in turn (or the aborts)
+            slots[i].final = finals[j] if finals else None
+            slots[i].resume.set()
+            threads[i].join()
         for t in threads:
             t.join()
-    failed = [e for e in errors if e is not None]
+    if loop_error is not None:
+        raise loop_error
+    failed = [e for e in errors if e is not None and not isinstance(e, _Aborted)]
     if failed:
-        # the shard that failed first, not the others' broken barrier
-        raise next((e for e in failed if not isinstance(e, threading.BrokenBarrierError)),
-                   failed[0])
+        raise failed[0]
     return results
+
+
+@contextlib.contextmanager
+def lockstep(mesh: BatchMesh) -> Iterator[None]:
+    """Bind ``mesh.axis_name`` for the block, for the solves the calling
+    thread makes there with ``config.axis_name`` set to it (a ``SystemID``'s
+    training steps, a trace): each runs its loop in lockstep with the same
+    solve on every other rank of the mesh's process group (one all-reduce
+    MIN of the done flag an iteration), on the mesh's one device. The mesh
+    holds one shard (``global_batch_mesh()``); several shards of one process
+    are a sharded call's (``solve_*_sharded(..., lockstep=True)``)."""
+    if len(mesh.devices) != 1:
+        raise ValueError(f"lockstep(mesh) takes a mesh of one shard a process, got "
+                         f"{len(mesh.devices)}; run several shards through solve_*_sharded(..., "
+                         "lockstep=True)")
+    with lockstep_axis(mesh.axis_name, Lockstep(mesh)):
+        yield
 
 
 def _run(solve, args: Sequence, names: Sequence[str], mesh: Optional[BatchMesh],
@@ -168,6 +298,10 @@ def _run(solve, args: Sequence, names: Sequence[str], mesh: Optional[BatchMesh],
     mesh = mesh if mesh is not None else make_batch_mesh(axis_name=axis_name)
     if mesh.axis_name != axis_name:
         raise ValueError(f"axis_name {axis_name!r} is not the mesh's axis {mesh.axis_name!r}")
+    if lockstep and control.capturing():
+        reason = Lockstep(mesh).capture_reason()
+        if reason is not None:    # before any shard is placed or recorded
+            raise capture_error("the lockstep mode (parallel/sharding.py)", reason)
     k = len(mesh.devices)
     parts = []
     for a, name in zip(args, names):

@@ -38,24 +38,26 @@ Per iteration (Solver.cpp:79-121):
     adaptive rho per problem, gated by rho_sync or the cpt counter
 
 ``cfg.accel`` adds fast-ADMM momentum with a per-problem restart. With
-``cfg.axis_name`` set (the lockstep mode of ``parallel/sharding.py``) every
-body call reduces its local done flag with a MIN over every shard of that
-axis, once, through the reducer registered under the name by
-``lockstep_axis`` (the JAX package's ``lax.pmin``), so every shard runs the
-same number of iterations; that reducer runs on the host, so the lockstep
-loop stays a host loop.
+``cfg.axis_name`` set (the lockstep mode of ``parallel/sharding.py``) the
+body computes only its own done flag, and ``admm_solve`` hands its loop
+(``cond``, ``body``, initial state) to the coordinator bound to that axis by
+``lockstep_axis``: the coordinator runs one loop over every shard's state,
+the done flag the MIN over the shards (the JAX package's ``lax.pmin``), so
+every shard runs the same number of iterations, and hands back the final
+state.
 
 Under a CUDA graph capture (``utils/staging.py``) the engine records itself,
-in both linear-solve modes, except where it reads the device on the host
-(``capture_reason``): the lockstep mode. There it raises the guard's error
-before it records anything.
+in both linear-solve modes and in the lockstep mode, except where the
+coordinator names a reason (``capture_reason``: shards on more than one
+card in one process, NCCL across ranks, a gloo process group). There it raises the guard's
+error before it records anything.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Iterator, NamedTuple, Optional
+from typing import Any, Callable, Iterator, NamedTuple, Optional
 
 import torch
 
@@ -75,40 +77,43 @@ from ..ops.linalg import (
 __all__ = ["ADMMState", "SolveStats", "admm_solve", "capture_reason", "lockstep_axis",
            "make_admm_step"]
 
-# axis name -> the done-flag reducer of the sharded call running over it
-_reducers: dict[str, Callable[[bool], bool]] = {}
-_reducers_lock = threading.Lock()
+# axis name -> the coordinator of the sharded call running over it
+_axes: dict[str, Any] = {}
+_axes_lock = threading.Lock()
 
 
 @contextlib.contextmanager
-def lockstep_axis(axis_name: str, reduce: Callable[[bool], bool]) -> Iterator[None]:
-    """Bind ``axis_name`` to ``reduce`` for the duration of the block: every
-    engine body run with ``cfg.axis_name == axis_name`` calls
-    ``reduce(local_done)`` once and stops when it returns True. ``reduce``
-    must return the MIN (logical and) of the flags of every shard of the
-    axis. One binding a name at a time, as one ``shard_map`` binds its axis."""
-    with _reducers_lock:
-        if axis_name in _reducers:
+def lockstep_axis(axis_name: str, coordinator) -> Iterator[None]:
+    """Bind ``axis_name`` to ``coordinator`` for the duration of the block:
+    every ``admm_solve`` run with ``cfg.axis_name == axis_name`` hands its
+    loop to ``coordinator.loop(cond, body, state)``, which steps it together
+    with the other shards of the axis, every state's ``all_done`` the AND
+    of every shard's after each step, and returns this shard's last state;
+    ``coordinator.capture_reason()`` says why the loop cannot be recorded in
+    a CUDA graph, or None (``parallel/sharding.py::Lockstep`` is one). One
+    binding a name at a time, as one ``shard_map`` binds its axis."""
+    with _axes_lock:
+        if axis_name in _axes:
             raise RuntimeError(f"axis name {axis_name!r} is already bound by a running "
                                "sharded call")
-        _reducers[axis_name] = reduce
+        _axes[axis_name] = coordinator
     try:
         yield
     finally:
-        with _reducers_lock:
-            del _reducers[axis_name]
+        with _axes_lock:
+            del _axes[axis_name]
 
 
-def _done_reducer(axis_name: str) -> Callable[[bool], bool]:
-    with _reducers_lock:
-        reduce = _reducers.get(axis_name)
-    if reduce is None:
+def _coordinator(axis_name: str):
+    with _axes_lock:
+        coordinator = _axes.get(axis_name)
+    if coordinator is None:
         raise NameError(
             f"unbound axis name {axis_name!r}: SolverConfig.axis_name is set but no sharded "
             "call binds it (run lockstep solves through parallel.solve_*_sharded(..., "
-            "lockstep=True))"
+            "lockstep=True), or inside parallel.lockstep(mesh))"
         )
-    return reduce
+    return coordinator
 
 
 class SolveStats(NamedTuple):
@@ -143,7 +148,7 @@ class ADMMState(NamedTuple):
     rho_res: torch.Tensor      # (B,) the rho the recorded residuals were
                                # computed with (frozen with them)
     all_done: torch.Tensor     # () bool: every problem converged (lockstep: every
-                               # shard's, a host tensor)
+                               # shard's, after the coordinator's step)
     fact_inv: Optional[torch.Tensor]   # (B, N, N) inverse of P + (rho+mu) I in
                                        # the inverse mode, None otherwise
     l2_plain: Optional[torch.Tensor]   # accel: the un-extrapolated l2 (the
@@ -165,14 +170,17 @@ def _use_chol(P: torch.Tensor, cfg: SolverConfig) -> bool:
 
 
 def capture_reason(cfg: SolverConfig) -> Optional[str]:
-    """Why a solve with ``cfg`` cannot be recorded in a CUDA graph (it reads
-    the device on the host), or None where it can: the lockstep mode, whose
-    done flag's reducer runs on the host. Every other mode records, the
-    spectral one through the Jacobi kernel E1."""
-    if cfg.axis_name is not None:
-        return (f"axis_name={cfg.axis_name!r} (the lockstep mode) reduces its done flag on "
-                "the host every iteration")
-    return None
+    """Why a solve with ``cfg`` cannot be recorded in a CUDA graph, or None
+    where it can: every mode records (the spectral one through the Jacobi
+    kernel E1), the lockstep mode where the coordinator bound to its axis
+    names no reason (it refuses shards on more than one card in one
+    process, NCCL across ranks and a gloo process group); an unbound axis names none here
+    (``make_admm_step`` raises ``NameError`` for it)."""
+    if cfg.axis_name is None:
+        return None
+    with _axes_lock:
+        coordinator = _axes.get(cfg.axis_name)
+    return None if coordinator is None else coordinator.capture_reason()
 
 
 def _make_inverse_fn(P: torch.Tensor, dtype) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -268,11 +276,8 @@ def admm_solve(
     if cfg.axis_name is None:
         s = control.while_loop(cond, body, s)
     else:
-        # lockstep: a host loop, its done flag the reducer's (a host bool)
-        for _ in range(cfg.max_iter):
-            s = body(s)
-            if bool(s.all_done):
-                break
+        # lockstep: the axis's coordinator steps this loop with every shard's
+        s = _coordinator(cfg.axis_name).loop(cond, body, s)
     stats = SolveStats(
         iterations=s.iters, res_prim=s.res_prim, res_dual=s.res_dual,
         rho=s.rho_res, converged=s.converged, stalled=s.stalled,
@@ -294,15 +299,17 @@ def make_admm_step(
     """(cond, body, initial_state) of the ADMM loop, for callers that drive
     the iteration themselves; ``admm_solve`` runs ``body`` while ``cond``
     (a 0-d bool tensor). With ``cfg.axis_name`` set it raises ``NameError``
-    unless a sharded call binds that axis (``lockstep_axis``). Under a CUDA
-    graph capture it raises the guard's error where ``capture_reason``
-    names one. In the inverse mode ``body`` recomputes ``fact_inv`` in
-    place: a state and the states after it share that matrix."""
+    unless a sharded call binds that axis (``lockstep_axis``); ``body``
+    then still computes this shard's own done flag. Under a CUDA graph
+    capture it raises the guard's error where ``capture_reason`` names
+    one. In the inverse mode ``body`` recomputes ``fact_inv`` in place: a
+    state and the states after it share that matrix."""
     if control.capturing():
         reason = capture_reason(cfg)
         if reason is not None:
             raise capture_error("the eager ADMM engine (solvers/admm.py)", reason)
-    reduce_done = None if cfg.axis_name is None else _done_reducer(cfg.axis_name)
+    if cfg.axis_name is not None:
+        _coordinator(cfg.axis_name)
     use_chol = _use_chol(P, cfg)
     dtype = q.dtype
     if use_chol:
@@ -417,9 +424,6 @@ def make_admm_step(
             l2_c, u_c = l2, u
             acc_a, acc_c, l2_plain, u_plain = s.acc_a, s.acc_c, s.l2_plain, s.u_plain
         converged = s.converged | (active & newly)
-        all_done = converged.all()
-        if reduce_done is not None:
-            all_done = torch.tensor(reduce_done(bool(all_done)))
         return ADMMState(
             it=s.it + 1,
             l=torch.where(m, l, s.l),
@@ -435,7 +439,7 @@ def make_admm_step(
             res_dual=torch.where(active, res_dual, s.res_dual),
             # the rho these residuals were computed with, before this update
             rho_res=torch.where(active, s.rho, s.rho_res),
-            all_done=all_done,
+            all_done=converged.all(),
             fact_inv=fact_inv,
             l2_plain=l2_plain, u_plain=u_plain, acc_a=acc_a, acc_c=acc_c,
         )

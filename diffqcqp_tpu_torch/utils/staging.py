@@ -24,10 +24,12 @@ off K1: float64, ``backend='xla'``, ``accel``, the traces at their default
 ``linsolve``; ``linsolve='spectral'`` at any N); the generic adjoint
 route's Newton-Schulz loop, Cholesky and LU (``ops/linalg.py``); the
 Jacobians, the traces and the contact rollout (``models/contact_sim.py``).
-The one that reads the host, the engine's lockstep mode (``axis_name``),
-raises a ``RuntimeError`` under a capture that names the route and the
-reason (``capture_error``), before anything is recorded. Nothing falls
-back to an eager run.
+The engine's lockstep mode (``axis_name``) records too, its shards' loops
+one WHILE node, where the mesh puts every shard of the process on one card
+and holds no process group or a one-rank NCCL one; on more than one card,
+over NCCL across ranks or over gloo, it raises a ``RuntimeError`` under a
+capture that names the route and the reason (``capture_error``), before
+anything is recorded. Nothing falls back to an eager run.
 
 Per signature of the arguments (each tensor's shape, dtype, device and
 ``requires_grad``, and the pytree's structure; ``signature``), the first
@@ -77,12 +79,12 @@ def capture_error(route: str, reason: str) -> RuntimeError:
     where ``control.capturing()``, before it records anything:
 
         if control.capturing():
-            raise capture_error("the eager ADMM engine", "axis_name='batch' ...")
+            raise capture_error("the lockstep mode", "a gloo group ...")
     """
     return RuntimeError(
         f"{route} cannot run inside a CUDA graph capture: {reason}. Every route of the "
-        "solvers can be staged but the engine's lockstep mode (axis_name); call this solve "
-        "outside the capture"
+        "solvers can be staged, the lockstep mode (axis_name) on a mesh of one card with no "
+        "process group or a one-rank NCCL one; call this solve outside the capture"
     )
 
 

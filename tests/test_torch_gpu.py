@@ -96,6 +96,36 @@ def test_staged_flagship_step_is_the_eager_step_bit_for_bit(card):
     assert len(step.graphs) == 1
 
 
+def test_lockstep_step_on_two_shards_stages_as_one_loop(card):
+    """The two-shard lockstep flagship step at B=64 (both shards on the
+    card) staged: the capture records one WHILE node, E1 and K2 once a
+    shard, and every replay gives the eager step's l, stats and gradients
+    bit for bit on two input sets."""
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_fused_cuda
+
+    mesh = make_batch_mesh([card, card])
+
+    def step(P, q, l_n, mu):
+        xs = [x.detach().requires_grad_() for x in (P, q, l_n, mu)]
+        l, st = solve_qcqp_sharded(*xs, mesh=mesh, config=FLAG_CFG, lockstep=True)
+        return l, st, torch.autograd.grad((l * l).sum(), xs)
+
+    P, q, l_n, mu = (torch.tensor(x, device=card, dtype=torch.float32) for x in _flagship(64))
+    s = staged(step)
+    for k in range(6):
+        xs = (P, q + 1e-5 * (k % 2), l_n, mu)
+        eigh_cuda.launches = qcqp_kkt_bwd_fused_cuda.launches = 0
+        got = s(*xs)
+        if k == WARMUP:
+            assert (eigh_cuda.launches, qcqp_kkt_bwd_fused_cuda.launches) == (2, 2)
+        want = step(*xs)
+        leaves = torch.utils._pytree.tree_leaves
+        assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want))), k
+    (nodes,) = s.nodes.values()
+    assert nodes == {("while", 0): 1}
+
+
 def test_float64_flagship_step_is_staged_bit_for_bit(card, monkeypatch):
     """The float64 flagship step at B=64 takes the engine's spectral mode,
     its set-up the Jacobi kernel E1: staged as one CUDA graph, past its

@@ -90,18 +90,17 @@ def tmesh():
 
 @pytest.fixture
 def rounds(monkeypatch):
-    """Each shard thread's calls of the lockstep reducer (one per engine
-    iteration), by thread name."""
-    calls, lock = {}, threading.Lock()
-    inner = tsh._LockstepDone.__call__
+    """The lockstep joint loop's iterations: one entry a ``Lockstep._step``
+    call (one engine iteration of every shard), the number of shards it
+    stepped."""
+    calls = []
+    inner = tsh.Lockstep._step
 
-    def spy(self, local_done):
-        with lock:
-            name = threading.current_thread().name
-            calls[name] = calls.get(name, 0) + 1
-        return inner(self, local_done)
+    def spy(self, bodies, states):
+        calls.append(len(states))
+        return inner(self, bodies, states)
 
-    monkeypatch.setattr(tsh._LockstepDone, "__call__", spy)
+    monkeypatch.setattr(tsh.Lockstep, "_step", spy)
     return calls
 
 
@@ -123,9 +122,8 @@ def test_sharded_matches_jax(kind, lockstep, jmesh, tmesh, rounds):
     lu, su = solve(*map(torch.from_numpy, xs), config=tcfg, device="cpu")
     np.testing.assert_allclose(lt.numpy(), lu.numpy(), atol=atol)
     assert torch.equal(st.iterations, su.iterations)
-    if lockstep:   # one reduction an iteration on every shard, until the slowest converged
-        assert sorted(rounds) == [f"batch-shard-{i}" for i in range(SHARDS)]
-        assert set(rounds.values()) == {int(su.iterations.max())}
+    if lockstep:   # one joint iteration of every shard, until the slowest converged
+        assert rounds == [SHARDS] * int(su.iterations.max())
     else:
         assert not rounds
 
@@ -135,9 +133,12 @@ def test_lockstep_uneven_convergence(jmesh, tmesh, rounds):
     every shard iterating until the globally slowest problem finishes, and
     per-problem iterations equal the unsharded solve's (frozen problems do
     not drift), as in the JAX package. The condition spread is exp(+-1)
-    where tests/test_sharding.py takes exp(+-3) (~17,600 iterations): on the
-    CPU every lockstep iteration hands the interpreter lock between the
-    shard threads, so this keeps the case to ~365 iterations."""
+    where tests/test_sharding.py takes exp(+-3) (~17,600 iterations): each
+    joint iteration runs the four shards' engine bodies in turn on the CPU
+    (~0.47 ms a shard), so at exp(+-3) this test took 52.3 s on one core
+    (33.0 s the lockstep solve, 7.7 s the unsharded one, 8.4 s the JAX
+    one), past the 30 s a tier-1 test may take; at exp(+-1), ~365
+    iterations, it takes 6.0 s."""
     rng = np.random.default_rng(0)
     b, n = 16, 8
     P = _spd(rng, b, n)
@@ -158,7 +159,7 @@ def test_lockstep_uneven_convergence(jmesh, tmesh, rounds):
     np.testing.assert_array_equal(st.iterations.numpy(), it)
     # against the JAX engine within 1 iteration a problem (tests/test_torch_engine.py's bar)
     assert np.abs(st.iterations.numpy() - np.asarray(sj.iterations)).max() <= 1
-    assert set(rounds.values()) == {int(it.max())} and len(rounds) == SHARDS
+    assert rounds == [SHARDS] * int(it.max())
 
 
 @pytest.mark.parametrize("lockstep", [False, True], ids=["free", "lockstep"])
@@ -202,9 +203,10 @@ def test_axis_name_without_a_mesh_raises():
 
 
 def test_failing_shard_aborts_the_others(tmesh, monkeypatch):
-    """A shard whose solve raises aborts the lockstep barrier: the other
-    shards raise too instead of waiting for it, and the caller gets the
-    failing shard's error, not a partial batch."""
+    """A shard whose solve raises before its loop aborts the lockstep solve:
+    the shards that handed over their loops are released without running
+    it instead of waiting, and the caller gets the failing shard's error,
+    not a partial batch."""
     (P, q), _ = _problems("qp")
     inner = dqt.api.solve_qp_with_stats
 
@@ -310,20 +312,21 @@ def _worker(port: str, rank: int, outdir: str) -> None:
     except ValueError:
         pass
     cfg = dqt.QCQP_DEFAULTS.replace(**MP_CFG)
-    rounds = []                       # the barrier actions: one cross-rank MIN each
-    inner = tsh._LockstepDone._reduce
+    rounds = []                       # the joint loop's steps: one cross-rank MIN each
+    inner = tsh.Lockstep._step
 
-    def counted(self):
-        rounds.append(1)
-        inner(self)
+    def counted(self, bodies, states):
+        rounds.append(len(states))
+        return inner(self, bodies, states)
 
-    tsh._LockstepDone._reduce = counted
+    tsh.Lockstep._step = counted
     for tag, lockstep in (("free", False), ("lockstep", True)):
         rounds.clear()
         q = xs[1].clone().requires_grad_()
         l, st = solve_qcqp_sharded(xs[0], q, xs[2], xs[3], mesh=mesh, config=cfg,
                                    lockstep=lockstep)
         (g,) = torch.autograd.grad((l * l).sum(), q)
+        assert all(n == 2 for n in rounds), rounds     # both local shards in every step
         for name, x in (("l", l), ("g", g), ("conv", st.converged), ("it", st.iterations),
                         ("rounds", torch.tensor(len(rounds)))):
             np.save(os.path.join(outdir, f"{name}_{tag}_{rank}.npy"), x.detach().numpy())
@@ -374,8 +377,8 @@ def test_two_process_distributed(tmp_path):
         np.testing.assert_allclose(load("l", tag), np.asarray(lj), atol=1e-8, err_msg=tag)
         np.testing.assert_allclose(load("g", tag), np.asarray(gj), atol=1e-6, err_msg=tag)
         np.testing.assert_array_equal(load("it", tag), st_ref.iterations.numpy(), err_msg=tag)
-    # lockstep: both ranks reduced once an iteration until the global slowest
-    # problem converged; free: no reduction at all
+    # lockstep: both ranks stepped their two shards and reduced once an
+    # iteration until the global slowest problem converged; free: no step
     rounds = [int(np.load(tmp_path / f"rounds_{tag}_{r}.npy")) for tag in ("free", "lockstep")
               for r in range(2)]
     assert rounds == [0, 0] + [int(st_ref.iterations.max())] * 2, rounds

@@ -1,27 +1,29 @@
 """Staging (``utils/staging.py``) and the capture guard, on the CPU:
 
   * the guard, with ``torch.cuda.is_current_stream_capturing`` patched to
-    report a capture: a solve or a trace in the engine's lockstep mode
-    (``axis_name``) raises the guard's ``RuntimeError`` naming the engine and
-    the reason; every other route runs and gives the bits it gives without
-    the patch: the float32 dense kernel route (the plain K1, K2 and K4
-    here), the engine with a diagonal P, in its inverse modes and in its
-    spectral mode (a dense P at n = 6 in float64, with ``accel`` or
-    ``backend='xla'``), the generic adjoint route's Newton-Schulz inverse,
-    Cholesky and LU, a trace in either mode and the Jacobians (on CPU
-    tensors these take their eager forms, the spectral mode LAPACK's eigh;
-    their capture forms run on the card, the spectral mode's through the
-    Jacobi kernel E1: ``chip_smoke.py`` phases 3o and 3p);
+    report a capture: a lockstep solve (``axis_name``) over a mesh whose
+    shards lie on two devices raises the guard's ``RuntimeError`` naming the
+    route and the reason; every other route runs and gives the bits it
+    gives without the patch: the lockstep mode on one device (a sharded
+    solve, a trace inside ``parallel.lockstep``), the float32 dense kernel
+    route (the plain K1, K2 and K4 here), the engine with a diagonal P, in
+    its inverse modes and in its spectral mode (a dense P at n = 6 in
+    float64, with ``accel`` or ``backend='xla'``), the generic adjoint
+    route's Newton-Schulz inverse, Cholesky and LU, a trace in either mode
+    and the Jacobians (on CPU tensors these take their eager forms, the
+    spectral mode LAPACK's eigh; their capture forms run on the card, the
+    spectral mode's through the Jacobi kernel E1, the lockstep mode's as one
+    WHILE node: ``chip_smoke.py`` phases 3o, 3p and 3q);
   * ``staged`` on CPU tensors is ``fn``, call for call, and captures
     nothing; its signature key separates shape, dtype and
     ``requires_grad``; it takes tensors only;
   * ``SystemID`` on the CPU keeps a non-capturable Adam and no staged step,
     with the JAX package's losses (as ``tests/test_torch_models.py``);
     ``system_id.capturable_route``, which decides whether a card model
-    stages its step, names every route but the engine's lockstep mode.
+    stages its step, names every route, the lockstep mode's included.
 
 The staged step on a card is ``tests/test_torch_gpu.py``'s and
-``chip_smoke.py``'s (phases 3n, 4n, 3o, 4o).
+``chip_smoke.py``'s (phases 3n, 4n, 3o, 4o, 3p, 4p, 3q, 4q).
 """
 
 import dataclasses
@@ -34,6 +36,7 @@ from torch.utils import _pytree as pytree
 import diffqcqp_tpu_torch as dqt
 from diffqcqp_tpu_torch.diff import kkt
 from diffqcqp_tpu_torch.models import system_id as tsid
+from diffqcqp_tpu_torch.parallel import BatchMesh, lockstep, make_batch_mesh, solve_qcqp_sharded
 from diffqcqp_tpu_torch.utils import staged
 from diffqcqp_tpu_torch.utils.staging import Staged, signature
 
@@ -58,28 +61,30 @@ def _report_capture(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
 
 
-@pytest.fixture
-def capture(monkeypatch):
-    _report_capture(monkeypatch)
+def _lockstep_qcqp(devices):
+    mesh = BatchMesh(tuple(torch.device(d) for d in devices), "batch")
+    return lambda: solve_qcqp_sharded(*_problems(4, 3), mesh=mesh, config=CFG, lockstep=True)
 
 
-def _qcqp(xs, **kw):
-    return dqt.solve_qcqp(*xs, config=CFG, device="cpu", **kw)
-
-
-# the engine's route that reads the host: refused under a capture
+# the lockstep mode (axis_name) on a mesh that cannot record: refused under
+# a capture; on one device it records (the reason the refusal names)
 ENGINE_CASES = {
-    "axis_name": (lambda xs: _qcqp(xs, axis_name="batch"), "axis_name='batch'"),
+    "axis_name": (_lockstep_qcqp(["cpu", "cuda:0"]), _lockstep_qcqp(["cpu", "cpu"]),
+                  "on 2 devices (cpu, cuda:0)"),
 }
 
 
 @pytest.mark.parametrize("case", list(ENGINE_CASES))
-def test_guard_refuses_the_engine_under_capture(capture, case):
-    """The lockstep mode refuses a capture: its done flag's reducer runs on
-    the host every iteration."""
-    solve, reason = ENGINE_CASES[case]
-    with pytest.raises(RuntimeError, match="eager ADMM engine") as err:
-        solve(_problems(3, 3))
+def test_guard_refuses_the_engine_under_capture(monkeypatch, case):
+    """The lockstep mode records under a capture, its shards' loops one
+    loop, with its eager bits, where the mesh puts every shard of the
+    process on one device; over two devices the guard refuses it, naming
+    them, before any shard is placed."""
+    refused, recorded, reason = ENGINE_CASES[case]
+    _same(monkeypatch, recorded)
+    _report_capture(monkeypatch)
+    with pytest.raises(RuntimeError, match="the lockstep mode") as err:
+        refused()
     assert reason in str(err.value)
     assert "cannot run inside a CUDA graph capture" in str(err.value)
 
@@ -149,10 +154,10 @@ def test_capture_lets_the_float32_newton_schulz_inverse_through(monkeypatch):
 @pytest.mark.parametrize("name", ["trace_qp", "trace_qp, linsolve='chol'", "qp_jacobian",
                                   "qcqp_jacobian", "trace_qp, axis_name='batch'"])
 def test_guard_refuses_traces_and_jacobians(monkeypatch, name):
-    """A trace in the lockstep mode refuses a capture, as its done flag's
-    reducer reads the host; a trace in the spectral mode (N = 6) or the
-    inverse mode and the Jacobians (a Cholesky and an LU) run with their
-    eager bits."""
+    """None is refused: a trace in the spectral mode (N = 6), in the inverse
+    mode or in the lockstep mode (inside a binding of its axis: its body
+    steps, as in the JAX package) and the Jacobians (a Cholesky and an LU)
+    run with their eager bits."""
     P, q, l_n, mu = _problems(2, 3)
     qc = dqt.QCQP_DEFAULTS.replace(eps=1e-7)
     call = {"trace_qp": lambda: dqt.debug.trace_qp(P, q, iters=3, device="cpu"),
@@ -161,15 +166,14 @@ def test_guard_refuses_traces_and_jacobians(monkeypatch, name):
             "qp_jacobian": lambda: dqt.qp_jacobian(P, q, l=torch.zeros_like(q), device="cpu"),
             "qcqp_jacobian": lambda: dqt.qcqp_jacobian(P, q, l_n, mu, config=qc.replace(
                 backend="pallas"), device="cpu"),
-            "trace_qp, axis_name='batch'": lambda: dqt.debug.trace_qp(
-                P, q, iters=3, config=dqt.QP_DEFAULTS.replace(axis_name="batch"), device="cpu")}
-    if name != "trace_qp, axis_name='batch'":
-        _same(monkeypatch, call[name])
-        return
-    _report_capture(monkeypatch)
-    with pytest.raises(RuntimeError, match="cannot run inside a CUDA graph capture") as err:
-        call[name]()
-    assert "axis_name='batch'" in str(err.value)
+            "trace_qp, axis_name='batch'": lambda: _in_binding(lambda: dqt.debug.trace_qp(
+                P, q, iters=3, config=dqt.QP_DEFAULTS.replace(axis_name="batch"), device="cpu"))}
+    _same(monkeypatch, call[name])
+
+
+def _in_binding(fn):
+    with lockstep(make_batch_mesh(["cpu"])):
+        return fn()
 
 
 def _step_qcqp(xs, cfg=CFG):
@@ -321,16 +325,17 @@ ROUTE_CASES = {
     "qcqp float64 n=50, the Cholesky inverse": ("qcqp", 50, False, torch.float64, CFG, True),
     "qp float64 linsolve='chol'": ("qp", 8, False, torch.float64,
                                    QP_CFG.replace(linsolve="chol"), True),
-    "qp axis_name": ("qp", 8, False, torch.float32, QP_CFG.replace(axis_name="batch"), False),
+    "qp axis_name": ("qp", 8, False, torch.float32, QP_CFG.replace(axis_name="batch"), True),
 }
 
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
 def test_system_id_stages_a_capturable_route(case):
     """``capturable_route`` is what ``SystemID.set_params`` asks before it
-    stages a card model's step: True unless the forward takes the engine's
-    lockstep mode (the spectral mode, a dense P at N <= 48 off K1, stages
-    through the Jacobi kernel E1); a lockstep model trains eagerly."""
+    stages a card model's step: True on every route (the spectral mode, a
+    dense P at N <= 48 off K1, stages through the Jacobi kernel E1; the
+    lockstep mode's mesh is checked at the capture, where a gloo group or
+    shards on two cards refuse it)."""
     kind, n, diag, dtype, cfg, want = ROUTE_CASES[case]
     assert tsid.capturable_route(kind, _sysid_params(kind, n, diag, dtype), cfg) is want
 
