@@ -37,9 +37,13 @@ block-wide path). Phases, each of which fails the run if its check fails:
      ``kernels/_build.SOURCES`` library (one nvcc each, all at once); each
      kernel's launch plan (threads, shared memory, bound) as the built library
      computes it against the Python wrapper's, for K2 / K6 at n = 24, 34, 96,
-     142, K5 at m = 5, 33, 36, 72, 88 and E1 at N = 2 to 170 (either side of
-     its shared-memory bounds, 119 in float64 and 169 in float32), and three blocks of K6, K2 and K1
-     on an SM at N=96 (the occupancy calculator); ptxas's registers and
+     142, K5 at m = 5, 33, 36, 72, 88 and E1 at N = 2 to 240
+     (``E1_PLAN_NS``: one warp against block-wide, either side of each
+     shared-memory bound), and three blocks of K6, K2 and K1 on an SM at
+     N=96 (the occupancy calculator); E1's plan at the main path's points
+     (problems a block, threads, shared memory, layout) with problems an SM
+     by the occupancy calculator (failing below the plan's own count) and
+     the waves (``e1_occupancy``); ptxas's registers and
      spills per kernel; blocks per SM of K1, K2, K6 and K4 (each kind) at
      N=24 and the waves each main-path launch takes, ceil(B / (blocks per
      SM x SMs)) at B=4096 (K1, K2, K6, K4's QP) and B=2048 (K4's box kinds):
@@ -108,8 +112,10 @@ block-wide path). Phases, each of which fails the run if its check fails:
      eigendecomposition) against its plain version (``jacobi_eigh_plain``)
      on the same card inputs (``eigh_points``): the flagship's P (B=4096
      N=24) in float32 and as the float64 referee takes it; B=256 at N = 2,
-     7, 48 and 130 (past the shared-memory bound in float64: the global
-     workspace) in both dtypes; repeated eigenvalues and a diagonal dense P;
+     7, 32, 33, 48 and 130 in both dtypes; B=32 either side of each
+     shared-memory bound (float64 N = 119 / 120 and 169 / 170, float32 169 /
+     170 and 239 / 240: A and V^T in shared memory, V^T in the workspace,
+     both there); repeated eigenvalues and a diagonal dense P;
      a P with a NaN and an inf. For each: the sweeps a problem (max, mean),
      the problems bit for bit the plain version's, max |d| against it, and
      both outputs against ``torch.linalg.eigh`` in float64: ||V diag(lam)
@@ -402,13 +408,13 @@ block-wide path). Phases, each of which fails the run if its check fails:
      solution within 1e-4 of the float64 referee and of K1 on the same
      problems (iterations within 4 of K1's where both estimate L by power
      iteration: the ``backend='xla'`` step); a float64 flagship solve at
-     the referee's eps printed beside it (phase 3e gates that route at
-     1e-8);
+     the referee's eps beside it, all 4096 problems converged and within
+     1e-8 of the referee (phase 3e's bar);
   4p. each path of phase 3p eagerly and staged (phase 4o's timing); E1
-     alone at B=4096 N=24 and B=2048 N=48 in float32 and float64 (profiler
-     and CUDA events), its plain version, its bound (``e1_bound_ms``) and
-     ``torch.linalg.eigh`` of the same P, and what one such call launches
-     at N=48;
+     alone at B=4096 N=24 and B=2048 N=48 in float32 and float64 and at
+     B=256 N=130 in float64 (profiler and CUDA events), its plain version,
+     its bound (``e1_bound_ms``) and ``torch.linalg.eigh`` of the same P,
+     and what one such call launches at N=48;
   3q. the lockstep mode staged, one loop over every shard, inside a
      one-rank NCCL group (``lockstep_phases``, ``phase_3q``): on two shards
      of cuda:0, the flagship step (B=4096, seeds 0 and 1) and config 10's
@@ -698,7 +704,9 @@ def device_time_by_kernel(fn, calls=10):
     that ``fn`` runs, from torch.profiler, largest first. User annotations
     (``Optimizer.step#Adam.step`` spans the optimiser's kernels on the
     device timeline) are left out: they are ranges, not kernels, and
-    counting them would count their kernels twice."""
+    counting them would count their kernels twice. Late in a long run the
+    profiler may hold none of a session's first launches (PERF.md §7):
+    ``timed_step`` and ``e1_times`` say so where they look for a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -721,22 +729,34 @@ def per_launch_ms(rows, kernel):
     return next((ms / cnt for name, ms, cnt in rows if kernel in name), None)
 
 
-def timed_step(label, fn, smi, reps=5, calls=1, problems=None, top=0):
+def timed_step(label, fn, smi, reps=5, calls=1, problems=None, top=0, expect=None,
+               device=True):
     """``fn`` timed as phase 4 times the steps (CUDA events, warm-up, median
     of ``reps`` samples of ``calls`` back-to-back calls) with its device
     time by kernel from torch.profiler (the ``top`` largest kernels listed)
-    and the card's idle share. Returns (ms per call, idle share)."""
+    and the card's idle share; where ``fn`` launches E1 (``expect="E1"``) and
+    the trace holds none of it, the line says so. ``device=False`` (a staged
+    graph with conditional nodes, whose bodies' kernels the profiler does
+    not count reliably) times the wall alone. Returns (ms per call, idle
+    share or None)."""
     ms, ts = time_cuda(fn, reps=reps, calls=calls)
+    rate = "" if problems is None else f" = {problems / ms * 1e3:.1f} problems/s"
+    if not device:
+        log(f"  {label} ({smi}): {ms:.4f} ms per call, {calls} back-to-back (CUDA events; samples "
+            f"{[round(t, 4) for t in ts]}){rate}; device time not measured")
+        return ms, None
     rows = device_time_by_kernel(fn, calls=calls)
     dev = sum(r_[1] for r_ in rows)
     by = {k: sum(r_[1] for r_ in rows if tag in r_[0]) for k, tag in
-          (("K1", "admm_kernel"), ("K2", "qcqp_bwd_kernel"), ("K4", "coord_bwd_kernel"))}
-    rate = "" if problems is None else f" = {problems / ms * 1e3:.1f} problems/s"
+          (("K1", "admm_kernel"), ("K2", "qcqp_bwd_kernel"), ("K4", "coord_bwd_kernel"),
+           ("E1", "jacobi_eigh"))}
+    lost = (f"; the trace holds no {expect} though the path launches it: device time and idle "
+            "share without it (PERF.md §7)" if expect and by[expect] == 0 else "")
     log(f"  {label} ({smi}): {ms:.4f} ms per call, {calls} back-to-back (CUDA events; samples "
         f"{[round(t, 4) for t in ts]}){rate}; device time by kernel (torch.profiler, ms per "
         f"call): total {dev:.4f}, " + ", ".join(f"{k} {v:.4f}" for k, v in by.items())
         + f", other kernels {dev - sum(by.values()):.4f}; device idle {ms - dev:.4f} ms "
-        f"({(ms - dev) / ms:.1%})")
+        f"({(ms - dev) / ms:.1%}){lost}")
     for name_, ms_, cnt in rows[:top]:
         log(f"    {ms_:.4f} ms  x{cnt:g}  {name_[:110]}")
     return ms, (ms - dev) / ms
@@ -2619,7 +2639,7 @@ def phase_4m(smi, steps, B=B_FLAG):
 # the kernels' names in a profiler trace (K2's tag also matches its
 # block-wide instance, K4's its one-warp one)
 KERNEL_TAGS = (("K1", "admm_kernel"), ("K2", "qcqp_bwd_kernel"), ("K4", "coord_bwd_kernel"),
-               ("K5", "qr_solve_kernel"), ("K6", "qcqp_schur_kernel"), ("E1", "jacobi_eigh_kernel"))
+               ("K5", "qr_solve_kernel"), ("K6", "qcqp_schur_kernel"), ("E1", "jacobi_eigh"))
 
 
 def grad_step(solve, cfg, n_diff, w=None):
@@ -2647,10 +2667,14 @@ def bit_diffs(got, ref):
             if x is not None and not torch.equal(x, y)]
 
 
-def kernels_in_trace(fn):
+def kernels_in_trace(fn, calls=5):
     """{K: launches a call} of the port's kernels in a torch.profiler trace of
-    one call of ``fn`` (``device_time_by_kernel``)."""
-    rows = device_time_by_kernel(fn, calls=1)
+    ``calls`` calls of ``fn`` (``device_time_by_kernel``), rounded to whole
+    launches: late in a run the profiler can hold none of a session's first
+    launches (PERF.md §7), which over one call reads as a kernel that never
+    ran; over five, a loss of less than two calls' launches still rounds to
+    the count a call runs."""
+    rows = device_time_by_kernel(fn, calls=calls)
     return {k: round(sum(cnt for name_, _, cnt in rows if tag in name_)) for k, tag in KERNEL_TAGS}
 
 
@@ -3226,7 +3250,7 @@ def control_nodes(graph):
     return control.node_counts(graph)
 
 
-def phase_4o(smi, pairs, calls=None):
+def phase_4o(smi, pairs, calls=None, expect=None):
     """Phase 4o: each path of phase 3o eagerly and staged, in turn, through
     ``timed_step`` (CUDA events, median of 3 samples; device time and the
     card's idle share), one back-to-back call a sample for the rollouts and
@@ -3235,15 +3259,17 @@ def phase_4o(smi, pairs, calls=None):
     conditional node's body (a graph the card launches itself) reliably:
     for the same staged rollout it gave 21.4 ms in one run and 183.5 ms,
     more than the wall time, in another. Where the staged graph holds
-    nodes, the line gives its wall time alone: its device time and idle
-    share are not measured. ``calls`` sets the calls a sample for every
-    path (phase 4p: 1)."""
+    nodes, it is timed and printed by its wall time alone: its device time
+    and idle share are not measured. ``calls`` sets the calls a sample for every
+    path (phase 4p: 1); ``expect`` names a kernel every path launches
+    (phase 4p: E1, ``timed_step``)."""
     rows = []
     for label, eager, st, problems, nodes in pairs:
         slow = "rollout" in label or "contact system-ID" in label
-        kw = dict(reps=3, calls=calls or (1 if slow else 5), problems=problems)
+        kw = dict(reps=3, calls=calls or (1 if slow else 5), problems=problems, expect=expect)
         ms_e, idle_e = timed_step(f"{label}, eager", eager, smi, **kw)
-        ms_s, idle_s = timed_step(f"{label}, staged (one CUDA graph)", st, smi, **kw)
+        ms_s, idle_s = timed_step(f"{label}, staged (one CUDA graph)", st, smi, **kw,
+                                  device=not nodes)
         rows.append((label, ms_e, idle_e, ms_s, idle_s, nodes))
     log(f"  phase 4o ({smi}), ms per call (device ms, card idle):")
     for label, ms_e, idle_e, ms_s, idle_s, nodes in rows:
@@ -3275,6 +3301,43 @@ def e1_bound_ms(B, n, dtype, rotations):
                     FP64_FLOPS if f64 else FP32_FLOPS)
 
 
+# E1's plans checked in phase 1: one warp (N <= 32) against block-wide (33),
+# and either side of each shared-memory bound: A and V^T (float64 119 / 120,
+# float32 169 / 170), A alone (float64 169 / 170, float32 239 / 240)
+E1_PLAN_NS = (2, 24, 32, 33, 48, 119, 120, 130, 169, 170, 239, 240)
+# phase 2p's points either side of E1's shared-memory bounds: A and V^T
+# there to float64 N = 119 and float32 169, A alone to 169 and 239
+E1_EDGES = ((torch.float64, (119, 120, 169, 170)), (torch.float32, (169, 170, 239, 240)))
+# eigh_cuda's layouts (SHARED, VT_GLOBAL, GLOBAL)
+E1_LAYOUTS = ("A and V^T in shared memory", "A in shared memory, V^T in the workspace",
+              "A and V^T in the workspace")
+
+
+def e1_occupancy(sms):
+    """Phase 1: E1's launch plan at the main path's points (problems a block,
+    threads, shared memory, where A and V^T sit), blocks and problems an SM
+    by the plan's own count and by the occupancy calculator, and the waves
+    at that point's batch. Fails if the calculator holds fewer problems an
+    SM than the plan counts on."""
+    from diffqcqp_tpu_torch.kernels import eigh_cuda as e1m
+
+    short = []
+    for B, n in ((4096, 24), (2048, 32), (2048, 33), (2048, 48), (256, 130)):
+        for dt in (torch.float32, torch.float64):
+            pl = e1m.launch_plan(n, dt)
+            per_sm = pl.problems * e1m.c_blocks_per_sm(n, dt)
+            planned = e1m.planned_problems_per_sm(n, dt)
+            log(f"  E1 plan N={n} {str(dt)[6:]}: {'one warp' if pl.warp else 'block-wide'}, "
+                f"{pl.problems} problem(s) a block of {pl.threads} threads, {pl.smem} bytes of "
+                f"shared memory, {E1_LAYOUTS[pl.layout]}; "
+                f"problems an SM {per_sm} (occupancy calculator; the plan counts on {planned}), "
+                f"B={B}: {-(-B // max(per_sm * sms, 1))} wave(s)")
+            if per_sm < 1 or (planned is not None and per_sm < planned):
+                short.append((n, dt))
+    if short:
+        raise AssertionError(f"E1's occupancy falls short of its plan at {short}")
+
+
 def with_spectrum(lams, b, seed):
     """Q diag(lams) Q^T, float64 numpy, for a random orthogonal Q a problem."""
     rng = np.random.default_rng(seed)
@@ -3286,15 +3349,23 @@ def with_spectrum(lams, b, seed):
 
 def eigh_points(P_flag):
     """Phase 2p's points: the flagship's P (B=4096 N=24) in float32 and as the
-    float64 referee takes it; B=256 at N = 2, 7, 48 and 130 (past the
-    shared-memory bound in float64) in both dtypes; repeated eigenvalues
-    and a diagonal dense P (float64 and float32, B=256 N=24); the flagship's
-    first 256 P with a NaN in problem 3 and an inf in problem 7."""
+    float64 referee takes it; B=256 at N = 2, 7, 32 (the largest one-warp
+    size), 33 (the smallest block-wide one), 48 and 130 in both dtypes;
+    B=32 on either side of each shared-memory bound (``E1_EDGES``);
+    repeated eigenvalues and a diagonal dense P (float64 and float32, B=256
+    N=24); the flagship's first 256 P with a NaN in problem 3 and an inf in
+    problem 7."""
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import launch_plan
+
     pts = [("flagship B=4096 N=24 float32", P_flag),
            ("the float64 referee's P, flagship B=4096 N=24 float64", P_flag.double())]
-    for n in (2, 7, 48, 130):
+    for n in (2, 7, 32, 33, 48, 130):
         P = cuda(spd_problems(256, n, seed=20 + n)[1])[0]
         pts += [(f"B=256 N={n} float64", P.double()), (f"B=256 N={n} float32", P)]
+    for dt, ns in E1_EDGES:
+        for n in ns:
+            P = cuda(spd_problems(32, n, seed=20 + n)[1])[0].to(dt)
+            pts.append((f"B=32 N={n} {str(dt)[6:]} ({E1_LAYOUTS[launch_plan(n, dt).layout]})", P))
     rep = cuda(with_spectrum([1.0] * 6 + [2.0] * 6 + [0.5] * 6 + list(np.linspace(3, 4, 6)),
                              256, 21))[0]
     diag = torch.diag_embed(cuda(np.random.default_rng(22).random((256, 24)) + 0.1)[0])
@@ -3363,23 +3434,22 @@ def phase_2p(points):
     return errs, rotations
 
 
-def spectral_bars(label, l, iters, ok, l64, k1, bar64=1e-4, gate=True):
+def spectral_bars(label, l, iters, ok, l64, k1, bar64=1e-4):
     """Phase 3p's accuracy gates of one path's solution ``l`` (its
     iterations ``iters``) on the problems it converged (``ok``): within
     ``bar64`` of the float64 referee ``l64``, and against K1 on the same
     problems (``k1`` = (l, stats, iterations bar)) |dl| <= 1e-4 with the
-    iterations within the bar (None: printed only). With ``gate`` off the
-    numbers are printed only."""
+    iterations within the bar (None: printed only)."""
     l = l.detach()
     e64 = float((l[ok].double() - l64[ok]).abs().max())
     lk, sk, it_bar = k1
     dk = float((l[ok].double() - lk[ok].double()).abs().max())
     dit = int((iters - sk.iterations).abs().max())
     log(f"    {label}: converged {int(ok.sum())}/{ok.numel()}; max |l - l_f64 referee| {e64:.3e} "
-        f"({'bar ' + format(bar64, 'g') if gate else 'printed only'}); against K1 max |dl| "
-        f"{dk:.3e} (bar 1e-4), max |d iterations| {dit} (bar {it_bar}); mean iterations "
-        f"{float(iters.double().mean()):.4f} (K1 {float(sk.iterations.double().mean()):.4f})")
-    if gate and not (e64 <= bar64 and dk <= 1e-4 and (it_bar is None or dit <= it_bar)):
+        f"(bar {bar64:g}); against K1 max |dl| {dk:.3e} (bar 1e-4), max |d iterations| {dit} "
+        f"(bar {it_bar}); mean iterations {float(iters.double().mean()):.4f} (K1 "
+        f"{float(sk.iterations.double().mean()):.4f})")
+    if not (e64 <= bar64 and dk <= 1e-4 and (it_bar is None or dit <= it_bar)):
         raise AssertionError(f"{label}: past the referee or K1 bars")
 
 
@@ -3420,8 +3490,9 @@ def phase_3p(dqt, kernels, cfg, flag, out_k, l64, sysid, qc_cfg, b_past=256, ste
     float64 referee (the plain K1 in float64 at eps=1e-10) and of K1 on the
     same problems, the iterations within 4 of K1's where both estimate L by
     power iteration (the ``backend='xla'`` step), printed elsewhere; a
-    float64 flagship solve at the referee's eps printed beside it (phase 3e
-    gates the float64 route at 1e-8 on its 256 problems). Returns [(label,
+    float64 flagship solve at the referee's eps beside it, every one of its
+    4096 problems converged and within 1e-8 of the referee (phase 3e's bar
+    for the float64 route, there on 256 problems). Returns [(label,
     eager, staged, problems, conditional nodes)] for phase 4p and the
     float64 flagship step's eager launches (the kernels line's E1 count)."""
     from diffqcqp_tpu_torch.kernels.admm_cuda import PROX_DISK, admm_solve_cuda, admm_solve_plain
@@ -3462,7 +3533,7 @@ def phase_3p(dqt, kernels, cfg, flag, out_k, l64, sysid, qc_cfg, b_past=256, ste
                            cfg, True, False)
     # at N=130, q + 1e-5 runs the same iterations (an H100 run): q + 1e-3
     # moves them on ~20 of the 256 problems
-    paths[f"linsolve='spectral' step B={b_past} N=130 float64 (E1 on its global workspace)"] = (
+    paths[f"linsolve='spectral' step B={b_past} N=130 float64 (E1: V^T in the workspace)"] = (
         grad_step(solve_qc, cfg.replace(linsolve="spectral"), 4), [x130, perturb(x130, 1e-3)],
         st_iters, whole, l130_64, (k130[0], k130[1], None), b_past)
 
@@ -3493,13 +3564,15 @@ def phase_3p(dqt, kernels, cfg, flag, out_k, l64, sysid, qc_cfg, b_past=256, ste
                       sum(next(iter(s.nodes.values())).values())))
         log(f"  {label}: checks took {time.perf_counter() - t0:.1f} s")
 
-    # the float64 flagship at the referee's own eps, over the whole batch:
-    # printed (phase 3e gates the float64 route, E1 its set-up, at 1e-8 on
-    # its 256 problems; here 4096 problems)
+    # the float64 flagship at the referee's own eps, over the whole batch,
+    # gated at phase 3e's bar (1e-8 there on 256 problems; here all 4096
+    # converged and within 1e-8), E1 its set-up
     t0 = time.perf_counter()
     l_f64, st_f64 = solve_qc(*flag64, config=cfg.replace(eps=1e-10, max_iter=5000))
-    spectral_bars("float64 flagship solve at eps=1e-10 (the referee's eps), B=4096", l_f64,
-                  st_f64.iterations, st_f64.converged, l64, k1_flag, gate=False)
+    label = "float64 flagship solve at eps=1e-10 (the referee's eps), B=4096"
+    spectral_bars(label, l_f64, st_f64.iterations, st_f64.converged, l64, k1_flag, bar64=1e-8)
+    if not bool(st_f64.converged.all()):
+        raise AssertionError(f"{label}: not every problem converged")
 
     # a float64 SystemID on config 4's QCQP half: staged by the model, against
     # the same model stepped eagerly
@@ -3547,30 +3620,57 @@ def phase_3p(dqt, kernels, cfg, flag, out_k, l64, sysid, qc_cfg, b_past=256, ste
     return pairs, launches_f64
 
 
-def phase_4p(smi, pairs, P_flag, rotations):
+def phase_4p(smi, pairs, P_flag, rotations, dev):
     """Phase 4p: each path of phase 3p eagerly and staged (``phase_4o``'s
-    timing); then E1 alone (``e1_times``) at B=4096 N=24 in float32 and
-    float64, with the rotations of phase 2p's plain run there, and at
-    B=2048 N=48 in both. Returns the float64 flagship point's numbers for
+    timing; where an eager path's trace holds no E1, its line says so); then
+    E1 alone (``e1_times``) at ``e1_points``, with the rotations of phase
+    2p's plain run at the flagship and the device times ``dev`` of
+    ``e1_device_times``. Returns the float64 flagship point's numbers for
     the kernels line."""
-    phase_4o(smi, pairs, calls=1)
-    P48 = cuda(spd_problems(2048, 48, seed=24)[1])[0]
-    points = [("B=4096 N=24 float32", P_flag, rotations[0]),
-              ("B=4096 N=24 float64", P_flag.double(), rotations[1]),
-              ("B=2048 N=48 float32", P48, None), ("B=2048 N=48 float64", P48.double(), None)]
-    out = {label: e1_times(label, P, rot, smi) for label, P, rot in points}
+    phase_4o(smi, pairs, calls=1, expect="E1")
+    out = {label: e1_times(label, P, rot, smi, dev[label])
+           for label, P, rot in e1_points(P_flag, rotations)}
     return out["B=4096 N=24 float64"]
 
 
-def e1_times(label, P, rot, smi):
-    """E1's numbers at one point: its device time per launch
-    (torch.profiler) and per call over 20 back-to-back calls (CUDA events),
+def e1_device_times(P_flag):
+    """{label: E1's device ms per launch} at each of ``e1_points`` from
+    torch.profiler (10 launches), taken right after phase 2p: later in the
+    run, past its first CUDA graphs and many profiler sessions, the
+    profiler holds no device activity for short sessions (PERF.md §7); None
+    where the trace holds no E1 there either."""
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda
+
+    out = {label: per_launch_ms(device_time_by_kernel(lambda P=P: eigh_cuda(P)), "jacobi_eigh")
+           for label, P, _ in e1_points(P_flag)}
+    log(f"  E1's device time per launch (torch.profiler, ms): {out}")
+    return out
+
+
+def e1_points(P_flag, rotations=(None, None)):
+    """E1's timed points: the flagship's P (B=4096 N=24) in float32 and
+    float64 (with phase 2p's rotations where given), B=2048 N=48 in both
+    and the ``linsolve='spectral'`` step's P at B=256 N=130 in float64
+    (phase 3p's, V^T in the workspace): [(label, P, rotations or None)]."""
+    P48 = cuda(spd_problems(2048, 48, seed=24)[1])[0]
+    P130 = cuda(*kkt_problems(256, 65, seed=23))[0].double()
+    return [("B=4096 N=24 float32", P_flag, rotations[0]),
+            ("B=4096 N=24 float64", P_flag.double(), rotations[1]),
+            ("B=2048 N=48 float32", P48, None), ("B=2048 N=48 float64", P48.double(), None),
+            ("B=256 N=130 float64", P130, None)]
+
+
+def e1_times(label, P, rot, smi, dev):
+    """E1's numbers at one point: its device time per launch ``dev``
+    (torch.profiler, ``e1_device_times``) and per call over 20 back-to-back
+    calls (CUDA events),
     its plain version's time (one call), its bound (``e1_bound_ms`` with
     ``rot``, the plain version's rotations a problem, or this call's plain
     run's where None) and ``torch.linalg.eigh`` of the same P (CUDA events;
     at N=48 one call, and at N=48 in float32 what one call launches on the
     first 256 problems: ``launch_profile``). Returns dict(ms, plain_ms,
-    bound_ms, bound_by, library_ms)."""
+    bound_ms, bound_by, library_ms): ``ms`` the profiler's device time, or
+    the CUDA events' time where the trace holds no E1 (logged so)."""
     from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda, jacobi_eigh_plain
 
     B, n, _ = P.shape
@@ -3579,10 +3679,8 @@ def e1_times(label, P, rot, smi):
     torch.cuda.synchronize()
     ms_p = (time.perf_counter() - t0) * 1e3
     rot = rot_ if rot is None else rot
-    rows = device_time_by_kernel(lambda: eigh_cuda(P))
-    dev = per_launch_ms(rows, "jacobi_eigh_kernel")
     if dev is None:
-        log(f"  E1 at {label}: the profiler's kernels {[r_[0][:80] for r_ in rows[:3]]}")
+        log(f"  E1 at {label}: the profiler's trace held no E1: its ms is the CUDA events' time")
     ev, ts = time_cuda(lambda: eigh_cuda(P), reps=5, calls=20)
     # at N=48 torch.linalg.eigh takes ~1.5 s a call: one timed call
     lib_calls, lib_reps = (20, 3) if n <= 24 else (1, 1)
@@ -3615,11 +3713,14 @@ def eigh_run(dqt, smi, t_start) -> int:
     P, q, l_n, mu = flag
     log("phase 2p: E1 (eigh_cuda) against jacobi_eigh_plain on the card")
     _, rotations = phase_2p(eigh_points(P))
+    e1_dev = e1_device_times(P)
     log(f"  phase 2p done at {time.perf_counter() - t_start:.1f} s")
     args = (P, q, torch.zeros_like(q), PROX_DISK, ((l_n * mu).contiguous(),), cfg, True, False)
     out_k = admm_solve_cuda(*args)
+    # the referee as phase 3 takes it: the radii l_n mu formed in float64,
+    # as the float64 routes form them
     l64, _ = admm_solve_plain(*(x.double() for x in args[:3]), PROX_DISK,
-                              ((l_n * mu).double(),), cfg.replace(eps=1e-10, max_iter=5000),
+                              (l_n.double() * mu.double(),), cfg.replace(eps=1e-10, max_iter=5000),
                               True, False)
     log("phase 3p: the spectral mode's routes staged, E1 their set-up")
     log(f"  the referee done at {time.perf_counter() - t_start:.1f} s")
@@ -3628,7 +3729,8 @@ def eigh_run(dqt, smi, t_start) -> int:
     log(f"  phase 3p done at {time.perf_counter() - t_start:.1f} s")
     log("phase 4p: the spectral routes eagerly and staged, E1 and torch.linalg.eigh")
     phase_4p(smi, pairs, P, (rotations["flagship B=4096 N=24 float32"],
-                             rotations["the float64 referee's P, flagship B=4096 N=24 float64"]))
+                             rotations["the float64 referee's P, flagship B=4096 N=24 float64"]),
+             e1_dev)
     log(f"chip_smoke: eigh phases passed, {time.perf_counter() - t_start:.1f} s")
     return 0
 
@@ -3780,14 +3882,15 @@ def phase_3q(dqt, kernels, cfg, qp_cfg, b=B_FLAG):
 def phase_4q(smi, pairs):
     """Phase 4q: each path of phase 3q eagerly, then staged, through
     ``timed_step`` (CUDA events, median of 5 samples of one call; the eager
-    path's device time and idle share by torch.profiler; the staged graph
-    holds a WHILE node, whose kernels the profiler does not count reliably:
-    its wall time alone)."""
+    path's device time and idle share by torch.profiler, each path
+    launching E1; the staged graph holds a WHILE node, whose kernels the
+    profiler does not count reliably: its wall time alone)."""
     rows = []
     for label, eager, st, problems, nodes in pairs:
-        ms_e, idle_e = timed_step(f"{label}, eager", eager, smi, reps=5, problems=problems)
+        ms_e, idle_e = timed_step(f"{label}, eager", eager, smi, reps=5, problems=problems,
+                                  expect="E1")
         ms_s, _ = timed_step(f"{label}, staged (one CUDA graph)", st, smi, reps=5,
-                             problems=problems)
+                             problems=problems, device=False)
         rows.append((label, ms_e, idle_e, ms_s, nodes))
     log(f"  phase 4q ({smi}), ms per call (eager device ms, card idle):")
     for label, ms_e, idle_e, ms_s, nodes in rows:
@@ -4096,9 +4199,11 @@ def e1_numbers(dqt, flag, cfg, smi):
     label = "the float64 referee's P, flagship B=4096 N=24 float64"
     flag64 = tuple(x.double() for x in flag)
     errs, rotations = phase_2p([(label, flag64[0])])
+    dev = per_launch_ms(device_time_by_kernel(lambda: eigh_cuda(flag64[0])), "jacobi_eigh")
     _, n_e = launched({"E1": eigh_cuda},
                       lambda: grad_step(dqt.solve_qcqp_with_stats, cfg, 4)(*flag64))
-    return n_e["E1"], errs[label], e1_times("B=4096 N=24 float64", flag64[0], rotations[label], smi)
+    return n_e["E1"], errs[label], e1_times("B=4096 N=24 float64", flag64[0], rotations[label],
+                                            smi, dev)
 
 
 def kernels_by_name():
@@ -4157,15 +4262,17 @@ def eager_run(root) -> int:
     (B=256), the spectral mode's float64 and ``backend='xla'`` flagship
     steps and ``backend='xla'`` flagship forward (B=4096), the generic
     route's float64 LU (``qcqp_vjp(duals=)`` at B=4096 N=24),
-    ``qcqp_jacobian`` at the flagship, and ``ops.linalg.solve`` alone on
-    random systems of each shape those paths hand it (median of 5 samples
-    of 5 calls), CUDA events, and what one call asks of the card
+    ``qcqp_jacobian`` at the flagship, ``ops.linalg.solve`` alone on
+    random systems of each shape those paths hand it and E1 alone at
+    ``e1_points`` (median of 5 samples of 5 calls, 20 for E1 at N=24),
+    CUDA events, and what one call asks of the card
     (``launch_profile``). Prints one JSON line; run it for two trees in
     turn (A, B, B, A) to compare them on one card."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import diffqcqp_tpu_torch as dqt
     from diffqcqp_tpu_torch.diff import kkt
     from diffqcqp_tpu_torch.kernels import _build
+    from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda
     from diffqcqp_tpu_torch.models import contact_sim as cs
     from diffqcqp_tpu_torch.ops.linalg import solve
 
@@ -4229,6 +4336,8 @@ def eager_run(root) -> int:
                                   duals=kkt.qcqp_dual(x64[0], x64[1], r64, l64, cfg)), 5, 5),
         "qcqp_jacobian B=4096 N=24": (lambda: dqt.qcqp_jacobian(P, q, l_n, mu, config=cfg), 5, 5),
         **{label: (lambda xs=xs: solve(*xs), 5, 5) for label, xs in lus.items()},
+        **{f"E1 alone {label}": (lambda P=P_: eigh_cuda(P), 5, 20 if P_.shape[1] <= 24 else 5)
+           for label, P_, _ in e1_points(P)},
     }
     ms, prof = {}, {}
     for label, (fn, reps, calls) in steps.items():
@@ -4313,7 +4422,7 @@ def main() -> int:
     plans += [(f"K5 m={m}", k5m.launch_plan(m), k5m.c_launch_plan(m)) for m in (5, 33, 36, 72, 88)]
     from diffqcqp_tpu_torch.kernels import eigh_cuda as e1m
     plans += [(f"E1 N={n} {dt}", e1m.launch_plan(n, dt), e1m.c_launch_plan(n, dt))
-              for dt in (torch.float32, torch.float64) for n in (2, 24, 48, 119, 120, 169, 170)]
+              for dt in (torch.float32, torch.float64) for n in E1_PLAN_NS]
     for label, py, c in plans:
         log(f"  launch plan {label}: (threads, smem bytes, bound, tile) wrapper {py} library {c}")
     from diffqcqp_tpu_torch.kernels import admm_cuda as k1m
@@ -4338,6 +4447,7 @@ def main() -> int:
         + ", ".join(f"{name} {blk} (B={b_}: {waves24[name]} wave(s))"
                     for name, (blk, b_) in occ24.items()))
     k4_occupancy(sms)
+    e1_occupancy(sms)
     c6 = config6_classes(dqt)
     if sys.argv[1:] == ["config6"]:
         # config 6's phases alone (2c's block-wide cases, 3k, 4h): K4's
@@ -4546,6 +4656,7 @@ def main() -> int:
     # ---- phase 2p: E1 against its plain version on the card
     log("phase 2p: E1 (eigh_cuda) against jacobi_eigh_plain on the card")
     errs_e1, rotations_e1 = phase_2p(eigh_points(P))
+    e1_dev = e1_device_times(P)
 
     # ---- phase 3: the slice through the public entry point
     log("phase 3: solve_qcqp_with_stats at B=4096 N=24")
@@ -4895,7 +5006,7 @@ def main() -> int:
     log("phase 4p: the spectral routes eagerly and staged, E1 and torch.linalg.eigh")
     e1_times = phase_4p(smi, pairs_3p, P, (rotations_e1["flagship B=4096 N=24 float32"],
                                            rotations_e1["the float64 referee's P, flagship B=4096 "
-                                                        "N=24 float64"]))
+                                                        "N=24 float64"]), e1_dev)
 
     # ---- phases 3q and 4q: the lockstep mode staged, one loop over every shard
     lockstep_phases(dqt, kernels, smi, t_start)

@@ -23,35 +23,75 @@
 // rank #{j: l_j < l_i} + #{j < i: l_j = l_i} and V's columns with them. A P
 // with a non-finite entry, or NaN eigenvalues, gives NaN outputs.
 //
-// What bounds it on this card: the operations, at least 12 N flops a
-// rotation (rows p and q of A and of V^T; A's columns p and q are those rows
-// by symmetry, which this kernel rotates as well, 18 N in all), about 6 N^3
-// a sweep, 7-10 sweeps at N = 24; the bytes are P in, V and lam out. At B =
-// 4096, N = 24 in float32 the rotations applied come to ~1.7 GFLOP, ~26 us
-// at 67 TFLOP/s, against ~19 MB, ~6 us at 3.35 TB/s. Neither is near (~1.2
-// ms on an H100): a round is four dependent passes over shared memory, one
-// __syncthreads each, N - 1 rounds a sweep, so the chain of barriers sets
-// the time, as the chain of steps does in K5.
+// What bounds it on this card: neither the operations (at least 12 N flops a
+// rotation, rows p and q of A and of V^T; A's columns p and q are those rows
+// by symmetry, which this kernel rotates as well, 18 N in all: at B = 4096,
+// N = 24 float32 ~1.7 GFLOP, ~26 us at 67 TFLOP/s) nor the bytes (P in, V and
+// lam out, ~19 MB, ~6 us at 3.35 TB/s). A round is a dependent step of each
+// problem, N - 1 of them a sweep, and every entry of A and of V^T's rotated
+// rows goes through shared memory once a round: a 2 x 2 block costs 8
+// accesses of A, up to 8 of V^T and 3 (float32) or 5 (float64) shuffles for
+// ~36 flops, with no fused multiply-add (-fmad=false). So the SM's
+// shared-memory pipe, one 128-byte wavefront a clock (a float64 access of a
+// warp takes two), sets the time once enough problems are in flight; the
+// block maps keep a warp's accesses to one or two rows at distinct columns,
+// so that few of them meet in a bank.
 //
-// Design: one block a problem (64 threads to N = 16, 128 to N = 48, 256
-// above), A and V^T in dynamic shared memory with an odd row stride, so a
-// walk down a column is free of bank conflicts; V is kept transposed so that
-// its rotations, like A's row rotations, walk rows. Where A and V^T do not
-// fit the 227 KB a block may opt into (float32 past N = 169, float64 past N =
-// 119) the same kernel works on a global-memory workspace the wrapper
-// allocates, so every N runs here. A round's pairs are computed by one thread
-// each; the rows and columns by one thread an element pair. The stopping flag
-// and the ranks live in shared memory; nothing is read on the host.
+// Design:
+//   * One fused pass a round over 2 x 2 blocks. The block of A at rows {p, q}
+//     of pair k and columns {p', q'} of pair k' is rotated by k from the left
+//     and then by k' from the right; both read only its own four entries, so
+//     one thread does both, with the plain version's formulas in its order
+//     (rows first, then columns), and writes the four entries once. A
+//     rotating pair's diagonal block takes the t-formula values directly
+//     (the plain version's write-back overwrites all four of them). The same
+//     thread rotates rows p and q of V^T at columns p', q'. At odd N the
+//     dummy's blocks are one wide. A round is the pair parameters, then the
+//     fused pass: two synchronisation points, and no trip through shared
+//     memory between the row and the column rotation.
+//   * N <= 32: one warp a problem, several problems a block (sized from the
+//     SM's shared memory and registers: plan_of). Lane k computes pair k's
+//     parameters (and the lanes k + half, ... a copy) and keeps them in
+//     registers. Lane l works on column pair l mod half and row pairs
+//     l / half + (32 / half) j, taking each row pair's (c, s, p, q, rotates)
+//     from its lane by __shfl_sync, so one warp instruction reads a row or
+//     two at distinct columns (few bank conflicts). __syncwarp after the
+//     fused pass; the sweep's "rotated" flag and the finite test are
+//     __any_sync.
+//   * N > 32: one block a problem, threads from the pass's work (about four
+//     2 x 2 blocks a thread, to 1024); the parameters through shared memory,
+//     __syncthreads after them and __syncthreads_or (the sweep's flag) after
+//     the pass.
+//   * Memory: A and V^T in dynamic shared memory with an odd row stride (a
+//     walk down a column is free of bank conflicts), V kept transposed so
+//     that its rotations, like A's rows, walk rows. Where both do not fit the
+//     227 KB a block may opt into (float32 past N = 169, float64 past 119),
+//     only V^T moves to a global workspace: it is rotated in the same pass
+//     and never read back by A's chain. Past A's own bound (float32 N = 239,
+//     float64 N = 169) both go to the workspace, so every N runs here.
 //
-// ptxas (sm_90a): 48 registers in float64, 32 and a 12-byte spill in float32
-// (chip_smoke.py phase 1 prints them from the build log).
+// ptxas's registers and spills per kernel: chip_smoke.py phase 1 prints them
+// from the build log.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int kBound = 256;                       // the largest block, N > 48
-constexpr long long kSmemOptin = 232448;          // what a Hopper block may opt into
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpMaxN = 32;               // one warp a problem to N = 32
+constexpr int kWarpBound = 256;             // the warp kernel: at most 8 problems a block,
+constexpr int kWarpMinBlocks = 4;           // ... and 4 such blocks an SM: 64 registers
+constexpr int kBlockBound = 1024;           // the block-wide kernel, N > 32: 64 registers
+constexpr int kBlocksPerThread = 4;         // 2 x 2 blocks a thread a round, block-wide
+constexpr long long kSmemOptin = 232448;    // what a Hopper block may opt into
+constexpr long long kSmemPerSm = 233472;    // shared memory of a Hopper SM
+constexpr long long kSmemReserved = 1024;   // the runtime's share of it per block
+constexpr int kRegsPerSm = 65536, kRegsPerThread = 64, kMaxBlocksPerSm = 32,
+              kMaxWarpsPerSm = 64;
+
+// Where a block-wide problem keeps A and V^T: the number of them in the
+// global workspace
+enum Layout { kShared = 0, kVtGlobal = 1, kGlobal = 2 };
 
 template <typename T> struct Roundoff;
 template <> struct Roundoff<float> { static constexpr float u = 1.0f / 16777216.0f; };     // 2^-24
@@ -74,152 +114,372 @@ __device__ inline void pair_of(int r, int k, int m, int& p, int& q) {
   q = max(a, b);
 }
 
-int ld_of(int n) { return n | 1; }
+// (p, q, rotates) in one int: p and q below 2^15
+__device__ inline int pack(int p, int q, bool rot) { return p | (q << 15) | (rot ? 1 << 30 : 0); }
+__device__ inline int p_of(int pq) { return pq & 0x7fff; }
+__device__ inline int q_of(int pq) { return (pq >> 15) & 0x7fff; }
+__device__ inline bool rot_of(int pq) { return (pq >> 30) & 1; }
 
-int threads_of(int n) { return n <= 16 ? 64 : n <= 48 ? 128 : 256; }
-
-// Shared memory of a block: per pair (c, s, t, a_pp, a_qq, a_pq) in T, then
-// (p, q) in int, the inverse ranks (n ints) and four flags; A and V^T in
-// front of them where `in_shared`.
-long long scratch_bytes(int n, int item) {
-  const long long pairs = (n + 1) / 2;
-  return item * 6 * pairs + 4 * (2 * pairs + n + 4);
+// Pair (p, q)'s parameters from the round's starting A: whether it rotates,
+// c and s, and its diagonal's new values a_pp - t a_pq, a_qq + t a_pq.
+template <typename T>
+__device__ inline bool pair_params(const T* A, int ld, int n, int p, int q, T& c, T& s, T& npp,
+                                   T& nqq) {
+  c = T(1);
+  s = T(0);
+  npp = T(0);
+  nqq = T(0);
+  if (q >= n) return false;
+  const T app = A[p * ld + p], aqq = A[q * ld + q], apq = A[p * ld + q];
+  if (!(fabs(apq) > Roundoff<T>::u * sqrt(fabs(app) * fabs(aqq)))) return false;
+  const T theta = (aqq - app) / (T(2) * apq);
+  const T sgn = theta >= T(0) ? T(1) : T(-1);
+  const T t = sgn / (fabs(theta) + sqrt(theta * theta + T(1)));
+  c = T(1) / sqrt(t * t + T(1));
+  s = t * c;
+  npp = app - t * apq;
+  nqq = aqq + t * apq;
+  return true;
 }
 
-long long data_bytes(int n, int item) { return (long long)item * 2 * n * ld_of(n); }
+// One 2 x 2 block of the fused pass: rows {p, q} of the row pair (rotating
+// by cr, sr where rr), columns {p2, q2} of the column pair (by cc, sc where
+// rc), the plain version's row rotation first; a q or q2 at n or above is the
+// dummy's missing row or column. V^T's rows p and q at the same columns.
+template <typename T>
+__device__ inline void fused_block(T* A, T* Vt, int ld, int n, int p, int q, bool rr, T cr, T sr,
+                                   int p2, int q2, bool rc, T cc, T sc) {
+  const bool hq = q < n, hq2 = q2 < n;
+  T x00 = A[p * ld + p2];
+  T x01 = hq2 ? A[p * ld + q2] : T(0);
+  T x10 = hq ? A[q * ld + p2] : T(0);
+  T x11 = hq && hq2 ? A[q * ld + q2] : T(0);
+  T y;
+  if (rr) {
+    y = cr * x00 - sr * x10;
+    x10 = sr * x00 + cr * x10;
+    x00 = y;
+    y = cr * x01 - sr * x11;
+    x11 = sr * x01 + cr * x11;
+    x01 = y;
+  }
+  if (rc) {
+    y = cc * x00 - sc * x01;
+    x01 = sc * x00 + cc * x01;
+    x00 = y;
+    y = cc * x10 - sc * x11;
+    x11 = sc * x10 + cc * x11;
+    x10 = y;
+  }
+  A[p * ld + p2] = x00;
+  if (hq2) A[p * ld + q2] = x01;
+  if (hq) A[q * ld + p2] = x10;
+  if (hq && hq2) A[q * ld + q2] = x11;
+  if (rr) {                      // rr implies q < n
+    T u0 = Vt[p * ld + p2], v0 = Vt[q * ld + p2];
+    Vt[p * ld + p2] = cr * u0 - sr * v0;
+    Vt[q * ld + p2] = sr * u0 + cr * v0;
+    if (hq2) {
+      u0 = Vt[p * ld + q2];
+      v0 = Vt[q * ld + q2];
+      Vt[p * ld + q2] = cr * u0 - sr * v0;
+      Vt[q * ld + q2] = sr * u0 + cr * v0;
+    }
+  }
+}
 
-bool in_shared(int n, int item) { return data_bytes(n, item) + scratch_bytes(n, item) <= kSmemOptin; }
+// A rotating pair's diagonal block: the t-formula values, zero off the
+// diagonal; V^T's rows p and q at columns p and q.
+template <typename T>
+__device__ inline void diagonal_block(T* A, T* Vt, int ld, int p, int q, T c, T s, T npp, T nqq) {
+  A[p * ld + p] = npp;
+  A[q * ld + q] = nqq;
+  A[p * ld + q] = T(0);
+  A[q * ld + p] = T(0);
+  T u0 = Vt[p * ld + p], v0 = Vt[q * ld + p];
+  Vt[p * ld + p] = c * u0 - s * v0;
+  Vt[q * ld + p] = s * u0 + c * v0;
+  u0 = Vt[p * ld + q];
+  v0 = Vt[q * ld + q];
+  Vt[p * ld + q] = c * u0 - s * v0;
+  Vt[q * ld + q] = s * u0 + c * v0;
+}
+
+int ld_of(int n) { return n | 1; }
+
+// Bytes of A (or of V^T) of one problem
+long long plane_bytes(int n, int item) { return (long long)item * n * ld_of(n); }
+
+// Block-wide scratch: per pair (c, s, new a_pp, new a_qq) in T and the
+// packed (p, q, rotates), then the inverse ranks (n ints)
+long long scratch_bytes(int n, int item) {
+  const long long pairs = (n + 1) / 2;
+  return item * 4 * pairs + 4 * (pairs + n);
+}
+
+// A and V^T both fit shared memory (the first design's bound, unchanged)
+bool in_shared(int n, int item) {
+  return 2 * plane_bytes(n, item) + scratch_bytes(n, item) <= kSmemOptin;
+}
+
+// A alone fits shared memory
+bool a_in_shared(int n, int item) {
+  return plane_bytes(n, item) + scratch_bytes(n, item) <= kSmemOptin;
+}
+
+// One problem's shared memory in the warp kernel: A, V^T, the inverse ranks,
+// rounded up to 16 bytes
+long long warp_problem_bytes(int n, int item) {
+  return (2 * plane_bytes(n, item) + 4 * n + 15) / 16 * 16;
+}
+
+struct Plan {
+  int warp, problems, threads, bound, layout;
+  long long smem;
+};
+
+// Problems an SM holds with `problems` a block of `per` shared bytes each
+// (32 threads and 64 registers a problem)
+int warp_problems_per_sm(int problems, long long per) {
+  const long long by_smem = kSmemPerSm / (problems * per + kSmemReserved);
+  const long long by_regs = kRegsPerSm / ((long long)kRegsPerThread * 32 * problems);
+  long long blocks = by_smem < by_regs ? by_smem : by_regs;
+  if (blocks > kMaxBlocksPerSm) blocks = kMaxBlocksPerSm;
+  if (blocks > kMaxWarpsPerSm / problems) blocks = kMaxWarpsPerSm / problems;
+  return (int)blocks * problems;
+}
+
+Plan plan_of(int n, int item) {
+  Plan pl;
+  if (n <= kWarpMaxN) {
+    // the fewest problems a block that give the most problems an SM
+    const long long per = warp_problem_bytes(n, item);
+    int best = 1;
+    for (int w = 2; w * 32 <= kWarpBound; ++w)
+      if (warp_problems_per_sm(w, per) > warp_problems_per_sm(best, per)) best = w;
+    pl.warp = 1;
+    pl.problems = best;
+    pl.threads = 32 * best;
+    pl.bound = kWarpBound;
+    pl.layout = kShared;
+    pl.smem = best * per;
+    return pl;
+  }
+  const long long half = (n + 1) / 2;
+  const long long per_warp = 32LL * kBlocksPerThread;
+  long long threads = (half * half + per_warp - 1) / per_warp * 32;
+  if (threads > kBlockBound) threads = kBlockBound;
+  pl.warp = 0;
+  pl.problems = 1;
+  pl.threads = (int)threads;
+  pl.bound = kBlockBound;
+  pl.layout = in_shared(n, item) ? kShared : a_in_shared(n, item) ? kVtGlobal : kGlobal;
+  pl.smem = scratch_bytes(n, item) + (2 - pl.layout) * plane_bytes(n, item);
+  return pl;
+}
+
+// ---------------------------------------------------------------------------
+// N <= 32: one warp a problem
+// ---------------------------------------------------------------------------
 
 template <typename T>
-__global__ void __launch_bounds__(kBound)
-jacobi_eigh_kernel(const T* __restrict__ P, T* __restrict__ w, T* __restrict__ V,
-                   int* __restrict__ sweeps, T* __restrict__ work, int n, int max_sweeps) {
+__global__ void __launch_bounds__(kWarpBound, kWarpMinBlocks)
+jacobi_eigh_warp_kernel(const T* __restrict__ P, T* __restrict__ w, T* __restrict__ V,
+                        int* __restrict__ sweeps, int B, int n, int max_sweeps,
+                        long long per_problem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const size_t b = (size_t)blockIdx.x * (blockDim.x >> 5) + wid;
+  if (b >= (size_t)B) return;                 // the whole warp: no block barrier below
+  const int ld = n | 1;
+  const int m = n + (n & 1);
+  const int half = m / 2;
+  T* A = reinterpret_cast<T*>(smem_raw + wid * per_problem);
+  T* Vt = A + n * ld;
+  int* s_inv = reinterpret_cast<int*>(Vt + n * ld);
+
+  const T* Pb = P + b * n * n;
+  bool nonfinite = false;
+  for (int idx = lane; idx < n * n; idx += 32) {
+    const int i = idx / n, j = idx - i * n;
+    const T v = Pb[idx];
+    nonfinite |= !isfinite(v);
+    A[i * ld + j] = v;
+    Vt[i * ld + j] = i == j ? T(1) : T(0);
+  }
+  const bool bad_input = __any_sync(kFull, nonfinite);
+  __syncwarp();
+
+  // the block map: lane l works on column pair kc = l mod half, row pairs
+  // grp + g j, grp = l / half (g groups of half lanes; the rest idle), so
+  // the lanes of one group read one row at distinct columns (no bank
+  // conflict in float32) and every lane computes its column pair's
+  // parameters (its group's copy of them, at no extra issue)
+  const int g = 32 / half;
+  const int kc = lane % half, grp = lane / half;
+  const int mine = grp < g ? (half - grp + g - 1) / g : 0;    // blocks of this lane
+  const int steps = (half + g - 1) / g;                        // the most any lane has
+
+  int sweep = 0;
+  while (!bad_input && sweep < max_sweeps) {
+    bool rotated = false;
+    for (int r = 0; r < m - 1; ++r) {
+      // column pair kc's parameters
+      T c = T(1), s = T(0), npp = T(0), nqq = T(0);
+      int pq = 0;
+      if (grp < g) {
+        int p, q;
+        pair_of(r, kc, m, p, q);
+        const bool rot = pair_params(A, ld, n, p, q, c, s, npp, nqq);
+        rotated |= rot;
+        pq = pack(p, q, rot);
+      }
+      const int p2 = p_of(pq), q2 = q_of(pq);
+      const bool rc = rot_of(pq);
+      for (int j = 0; j < steps; ++j) {
+        const int k = grp + g * j;                // the row pair, from lane k
+        const int src = j < mine ? k : 0;
+        const T cr = __shfl_sync(kFull, c, src), sr = __shfl_sync(kFull, s, src);
+        const int pqr = __shfl_sync(kFull, pq, src);
+        if (j < mine) {
+          const bool rr = rot_of(pqr);
+          if (k == kc) {
+            if (rc) diagonal_block(A, Vt, ld, p2, q2, c, s, npp, nqq);
+          } else if (rr || rc) {
+            fused_block(A, Vt, ld, n, p_of(pqr), q_of(pqr), rr, cr, sr, p2, q2, rc, c, s);
+          }
+        }
+      }
+      __syncwarp();
+    }
+    ++sweep;
+    if (!__any_sync(kFull, rotated)) break;
+  }
+
+  // ascending order by rank, ties by index; NaN outputs for a bad problem
+  const T li = lane < n ? A[lane * ld + lane] : T(0);
+  const bool bad = bad_input || __any_sync(kFull, lane < n && isnan(li));
+  int rank = lane;
+  if (!bad) {
+    rank = 0;
+    for (int j = 0; j < n; ++j) {
+      const T lj = __shfl_sync(kFull, li, j);
+      rank += (lj < li) || (lj == li && j < lane);
+    }
+  }
+  if (lane < n) s_inv[rank] = lane;
+  __syncwarp();
+  const T nan = qnan(T(0));
+  if (lane < n) w[b * n + lane] = bad ? nan : A[s_inv[lane] * ld + s_inv[lane]];
+  T* Vb = V + b * n * n;
+  for (int idx = lane; idx < n * n; idx += 32) {
+    const int row = idx / n, col = idx - row * n;
+    Vb[idx] = bad ? nan : Vt[s_inv[col] * ld + row];
+  }
+  if (lane == 0) sweeps[b] = bad_input ? 0 : sweep;
+}
+
+// ---------------------------------------------------------------------------
+// N > 32: one block a problem
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kBlockBound)
+jacobi_eigh_block_kernel(const T* __restrict__ P, T* __restrict__ w, T* __restrict__ V,
+                         int* __restrict__ sweeps, T* work, int n, int max_sweeps, int layout) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = n | 1;
   const int m = n + (n & 1);
   const int half = m / 2;
   const int tid = threadIdx.x;
+  const int nt = blockDim.x;
   const size_t b = blockIdx.x;
-  T* A;
-  T* scratch;
-  if (work == nullptr) {
-    A = reinterpret_cast<T*>(smem_raw);
-    scratch = A + 2 * n * ld;
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T *A, *Vt, *scratch;
+  if (layout == kShared) {
+    A = base;
+    Vt = A + n * ld;
+    scratch = Vt + n * ld;
+  } else if (layout == kVtGlobal) {
+    A = base;
+    Vt = work + b * n * ld;
+    scratch = A + n * ld;
   } else {
     A = work + b * 2 * n * ld;
-    scratch = reinterpret_cast<T*>(smem_raw);
+    Vt = A + n * ld;
+    scratch = base;
   }
-  T* Vt = A + n * ld;
   T* s_c = scratch;
   T* s_s = s_c + half;
-  T* s_t = s_s + half;
-  T* s_app = s_t + half;
-  T* s_aqq = s_app + half;
-  T* s_apq = s_aqq + half;
-  int* s_p = reinterpret_cast<int*>(s_apq + half);
-  int* s_q = s_p + half;         // -1 where the pair does not rotate this round
-  int* s_inv = s_q + half;       // the eigen index of each rank
-  int* s_flag = s_inv + n;       // [0] a pair rotated this sweep, [1] P not finite,
-                                 // [2] an eigenvalue is NaN
-  const T u = Roundoff<T>::u;
+  T* s_npp = s_s + half;
+  T* s_nqq = s_npp + half;
+  int* s_pq = reinterpret_cast<int*>(s_nqq + half);
+  int* s_inv = s_pq + half;
 
-  if (tid < 4) s_flag[tid] = 0;
-  __syncthreads();
   const T* Pb = P + b * n * n;
-  for (int idx = tid; idx < n * n; idx += blockDim.x) {
+  bool nonfinite = false;
+  for (int idx = tid; idx < n * n; idx += nt) {
     const int i = idx / n, j = idx - i * n;
     const T v = Pb[idx];
-    if (!isfinite(v)) s_flag[1] = 1;
+    nonfinite |= !isfinite(v);
     A[i * ld + j] = v;
     Vt[i * ld + j] = i == j ? T(1) : T(0);
   }
-  __syncthreads();
-  const bool bad_input = s_flag[1] != 0;
+  const bool bad_input = __syncthreads_or(nonfinite);
+
+  // the block map: block idx holds row pair idx / half and column pair
+  // idx mod half, so neighbouring threads read one row at distinct columns;
+  // a thread steps idx by nt
+  const int dkc = nt % half, dk = nt / half;
+  const int k0 = tid / half, kc0 = tid % half;
 
   int sweep = 0;
   while (!bad_input && sweep < max_sweeps) {
-    if (tid == 0) s_flag[0] = 0;
-    __syncthreads();
+    bool rotated = false, any = false;
     for (int r = 0; r < m - 1; ++r) {
-      // the round's rotations, one thread a pair
-      for (int k = tid; k < half; k += blockDim.x) {
+      for (int k = tid; k < half; k += nt) {
         int p, q;
         pair_of(r, k, m, p, q);
-        int rot_q = -1;
-        if (q < n) {
-          const T app = A[p * ld + p], aqq = A[q * ld + q], apq = A[p * ld + q];
-          if (fabs(apq) > u * sqrt(fabs(app) * fabs(aqq))) {
-            const T theta = (aqq - app) / (T(2) * apq);
-            const T sgn = theta >= T(0) ? T(1) : T(-1);
-            const T t = sgn / (fabs(theta) + sqrt(theta * theta + T(1)));
-            const T c = T(1) / sqrt(t * t + T(1));
-            s_c[k] = c;
-            s_s[k] = t * c;
-            s_t[k] = t;
-            s_app[k] = app;
-            s_aqq[k] = aqq;
-            s_apq[k] = apq;
-            rot_q = q;
-            s_flag[0] = 1;
-          }
+        T c, s, npp, nqq;
+        const bool rot = pair_params(A, ld, n, p, q, c, s, npp, nqq);
+        rotated |= rot;
+        s_c[k] = c;
+        s_s[k] = s;
+        s_npp[k] = npp;
+        s_nqq[k] = nqq;
+        s_pq[k] = pack(p, q, rot);
+      }
+      __syncthreads();
+      int k = k0, kc = kc0;
+      while (k < half) {
+        const int pqr = s_pq[k], pqc = s_pq[kc];
+        const bool rr = rot_of(pqr), rc = rot_of(pqc);
+        if (kc == k) {
+          if (rr)
+            diagonal_block(A, Vt, ld, p_of(pqr), q_of(pqr), s_c[k], s_s[k], s_npp[k], s_nqq[k]);
+        } else if (rr || rc) {
+          fused_block(A, Vt, ld, n, p_of(pqr), q_of(pqr), rr, s_c[k], s_s[k], p_of(pqc),
+                      q_of(pqc), rc, s_c[kc], s_s[kc]);
         }
-        s_p[k] = p;
-        s_q[k] = rot_q;
+        k += dk;
+        kc += dkc;
+        if (kc >= half) {
+          kc -= half;
+          ++k;
+        }
       }
-      __syncthreads();
-      // rows p and q of A and of V^T
-      for (int idx = tid; idx < half * n; idx += blockDim.x) {
-        const int k = idx / n, j = idx - k * n;
-        const int q = s_q[k];
-        if (q < 0) continue;
-        const int p = s_p[k];
-        const T c = s_c[k], s = s_s[k];
-        T x = A[p * ld + j], y = A[q * ld + j];
-        A[p * ld + j] = c * x - s * y;
-        A[q * ld + j] = s * x + c * y;
-        x = Vt[p * ld + j];
-        y = Vt[q * ld + j];
-        Vt[p * ld + j] = c * x - s * y;
-        Vt[q * ld + j] = s * x + c * y;
-      }
-      __syncthreads();
-      // columns p and q of A
-      for (int idx = tid; idx < n * half; idx += blockDim.x) {
-        const int i = idx / half, k = idx - i * half;
-        const int q = s_q[k];
-        if (q < 0) continue;
-        const int p = s_p[k];
-        const T c = s_c[k], s = s_s[k];
-        const T x = A[i * ld + p], y = A[i * ld + q];
-        A[i * ld + p] = c * x - s * y;
-        A[i * ld + q] = s * x + c * y;
-      }
-      __syncthreads();
-      // the rotated pairs' 2 x 2 blocks: diagonal by the t-formula, zero off it
-      for (int k = tid; k < half; k += blockDim.x) {
-        const int q = s_q[k];
-        if (q < 0) continue;
-        const int p = s_p[k];
-        const T t = s_t[k], apq = s_apq[k];
-        A[p * ld + p] = s_app[k] - t * apq;
-        A[q * ld + q] = s_aqq[k] + t * apq;
-        A[p * ld + q] = T(0);
-        A[q * ld + p] = T(0);
-      }
-      __syncthreads();
+      any = __syncthreads_or(rotated);
     }
     ++sweep;
-    const bool rotated = s_flag[0] != 0;
-    __syncthreads();             // every thread has read the flag before it is reset
-    if (!rotated) break;
+    if (!any) break;
   }
 
   // ascending order by rank, ties by index; NaN outputs for a bad problem
-  for (int i = tid; i < n; i += blockDim.x)
-    if (isnan(A[i * ld + i])) s_flag[2] = 1;
-  __syncthreads();
-  const bool bad = bad_input || s_flag[2] != 0;
-  for (int i = tid; i < n; i += blockDim.x) {
+  bool nan_here = false;
+  for (int i = tid; i < n; i += nt) nan_here |= isnan(A[i * ld + i]);
+  const bool bad = bad_input || __syncthreads_or(nan_here);
+  for (int i = tid; i < n; i += nt) {
     int rank = i;
     if (!bad) {
       const T li = A[i * ld + i];
@@ -233,52 +493,101 @@ jacobi_eigh_kernel(const T* __restrict__ P, T* __restrict__ w, T* __restrict__ V
   }
   __syncthreads();
   const T nan = qnan(T(0));
-  for (int c = tid; c < n; c += blockDim.x) {
+  for (int c = tid; c < n; c += nt) {
     const int i = s_inv[c];
     w[b * n + c] = bad ? nan : A[i * ld + i];
   }
   T* Vb = V + b * n * n;
-  for (int idx = tid; idx < n * n; idx += blockDim.x) {
+  for (int idx = tid; idx < n * n; idx += nt) {
     const int row = idx / n, c = idx - row * n;
     Vb[idx] = bad ? nan : Vt[s_inv[c] * ld + row];
   }
   if (tid == 0) sweeps[b] = bad_input ? 0 : sweep;
 }
 
+// Opt the kernel into smem bytes of dynamic shared memory and the SM's
+// largest shared-memory carveout; a CUDA error code.
+template <typename Kernel>
+int allow_smem(Kernel kernel, long long smem) {
+  if (smem > 48 * 1024) {
+    const int e = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            (int)smem);
+    if (e != 0) return e;
+  }
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+}
+
 template <typename T>
 int launch(const T* P, T* w, T* V, int* sweeps, T* work, int B, int n, int max_sweeps,
            void* stream) {
-  const int item = sizeof(T);
-  const long long smem = scratch_bytes(n, item) + (work == nullptr ? data_bytes(n, item) : 0);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        jacobi_eigh_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const Plan pl = plan_of(n, sizeof(T));
+  const int grid = (B + pl.problems - 1) / pl.problems;
+  if (pl.warp) {
+    const int e = allow_smem(jacobi_eigh_warp_kernel<T>, pl.smem);
+    if (e != 0) return e;
+    if (B > 0)
+      jacobi_eigh_warp_kernel<T><<<grid, pl.threads, (size_t)pl.smem, (cudaStream_t)stream>>>(
+          P, w, V, sweeps, B, n, max_sweeps, pl.smem / pl.problems);
+  } else {
+    const int e = allow_smem(jacobi_eigh_block_kernel<T>, pl.smem);
+    if (e != 0) return e;
+    if (B > 0)
+      jacobi_eigh_block_kernel<T><<<grid, pl.threads, (size_t)pl.smem, (cudaStream_t)stream>>>(
+          P, w, V, sweeps, work, n, max_sweeps, pl.layout);
   }
-  if (B > 0)
-    jacobi_eigh_kernel<T><<<B, threads_of(n), (size_t)smem, (cudaStream_t)stream>>>(
-        P, w, V, sweeps, work, n, max_sweeps);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int blocks_per_sm(int n) {
+  const Plan pl = plan_of(n, sizeof(T));
+  int blocks = 0, e;
+  if (pl.warp) {
+    e = allow_smem(jacobi_eigh_warp_kernel<T>, pl.smem);
+    if (e == 0)
+      e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, jacobi_eigh_warp_kernel<T>, pl.threads, (size_t)pl.smem);
+  } else {
+    e = allow_smem(jacobi_eigh_block_kernel<T>, pl.smem);
+    if (e == 0)
+      e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, jacobi_eigh_block_kernel<T>, pl.threads, (size_t)pl.smem);
+  }
+  return e != 0 ? -e : blocks;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The launch at size n for items of `item` bytes (4 or 8): threads per
-// block, dynamic shared memory per block (A and V^T included where they fit
-// the opt-in), the kernel's __launch_bounds__.
-void dq_jacobi_eigh_plan(int n, int item, int* threads, long long* smem, int* bound) {
-  *threads = threads_of(n);
-  *smem = scratch_bytes(n, item) + (in_shared(n, item) ? data_bytes(n, item) : 0);
-  *bound = kBound;
+// The launch at size n for items of `item` bytes (4 or 8): whether one warp
+// works on a problem, problems a block, threads a block, dynamic shared
+// memory a block, the kernel's __launch_bounds__ and where A and V^T sit
+// (0 shared memory, 1 V^T in the workspace, 2 both there).
+void dq_jacobi_eigh_plan(int n, int item, int* warp, int* problems, int* threads,
+                         long long* smem, int* bound, int* layout) {
+  const Plan pl = plan_of(n, item);
+  *warp = pl.warp;
+  *problems = pl.problems;
+  *threads = pl.threads;
+  *smem = pl.smem;
+  *bound = pl.bound;
+  *layout = pl.layout;
+}
+
+// Blocks of the plan at size n that one SM of the current card holds, from
+// the occupancy calculator after the launch's attributes are set; a negated
+// CUDA error code on failure.
+int dq_jacobi_eigh_blocks_per_sm(int n, int item) {
+  return item == 8 ? blocks_per_sm<double>(n) : blocks_per_sm<float>(n);
 }
 
 // Launch E1 on `stream` for B problems of size n: P and V (B, n, n)
-// row-major, w (B, n), sweeps (B,) int32; `work` is null where A and V^T fit
-// shared memory (in_shared), else a (B, 2 n (n | 1)) workspace. All device
-// pointers to contiguous memory allocated by the caller. Returns
-// cudaGetLastError().
+// row-major, w (B, n), sweeps (B,) int32; `work` is null where the plan keeps
+// A and V^T in shared memory, else a (B, e) workspace, e = n (n | 1) where
+// only V^T is there and 2 n (n | 1) where both are. All device pointers to
+// contiguous memory allocated by the caller. Returns cudaGetLastError().
 int dq_jacobi_eigh_f32(const float* P, float* w, float* V, int* sweeps, float* work, int B,
                        int n, int max_sweeps, void* stream) {
   return launch<float>(P, w, V, sweeps, work, B, n, max_sweeps, stream);

@@ -7,8 +7,9 @@ on the card, in place of the JAX package's ``jnp.linalg.eigh``
 program. It is no Pallas kernel's port: ``torch.linalg.eigh`` checks its
 info on the host, so it cannot be recorded in a CUDA graph, and cuSOLVER's
 batched Jacobi stops at n = 32. On a CUDA tensor it launches
-``kernels/csrc/jacobi_eigh.cu`` (one block a problem; see the note at the
-top of that file) or raises; on a CPU tensor it runs ``jacobi_eigh_plain``.
+``kernels/csrc/jacobi_eigh.cu`` (a round one fused pass over 2 x 2 blocks;
+one warp a problem at N <= 32, one block above; see the note at the top of
+that file) or raises; on a CPU tensor it runs ``jacobi_eigh_plain``.
 There is no fallback from one to the other.
 
 The algorithm, the same in both (so that they round alike: the kernel is
@@ -43,14 +44,16 @@ reads (``solve_shifted`` and ``Factorization.lmax`` do not depend on them).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["MAX_SWEEPS", "eigh_cuda", "in_shared", "jacobi_eigh_plain", "launch_plan",
-           "round_pairs", "smem_bytes"]
+__all__ = ["MAX_SWEEPS", "Plan", "a_in_shared", "block_map", "eigh_cuda", "in_shared",
+           "jacobi_eigh_plain", "launch_plan", "pair_of", "planned_problems_per_sm", "round_pairs",
+           "workspace_elems"]
 
 # the most sweeps a problem runs (passed to the kernel). The threshold test
 # stops bench.py's problems after 7.4 sweeps on average at N = 24 in float32
@@ -58,8 +61,16 @@ __all__ = ["MAX_SWEEPS", "eigh_cuda", "in_shared", "jacobi_eigh_plain", "launch_
 # (``chip_smoke.py`` phase 2p on an H100); 30 only bounds a problem that
 # would not settle
 MAX_SWEEPS = 30
-BOUND = 256          # csrc/jacobi_eigh.cu's kBound: __launch_bounds__
 _ROUNDOFF = {torch.float32: 2.0 ** -24, torch.float64: 2.0 ** -53}
+
+
+def pair_of(r: int, k: int, m: int) -> tuple[int, int]:
+    """Pair k of round r at the even size m, (p, q) with p < q, as
+    csrc/jacobi_eigh.cu's ``pair_of``: round r pairs i and j where i + j = 2r
+    (mod m - 1), and r with m - 1; a q at N or above is the dummy of an odd
+    N."""
+    a, b = (r, m - 1) if k == 0 else ((r + k) % (m - 1), (r - k) % (m - 1))
+    return min(a, b), max(a, b)
 
 
 def round_pairs(n: int) -> list[tuple[list[int], list[int]]]:
@@ -69,14 +80,8 @@ def round_pairs(n: int) -> list[tuple[list[int], list[int]]]:
     m = n + (n & 1)
     rounds = []
     for r in range(m - 1):
-        ps, qs = [], []
-        for k in range(m // 2):
-            a, b = (r, m - 1) if k == 0 else ((r + k) % (m - 1), (r - k) % (m - 1))
-            p, q = min(a, b), max(a, b)
-            if q < n:
-                ps.append(p)
-                qs.append(q)
-        rounds.append((ps, qs))
+        pairs = [pair_of(r, k, m) for k in range(m // 2)]
+        rounds.append(([p for p, q in pairs if q < n], [q for p, q in pairs if q < n]))
     return rounds
 
 
@@ -180,13 +185,37 @@ def _lib():
         for fn in (lib.dq_jacobi_eigh_f32, lib.dq_jacobi_eigh_f64):
             fn.argtypes = [vp] * 5 + [ctypes.c_int] * 3 + [vp]
             fn.restype = ctypes.c_int
-        lib.dq_jacobi_eigh_plan.argtypes = [ctypes.c_int, ctypes.c_int,
-                                            ctypes.POINTER(ctypes.c_int),
-                                            ctypes.POINTER(ctypes.c_longlong),
-                                            ctypes.POINTER(ctypes.c_int)]
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.dq_jacobi_eigh_plan.argtypes = [ctypes.c_int, ctypes.c_int, ip, ip, ip,
+                                            ctypes.POINTER(ctypes.c_longlong), ip, ip]
         lib.dq_jacobi_eigh_plan.restype = None
+        lib.dq_jacobi_eigh_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dq_jacobi_eigh_blocks_per_sm.restype = ctypes.c_int
         lib._dq_typed = True
     return lib
+
+
+# csrc/jacobi_eigh.cu's constants
+WARP_MAX_N = 32        # one warp a problem to N = 32, one block a problem above
+WARP_BOUND = 256       # the warp kernel's __launch_bounds__ (8 problems a block at most) ...
+WARP_REGS = 64         # ... with 4 such blocks an SM: at most 64 registers a thread
+BLOCK_BOUND = 1024     # the block-wide kernel's __launch_bounds__ (64 registers a thread)
+BLOCKS_PER_THREAD = 4  # 2 x 2 blocks a thread a round, block-wide
+SMEM_PER_SM = 233472   # shared memory of a Hopper SM
+SMEM_RESERVED = 1024   # the runtime's share of it per block
+REGS_PER_SM = 65536
+# where a block-wide problem keeps A and V^T: the number of them in the workspace
+SHARED, VT_GLOBAL, GLOBAL = 0, 1, 2
+
+
+class Plan(NamedTuple):
+    """A launch of E1 at one size and dtype (csrc/jacobi_eigh.cu's plan_of)."""
+    warp: int        # 1: one warp a problem (N <= 32); 0: one block a problem
+    problems: int    # problems a block
+    threads: int     # threads a block
+    smem: int        # dynamic shared memory a block, bytes
+    bound: int       # the kernel's __launch_bounds__
+    layout: int      # SHARED, VT_GLOBAL or GLOBAL
 
 
 def _ld(n: int) -> int:
@@ -199,50 +228,117 @@ def _itemsize(dtype: torch.dtype) -> int:
     return 8 if dtype == torch.float64 else 4
 
 
-def workspace_elems(n: int) -> int:
-    """Elements of one problem's A and V^T (csrc/jacobi_eigh.cu's layout)."""
-    return 2 * n * _ld(n)
+def _plane_bytes(n: int, dtype: torch.dtype) -> int:
+    """Bytes of one problem's A (or V^T)."""
+    return _itemsize(dtype) * n * _ld(n)
 
 
 def _scratch_bytes(n: int, dtype: torch.dtype) -> int:
-    """A block's per-pair (c, s, t, a_pp, a_qq, a_pq; p, q) and per-index
-    (ranks) scratch and four flags (csrc/jacobi_eigh.cu's scratch_bytes)."""
+    """A block-wide problem's per-pair (c, s, new a_pp, new a_qq; packed p,
+    q, rotates) and per-index (ranks) scratch (csrc/jacobi_eigh.cu's
+    scratch_bytes)."""
     pairs = (n + 1) // 2
-    return _itemsize(dtype) * 6 * pairs + 4 * (2 * pairs + n + 4)
+    return _itemsize(dtype) * 4 * pairs + 4 * (pairs + n)
 
 
 def in_shared(n: int, dtype: torch.dtype) -> bool:
-    """Whether A and V^T sit in shared memory at size n: where all of a
-    block's shared memory fits what a Hopper block may opt into (232,448
-    bytes: float32 to N = 169, float64 to N = 119); past that bound the same
-    kernel works on a global-memory workspace."""
-    return (_itemsize(dtype) * workspace_elems(n) + _scratch_bytes(n, dtype)
-            <= _build.HOPPER_SMEM_OPTIN)
+    """Whether A and V^T both sit in shared memory at size n: where they and
+    the scratch fit what a Hopper block may opt into (232,448 bytes: float32
+    to N = 169, float64 to N = 119)."""
+    return 2 * _plane_bytes(n, dtype) + _scratch_bytes(n, dtype) <= _build.HOPPER_SMEM_OPTIN
 
 
-def smem_bytes(n: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block at size n (as csrc/jacobi_eigh.cu's
-    dq_jacobi_eigh_plan computes it): the scratch, and A and V^T where
-    ``in_shared``."""
-    data = _itemsize(dtype) * workspace_elems(n) if in_shared(n, dtype) else 0
-    return data + _scratch_bytes(n, dtype)
+def a_in_shared(n: int, dtype: torch.dtype) -> bool:
+    """Whether A alone fits shared memory at size n (float32 to N = 239,
+    float64 to N = 169): past ``in_shared`` V^T goes to the global
+    workspace, past this bound A too."""
+    return _plane_bytes(n, dtype) + _scratch_bytes(n, dtype) <= _build.HOPPER_SMEM_OPTIN
 
 
-def launch_plan(n: int, dtype: torch.dtype) -> tuple[int, int, int]:
-    """(threads per block, dynamic shared memory per block, the kernel's
-    __launch_bounds__) at size n, as csrc/jacobi_eigh.cu's
-    dq_jacobi_eigh_plan computes them: 64 threads to N = 16, 128 to N = 48,
-    256 above."""
-    threads = 64 if n <= 16 else 128 if n <= 48 else 256
-    return threads, smem_bytes(n, dtype), BOUND
+def _warp_problem_bytes(n: int, dtype: torch.dtype) -> int:
+    """One problem's shared memory in the warp kernel: A, V^T and the ranks,
+    rounded up to 16 bytes."""
+    return (2 * _plane_bytes(n, dtype) + 4 * n + 15) // 16 * 16
 
 
-def c_launch_plan(n: int, dtype: torch.dtype) -> tuple[int, int, int]:
+def _warp_problems_per_sm(problems: int, per: int) -> int:
+    """Problems an SM holds in the warp kernel with ``problems`` a block of
+    ``per`` shared bytes each: by its shared memory (less the runtime's
+    share a block), its registers at ``WARP_REGS`` a thread, 32 blocks and
+    64 warps."""
+    blocks = min(SMEM_PER_SM // (problems * per + SMEM_RESERVED),
+                 REGS_PER_SM // (WARP_REGS * 32 * problems), 32, 64 // problems)
+    return blocks * problems
+
+
+def planned_problems_per_sm(n: int, dtype: torch.dtype) -> int | None:
+    """The problems an SM holds by the count that sized the one-warp plan
+    at size n (None for a block-wide plan, which is sized by its work)."""
+    plan = launch_plan(n, dtype)
+    return _warp_problems_per_sm(plan.problems, plan.smem // plan.problems) if plan.warp else None
+
+
+def launch_plan(n: int, dtype: torch.dtype) -> Plan:
+    """E1's launch at size n, as csrc/jacobi_eigh.cu's dq_jacobi_eigh_plan
+    computes it. N <= 32: one warp a problem, the fewest problems a block
+    that put the most problems on an SM (its 233,472 bytes of shared memory
+    less 1,024 a block, 64 registers a thread, 32 blocks, 64 warps). N > 32:
+    one block a problem, a warp for every 4 x 32 of the pass's (N/2)^2 2 x 2
+    blocks, at most 1024 threads; A and V^T where ``in_shared`` and
+    ``a_in_shared`` put them."""
+    if n <= WARP_MAX_N:
+        per = _warp_problem_bytes(n, dtype)
+        best = 1
+        for w in range(2, WARP_BOUND // 32 + 1):
+            if _warp_problems_per_sm(w, per) > _warp_problems_per_sm(best, per):
+                best = w
+        return Plan(1, best, 32 * best, best * per, WARP_BOUND, SHARED)
+    half = (n + 1) // 2
+    per_warp = 32 * BLOCKS_PER_THREAD
+    threads = min(-(-half * half // per_warp) * 32, BLOCK_BOUND)
+    layout = SHARED if in_shared(n, dtype) else VT_GLOBAL if a_in_shared(n, dtype) else GLOBAL
+    # the layout counts the planes (A, V^T) in the workspace: 2 - layout in shared memory
+    return Plan(0, 1, threads, _scratch_bytes(n, dtype) + (2 - layout) * _plane_bytes(n, dtype),
+                BLOCK_BOUND, layout)
+
+
+def workspace_elems(n: int, dtype: torch.dtype) -> int:
+    """Elements of one problem's global workspace: none where A and V^T sit
+    in shared memory, V^T's n (n | 1) where A alone does, A's and V^T's
+    past that."""
+    return launch_plan(n, dtype).layout * n * _ld(n)
+
+
+def block_map(n: int, threads: int, warp: bool) -> list[list[tuple[int, int]]]:
+    """The fused pass's 2 x 2 blocks of one round, thread by thread, as
+    csrc/jacobi_eigh.cu walks them: [(row pair k, column pair k')] for each
+    of ``threads`` threads (the lanes of one warp where ``warp``). Warp: lane
+    l takes column pair l mod half, whose parameters it computes, and row
+    pairs l // half + g j < half, g = 32 // half (lanes with l // half >= g
+    none). Block-wide: block i is row pair i // half, column pair i mod
+    half, thread t taking i = t, t + threads, ..."""
+    half = (n + 1) // 2
+    if warp:
+        g = 32 // half
+        return [[(k, t % half) for k in range(t // half, half, g)] if t // half < g else []
+                for t in range(threads)]
+    return [[(i // half, i % half) for i in range(t, half * half, threads)]
+            for t in range(threads)]
+
+
+def c_launch_plan(n: int, dtype: torch.dtype) -> Plan:
     """``launch_plan`` as the built library computes it (needs nvcc)."""
     lib = _lib()
-    out = [ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()]
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int(),
+           ctypes.c_int()]
     lib.dq_jacobi_eigh_plan(n, _itemsize(dtype), *map(ctypes.byref, out))
-    return tuple(o.value for o in out)
+    return Plan(*(o.value for o in out))
+
+
+def c_blocks_per_sm(n: int, dtype: torch.dtype) -> int:
+    """Blocks of E1's plan at size n that one SM of the current card holds,
+    from CUDA's occupancy calculator (needs nvcc and a card)."""
+    return _lib().dq_jacobi_eigh_blocks_per_sm(n, _itemsize(dtype))
 
 
 def eigh_cuda(P: torch.Tensor, stats: bool = False):
@@ -265,15 +361,15 @@ def eigh_cuda(P: torch.Tensor, stats: bool = False):
         raise ValueError(f"P must lie on a CUDA device or the CPU, got {P.device}")
     P = P.contiguous()
     B, n, _ = P.shape
-    threads, smem, bound = launch_plan(n, P.dtype)
-    _build.check_geometry(threads, smem, bound,
+    plan = launch_plan(n, P.dtype)
+    _build.check_geometry(plan.threads, plan.smem, plan.bound,
                           torch.cuda.get_device_properties(P.device).shared_memory_per_block_optin)
     lib = _lib()
     w = torch.empty((B, n), dtype=P.dtype, device=P.device)
     V = torch.empty_like(P)
     sweeps = torch.empty(B, dtype=torch.int32, device=P.device)
-    work = (None if in_shared(n, P.dtype) else
-            torch.empty((B, workspace_elems(n)), dtype=P.dtype, device=P.device))
+    work = (None if plan.layout == SHARED else
+            torch.empty((B, workspace_elems(n, P.dtype)), dtype=P.dtype, device=P.device))
     fn = lib.dq_jacobi_eigh_f64 if P.dtype == torch.float64 else lib.dq_jacobi_eigh_f32
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream

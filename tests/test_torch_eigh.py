@@ -10,8 +10,11 @@
     that problem alone and raises nothing;
   * the wrapper on CPU tensors is the plain version and counts no launch;
     the round-robin order pairs every index with every other once a sweep;
-    the shared-memory bound of the launch plan (float32 to N = 169, float64
-    to N = 119, past it the global workspace);
+    the fused pass's block map covers every entry of A once a round; the
+    launch plan (one warp a problem to N = 32 and the problems a block, the
+    threads above, each plan's shared memory; A and V^T in shared memory to
+    N = 169 float32 / 119 float64, A alone to 239 / 169, then the global
+    workspace);
   * ``ops/linalg.py::factorize`` keeps LAPACK's ``torch.linalg.eigh`` on
     CPU tensors;
   * the engine twin: ``tests/test_torch_engine.py::test_engine_matches_jax``'s
@@ -125,14 +128,61 @@ def test_round_robin_pairs_every_index_once_a_sweep(n):
     assert sorted(seen) == list(itertools.combinations(range(n), 2))
 
 
-def test_launch_plan_keeps_a_and_v_in_shared_memory_to_the_opt_in():
-    for dtype, last in ((torch.float32, 169), (torch.float64, 119)):
-        assert E.in_shared(last, dtype) and not E.in_shared(last + 1, dtype)
-        assert E.smem_bytes(last, dtype) <= _build.HOPPER_SMEM_OPTIN
-        # past the bound only the per-pair scratch stays in shared memory
-        assert E.smem_bytes(last + 1, dtype) < 8 * 1024
-    assert E.launch_plan(24, torch.float32)[0] == 128 and E.launch_plan(130, torch.float64)[0] \
-        == 256
+# dtype: (last N with A and V^T in shared memory, last N with A there,
+# problems a block at N = 24 and N = 32 in the one-warp kernel)
+PLAN_PINS = {torch.float32: (169, 239, 1, 5), torch.float64: (119, 169, 2, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_launch_plan_keeps_a_and_v_in_shared_memory_to_the_opt_in(dtype):
+    both, a_only, w24, w32 = PLAN_PINS[dtype]
+    item = 8 if dtype == torch.float64 else 4
+    plane = lambda n: item * n * (n | 1)                                   # noqa: E731
+    scratch = lambda n: item * 4 * ((n + 1) // 2) + 4 * ((n + 1) // 2 + n)  # noqa: E731
+    # N <= 32: one warp a problem, A, V^T and the ranks of each in shared memory
+    for n, problems in ((24, w24), (32, w32)):
+        plan = E.launch_plan(n, dtype)
+        assert (plan.warp, plan.problems, plan.threads, plan.bound, plan.layout) == \
+            (1, problems, 32 * problems, 256, E.SHARED)
+        assert plan.smem == problems * ((2 * plane(n) + 4 * n + 15) // 16 * 16)
+        assert plan.smem <= _build.HOPPER_SMEM_OPTIN
+    # N > 32: one block a problem, a warp for every 128 of the (N/2)^2 blocks
+    assert E.launch_plan(33, dtype)[:3] == (0, 1, 96)
+    assert E.launch_plan(48, dtype).threads == 160 and E.launch_plan(130, dtype).threads == 1024
+    # A and V^T to the first bound, then A alone (V^T in the workspace), then
+    # neither; each plan's shared memory by the formula, within the opt-in
+    assert E.in_shared(both, dtype) and not E.in_shared(both + 1, dtype)
+    assert E.a_in_shared(a_only, dtype) and not E.a_in_shared(a_only + 1, dtype)
+    for n, layout, planes, work in ((both, E.SHARED, 2, 0), (both + 1, E.VT_GLOBAL, 1, 1),
+                                    (a_only, E.VT_GLOBAL, 1, 1), (a_only + 1, E.GLOBAL, 0, 2)):
+        plan = E.launch_plan(n, dtype)
+        assert (plan.warp, plan.layout) == (0, layout)
+        assert plan.smem == scratch(n) + planes * plane(n) <= _build.HOPPER_SMEM_OPTIN
+        assert E.workspace_elems(n, dtype) == work * n * (n | 1)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 9, 24, 25, 33, 48])
+def test_fused_pass_covers_every_entry_of_a_once_a_round(n):
+    """The fused pass's block map (the kernel's plan at n: one warp a
+    problem to N = 32, block-wide above): each round, every entry of A (and
+    of V^T) lies in exactly one thread's 2 x 2 blocks, and in the one-warp
+    kernel every block's column pair is its lane's own, the pair whose
+    parameters that lane computed (so pair k's diagonal block takes them
+    from registers)."""
+    plan = E.launch_plan(n, torch.float32)
+    m = n + (n & 1)
+    lanes = E.block_map(n, 32 if plan.warp else plan.threads, bool(plan.warp))
+    for r in range(m - 1):
+        pairs = [E.pair_of(r, k, m) for k in range(m // 2)]
+        seen = np.zeros((n, n), dtype=int)
+        for t, blocks in enumerate(lanes):
+            for k, kc in blocks:
+                rows = [i for i in pairs[k] if i < n]
+                cols = [j for j in pairs[kc] if j < n]
+                seen[np.ix_(rows, cols)] += 1
+                if plan.warp:
+                    assert kc == t % ((n + 1) // 2)
+        assert (seen == 1).all()
 
 
 def test_factorize_keeps_lapack_on_the_cpu(monkeypatch):

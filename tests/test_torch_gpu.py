@@ -153,12 +153,14 @@ def test_float64_flagship_step_is_staged_bit_for_bit(card, monkeypatch):
 
 
 @pytest.mark.parametrize("n, dtype", [(24, torch.float32), (24, torch.float64),
-                                      (7, torch.float32), (130, torch.float64)])
+                                      (7, torch.float32), (33, torch.float32),
+                                      (130, torch.float64)])
 def test_jacobi_eigh_is_its_plain_version_bit_for_bit(card, n, dtype):
-    """E1 against its plain version on the card (at N=130 in float64 past
-    the shared-memory bound, on its global workspace): eigenvalues,
-    eigenvectors and sweeps bit for bit, eigenvalues ascending, and V
-    orthonormal and V diag(lam) V^T = P within 50 N u."""
+    """E1 against its plain version on the card (one warp a problem at N <=
+    32, block-wide at N=33; at N=130 in float64 V^T on its global
+    workspace): eigenvalues, eigenvectors and sweeps bit for bit,
+    eigenvalues ascending, and V orthonormal and V diag(lam) V^T = P within
+    50 N u."""
     from diffqcqp_tpu_torch.kernels.eigh_cuda import eigh_cuda, jacobi_eigh_plain
 
     P = torch.tensor(_flagship(16, (n + 1) // 2)[0][:, :n, :n], dtype=dtype, device=card)
