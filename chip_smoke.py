@@ -17,6 +17,10 @@
                                      # result line
     python3 chip_smoke.py eager ROOT # the port at ROOT times the engine's eager
                                      # paths (``eager_run``); no result line
+    python3 chip_smoke.py k1 [ROOT]  # K1 alone from the port at ROOT (this
+                                     # checkout by default): its plans, phase
+                                     # 2's K1 points and its times (``k1_run``);
+                                     # no result line
 
 Builds the port's CUDA kernels from ``diffqcqp_tpu_torch/kernels/csrc`` and
 drives the port's paths: the friction-cone QCQP forward solve and the
@@ -51,15 +55,22 @@ block-wide path). Phases, each of which fails the run if its check fails:
      or K4 takes more than one; K4's blocks per SM (each kind) at the
      block-wide sizes N=48, 96 and 168 and the waves at B=2048;
   2. kernel K1 (``admm_solve_cuda``) against its plain PyTorch version
-     (``admm_solve_plain``) on the same card inputs: at the flagship point,
-     for all four prox kinds and the rho_sync=False, primal_check=False,
-     max_iter and warm_start_dual branches at B=256, N=12, and past one
-     warp at N=96, B=512 (three warps per block) and N=34, B=512 (two); K1
-     iterates against an explicit inverse at every n. Bars: max |dl| <= 2e-5,
-     per-problem |d iterations| <= 1, equal ``converged``; with the count of
-     problems whose l and iterations are equal bit for bit, and each
-     solve's iterations and factorisations per problem (the first and one
-     per rho change, counted by the plain version) at the flagship;
+     (``admm_solve_plain``) on the same card inputs (``phase_2_k1``): at the
+     flagship point; for all four prox kinds and the rho_sync=False,
+     primal_check=False, max_iter (2 and 0) and warm_start_dual branches at
+     B=256, N = 8, 12 and 16 (four, two and two problems a warp); at every
+     one-warp edge ``K1_EDGE_NS`` (n = 1 to 33); on ragged batches (B=1027
+     at N=8, B=1025 at N=16); at config 5's size (B=65,536 N=8, one launch);
+     and past one warp at N=96, B=512 (three warps per block) and N=34,
+     B=512 (two); K1 iterates against an explicit inverse at every n. Bar:
+     bit for bit, every problem's l, iterations, ``converged`` and
+     ``stalled`` equal (the printed line also gives max |dl| and the
+     iterations); each solve's iterations and factorisations per problem
+     (the first and one per rho change, counted by the plain version) at
+     the flagship and at config 5's size; phase 1 prints K1's launch plans
+     at n = 1-33 (wrapper against library), each one-warp instance's
+     registers, spills and problems an SM, and fails if the flagship's
+     instance spills or takes two waves at B=4096 (``k1_occupancy``);
   2b. kernel K2 (``qcqp_kkt_bwd_fused_cuda``) against its plain version
      (``qcqp_kkt_bwd_fused_plain``) on the same card inputs, with l from K1
      and the cotangents g = 2 l and a random g: at the flagship point, at
@@ -229,18 +240,20 @@ block-wide path). Phases, each of which fails the run if its check fails:
      decelerates at ~mu g and stops;
   4. timing at the flagship point: K1, K2, the forward entry point and the
      forward+backward step per call over back-to-back calls with CUDA events
-     (warm-up, median of samples; K1's is the ``ms`` reported),
+     (warm-up, median of samples),
      device times per launch from torch.profiler (K1's set-up alone,
      max_iter=0) and the step's device time by kernel, the plain versions,
      and the library call beside K2 (``torch.linalg.solve`` of the
-     assembled float32 system); then at each QP-family point K4 (CUDA events
+     assembled float32 system); K1 at config 5's size (B=65,536 N=8, phase
+     2's problems: profiler and events, its plain version's time in phase 2,
+     its bound); then at each QP-family point K4 (CUDA events
      over 20 back-to-back calls and torch.profiler), its plain version, its
      bound, ``torch.linalg.solve`` of the assembled float32 system and the
      class's step with its device time by kernel, and K4 at phase 2c's B=512
      N=96 cases (profiler and events). K4's ``ms`` is its device
      time per launch from torch.profiler: back to back, its wrapper's host
      work outlasts the kernel, so the CUDA-event time measures the host (so
-     is K2's since its one-warp redesign); K5
+     are K2's and K1's since their one-warp redesigns); K5
      at each phase-2d point (profiler and events), its plain version, its
      bound and ``torch.linalg.solve`` of the same system; K6 at N=96 and at
      the flagship beside K2 on the same problems and ``torch.linalg.solve``
@@ -515,14 +528,19 @@ def rand_g(l):
     return cuda(np.random.default_rng(3).standard_normal(tuple(l.shape)).astype(np.float32))[0]
 
 
-def compare(name, out_k, out_p, tol=2e-5):
-    """K1 against its plain version; fails on the bars, returns max |dl|."""
+def compare(name, out_k, out_p, tol=2e-5, exact=False):
+    """K1 against its plain version; fails on the bars, returns max |dl|.
+    With ``exact`` the bar is bit for bit: every problem's l, iterations,
+    ``converged`` and ``stalled`` equal."""
     (lk, sk), (lp, sp) = out_k, out_p
     dl = float((lk - lp).abs().max())
     dit = (sk.iterations - sp.iterations).abs()
     conv_eq = bool((sk.converged == sp.converged).all())
     stall_eq = int((sk.stalled != sp.stalled).sum())
     same = int(((lk == lp).all(dim=-1) & (sk.iterations == sp.iterations)).sum())
+    if exact and not (same == dit.numel() and conv_eq and stall_eq == 0):
+        log(f"  {name}: max|dl|={dl:.3e} problems bit for bit equal {same}/{dit.numel()}")
+        raise AssertionError(f"K1 is not bit for bit its plain version: {name}")
     log(f"  {name}: max|dl|={dl:.3e} problems bit for bit equal {same}/{dit.numel()} "
         f"max|d iters|={int(dit.max())} "
         f"problems with |d iters|>1: {int((dit > 1).sum())}/{dit.numel()} "
@@ -533,6 +551,127 @@ def compare(name, out_k, out_p, tol=2e-5):
     if not (dl <= tol and int(dit.max()) <= 1 and conv_eq and torch.isfinite(lk).all()):
         raise AssertionError(f"K1 disagrees with its plain version: {name}")
     return dl
+
+
+# phase 2's one-warp edges: each instance's ends (n = 8 | 9, 16 | 17, 24 |
+# 25, 32 | 33: four, two, one problem a warp, then block-wide) and n = 1, 2,
+# 7, 15
+K1_EDGE_NS = (1, 2, 7, 8, 9, 15, 16, 17, 24, 25, 32, 33)
+
+
+def k1_branch_inputs(b, n, seed):
+    """(P, q, lo, hi, v_sign, radius), float32 on the card, drawn in this
+    order from one rng: P = S S^T + 0.1 I (S ~ N(0, 1 / n)), q ~ N(0, 1), the
+    box bounds -U(0.2, 0.7) and U(0.2, 0.7), signs, radii U(0.05, 0.55)."""
+    rng = np.random.default_rng(seed)
+    S = (rng.standard_normal((b, n, n)) / np.sqrt(n)).astype(np.float32)
+    return cuda(S @ S.transpose(0, 2, 1) + 0.1 * np.eye(n, dtype=np.float32),
+                rng.standard_normal((b, n)).astype(np.float32),
+                -(rng.random((b, n)) * 0.5 + 0.2).astype(np.float32),
+                (rng.random((b, n)) * 0.5 + 0.2).astype(np.float32),
+                np.sign(rng.standard_normal((b, n))).astype(np.float32),
+                (rng.random((b, n // 2)) * 0.5 + 0.05).astype(np.float32))
+
+
+def phase_2_k1(dqt, cfg, flag, gate=True):
+    """Phase 2: K1 (``admm_solve_cuda``) against its plain version
+    (``admm_solve_plain``) on the same card inputs, bit for bit
+    (``compare(exact=gate)``: every problem's l, iterations, ``converged``
+    and ``stalled`` equal): the flagship (``flag``, B=4096 N=24, the disk);
+    the prox kinds and branches at B=256, N = 8, 12 and 16 (four, two
+    and two problems a warp: ``k1_branch_inputs``, seeds 8,
+    1, 16) at eps=1e-5 (the QP kinds) and 1e-6 (the disk): non-negative,
+    box, signed box, disk, rho_sync=False (the per-problem cpt gate),
+    primal_check=False (the dual-only rule), max_iter=2 and 0, and
+    warm_start_dual from a converged primal; every one-warp edge
+    ``K1_EDGE_NS`` at B=256, the disk at the flagship's schedule and the
+    non-negative QP; ragged batches, B=1027 at N=8 and B=1025 at N=16 (a
+    last warp with padding); config 5's size, examples_torch/
+    sharded_batch.py's 65,536 problems at N=8 in one launch (eps=1e-7,
+    max_iter=1000); past one warp, B=512 at N=96 (three warps) and N=34.
+    Returns {"flagship": (K1's output, inverses a problem, max |dl|),
+    "config 5": (args, K1's output, the plain version's output, inverses a
+    problem, the plain version's ms), "N=96": (P, q, l_n, mu, K1's l)}."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import (
+        PROX_BOX, PROX_DISK, PROX_NONNEG, PROX_SIGNED_BOX, admm_solve_cuda, admm_solve_plain,
+    )
+
+    out = {}
+
+    def held(name, a, factors=None):
+        out_k = admm_solve_cuda(*a)
+        t0 = time.perf_counter()
+        out_p = admm_solve_plain(*a, factors=factors)
+        torch.cuda.synchronize()
+        ms_p = (time.perf_counter() - t0) * 1e3
+        return out_k, out_p, compare(name, out_k, out_p, exact=gate), ms_p
+
+    P, q, l_n, mu = flag
+    args = (P, q, torch.zeros_like(q), PROX_DISK, ((l_n * mu).contiguous(),), cfg, True, False)
+    factors = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    out_k, out_p, err, _ = held("flagship B=4096 N=24 disk", args, factors)
+    counts("flagship B=4096 N=24", out_p[1].iterations, factors)
+    out["flagship"] = (out_k, factors, err)
+
+    # eps=1e-5: the QP-family problems here certify on eps before their
+    # iterates reach the float32 noise floor. Below it (eps=1e-6) most of them
+    # stop through the 8-ulp stall test, whose first passing iteration moves
+    # with rounding order (kernel FMAs vs eager ops): up to 4 iterations apart
+    # on an H100, which measures rounding, not the algorithm.
+    qp_cfg = dqt.QP_DEFAULTS.replace(eps=1e-5, max_iter=3000)
+    for n, seed in ((8, 8), (12, 1), (16, 16)):
+        b = 256
+        Pk, qk, lo, hi, vs, rad = k1_branch_inputs(b, n, seed)
+        wsk = torch.zeros_like(qk)
+        for name, kind, pa, c, qstop in [
+            ("nonneg", PROX_NONNEG, (), qp_cfg, False),
+            ("box", PROX_BOX, (lo, hi), qp_cfg, False),
+            ("signed box", PROX_SIGNED_BOX, (lo, hi, vs), qp_cfg, False),
+            ("disk", PROX_DISK, (rad,), cfg.replace(eps=1e-6), True),
+            # the kernel's other branches: the per-problem cpt gate, the
+            # dual-only stopping rule, and a max_iter cap mid-solve and at 0
+            ("nonneg rho_sync=False", PROX_NONNEG, (), qp_cfg.replace(rho_sync=False), False),
+            ("box primal_check=False", PROX_BOX, (lo, hi), qp_cfg.replace(primal_check=False),
+             False),
+            ("disk max_iter=2", PROX_DISK, (rad,), cfg.replace(max_iter=2), True),
+            ("disk max_iter=0", PROX_DISK, (rad,), cfg.replace(max_iter=0), True),
+        ]:
+            held(f"{name} B={b} N={n}", (Pk, qk, wsk, kind, pa, c, qstop, not qstop))
+        # warm_start_dual from a converged primal: u0 = -(P ws + q)
+        l0, _ = admm_solve_plain(Pk, qk, wsk, PROX_NONNEG, (), qp_cfg)
+        held(f"nonneg warm_start_dual B={b} N={n}",
+             (Pk, qk, l0, PROX_NONNEG, (), qp_cfg.replace(warm_start_dual=True)))
+
+    for n in K1_EDGE_NS:
+        Pk, qk, _, _, _, rad = k1_branch_inputs(256, n, 40 + n)
+        wsk = torch.zeros_like(qk)
+        if n >= 2:
+            held(f"edge disk B=256 N={n}", (Pk, qk, wsk, PROX_DISK, (rad,), cfg, True, False))
+        held(f"edge nonneg B=256 N={n}", (Pk, qk, wsk, PROX_NONNEG, (), qp_cfg))
+
+    for b, n, seed in ((1027, 8, 5), (1025, 16, 6)):
+        Pk, qk, lo, hi, _, rad = k1_branch_inputs(b, n, seed)
+        wsk = torch.zeros_like(qk)
+        held(f"ragged disk B={b} N={n}", (Pk, qk, wsk, PROX_DISK, (rad,), cfg, True, False))
+        held(f"ragged box B={b} N={n}", (Pk, qk, wsk, PROX_BOX, (lo, hi), qp_cfg))
+
+    P5, q5, ln5, mu5 = sharded_example_problems(65536)
+    a5 = (P5, q5, torch.zeros_like(q5), PROX_DISK, ((ln5 * mu5).contiguous(),),
+          dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=1000), True, False)
+    factors5 = torch.zeros(q5.shape[0], dtype=torch.int64, device=q5.device)
+    out_k5, out_p5, _, ms_p5 = held("config 5's size B=65536 N=8 disk", a5, factors5)
+    counts("config 5's size B=65536 N=8", out_p5[1].iterations, factors5)
+    out["config 5"] = (a5, out_k5, out_p5, factors5, ms_p5)
+
+    Pb, qb, lnb, mub = cuda(*build_problems(512, 48, seed=2))
+    a = (Pb, qb, torch.zeros_like(qb), PROX_DISK, ((lnb * mub).contiguous(),), cfg, True, False)
+    out_kb, _, _, _ = held("disk B=512 N=96 (3 warps)", a)
+    out["N=96"] = (Pb, qb, lnb, mub, out_kb[0])
+    P17, q17, ln17, mu17 = cuda(*build_problems(512, 17, seed=15))
+    held("disk B=512 N=34 (2 warps)", (P17, q17, torch.zeros_like(q17), PROX_DISK,
+                                        ((ln17 * mu17).contiguous(),), cfg, True, False))
+    torch.cuda.synchronize()
+    return out
 
 
 def time_cuda(fn, reps, calls=1):
@@ -3313,6 +3452,47 @@ E1_LAYOUTS = ("A and V^T in shared memory", "A in shared memory, V^T in the work
               "A and V^T in the workspace")
 
 
+def k1_occupancy(sms, ptxas, gate=True):
+    """Phase 1: K1's launch plan (instance, problems a block, threads, shared
+    memory) at n = 1-33 as the wrapper and the built library compute it
+    (fails where they differ); for each one-warp instance its registers and
+    spills (``ptxas``, ptxas_summary's line) and problems an SM by the
+    occupancy calculator, with the waves at the main path's batches (the
+    flagship's B=4096 at N=24, config 5's B=65,536 at N=8); fails if the
+    flagship's instance spills or holds too few problems an SM for B=4096 in
+    one wave (with ``gate``; else it says so). A port without
+    ``launch_plan`` (before the one-warp instances) prints its blocks an SM
+    alone. Returns {n: problems an SM}."""
+    from diffqcqp_tpu_torch.kernels import admm_cuda as k1m
+
+    per_sm = {}
+    if not hasattr(k1m, "launch_plan"):
+        for n in (8, 16, 24, 32):
+            per_sm[n] = k1m.c_blocks_per_sm(n)
+        log(f"  K1 blocks (one problem each) an SM: {per_sm}")
+        return per_sm
+    plans = {n: (k1m.launch_plan(n), k1m.c_launch_plan(n)) for n in range(1, 34)}
+    log("  K1 launch plans (instance, problems a block, threads, smem bytes), wrapper = "
+        "library: " + ", ".join(f"n={n} {py}{'' if py == c else f' != {c}'}"
+                                for n, (py, c) in plans.items()))
+    if any(py != c for py, c in plans.values()):
+        raise AssertionError("K1's launch plan disagrees with the library's")
+    for n, b in ((8, 65536), (16, 4096), (24, B_FLAG), (32, 4096)):
+        inst, probs = plans[n][0][:2]
+        per_sm[n] = probs * k1m.c_blocks_per_sm(n)
+        m = re.search(rf"admm_kernel_warp\[{inst},\d+,\d+\]: (\d+) registers, (\d+) bytes", ptxas)
+        regs, spill = (m.group(1), m.group(2)) if m else ("?", "?")
+        log(f"  K1 one-warp instance {inst} ({probs} problem(s) a warp): {regs} registers, "
+            f"{spill} bytes spilled; {per_sm[n]} problems an SM (occupancy calculator); "
+            f"B={b} N={n}: {-(-b // max(per_sm[n] * sms, 1))} wave(s)")
+        if n == 24 and (spill != "0" or per_sm[n] * sms < B_FLAG):
+            if gate:
+                raise AssertionError("K1's flagship instance spills or takes more than one "
+                                     "wave at B=4096")
+            log("  K1's flagship instance spills or takes more than one wave at B=4096")
+    return per_sm
+
+
 def e1_occupancy(sms):
     """Phase 1: E1's launch plan at the main path's points (problems a block,
     threads, shared memory, where A and V^T sit), blocks and problems an SM
@@ -4053,8 +4233,9 @@ def qp_families(dqt):
 
 # the kernels line's entries: key, name, source, the TPU kernel it replaces
 KERNEL_ENTRIES = (
-    ("K1", "admm_solve_cuda (K1: an explicit inverse and one refined solve per iteration; "
-           "numbers at the flagship, B=4096 N=24)",
+    ("K1", "admm_solve_cuda (K1: an explicit inverse and one refined solve per iteration; at "
+           "N <= 32 one warp, the inverse's row in registers; numbers at the flagship, B=4096 "
+           "N=24)",
      "diffqcqp_tpu_torch/kernels/csrc/admm.cu", "diffqcqp_tpu/kernels/admm_pallas.py:78"),
     ("K2", "qcqp_kkt_bwd_fused_cuda (K2, with the K3 LDL^T helpers inlined)",
      "diffqcqp_tpu_torch/kernels/csrc/qcqp_bwd.cu", "diffqcqp_tpu/kernels/qcqp_bwd_pallas.py:200"),
@@ -4089,9 +4270,9 @@ def kernels_line(launches, errs, times):
 def k1_k2_times(P, q, radius, cfg, out_k, factors, smi):
     """K1's and K2's numbers in the kernels line at the flagship point, the
     one function that both phase 4 and ``chip_smoke.py staged`` take them
-    from: K1 by CUDA events (20 calls back to back), K2 by the profiler's
-    device time per launch (back to back the wrapper's host work outlasts
-    K2; CUDA events where the trace lacks it), with the main path's
+    from: each by the profiler's device time per launch (back to back the
+    wrappers' host work outlasts K2 and, since its one-warp redesign, K1;
+    CUDA events where the trace lacks it), with the main path's
     cotangent g = 2 l; their plain versions' times; the bounds from this
     run's counts (``factors``, the plain K1's) and K2's strictly active
     contacts; K2's library call, ``torch.linalg.solve`` of the same adjoint
@@ -4105,6 +4286,7 @@ def k1_k2_times(P, q, radius, cfg, out_k, factors, smi):
 
     B, n = q.shape
     args = (P, q, torch.zeros_like(q), PROX_DISK, (radius,), cfg, True, False)
+    dev_k = per_launch_ms(device_time_by_kernel(lambda: admm_solve_cuda(*args)), "admm_kernel")
     ev_k, ts_k = time_cuda(lambda: admm_solve_cuda(*args), reps=5, calls=20)
     ms_p, ts_p = time_cuda(lambda: admm_solve_plain(*args), reps=3)
     b1, b1_by, b1_bytes, b1_flops = k1_bound_ms(B, n, n // 2, out_k[1].iterations, factors,
@@ -4123,7 +4305,8 @@ def k1_k2_times(P, q, radius, cfg, out_k, factors, smi):
     ms_lib, ts_lib = time_cuda(lambda: torch.linalg.solve(ST, rhs), reps=5, calls=20)
     fmt = lambda x: "not in the trace" if x is None else f"{x:.4f} ms"  # noqa: E731
     samples = lambda ts, d=4: [round(t, d) for t in ts]  # noqa: E731
-    log(f"  K1 at B={B} N={n} ({smi}): per call, 20 back-to-back (CUDA events) {ev_k:.4f} ms "
+    log(f"  K1 at B={B} N={n} ({smi}): device time per launch (torch.profiler) {fmt(dev_k)}; per "
+        f"call, 20 back-to-back (CUDA events) {ev_k:.4f} ms "
         f"(samples {samples(ts_k)}); plain version {ms_p:.2f} ms (samples {samples(ts_p, 2)}); "
         f"bound {b1:.5f} ms ({b1_by}: {b1_bytes} bytes, {b1_flops:.4g} FLOP)\n"
         f"  K2 at B={B} N={n}: device time per launch (torch.profiler) {fmt(dev_k2)}; per "
@@ -4132,7 +4315,8 @@ def k1_k2_times(P, q, radius, cfg, out_k, factors, smi):
         f"{b2_bytes} bytes, {b2_flops:.4g} FLOP; {int(active.sum())} strictly active "
         f"contacts); torch.linalg.solve of the assembled float32 system (B, {ST.shape[-1]}, "
         f"{ST.shape[-1]}) {ms_lib:.4f} ms (samples {samples(ts_lib)})")
-    return {"K1": dict(ms=ev_k, plain_ms=ms_p, bound_ms=b1, bound_by=b1_by, library_ms=None),
+    return {"K1": dict(ms=dev_k if dev_k is not None else ev_k, plain_ms=ms_p, bound_ms=b1,
+                       bound_by=b1_by, library_ms=None),
             "K2": dict(ms=dev_k2 if dev_k2 is not None else ev_k2, plain_ms=ms_p2,
                        bound_ms=b2, bound_by=b2_by, library_ms=ms_lib)}
 
@@ -4348,6 +4532,103 @@ def eager_run(root) -> int:
     return 0
 
 
+# ``chip_smoke.py k1``: the flagship's first B problems (B=132: one problem an
+# SM) and the fixed iteration counts of the set-up-against-iteration sweep
+K1_SWEEP_B = (132, 528, 1056, 2112, 4096)
+K1_FIXED_K = (0, 8, 16, 32)
+
+
+def k1_run(root) -> int:
+    """``python3 chip_smoke.py k1 [ROOT]``: K1 alone, from the port at ROOT
+    (default: this checkout; a parent commit unpacked beside it compares the
+    two on one card, run in turn A, B, B, A). Builds ``csrc/admm.cu`` alone
+    and prints ptxas's registers and spills and ``k1_occupancy`` (the launch
+    plans against the library's, problems an SM); runs phase 2's K1 points
+    (``phase_2_k1``: gated bit for bit in this checkout, printed only for
+    another); then, each as torch.profiler's device time a launch and by
+    CUDA events (median of 5 samples of 20 back-to-back calls, 5 at the
+    large sizes; at a small B the events time the wrapper's host work): K1
+    on the flagship's first B problems for B in ``K1_SWEEP_B`` (at B=132 one
+    problem an SM, so no problem waits on another for the SM's pipes); at
+    B=132 and 4096 with every problem running exactly k iterations (eps=0,
+    no stall floor, max_iter=k) for k in ``K1_FIXED_K``, the set-up against
+    an iteration; the flagship's mean, p99 and maximum iterations; K1 at
+    config 5's size (B=65,536 N=8, ``sharded_example_problems``, eps=1e-7,
+    max_iter=1000), at B=2048 N=96 (phase 2e's QCQPs) and at config 6 (the
+    block-wide path). Prints one JSON line."""
+    sys.path.insert(0, str(pathlib.Path(root).resolve()))
+    import diffqcqp_tpu_torch as dqt
+    from diffqcqp_tpu_torch.kernels import _build
+    from diffqcqp_tpu_torch.kernels import admm_cuda as k1m
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _build.build(["admm"])
+    ptxas = ptxas_summary(_build.library_path("admm").with_suffix(".log").read_text())
+    log(f"k1 ({root}, {smi}): built admm.cu in {time.perf_counter() - t0:.1f} s; ptxas: {ptxas}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = k1_occupancy(sms, ptxas, gate=False)
+    per_sm[96] = k1m.c_blocks_per_sm(96)
+
+    cfg = flagship_cfg(dqt)
+    P, q, l_n, mu = cuda(*build_problems(B_FLAG, NC_FLAG))
+    radius = (l_n * mu).contiguous()
+
+    def args(b, config=cfg):
+        return (P[:b].contiguous(), q[:b].contiguous(), torch.zeros_like(q[:b]),
+                k1m.PROX_DISK, (radius[:b].contiguous(),), config, True, False)
+
+    # phase 2's points, gated bit for bit in this checkout, printed for another
+    here = pathlib.Path(root).resolve() == pathlib.Path(__file__).resolve().parent
+    log(f"phase 2 (K1's points){'' if here else ', not gated'}")
+    out = phase_2_k1(dqt, cfg, (P, q, l_n, mu), gate=here)["flagship"][0]
+    it = out[1].iterations.double()
+    iters = {"mean": float(it.mean()), "p99": float(torch.quantile(it, 0.99)),
+             "max": int(it.max())}
+    def ms(a, calls=20):
+        """(device ms a launch by torch.profiler, ms a call by CUDA events):
+        at a small B the wrapper's host work outlasts the kernel, and the
+        events time the host."""
+        fn = lambda: k1m.admm_solve_cuda(*a)   # noqa: E731
+        return (per_launch_ms(device_time_by_kernel(fn, calls=10), "admm_kernel"),
+                time_cuda(fn, reps=5, calls=calls)[0])
+
+    sweep = {b: ms(args(b)) for b in K1_SWEEP_B}
+    fixed, fixed_iters = {}, {}
+    for b in (K1_SWEEP_B[0], B_FLAG):
+        for k in K1_FIXED_K:
+            ak = args(b, cfg.replace(eps=0.0, stall_tol=0.0, max_iter=k))
+            fixed_iters[f"B={b} k={k}"] = float(k1m.admm_solve_cuda(*ak)[1].iterations.double().mean())
+            fixed[f"B={b} k={k}"] = ms(ak)
+    Pc, qc, lc, mc = sharded_example_problems(65536)
+    a5 = (Pc, qc, torch.zeros_like(qc), k1m.PROX_DISK, ((lc * mc).contiguous(),),
+          dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=1000), True, False)
+    P96, q96, ln96, mu96 = cuda(*build_problems(2048, 48, seed=6))
+    a96 = (P96, q96, torch.zeros_like(q96), k1m.PROX_DISK, ((ln96 * mu96).contiguous(),), cfg,
+           True, False)
+    c6 = config6_classes(dqt)["qp"]
+    a6 = (c6.P, c6.q, torch.zeros_like(c6.q), c6.prox, c6.prox_args, c6.cfg)
+    large = {}
+    for label, ax in (("config 5 B=65536 N=8", a5), ("QCQP B=2048 N=96", a96),
+                      ("config 6 B=2048 N=96", a6)):
+        large[label] = ms(ax, calls=5)
+        large[label + " mean iterations"] = float(
+            k1m.admm_solve_cuda(*ax)[1].iterations.double().mean())
+    log(f"  K1 at the flagship's first B problems, (device ms, events ms): {sweep}\n"
+        f"  K1 with every problem exactly k iterations, (device ms, events ms): {fixed} "
+        f"(mean iterations "
+        f"{fixed_iters})\n  flagship iterations: {iters}\n  K1 at the large sizes: {large}")
+    print(json.dumps({"tree": str(root), "package": dqt.__file__, "card": smi, "ptxas": ptxas,
+                      "problems_per_sm": per_sm,
+                      "flagship_iterations": iters, "k1_ms_by_b": sweep,
+                      "k1_ms_fixed_iterations": fixed, "k1_ms_large": large}), flush=True)
+    return 0
+
+
 def launch_profile(label, fn, top=12):
     """What one call of ``fn`` asks of the card, from torch.profiler: its
     device ms, kernels launched and the host's waits on the device
@@ -4380,6 +4661,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["eager"] and len(sys.argv) == 3:
         return eager_run(sys.argv[2])
+    if sys.argv[1:2] == ["k1"] and len(sys.argv) <= 3:
+        return k1_run(sys.argv[2] if len(sys.argv) == 3 else pathlib.Path(__file__).parent)
     t_start = time.perf_counter()
     import diffqcqp_tpu_torch as dqt
     from diffqcqp_tpu_torch.diff import kkt
@@ -4448,6 +4731,7 @@ def main() -> int:
                     for name, (blk, b_) in occ24.items()))
     k4_occupancy(sms)
     e1_occupancy(sms)
+    k1_occupancy(sms, ptxas_summary(_build.library_path("admm").with_suffix(".log").read_text()))
     c6 = config6_classes(dqt)
     if sys.argv[1:] == ["config6"]:
         # config 6's phases alone (2c's block-wide cases, 3k, 4h): K4's
@@ -4480,59 +4764,9 @@ def main() -> int:
     radius = (l_n * mu).contiguous()
     ws = torch.zeros_like(q)
     args = (P, q, ws, PROX_DISK, (radius,), cfg, True, False)
-    out_k = admm_solve_cuda(*args)
-    factors_flag = torch.zeros(B_FLAG, dtype=torch.int64, device=q.device)
-    out_p = admm_solve_plain(*args, factors=factors_flag)
-    err_flag = compare("flagship B=4096 N=24 disk", out_k, out_p)
-    counts("flagship B=4096 N=24", out_p[1].iterations, factors_flag)
-
-    rng = np.random.default_rng(1)
-    b, n = 256, 12
-    S = (rng.standard_normal((b, n, n)) / np.sqrt(n)).astype(np.float32)
-    Pk, qk = cuda(S @ S.transpose(0, 2, 1) + 0.1 * np.eye(n, dtype=np.float32),
-                  rng.standard_normal((b, n)).astype(np.float32))
-    lo, hi, vs, rad = cuda(
-        -(rng.random((b, n)) * 0.5 + 0.2).astype(np.float32),
-        (rng.random((b, n)) * 0.5 + 0.2).astype(np.float32),
-        np.sign(rng.standard_normal((b, n))).astype(np.float32),
-        (rng.random((b, n // 2)) * 0.5 + 0.05).astype(np.float32),
-    )
-    # eps=1e-5: the QP-family problems here certify on eps before their
-    # iterates reach the float32 noise floor. Below it (eps=1e-6) most of them
-    # stop through the 8-ulp stall test, whose first passing iteration moves
-    # with rounding order (kernel FMAs vs eager ops): up to 4 iterations apart
-    # on an H100, which measures rounding, not the algorithm.
-    qp_cfg = dqt.QP_DEFAULTS.replace(eps=1e-5, max_iter=3000)
-    wsk = torch.zeros_like(qk)
-    for name, kind, pa, c, qstop in [
-        ("nonneg", PROX_NONNEG, (), qp_cfg, False),
-        ("box", PROX_BOX, (lo, hi), qp_cfg, False),
-        ("signed box", PROX_SIGNED_BOX, (lo, hi, vs), qp_cfg, False),
-        ("disk", PROX_DISK, (rad,), cfg.replace(eps=1e-6), True),
-        # the kernel's other branches: the per-problem cpt gate, the
-        # dual-only stopping rule, and a max_iter cap mid-solve
-        ("nonneg rho_sync=False", PROX_NONNEG, (), qp_cfg.replace(rho_sync=False), False),
-        ("box primal_check=False", PROX_BOX, (lo, hi), qp_cfg.replace(primal_check=False), False),
-        ("disk max_iter=2", PROX_DISK, (rad,), cfg.replace(max_iter=2), True),
-    ]:
-        a = (Pk, qk, wsk, kind, pa, c, qstop, not qstop)
-        compare(f"{name} B={b} N={n}", admm_solve_cuda(*a), admm_solve_plain(*a))
-    # warm_start_dual from a converged primal: u0 = -(P ws + q)
-    l0, _ = admm_solve_plain(Pk, qk, wsk, PROX_NONNEG, (), qp_cfg)
-    a = (Pk, qk, l0, PROX_NONNEG, (), qp_cfg.replace(warm_start_dual=True))
-    compare(f"nonneg warm_start_dual B={b} N={n}", admm_solve_cuda(*a), admm_solve_plain(*a))
-
-    Pb, qb, lnb, mub = cuda(*build_problems(512, 48, seed=2))
-    a = (Pb, qb, torch.zeros_like(qb), PROX_DISK, ((lnb * mub).contiguous(),),
-         cfg, True, False)
-    compare("disk B=512 N=96 (3 warps)", admm_solve_cuda(*a),
-            admm_solve_plain(*a))
-    l96 = admm_solve_cuda(*a)[0]
-    P17, q17, ln17, mu17 = cuda(*build_problems(512, 17, seed=15))
-    a = (P17, q17, torch.zeros_like(q17), PROX_DISK, ((ln17 * mu17).contiguous(),),
-         cfg, True, False)
-    compare("disk B=512 N=34 (2 warps)", admm_solve_cuda(*a),
-            admm_solve_plain(*a))
+    k1_2 = phase_2_k1(dqt, cfg, (P, q, l_n, mu))
+    out_k, factors_flag, err_flag = k1_2["flagship"]
+    Pb, qb, lnb, mub, l96 = k1_2["N=96"]
 
     # ---- phase 2b: K2 against its plain version on the card
     log("phase 2b: K2 against qcqp_kkt_bwd_fused_plain on the card")
@@ -4896,6 +5130,18 @@ def main() -> int:
     # K1's and K2's numbers in the kernels line (K2 with the main path's
     # cotangent g = 2 l), as ``chip_smoke.py staged`` takes them
     times_k12 = k1_k2_times(P, q, radius, cfg, out_k, factors_flag, smi)
+    # K1 at config 5's size (B=65,536 N=8: four problems a warp), phase 2's
+    # problems, against its plain version's time there and its bound
+    a5, out_k5, _, factors5, ms_p5 = k1_2["config 5"]
+    k1_5 = lambda: admm_solve_cuda(*a5)    # noqa: E731
+    dev5 = per_launch_ms(device_time_by_kernel(k1_5, calls=5), "admm_kernel")
+    ev5, ts5 = time_cuda(k1_5, reps=5, calls=5)
+    b5, b5_by, b5_bytes, b5_flops = k1_bound_ms(65536, 8, 4, out_k5[1].iterations, factors5,
+                                                a5[5].power_iters)
+    log(f"  K1 at config 5's size B=65536 N=8 ({smi}): device time per launch (torch.profiler) "
+        f"{fmt(dev5)}; per call, 5 back-to-back (CUDA events) {ev5:.4f} ms (samples "
+        f"{[round(t, 4) for t in ts5]}); plain version {ms_p5:.1f} ms (one call, phase 2); bound "
+        f"{b5:.5f} ms ({b5_by}: {b5_bytes} bytes, {b5_flops:.4g} FLOP)")
     lk = out_k[0]
     k2_args = (P, q, lk, (2.0 * lk).contiguous(), radius, cfg.eps, cfg.act_eps, f32_ulps)
     # the forward+backward step, as bench.py times it, and its device time

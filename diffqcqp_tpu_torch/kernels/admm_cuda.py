@@ -2,8 +2,9 @@
 
 ``admm_solve_cuda`` replaces ``diffqcqp_tpu/kernels/admm_pallas.py::
 admm_solve_pallas`` (kernel ``_admm_chol_kernel``). On a CUDA tensor it
-launches ``kernels/csrc/admm.cu`` (one thread block per problem; see the note
-at the top of that file) or raises; on a CPU tensor it runs
+launches ``kernels/csrc/admm.cu`` (at n <= 32 one warp for one, two or four
+problems, ``launch_plan``; above, a block of a thread a row per problem; see
+the note at the top of that file) or raises; on a CPU tensor it runs
 ``admm_solve_plain``. There is no fallback from one to the other.
 
 ``admm_solve_plain`` repeats the kernel's arithmetic on whole batches in a
@@ -44,7 +45,8 @@ from .ldl import TINY
 
 __all__ = [
     "PROX_NONNEG", "PROX_BOX", "PROX_SIGNED_BOX", "PROX_DISK",
-    "admm_solve_cuda", "admm_solve_plain", "fits", "gj_inverse", "prox_fn", "smem_bytes",
+    "ONE_WARP_MAX_N", "admm_solve_cuda", "admm_solve_plain", "c_launch_plan", "fits",
+    "gj_inverse", "launch_plan", "prox_fn", "smem_bytes",
 ]
 
 PROX_NONNEG = 0
@@ -53,6 +55,10 @@ PROX_SIGNED_BOX = 2
 PROX_DISK = 3
 _N_ARGS = {PROX_NONNEG: 0, PROX_BOX: 2, PROX_SIGNED_BOX: 3, PROX_DISK: 1}
 _GJ = 4     # Gauss-Jordan steps a pass (kGJ in csrc/admm.cu)
+ONE_WARP_MAX_N = 32   # kOneWarpMaxN in csrc/admm.cu
+# the one-warp instances (WarpK1 in csrc/admm.cu): columns unrolled to kN,
+# kG problems a warp
+_WARP_INSTANCES = ((8, 4), (16, 2), (24, 1), (32, 1))
 
 
 def prox_fn(prox_kind: int, prox_args: tuple):
@@ -335,21 +341,64 @@ def _lib():
         lib.dq_admm_solve_f32.restype = ctypes.c_int
         lib.dq_admm_blocks_per_sm.argtypes = [ctypes.c_int]
         lib.dq_admm_blocks_per_sm.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.dq_admm_plan.argtypes = [ctypes.c_int, ip, ip, ip, ctypes.POINTER(ctypes.c_longlong)]
+        lib.dq_admm_plan.restype = ctypes.c_int
         lib._dq_typed = True
     return lib
 
 
 def smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one block at problem size n (as
-    ``smem_bytes`` in csrc/admm.cu computes it): two n x (n|1) matrices, five
+    """Dynamic shared memory of one block at problem size n. At n <= 32 (one
+    warp, ``launch_plan``), for each of the block's kG problems: 4 kN + 4
+    floats of scratch (a solve's three published vectors, or the
+    Gauss-Jordan steps' published columns and pivots), 12 for tau_inc,
+    tau_dec, the last rho move and the problem's results until they are
+    stored, 4 kN for the prox's arguments and q by row, 5 (32 / kG) for a
+    lane's loop state while an inverse is formed, and P in kN rows of
+    stride kN + 2; the inverse's rows are in registers. Above, as
+    ``smem_bytes`` in csrc/admm.cu computes it: two n x (n|1) matrices, five
     n-vectors of broadcast/scratch slots, 32 reduction slots (4 for each of
     at most 8 warps)."""
+    if n <= ONE_WARP_MAX_N:
+        N, G = _instance(n)
+        return 4 * G * (8 * N + 16 + 5 * (32 // G) + N * (N + 2))
     return 4 * (2 * n * (n | 1) + 5 * n + 32)
+
+
+def _instance(n: int) -> tuple[int, int]:
+    """(kN, kG) of the one-warp instance that takes n <= 32."""
+    return next(inst for inst in _WARP_INSTANCES if n <= inst[0])
+
+
+def launch_plan(n: int) -> tuple[int, int, int, int]:
+    """(instance, problems a block, threads a block, dynamic shared memory a
+    block) of K1 at size n, as csrc/admm.cu's dq_admm_plan computes them.
+    At n <= 32 one warp, the instance its kN: n <= 8 four problems a warp
+    (8 lanes each), n <= 16 two (16 lanes), n <= 24 and n <= 32 one; above,
+    instance 0, the block-wide kernel, one problem a block of
+    ``_build.row_threads(n)`` threads. Raises ValueError for n < 1."""
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    if n <= ONE_WARP_MAX_N:
+        N, G = _instance(n)
+        return N, G, 32, smem_bytes(n)
+    return 0, 1, _build.row_threads(n), smem_bytes(n)
+
+
+def c_launch_plan(n: int) -> tuple[int, int, int, int] | None:
+    """``launch_plan`` as the built library computes it (needs nvcc); None
+    where the library refuses n."""
+    c = [ctypes.c_int() for _ in range(3)]
+    smem = ctypes.c_longlong()
+    bad = _lib().dq_admm_plan(n, *(ctypes.byref(x) for x in c), ctypes.byref(smem))
+    return None if bad else (c[0].value, c[1].value, c[2].value, smem.value)
 
 
 def c_blocks_per_sm(n: int) -> int:
     """Blocks of K1 at size n that one SM of the current card holds, from
-    CUDA's occupancy calculator (needs nvcc and a card)."""
+    CUDA's occupancy calculator (needs nvcc and a card); a block holds
+    ``launch_plan(n)[1]`` problems."""
     return _lib().dq_admm_blocks_per_sm(n)
 
 
@@ -410,7 +459,9 @@ def admm_solve_cuda(
             P, q, warm_start, prox_kind, prox_args, cfg, qcqp_stopping, damp_both
         )
     B, n = q.shape
-    dev = _build.check_launch(tensors, _build.row_threads(n), smem_bytes(n), _build.ROW_BOUND)
+    _, _, threads, smem = launch_plan(n)
+    dev = _build.check_launch(tensors, threads, smem,
+                              32 if n <= ONE_WARP_MAX_N else _build.ROW_BOUND)
 
     lib = _lib()
     prm = _Params(

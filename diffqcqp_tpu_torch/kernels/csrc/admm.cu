@@ -8,15 +8,33 @@
 // residuals, the stopping rule with its stall floors, and the adaptive rho
 // (rho_sync or cpt gating) with a new inverse whenever rho changes.
 //
-// Design: one thread block per problem, one thread per coordinate row
-// (blockDim = 32 * ceil(n / 32): one warp at the flagship N = 24). P and the
-// inverse live in dynamic shared memory (2 n ld floats, ld = n | 1 odd so row
-// and column walks are both bank-conflict free); per-problem scalars (rho,
-// taus, counters, flags) and per-row vectors (l2, u, q_prox) live in
-// registers. The inf-norm, 2-norm and Rayleigh-quotient reductions are warp
-// butterflies (every lane ends with the same value) plus a small shared array
-// across warps. Each block leaves its loop when its own problem converges or
-// at max_iter.
+// Design, two paths (dq_admm_plan picks one from n):
+//   * n >= 33, admm_kernel: one thread block per problem, one thread per
+//     coordinate row (blockDim = 32 * ceil(n / 32)). P and the inverse live
+//     in dynamic shared memory (2 n ld floats, ld = n | 1 odd so row and
+//     column walks are both bank-conflict free); per-problem scalars (rho,
+//     taus, counters, flags) and per-row vectors (l2, u, q_prox) live in
+//     registers. The inf-norm, 2-norm and Rayleigh-quotient reductions are
+//     warp butterflies (every lane ends with the same value) plus a small
+//     shared array across warps. Each block leaves its loop when its own
+//     problem converges or at max_iter.
+//   * n <= 32, admm_kernel_warp<WarpK1<kN, kG, ...>>: one warp a block and
+//     kG problems a warp (four at n <= 8, two at n <= 16, else one), each on
+//     a segment of 32 / kG lanes, lane r owning row r; every loop over
+//     columns unrolled to kN (8, 16, 24, 32). Lane r keeps its row of P in
+//     registers through the set-up (the power iteration reads only the
+//     published vector) and then its row of the inverse X, which
+//     gj_inverse_w builds in place: only the published pivot columns go
+//     through shared memory. An iteration reads its three published vectors
+//     as 16-byte broadcasts (6 loads for 24 entries) and P's row, kept in
+//     shared memory (stride kN + 2) for the float64 residual, as float2s.
+//     Values read once an iteration or less (q, the prox's arguments, the
+//     rho schedule's state, a stopped problem's results) sit in shared
+//     memory too, so that the flagship's instance fits 64 registers (32
+//     blocks an SM) without spilling. Reductions are butterflies over the
+//     segment. A warp runs until all its problems stopped; a problem keeps
+//     its results when it stops and is frozen after (it commits nothing),
+//     and a new inverse is formed only in the segments whose rho changed.
 //
 // The linear solve. The TPU kernel factors P + (rho + mu) I as LDL^T and
 // solves by two triangular sweeps: 2n + 1 dependent steps, each a broadcast
@@ -64,10 +82,20 @@
 // each problem: an iteration's three barriers and three n-long multiply-add
 // chains (four partial sums each), and the inverse at each (re)factorisation,
 // about once per problem at the benchmark configs: 5 n / 4 barriers and
-// ~3 n^2 / 4 shared-memory accesses per thread (gj_inverse). At one warp the
-// design answers with occupancy: a block is one warp with ~5 KB of shared
-// memory, so up to 32 problems are resident per SM and the schedulers
-// interleave their chains.
+// ~3 n^2 / 4 shared-memory accesses per thread (gj_inverse). Measured at the
+// flagship on an H100 (chip_smoke.py k1, device time; PERF.md): with the
+// design before the one-warp path, one problem an SM (B = 132) already took
+// 51 % of the time of B = 4096, and the set-up (P's load, the power
+// iteration, the first inverse) 32 % of it, so each problem's chain set the
+// time more than the SM's shared-memory throughput did. The one-warp path
+// shortens that chain: registers in place of shared-memory round trips for
+// the rows of P and X (the set-up 2.6x shorter), a quarter of the loads for
+// a published vector, and at n <= 16 the idle lanes of a warp given to
+// other problems. An iteration then costs about as much alone as shared by
+// 32 problems an SM: its chain of instructions, most of them the stopping
+// rules', the prox's and the residual's bookkeeping, sets it. Past one warp
+// the design answers with occupancy: a block of ~n^2 floats, and the
+// schedulers interleave chains.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -505,36 +533,614 @@ admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
   }
 }
 
-// Dynamic shared memory one block needs for a problem of size n (the
-// wrapper's smem_bytes in kernels/admm_cuda.py computes the same).
+// Dynamic shared memory one block of the block-wide kernel needs for a
+// problem of size n (the wrapper's smem_bytes in kernels/admm_cuda.py
+// computes the same).
 size_t smem_bytes(int n) {
   const int ld = n | 1;
   return sizeof(float) * (2 * (size_t)n * ld + 5 * (size_t)n + 4 * kMaxWarps);
+}
+
+// ---------------------------------------------------------------------------
+// One warp, n <= 32 (admm_kernel_warp): kG problems a warp, each on a segment
+// of kS = 32 / kG lanes, lane r of a segment owning row r of its problem.
+// ---------------------------------------------------------------------------
+
+// The one-warp instances: every loop over columns unrolled to kN (n <= kN),
+// so that lane r's rows of P (in the set-up) and of X live in registers,
+// indexed only by compile-time indices; kG problems a warp; at least
+// kMinBlocks blocks an SM (the register cap of __launch_bounds__).
+template <int N, int G, int MinBlocks>
+struct WarpK1 {
+  static constexpr int kN = N, kG = G, kS = 32 / G, kMinBlocks = MinBlocks;
+  // P's row stride: even, its half odd, so that the float2 loads of sixteen
+  // lanes' rows (a half-warp) fall in distinct bank pairs
+  static constexpr int kLd = N + 2;
+  // floats of one segment's scratch: a solve's three published vectors (rhs
+  // and res as floats, l0 as doubles: 4 kN), or the Gauss-Jordan steps' kN
+  // published float4 columns and four pivots (4 kN + 4)
+  static constexpr int kScratch = 4 * N + 4;
+  static constexpr int kCold = 12;
+  // a segment's floats before P: the scratch; its problem's tau_inc,
+  // tau_dec and last rho move, then its results (iterations, residuals,
+  // rho, flags), written when it stops and stored after the loop (kCold);
+  // the prox's arguments by row (the box's bounds and signs, or the disk's
+  // radius) and q: values read once an iteration or less, kept out of
+  // registers; and a lane's l2, u, q_prox, rho and stopped flag, parked
+  // while an inverse is formed (5 kS)
+  static constexpr int kSeg = kScratch + kCold + 4 * N + 5 * (32 / G);
+  static constexpr int kPlane = N * kLd;   // P, zero past column n
+  static_assert(N % 8 == 0 && 32 % G == 0 && N <= 32 / G, "one segment holds kN rows");
+};
+// The flagship's and config 5's instances fit 64 registers (32 blocks an
+// SM: B = 4096 at N = 24 in one wave); the other two may take 128, which
+// they need not to spill (ptxas on sm_90a: 96 and 128 registers, 20 and 16
+// blocks an SM).
+using WarpQuad = WarpK1<8, 4, 32>;    // n <= 8: four problems a warp
+using WarpPair = WarpK1<16, 2, 16>;   // 9 <= n <= 16: two
+using Warp24 = WarpK1<24, 1, 32>;     // 17 <= n <= 24: the flagship
+using Warp32 = WarpK1<32, 1, 16>;     // 25 <= n <= 32
+constexpr int kOneWarpMaxN = 32;
+
+// max and sum over a segment of S lanes (a butterfly, every lane ends with
+// the result). The sum adds in _block_sum's order: at n <= S its first
+// 32 / S levels add only the zeros of the rows past n, which leave a sum
+// unchanged, so the segment's levels alone give its bits.
+template <int S>
+__device__ __forceinline__ float seg_max(float v) {
+#pragma unroll
+  for (int o = S / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(dq::kFullMask, v, o));
+  return v;
+}
+
+template <int S>
+__device__ __forceinline__ float seg_sum(float v) {
+#pragma unroll
+  for (int o = S / 2; o > 0; o >>= 1) v += __shfl_xor_sync(dq::kFullMask, v, o);
+  return v;
+}
+
+// x = lane r's row of P from shared memory (8-byte loads), or zeros on a
+// lane that holds no row.
+template <int N>
+__device__ __forceinline__ void load_row(float (&x)[N], const float* __restrict__ prow, bool real) {
+  const float2* p2 = reinterpret_cast<const float2*>(prow);
+#pragma unroll
+  for (int c = 0; c < N; c += 2) {
+    const float2 p = real ? p2[c >> 1] : make_float2(0.f, 0.f);
+    x[c] = p.x;
+    x[c + 1] = p.y;
+  }
+}
+
+// (P v)_r from lane r's row of P in registers (the set-up), v published in
+// the segment's scratch and read back as float4 broadcasts: one chain over
+// the columns in order, the first a product, as matvec.
+template <typename W>
+__device__ __forceinline__ float matvec_w(const float (&p)[W::kN], float v, int r, int n,
+                                          bool pub, bool real, float* s) {
+  if (pub) s[r] = v;
+  __syncwarp();
+  const float4* v4 = reinterpret_cast<const float4*>(s);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < W::kN; c += 4) {
+    if (c < n) {
+      const float4 w = v4[c >> 2];
+      acc = c == 0 ? p[0] * w.x : fmaf(p[c], w.x, acc);
+      if (c + 1 < n) acc = fmaf(p[c + 1], w.y, acc);
+      if (c + 2 < n) acc = fmaf(p[c + 2], w.z, acc);
+      if (c + 3 < n) acc = fmaf(p[c + 3], w.w, acc);
+    }
+  }
+  __syncwarp();
+  return real ? acc : 0.f;
+}
+
+// (X v)_r from lane r's row of X in registers and v published in shared
+// memory (kN floats, zero past n), read as float4 broadcasts: row_dot4's
+// four partial sums, column c into sum c % 4, then (s0 + s1) + (s2 + s3).
+// The columns past n add fma(0, 0, s) = s + 0 = s exactly (a partial sum
+// that starts at +0 is never -0).
+template <int N>
+__device__ __forceinline__ float dot_reg(const float (&x)[N], const float* __restrict__ v) {
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int c = 0; c < N; c += 4) {
+    const float4 w = v4[c >> 2];
+    s0 = fmaf(x[c], w.x, s0);
+    s1 = fmaf(x[c + 1], w.y, s1);
+    s2 = fmaf(x[c + 2], w.z, s2);
+    s3 = fmaf(x[c + 3], w.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// (P v)_r in double, from lane r's row of P in shared memory (zero past
+// n, each entry converted exactly) and v published as doubles:
+// row_dot4<double, double>'s partial sums, column c into sum c % 4; a step
+// of four columns loads two float2 of P and two double2 of v. Not
+// unrolled: one step's registers of loads stay live beside X's row, not
+// the whole row's.
+template <int N>
+__device__ __forceinline__ double dot_p64(const float* __restrict__ prow,
+                                          const double* __restrict__ v) {
+  const float2* p2 = reinterpret_cast<const float2*>(prow);
+  const double2* v2 = reinterpret_cast<const double2*>(v);
+  double s0 = 0., s1 = 0., s2 = 0., s3 = 0.;
+#pragma unroll 1
+  for (int h = 0; h < N / 2; h += 2) {
+    const float2 p = p2[h], q = p2[h + 1];
+    const double2 a = v2[h], b = v2[h + 1];
+    s0 = fma((double)p.x, a.x, s0);
+    s1 = fma((double)p.y, a.y, s1);
+    s2 = fma((double)q.x, b.x, s2);
+    s3 = fma((double)q.y, b.y, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// refined_solve with lane r's row of X in registers: l0 = X rhs, the
+// residual rhs - (P l0 + shift l0) in double, l = l0 + X res. The three
+// published vectors sit in the segment's scratch (rhs, res, then l0 as
+// doubles); lanes r < kN publish, zero on the lanes that hold no row, one
+// __syncwarp each. Returns 0 on those lanes.
+template <typename W>
+__device__ __forceinline__ float refined_solve_w(const float (&x)[W::kN],
+                                                 const float* __restrict__ prow, float rhs,
+                                                 float shift, int r_in, bool pub, bool real,
+                                                 float* s) {
+  constexpr int N = W::kN;
+  // r through an opaque move: the three slots' addresses are formed here,
+  // not kept in registers through the loop (and the inverse's passes)
+  int r;
+  asm volatile("mov.b32 %0, %1;" : "=r"(r) : "r"(r_in));
+  float* x0 = s;
+  float* x2 = s + N;
+  double* x1 = reinterpret_cast<double*>(s + 2 * N);
+  if (pub) x0[r] = real ? rhs : 0.f;
+  __syncwarp();
+  const float l0 = dot_reg<N>(x, x0);
+  if (pub) x1[r] = real ? (double)l0 : 0.;
+  __syncwarp();
+  const double acc = dot_p64<N>(prow, x1) + (double)shift * (double)l0;
+  if (pub) x2[r] = real ? (float)((double)rhs - acc) : 0.f;
+  __syncwarp();
+  return real ? l0 + dot_reg<N>(x, x2) : 0.f;
+}
+
+// gj_inverse with lane r's row in registers: in the segments with seg_upd
+// (those whose rho changed), x <- row r of (P + shift I)^{-1} on the lanes
+// that hold a row (real), P's row read from shared memory. The steps,
+// their passes of kGJ and every rounding are gj_inverse's; the published
+// columns (w4) and pivots go through the segment's scratch, and a pass
+// updates the row in registers. The lanes past n publish zero columns, so
+// a pass runs over all kN entries (x stays 0 past n). Every lane takes
+// every __syncwarp; the others keep their x.
+template <typename W>
+__device__ __forceinline__ void gj_inverse_w(float (&x)[W::kN], const float* __restrict__ prow,
+                                             float shift, int r_in, int n, bool seg_upd,
+                                             bool real, float* s) {
+  constexpr int N = W::kN;
+  // r through an opaque move: what depends on r and a column (the pivot
+  // tests, the signs) stays inside the solve loop, not hoisted out of it
+  // as kN loop invariants that would take registers all along
+  int r;
+  asm volatile("mov.b32 %0, %1;" : "=r"(r) : "r"(r_in));
+  const bool upd = seg_upd && real;
+  float4* w4 = reinterpret_cast<float4*>(s);
+  float* piv = s + 4 * N;
+  if (upd) {
+    const float2* p2 = reinterpret_cast<const float2*>(prow);
+#pragma unroll
+    for (int c = 0; c < N; c += 2) {
+      const float2 p = p2[c >> 1];
+      x[c] = p.x + (c == r ? shift : 0.f);
+      x[c + 1] = p.y + (c + 1 == r ? shift : 0.f);
+    }
+  }
+  __syncwarp();   // the scratch held a solve's published vectors
+  if (seg_upd && !real && r < N) w4[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int c0 = 0; c0 < N; c0 += kGJ) {
+    if (c0 < n) {
+      const int kb = min(kGJ, n - c0);
+      float v[kGJ], g[kGJ];
+#pragma unroll
+      for (int t = 0; t < kGJ; ++t) {
+        v[t] = x[c0 + t];
+        g[t] = 0.f;
+      }
+#pragma unroll
+      for (int t = 0; t < kGJ; ++t) {
+        if (t < kb) {
+          const int c = c0 + t;
+          if (upd) {
+            reinterpret_cast<float*>(w4 + r)[t] = (r == c) ? 1.f : (r < c ? -v[t] : v[t]);
+            if (r == c) piv[t] = v[t];
+          }
+          __syncwarp();
+          if (upd) {
+            const float pinv = __frcp_rn(fmaxf(piv[t], dq::kTiny));   // = 1 / p, rounded once
+            const bool p = r == c;
+            g[t] = p ? -pinv : v[t] * pinv;
+            const float a = p ? 0.f : 1.f;
+            if (!p) v[t] = 0.f;
+#pragma unroll
+            for (int u = 0; u < kGJ; ++u) {
+              if (u < kb) {
+                v[u] = fmaf(a, v[u], -(g[t] * reinterpret_cast<const float*>(w4 + c0 + u)[t]));
+              }
+            }
+          }
+        }
+      }
+      if (upd) {
+        // the pass's pivot row (r = c0 + tp) drops the steps before tp; the
+        // pass's own columns took their updates in v
+        const int tp = r - c0;
+        const bool pivot = tp >= 0 && tp < kb;
+#pragma unroll
+        for (int t = 0; t < kGJ; ++t) {
+          if (pivot && t < tp) g[t] = 0.f;
+        }
+        const float m = pivot ? 0.f : 1.f;
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float4 w = w4[j];
+          float y = x[j] * m;
+          y = fmaf(-g[0], w.x, y);
+          y = fmaf(-g[1], w.y, y);
+          y = fmaf(-g[2], w.z, y);
+          y = fmaf(-g[3], w.w, y);
+          x[j] = y;
+        }
+#pragma unroll
+        for (int u = 0; u < kGJ; ++u) {
+          if (u < kb) x[c0 + u] = v[u];
+        }
+      }
+      __syncwarp();   // w4 and piv are rewritten by the next pass's steps
+    }
+  }
+}
+
+// K1 at n <= 32: admm_kernel's algorithm, stopping rules and rounding, with
+// kG problems a warp. A problem that stops writes its results then and its
+// segment is frozen (it computes on, commits nothing), as a TPU tile freezes
+// its converged lanes; the warp leaves the loop when all its problems have
+// stopped. Segments past B (a ragged last warp) load and write nothing.
+template <typename W>
+__global__ void __launch_bounds__(32, W::kMinBlocks)
+admm_kernel_warp(const float* __restrict__ P, const float* __restrict__ q,
+                 const float* __restrict__ ws, const float* __restrict__ pa,
+                 const float* __restrict__ pb, const float* __restrict__ pc,
+                 float* __restrict__ l2_out, int* __restrict__ iters_out,
+                 float* __restrict__ resp_out, float* __restrict__ resd_out,
+                 float* __restrict__ rho_out, uint8_t* __restrict__ conv_out,
+                 uint8_t* __restrict__ stall_out, const int B, const AdmmParams prm) {
+  constexpr int N = W::kN, S = W::kS, G = W::kG, LD = W::kLd;
+  extern __shared__ __align__(16) float smem[];   // float4 and double views inside
+  const int n = prm.n, nc = n / 2;
+  const int lane = threadIdx.x, seg = lane / S, r = lane % S;
+  const int b0 = blockIdx.x * G, b = b0 + seg;
+  const bool live = b < B;             // a problem, not a ragged warp's padding
+  const bool real = live && r < n;     // a row of it
+  const bool pub = r < N;              // writes slot r of its segment's vectors
+  float* s = smem + seg * W::kSeg;
+  // tau_inc, tau_dec, the last rho move (-1, 0, 1) and cpt (with a second
+  // slot at cold + 10); from cold + 4 the results: iterations, res_prim,
+  // res_dual, rho, converged, stalled
+  float* cold = s + W::kScratch;
+  float* pargs = cold + W::kCold;      // lo, hi, v_sign, q by row; lo is the disk's radius
+  // the lane's loop state while an inverse is formed: volatile, so that it
+  // is stored and loaded, and not live in registers through the inverse's
+  // passes (they need them for X's row and their loads)
+  volatile float* park = pargs + 4 * N;
+  float* planes = smem + G * W::kSeg;
+  const float* prow = planes + seg * W::kPlane + min(r, N - 1) * LD;
+
+  // the block's P into shared memory, coalesced (in float4s where the rows
+  // are whole float4s and P is 16-byte aligned), zero past column n
+  {
+    if (n < N) {
+      for (int i = lane; i < G * W::kPlane; i += 32) planes[i] = 0.f;
+      __syncwarp();
+    }
+    const int gl = min(G, B - b0);
+    const float* Pb = P + (size_t)b0 * n * n;
+    if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(P) & 15) == 0) {
+      const int n4 = n >> 2, per = n * n4;
+      const float4* Pb4 = reinterpret_cast<const float4*>(Pb);
+#pragma unroll 4
+      for (int idx = lane; idx < gl * per; idx += 32) {
+        const int g = idx / per, e = idx - g * per, i = e / n4, j = (e - i * n4) << 2;
+        const float4 v = Pb4[idx];
+        float2* d = reinterpret_cast<float2*>(planes + g * W::kPlane + i * LD + j);
+        d[0] = make_float2(v.x, v.y);
+        d[1] = make_float2(v.z, v.w);
+      }
+    } else {
+      const int per = n * n;
+#pragma unroll 4
+      for (int idx = lane; idx < gl * per; idx += 32) {
+        const int g = idx / per, e = idx - g * per, i = e / n, j = e - i * n;
+        planes[g * W::kPlane + i * LD + j] = Pb[idx];
+      }
+    }
+  }
+  const size_t vo = (size_t)b * n + r;
+  const float qv = real ? q[vo] : 0.f;
+  float l2 = real ? ws[vo] : 0.f;
+  if (real) pargs[3 * N + r] = qv;
+  if (real && (prm.prox_kind == kBox || prm.prox_kind == kSignedBox)) {
+    pargs[r] = pa[vo];
+    pargs[N + r] = pb[vo];
+    if (prm.prox_kind == kSignedBox) pargs[2 * N + r] = pc[vo];
+  }
+  if (prm.prox_kind == kDisk && live && r < 2 * nc) pargs[r] = pa[(size_t)b * nc + (r >> 1)];
+  __syncwarp();
+
+  const float mu = prm.mu_prox;
+  float x[N];           // P's row for the set-up, then X's
+  load_row<N>(x, prow, real);
+
+  // power iteration for L (fixed count), then rho0 and tau0
+  float v = real ? prm.v0 : 0.f;
+  for (int it = 0; it < prm.power_iters; ++it) {
+    const float av = matvec_w<W>(x, v, r, n, pub, real, s);
+    const float nrm = sqrtf(seg_sum<S>(av * av));
+    v = av / fmaxf(nrm, dq::kTiny);
+  }
+  const float pv = matvec_w<W>(x, v, r, n, pub, real, s);
+  const float L = fmaxf(seg_sum<S>(v * pv), mu);
+  const float ratio = L / mu;
+  float rho = sqrtf(mu * L) * (float)pow((double)ratio, (double)0.4f) * prm.rho0_scale;
+  const float tau0 = (float)pow((double)ratio, (double)0.15f);
+
+  // u0 = -(P ws + q) synthesises the dual warm start from the primal one
+  float u = 0.f;
+  if (prm.warm_start_dual) u = -(matvec_w<W>(x, l2, r, n, pub, real, s) + qv);
+
+  float qp = qv;
+  if (r == 0) {
+    cold[0] = tau0;
+    cold[1] = tau0;
+    cold[2] = 0.f;
+    cold[3] = 0.f;      // cpt, read at even iterations (cold[10] at odd ones)
+    // the results of a problem that never iterates (max_iter = 0)
+    cold[4] = 0.f;
+    cold[5] = INFINITY;
+    cold[6] = INFINITY;
+    cold[7] = rho;
+    cold[8] = 0.f;
+    cold[9] = 0.f;
+  }
+  bool done = !live;
+  bool need = live;      // an inverse to form, at the top of the next iteration
+  // the segment's lanes, for the __syncwarp inside its own rho update
+  const unsigned seg_mask = S == 32 ? dq::kFullMask : ((1u << S) - 1u) << (seg * S);
+
+  for (int it = 0; it < prm.max_iter; ++it) {
+    // the first inverse, and a new one in the segments whose rho changed
+    if (__any_sync(dq::kFullMask, need)) {
+      const float shift = rho + mu;
+      park[r] = l2;
+      park[S + r] = u;
+      park[2 * S + r] = qp;
+      park[3 * S + r] = rho;
+      park[4 * S + r] = done ? 1.f : 0.f;
+      gj_inverse_w<W>(x, prow, shift, r, n, need, real, s);
+      l2 = park[r];
+      u = park[S + r];
+      qp = park[2 * S + r];
+      rho = park[3 * S + r];
+      done = park[4 * S + r] != 0.f;
+    }
+    need = false;
+    const float rhs = rho * l2 - u - qp;
+    const float l = refined_solve_w<W>(x, prow, rhs, rho + mu, r, pub, real, s);
+    const float qpn = (real ? pargs[3 * N + r] : 0.f) - mu * l;
+    const float rr = prm.alpha * l + (1.0f - prm.alpha) * l2;
+    const float xv = rr + u / rho;
+
+    // prox; the disk partner moves by shuffle inside the segment
+    const float partner = __shfl_xor_sync(dq::kFullMask, xv, 1);
+    float l2n = 0.f;
+    if (real) {
+      switch (prm.prox_kind) {
+        case kNonneg:
+          l2n = fmaxf(xv, 0.f);
+          break;
+        case kBox:
+          l2n = fminf(fmaxf(xv, pargs[r]), pargs[N + r]);
+          break;
+        case kSignedBox: {
+          const float vs = pargs[2 * N + r];
+          l2n = vs * fminf(vs * fminf(fmaxf(xv, pargs[r]), pargs[N + r]), 0.f);
+          break;
+        }
+        default: {
+          if (r < 2 * nc) {
+            const float rad = pargs[r];
+            const float xa = (r & 1) ? partner : xv;
+            const float xb = (r & 1) ? xv : partner;
+            const float nrm = sqrtf(xa * xa + xb * xb);
+            const float scale = nrm > rad ? rad / fmaxf(nrm, dq::kTiny) : 1.f;
+            l2n = xv * scale;
+          } else {
+            l2n = xv;
+          }
+        }
+      }
+    }
+    const float un = u + rho * (rr - l2n);
+
+    const float delta = seg_max<S>(fabsf(l2n - l2));
+    const float rp = seg_max<S>(fabsf(l2n - rr));
+    const float rd = rho * delta;
+    const bool eps_ok = rd < prm.eps;
+    bool dual_ok = eps_ok;
+    float noise = 0.f;
+    if (prm.stall_on) {
+      noise = prm.stall_floor * fmaxf(seg_max<S>(fabsf(l2n)), 1.f);
+      dual_ok = eps_ok || delta <= noise;
+    }
+    bool newly, certified;
+    if (prm.primal_test) {
+      const float lnorm = sqrtf(seg_sum<S>(l * l));
+      const bool prim_eps = rp < prm.eps + prm.eps_rel * lnorm;
+      const bool prim_ok = prm.stall_on ? (prim_eps || rp <= noise) : prim_eps;
+      newly = prim_ok && dual_ok;
+      certified = eps_ok && prim_eps;
+    } else {
+      newly = dual_ok;
+      certified = eps_ok;
+    }
+
+    // commit this iteration where the problem is still running; the
+    // recorded rho is the one the residuals were computed with. A problem
+    // that stops (or reaches max_iter) keeps its results from now on.
+    if (!done) {
+      l2 = l2n;
+      u = un;
+      qp = qpn;
+      if (newly || it + 1 == prm.max_iter) {
+        if (r == 0) {
+          cold[4] = (float)(it + 1);
+          cold[5] = rp;
+          cold[6] = rd;
+          cold[7] = rho;
+          cold[8] = newly ? 1.f : 0.f;
+          cold[9] = (newly && !certified) ? 1.f : 0.f;
+        }
+        done = true;
+      } else if (prm.adaptive_rho) {
+        const bool inc = rp > prm.mu_thresh * rd;
+        const bool dec = !inc && (rd > prm.mu_thresh * rp);
+        // cpt (the per-problem gate's count, unused under rho_sync): read
+        // from this iteration's slot, the next one's written by lane 0, so
+        // that no lane reads a slot lane 0 writes in the same iteration
+        int cpt = 0;
+        if (!prm.rho_sync) {
+          cpt = (int)cold[(it & 1) ? 10 : 3];
+          if (r == 0) cold[(it & 1) ? 3 : 10] = (float)(cpt + (inc || dec));
+        }
+        const bool gate = prm.rho_sync
+                              ? (it % prm.rho_update_period == 0 && it > 0)
+                              : (cpt % prm.rho_update_period == 0);
+        const bool app_inc = gate && inc, app_dec = gate && dec;
+        if (app_inc || app_dec) {
+          float tau_inc = cold[0], tau_dec = cold[1];
+          const float rho_up = cold[2];
+          __syncwarp(seg_mask);   // every lane of the segment read them before lane 0 writes
+          const bool flip_inc = app_inc && rho_up == -1.f;
+          const bool flip_dec = app_dec && rho_up == 1.f;
+          const float damped_inc = 1.f + prm.damp * (tau_inc - 1.f);
+          const float damped_dec = 1.f + prm.damp * (tau_dec - 1.f);
+          if (prm.damp_both) {
+            if (flip_inc || flip_dec) {
+              tau_inc = damped_inc;
+              tau_dec = damped_dec;
+            }
+          } else {
+            if (flip_inc) tau_inc = damped_inc;
+            if (flip_dec) tau_dec = damped_dec;
+          }
+          rho = app_inc ? rho * tau_inc : rho / tau_dec;
+          if (r == 0) {
+            cold[0] = tau_inc;
+            cold[1] = tau_dec;
+            cold[2] = app_inc ? 1.f : -1.f;
+          }
+          need = true;
+        }
+      }
+    }
+    if (__all_sync(dq::kFullMask, done)) break;
+  }
+
+  if (real) l2_out[(size_t)b * n + r] = l2;
+  if (live && r == 0) {
+    iters_out[b] = (int)cold[4];
+    resp_out[b] = cold[5];
+    resd_out[b] = cold[6];
+    rho_out[b] = cold[7];
+    conv_out[b] = cold[8] != 0.f;
+    stall_out[b] = cold[9] != 0.f;
+  }
+}
+
+// f(the one-warp instance that takes size n, its WarpK1); n <= 32.
+template <typename F>
+int with_warp_kernel(int n, F f) {
+  if (n <= WarpQuad::kN) return f(admm_kernel_warp<WarpQuad>, WarpQuad{});
+  if (n <= WarpPair::kN) return f(admm_kernel_warp<WarpPair>, WarpPair{});
+  if (n <= Warp24::kN) return f(admm_kernel_warp<Warp24>, Warp24{});
+  return f(admm_kernel_warp<Warp32>, Warp32{});
+}
+
+// Opt the block-wide kernel into smem bytes of dynamic shared memory where
+// that is above the default 48 KB; a CUDA error code.
+int allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks of K1 that one SM holds at size n, from the occupancy calculator
-// after the launch's shared-memory attribute is set; a negated CUDA error
-// code on failure.
-int dq_admm_blocks_per_sm(int n) {
-  const size_t smem = smem_bytes(n);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return -(int)e;
+// The launch at size n: the one-warp instance (its kN; 0 for the block-wide
+// kernel), the problems a block, threads a block and dynamic shared memory a
+// block (kernels/admm_cuda.py::launch_plan computes the same). Returns 0, or
+// 1 where n < 1.
+int dq_admm_plan(int n, int* instance, int* problems, int* threads, long long* smem) {
+  if (n <= kOneWarpMaxN) {
+    with_warp_kernel(n, [&](auto, auto w) {
+      using W = decltype(w);
+      *instance = W::kN;
+      *problems = W::kG;
+      *threads = 32;
+      *smem = (long long)(sizeof(float) * W::kG * (W::kSeg + W::kPlane));
+      return 0;
+    });
+  } else {
+    *instance = 0;
+    *problems = 1;
+    *threads = 32 * ((n + 31) / 32);
+    *smem = (long long)smem_bytes(n);
   }
-  int blocks = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, admm_kernel, 32 * ((n + 31) / 32), smem);
-  return e != cudaSuccess ? -(int)e : blocks;
+  return n < 1 ? 1 : 0;
 }
 
-// Launch K1 on `stream` for B problems of size prm->n. All pointers are
-// device pointers to contiguous float32 (uint8 for the two flags, int32 for
-// the iteration counts) allocated by the caller. Returns cudaGetLastError().
+// Blocks of K1 that one SM holds at size n (of its one-warp instance at n <=
+// 32: each holds the plan's problems), from the occupancy calculator after
+// the launch's shared-memory attribute is set; a negated CUDA error code on
+// failure.
+int dq_admm_blocks_per_sm(int n) {
+  int instance, problems, threads;
+  long long smem;
+  dq_admm_plan(n, &instance, &problems, &threads, &smem);
+  int blocks = 0;
+  int e = instance ? 0 : allow_smem((size_t)smem);
+  if (e == 0) {
+    e = instance ? with_warp_kernel(n, [&](auto kernel, auto) {
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                                (size_t)smem);
+    }) : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, admm_kernel, threads,
+                                                             (size_t)smem);
+  }
+  return e != 0 ? -e : blocks;
+}
+
+// Launch K1 on `stream` for B problems of size prm->n: ceil(B / kG) blocks
+// of the one-warp instance at n <= 32, else B blocks of the block-wide
+// kernel. All pointers are device pointers to contiguous float32 (uint8 for
+// the two flags, int32 for the iteration counts) allocated by the caller.
+// Returns cudaGetLastError().
 int dq_admm_solve_f32(const float* P, const float* q, const float* ws,
                       const float* pa, const float* pb, const float* pc,
                       float* l2_out, int* iters_out, float* resp_out,
@@ -542,13 +1148,22 @@ int dq_admm_solve_f32(const float* P, const float* q, const float* ws,
                       uint8_t* stall_out, int B, const AdmmParams* prm,
                       void* stream) {
   const int n = prm->n;
-  const int threads = 32 * ((n + 31) / 32);
-  const size_t smem = smem_bytes(n);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  int instance, problems, threads;
+  long long smem;
+  dq_admm_plan(n, &instance, &problems, &threads, &smem);
+  if (instance) {
+    if (B > 0) {
+      with_warp_kernel(n, [&](auto kernel, auto) {
+        kernel<<<(B + problems - 1) / problems, threads, (size_t)smem, (cudaStream_t)stream>>>(
+            P, q, ws, pa, pb, pc, l2_out, iters_out, resp_out, resd_out, rho_out, conv_out,
+            stall_out, B, *prm);
+        return 0;
+      });
+    }
+    return (int)cudaGetLastError();
   }
+  const int a = allow_smem((size_t)smem);
+  if (a != 0) return a;
   if (B > 0) {
     admm_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
         P, q, ws, pa, pb, pc, l2_out, iters_out, resp_out, resd_out, rho_out,
