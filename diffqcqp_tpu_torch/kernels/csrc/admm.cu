@@ -91,11 +91,11 @@
 // shortens that chain: registers in place of shared-memory round trips for
 // the rows of P and X (the set-up 2.6x shorter), a quarter of the loads for
 // a published vector, and at n <= 16 the idle lanes of a warp given to
-// other problems. An iteration then costs about as much alone as shared by
-// 32 problems an SM: its chain of instructions, most of them the stopping
-// rules', the prox's and the residual's bookkeeping, sets it. Past one warp
-// the design answers with occupancy: a block of ~n^2 floats, and the
-// schedulers interleave chains.
+// other problems. An iteration alone then still takes more than half the
+// time it takes when 31 problems share an SM: its chain of instructions,
+// most of them the stopping rules', the prox's and the residual's
+// bookkeeping, sets it. Past one warp the design answers with occupancy: a
+// block of ~n^2 floats, and the schedulers interleave chains.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
