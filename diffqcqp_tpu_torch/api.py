@@ -39,6 +39,14 @@ cotangents, launch each kernel once over the folded batch, in the flat
 batch's order. Forward mode (``jvp``, ``jacfwd``) raises, as ``jax.jvp`` of
 the JAX package's ``custom_vjp`` does.
 
+The layers of a solve are spans of ``utils/tracing.py``: ``solve.canon``
+(the canonical problem, its parameters and warm start), ``solve.equilibrate``
+(Ruiz and the map of the bounds or radii), ``solve.k1`` or ``solve.engine``
+(the forward, with K1's casts), ``solve.map_back``; in the backward
+``adjoint.vjp`` (the adjoint's arguments, K4 or K2 or the generic route) and
+``adjoint.grads`` (``_grad_P``, -dl, the bound and radius gradients). A
+staged step's capture records them as its graph's layout.
+
 A diagonal P (B, N), as in the JAX package, launches no kernel: the eager
 engine solves it and its adjoints are closed form (``diff/kkt.py``);
 ``which_backend`` names 'xla' for it, and ``backend='pallas'`` raises on it,
@@ -66,6 +74,7 @@ from .kernels.admm_cuda import (
 from .ops.equilibrate import isotropize, ruiz_diag, scale_problem
 from .solvers.admm import SolveStats, admm_solve, capture_reason
 from .utils.shapes import Canon, canon_like, canon_problem, fold_vmapped, unfold_vmapped
+from .utils.tracing import span
 
 __all__ = [
     "solve_qp",
@@ -213,16 +222,18 @@ def _forward(P, q, ws, prox_kind, prox_args, cfg: SolverConfig, qcqp_stopping, d
     (``solvers/admm.py::capture_reason``)."""
     reason = _engine_reason(P, q, cfg)
     if reason is None:
-        c = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
-        l, st = admm_solve_cuda(
-            c(P), c(q), c(ws), prox_kind, tuple(map(c, prox_args)), cfg,
-            qcqp_stopping=qcqp_stopping, damp_both=damp_both,
-        )
-        dt = q.dtype
-        return l.to(dt), st._replace(res_prim=st.res_prim.to(dt), res_dual=st.res_dual.to(dt),
-                                     rho=st.rho.to(dt))
-    return admm_solve(P, q, ws, prox_fn(prox_kind, prox_args), cfg,
-                      qcqp_stopping=qcqp_stopping, damp_both_taus=damp_both)
+        with span("solve.k1"):
+            c = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
+            l, st = admm_solve_cuda(
+                c(P), c(q), c(ws), prox_kind, tuple(map(c, prox_args)), cfg,
+                qcqp_stopping=qcqp_stopping, damp_both=damp_both,
+            )
+            dt = q.dtype
+            return l.to(dt), st._replace(res_prim=st.res_prim.to(dt),
+                                         res_dual=st.res_dual.to(dt), rho=st.rho.to(dt))
+    with span("solve.engine"):
+        return admm_solve(P, q, ws, prox_fn(prox_kind, prox_args), cfg,
+                          qcqp_stopping=qcqp_stopping, damp_both_taus=damp_both)
 
 
 def _equilibrate(P, q, ws, cfg: SolverConfig, isotropic: bool = False):
@@ -239,37 +250,42 @@ def _equilibrate(P, q, ws, cfg: SolverConfig, isotropic: bool = False):
 
 
 def _map_back(out, d):
-    l, stats = out
-    return (l * d if d is not None else l), stats
+    with span("solve.map_back"):
+        l, stats = out
+        return (l * d if d is not None else l), stats
 
 
 def _qp(P, q, ws, cfg: SolverConfig):
     # d > 0 preserves l >= 0
-    P, q, ws, d = _equilibrate(P, q, ws, cfg)
+    with span("solve.equilibrate"):
+        P, q, ws, d = _equilibrate(P, q, ws, cfg)
     return _map_back(_forward(P, q, ws, PROX_NONNEG, (), cfg, False, True), d)
 
 
 def _box_qp(P, q, l_min, l_max, ws, cfg: SolverConfig):
-    P, q, ws, d = _equilibrate(P, q, ws, cfg)
-    if d is not None:
-        l_min, l_max = l_min / d, l_max / d
+    with span("solve.equilibrate"):
+        P, q, ws, d = _equilibrate(P, q, ws, cfg)
+        if d is not None:
+            l_min, l_max = l_min / d, l_max / d
     return _map_back(_forward(P, q, ws, PROX_BOX, (l_min, l_max), cfg, False, True), d)
 
 
 def _signed_box_qp(P, q, l_min, l_max, v, ws, cfg: SolverConfig):
     # sign(v * l) is invariant under the positive rescaling
-    P, q, ws, d = _equilibrate(P, q, ws, cfg)
-    if d is not None:
-        l_min, l_max = l_min / d, l_max / d
-    prox_args = (l_min, l_max, torch.sign(v))
+    with span("solve.equilibrate"):
+        P, q, ws, d = _equilibrate(P, q, ws, cfg)
+        if d is not None:
+            l_min, l_max = l_min / d, l_max / d
+        prox_args = (l_min, l_max, torch.sign(v))
     return _map_back(_forward(P, q, ws, PROX_SIGNED_BOX, prox_args, cfg, False, True), d)
 
 
 def _qcqp(P, q, l_n, mu, ws, cfg: SolverConfig):
-    radius = l_n * mu
-    P, q, ws, d = _equilibrate(P, q, ws, cfg, isotropic=True)
-    if d is not None:
-        radius = radius / d[:, ::2]
+    with span("solve.equilibrate"):
+        radius = l_n * mu
+        P, q, ws, d = _equilibrate(P, q, ws, cfg, isotropic=True)
+        if d is not None:
+            radius = radius / d[:, ::2]
     return _map_back(_forward(P, q, ws, PROX_DISK, (radius,), cfg, True, False), d)
 
 
@@ -295,25 +311,33 @@ def _bound_grads(r, n: int):
 
 
 def _qp_grads(P, q, l, g, cfg: SolverConfig):
-    dl = qp_vjp(P, q, l, g, cfg)
-    return _grad_P(dl, l, P), -dl
+    with span("adjoint.vjp"):
+        dl = qp_vjp(P, q, l, g, cfg)
+    with span("adjoint.grads"):
+        return _grad_P(dl, l, P), -dl
 
 
 def _box_qp_grads(P, q, l_min, l_max, l, g, cfg: SolverConfig):
-    r = box_vjp(P, q, l_min, l_max, l, g, cfg)
-    return (_grad_P(r.dl, l, P), -r.dl, *_bound_grads(r, l.shape[-1]))
+    with span("adjoint.vjp"):
+        r = box_vjp(P, q, l_min, l_max, l, g, cfg)
+    with span("adjoint.grads"):
+        return (_grad_P(r.dl, l, P), -r.dl, *_bound_grads(r, l.shape[-1]))
 
 
 def _signed_box_qp_grads(P, q, l_min, l_max, v, l, g, cfg: SolverConfig):
-    r = signed_box_vjp(P, q, l_min, l_max, v, l, g, cfg)
+    with span("adjoint.vjp"):
+        r = signed_box_vjp(P, q, l_min, l_max, v, l, g, cfg)
     # v enters only through sign(v): zero gradient almost everywhere
-    return (_grad_P(r.dl, l, P), -r.dl, *_bound_grads(r, l.shape[-1]), torch.zeros_like(v))
+    with span("adjoint.grads"):
+        return (_grad_P(r.dl, l, P), -r.dl, *_bound_grads(r, l.shape[-1]), torch.zeros_like(v))
 
 
 def _qcqp_grads(P, q, l_n, mu, l, g, cfg: SolverConfig):
-    r = qcqp_vjp(P, q, l_n * mu, l, g, cfg)
-    e1, e2 = qcqp_radius_factors(l_n, mu, r.gamma)
-    return _grad_P(r.dl, l, P), -r.dl, e2 * r.dgamma, e1 * r.dgamma
+    with span("adjoint.vjp"):
+        r = qcqp_vjp(P, q, l_n * mu, l, g, cfg)
+    with span("adjoint.grads"):
+        e1, e2 = qcqp_radius_factors(l_n, mu, r.gamma)
+        return _grad_P(r.dl, l, P), -r.dl, e2 * r.dgamma, e1 * r.dgamma
 
 
 # per class: (forward, gradients); the inputs are (P, q, *params, ws)
@@ -417,13 +441,13 @@ def _problem(P, q, device) -> Canon:
     return canon_problem(P, q, device=_device(device))
 
 
-def _solve(kind: str, cfg: SolverConfig, c: Canon, params, warm_start):
-    n = c.q.shape[-1]
-    ws = (
-        torch.zeros_like(c.q)
-        if warm_start is None
-        else canon_like(warm_start, c, "warm_start", width=n)
-    )
+def _warm_start(c: Canon, warm_start) -> torch.Tensor:
+    if warm_start is None:
+        return torch.zeros_like(c.q)
+    return canon_like(warm_start, c, "warm_start", width=c.q.shape[-1])
+
+
+def _solve(kind: str, cfg: SolverConfig, c: Canon, params, ws):
     l, *stats = _Solve.apply(kind, cfg, c.P, c.q, *params, ws)
     stats = SolveStats(*stats)
     return c.restore(l), (stats if c.batched else SolveStats(*(x[0] for x in stats)))
@@ -449,8 +473,10 @@ def solve_qp_with_stats(
 ):
     """``solve_qp`` plus per-problem ``SolveStats``."""
     cfg = _build_cfg(QP_DEFAULTS, config, eps, mu_prox, max_iter, adaptive_rho, axis_name)
-    c = _problem(P, q, device)
-    return _solve("qp", cfg, c, (), warm_start)
+    with span("solve.canon"):
+        c = _problem(P, q, device)
+        ws = _warm_start(c, warm_start)
+    return _solve("qp", cfg, c, (), ws)
 
 
 def solve_box_qp(
@@ -472,10 +498,12 @@ def solve_box_qp_with_stats(
 ):
     """``solve_box_qp`` plus per-problem ``SolveStats``."""
     cfg = _build_cfg(QP_DEFAULTS, config, eps, mu_prox, max_iter, adaptive_rho, axis_name)
-    c = _problem(P, q, device)
-    n = c.q.shape[-1]
-    bounds = (canon_like(l_min, c, "l_min", width=n), canon_like(l_max, c, "l_max", width=n))
-    return _solve("box_qp", cfg, c, bounds, warm_start)
+    with span("solve.canon"):
+        c = _problem(P, q, device)
+        n = c.q.shape[-1]
+        bounds = (canon_like(l_min, c, "l_min", width=n), canon_like(l_max, c, "l_max", width=n))
+        ws = _warm_start(c, warm_start)
+    return _solve("box_qp", cfg, c, bounds, ws)
 
 
 def solve_signed_box_qp(
@@ -499,11 +527,13 @@ def solve_signed_box_qp_with_stats(
 ):
     """``solve_signed_box_qp`` plus per-problem ``SolveStats``."""
     cfg = _build_cfg(QP_DEFAULTS, config, eps, mu_prox, max_iter, adaptive_rho, axis_name)
-    c = _problem(P, q, device)
-    n = c.q.shape[-1]
-    params = tuple(canon_like(x, c, name, width=n)
-                   for x, name in ((l_min, "l_min"), (l_max, "l_max"), (v, "v")))
-    return _solve("signed_box_qp", cfg, c, params, warm_start)
+    with span("solve.canon"):
+        c = _problem(P, q, device)
+        n = c.q.shape[-1]
+        params = tuple(canon_like(x, c, name, width=n)
+                       for x, name in ((l_min, "l_min"), (l_max, "l_max"), (v, "v")))
+        ws = _warm_start(c, warm_start)
+    return _solve("signed_box_qp", cfg, c, params, ws)
 
 
 def solve_qcqp(
@@ -529,7 +559,9 @@ def solve_qcqp_with_stats(
 ):
     """``solve_qcqp`` plus per-problem ``SolveStats``."""
     cfg = _build_cfg(QCQP_DEFAULTS, config, eps, mu_prox, max_iter, adaptive_rho, axis_name)
-    c = _problem(P, q, device)
-    nc = c.q.shape[-1] // 2
-    params = (canon_like(l_n, c, "l_n", width=nc), canon_like(mu, c, "mu", width=nc))
-    return _solve("qcqp", cfg, c, params, warm_start)
+    with span("solve.canon"):
+        c = _problem(P, q, device)
+        nc = c.q.shape[-1] // 2
+        params = (canon_like(l_n, c, "l_n", width=nc), canon_like(mu, c, "mu", width=nc))
+        ws = _warm_start(c, warm_start)
+    return _solve("qcqp", cfg, c, params, ws)

@@ -18,8 +18,10 @@ or collecting its tests, needs no ``nvcc``.
 around a launch: inputs, shared memory and block size (against the
 kernel's own ``__launch_bounds__``) before it, the kernel's
 ``cudaGetLastError()`` code after it. ``count_launch`` then adds one to the
-wrapper's ``launches`` counter under one lock, since the shards of a sharded
-solve (``parallel/sharding.py``) launch from several threads.
+wrapper's ``launches`` counter under the lock of ``utils/tracing.py``'s
+``bump``, since the shards of a sharded solve (``parallel/sharding.py``)
+launch from several threads. ``builds`` counts the libraries this process
+compiled.
 
 ``BUILD_DIR`` is where the libraries go; ``utils/cache.py::
 enable_compilation_cache`` points it elsewhere.
@@ -32,11 +34,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
 
 import torch
+
+from ..utils import tracing
 
 __all__ = [
     "NVCC_FLAGS", "SOURCES", "build", "load", "library_path", "check_geometry", "check_launch",
@@ -61,8 +66,9 @@ NVCC_FLAGS = (
 # (csrc/admm.cu, csrc/jacobi_eigh.cu)
 SOURCE_FLAGS = {"admm": ("-fmad=false",), "jacobi_eigh": ("-fmad=false",)}
 
+builds = 0      # libraries compiled by this process
+
 _lock = threading.Lock()
-_count_lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -115,6 +121,7 @@ def build(names: list[str]) -> dict[str, float]:
     for name, (proc, tmp, path) in procs.items():
         log, _ = proc.communicate()
         out[name] = time.perf_counter() - t0
+        tracing.bump(sys.modules[__name__], "builds")
         path.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
@@ -190,8 +197,8 @@ def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches`` (a kernel wrapper's launch counter),
-    under a lock: a bare ``+= 1`` from two threads can lose one. It runs in
-    Python where the wrapper launches, so a launch recorded in a CUDA graph
-    counts once, at capture, and the graph's replays count nothing."""
-    with _count_lock:
-        wrapper.launches += 1
+    under a lock (``utils/tracing.py::bump``): a bare ``+= 1`` from two
+    threads can lose one. It runs in Python where the wrapper launches, so
+    a launch recorded in a CUDA graph counts once, at capture, and the
+    graph's replays count nothing."""
+    tracing.bump(wrapper, "launches")

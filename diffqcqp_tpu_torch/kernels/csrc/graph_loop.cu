@@ -67,6 +67,20 @@ int dq_capture_id(void* stream, unsigned long long* id) {
   return 0;
 }
 
+// How many nodes the graph that `stream` captures holds so far (0 where it
+// captures nothing): the mark utils/tracing.py takes at each span boundary
+// of a capture, which places the graph's nodes under the program's layers.
+int dq_capture_nodes(void* stream, size_t* count) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  *count = 0;
+  cudaError_t e = cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, nullptr, &graph, nullptr,
+                                           nullptr);
+  if (e != cudaSuccess) return (int)e;
+  if (status != cudaStreamCaptureStatusActive) return 0;
+  return (int)cudaGraphGetNodes(graph, nullptr, count);
+}
+
 // A non-blocking stream of the library's own, never one of PyTorch's pool
 // (whose streams are handed out round robin and could be the capture's).
 int dq_stream_create(void** stream) {

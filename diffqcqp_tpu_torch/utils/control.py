@@ -52,10 +52,12 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
-__all__ = ["capturing", "cond", "graph", "node_counts", "versions", "while_loop"]
+__all__ = ["capture_nodes", "capturing", "cond", "graph", "graph_nodes", "node_counts",
+           "versions", "while_loop"]
 
 IF, WHILE = 0, 1                # the C interface's node kinds
-CONDITIONAL_NODE = 13           # CU_GRAPH_NODE_TYPE_CONDITIONAL
+# CUgraphNodeType: the kinds a trace shows work of, and conditional nodes
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 13: "conditional"}
 MIN_CUDA = 12040                # conditional WHILE nodes: CUDA 12.4
 POOL_APIS = ("_cuda_beginAllocateCurrentStreamToPool", "_cuda_endAllocateToPool",
              "_cuda_releasePool")
@@ -177,10 +179,11 @@ def _lib():
         lib.dq_graph_versions.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
         lib.dq_stream_create.argtypes = [ctypes.POINTER(p)]
         lib.dq_capture_id.argtypes = [p, ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.dq_capture_nodes.argtypes = [p, ctypes.POINTER(ctypes.c_size_t)]
         lib.dq_cond_begin.argtypes = [p, i, p, i, p, ctypes.POINTER(ctypes.c_ulonglong)]
         lib.dq_cond_end.argtypes = [p, ctypes.c_ulonglong, p]
         for f in (lib.dq_graph_versions, lib.dq_stream_create, lib.dq_capture_id,
-                  lib.dq_cond_begin, lib.dq_cond_end):
+                  lib.dq_capture_nodes, lib.dq_cond_begin, lib.dq_cond_end):
             f.restype = i
         lib._dq_typed = True
     return lib
@@ -360,13 +363,59 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
                       and a.stride() == b.stride())
 
 
-def node_counts(cuda_graph: torch.cuda.CUDAGraph) -> dict[str, int]:
+def capture_nodes(stream) -> int:
+    """How many nodes the graph that ``stream`` captures holds so far (0
+    where it captures nothing)."""
+    lib = _lib()
+    n = ctypes.c_size_t()
+    _check(lib, lib.dq_capture_nodes(stream.cuda_stream, ctypes.byref(n)), "cudaGraphGetNodes")
+    return n.value
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2."""
+
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+_cu = None
+
+
+def _libcuda():
+    global _cu
+    if _cu is None:
+        _cu = ctypes.CDLL("libcuda.so.1")
+    return _cu
+
+
+def _kernel_name(cu, node) -> str | None:
+    """A kernel node's function name as the CUDA driver gives it (mangled),
+    or None where this CUDA driver cannot say (``cuFuncGetName`` and
+    ``cuKernelGetName`` came with CUDA 12.3 and 12.5)."""
+    get = getattr(cu, "cuGraphKernelNodeGetParams_v2", None)
+    params = _KernelNodeParams()
+    if get is None or get(ctypes.c_void_p(node), ctypes.byref(params)) != 0:
+        return None
+    name = ctypes.c_char_p()
+    for handle, fn in ((params.func, "cuFuncGetName"), (params.kern, "cuKernelGetName")):
+        f = getattr(cu, fn, None)
+        if handle and f is not None and f(ctypes.byref(name), ctypes.c_void_p(handle)) == 0:
+            return name.value.decode(errors="replace") if name.value else None
+    return None
+
+
+def graph_nodes(cuda_graph: torch.cuda.CUDAGraph) -> list[tuple[str, str | None]]:
     """The nodes at the top level of a captured graph that PyTorch keeps
-    (``torch.cuda.CUDAGraph(keep_graph=True)``), by kind: 'conditional' and
-    'other'. Read through the driver API (``cuGraphGetNodes``,
-    ``cuGraphNodeGetType``): the graph belongs to PyTorch's runtime, which
-    is not ``graph_loop.cu``'s."""
-    cu = ctypes.CDLL("libcuda.so.1")
+    (``torch.cuda.CUDAGraph(keep_graph=True)``), in the order the CUDA
+    driver lists them (the order they were recorded in): (kind, kernel name or
+    None), kind one of 'kernel', 'memcpy', 'memset', 'conditional' and
+    'other'. Read through the CUDA driver API (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``, ``cuGraphKernelNodeGetParams``): the graph
+    belongs to PyTorch's runtime, which is not ``graph_loop.cu``'s."""
+    cu = _libcuda()
     g = ctypes.c_void_p(cuda_graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     rc = cu.cuGraphGetNodes(g, None, ctypes.byref(n))
@@ -375,10 +424,18 @@ def node_counts(cuda_graph: torch.cuda.CUDAGraph) -> dict[str, int]:
         rc = cu.cuGraphGetNodes(g, nodes, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
-    kinds = collections.Counter()
+    out = []
     for node in nodes:
         t = ctypes.c_int()
         if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
             raise RuntimeError("cuGraphNodeGetType failed")
-        kinds["conditional" if t.value == CONDITIONAL_NODE else "other"] += 1
-    return {"conditional": kinds["conditional"], "other": kinds["other"]}
+        kind = NODE_KINDS.get(t.value, "other")
+        out.append((kind, _kernel_name(cu, node) if kind == "kernel" else None))
+    return out
+
+
+def node_counts(cuda_graph: torch.cuda.CUDAGraph) -> dict[str, int]:
+    """The nodes at the top level of a captured graph (``graph_nodes``), by
+    kind: 'kernel', 'memcpy', 'memset', 'conditional' and 'other'."""
+    kinds = collections.Counter(kind for kind, _ in graph_nodes(cuda_graph))
+    return {k: kinds[k] for k in ("kernel", "memcpy", "memset", "conditional", "other")}

@@ -54,23 +54,44 @@ its storage between calls (``torch.optim.Adam(..., capturable=True)``
 does), and a replay updates it in place.
 
 The kernels' launch counters (``launches`` on each wrapper) are Python
-integers, bumped where a wrapper launches: they count the eager calls and
-the launches recorded at capture, and a replay adds nothing.
+integers, bumped under the lock of ``utils/tracing.py`` where a wrapper
+launches (``_build.count_launch``): they count the eager calls and the
+launches recorded at capture, and a replay adds nothing. A staged function
+counts its own ``eager_calls`` and ``captures`` the same way, and its
+``replays`` while tracing is on, with no lock: a staged function's calls
+are one thread's (a replay writes the graph's static input buffers).
+
+With tracing on, a replay records the span ``staged.call`` and its parts:
+``staged.key`` (the pytree's flatten, the signature, the device),
+``staged.copy_in``, ``staged.replay`` and ``staged.clone_out``
+(``_traced``, which takes ``_replay``'s steps in the same order); the
+other calls record no ``staged.*`` span. With tracing off a call costs one
+test of the switch over the untraced path.
+
+Every capture, traced or not, records the graph's layout (``layout``): its
+nodes in order, each under the path of ``api.py``'s spans (``solve.*``,
+``adjoint.*``) open when it was recorded, so a trace of a replay, which
+runs no Python of the step, can put each of its device ops under a layer of
+the program.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Any, Callable
 
 import torch
 from torch.utils import _pytree as pytree
 
-from . import control
+from . import control, tracing
 
 __all__ = ["WARMUP", "Staged", "capture_error", "signature", "staged"]
 
 WARMUP = 3      # eager calls of a signature before its capture (PyTorch's recipe)
+# the spans a traced replay records under staged.call, in order
+_REPLAY_PARTS = ("staged.key", "staged.copy_in", "staged.replay", "staged.clone_out")
+_UNTRACED = object()    # _traced's answer for a call that is not a replay
 
 
 def capture_error(route: str, reason: str) -> RuntimeError:
@@ -130,6 +151,7 @@ class _Graph:
         self.calls = 0
         self.graph: torch.cuda.CUDAGraph | None = None
         self.nodes: dict = {}
+        self.layout: list | None = None
         self.inputs: list = []
         self.outputs: list = []
         self.out_spec = None
@@ -142,6 +164,7 @@ class Staged:
 
     def __init__(self, fn: Callable):
         self.fn = fn
+        self.eager_calls = self.captures = self.replays = 0
         self._state: dict[tuple, _Graph] = {}
         self._side: dict[torch.device, torch.cuda.Stream] = {}
         functools.update_wrapper(self, fn)
@@ -156,7 +179,18 @@ class Staged:
         capture recorded (``control.Scope.recorded``)."""
         return {k: s.nodes for k, s in self._state.items() if s.graph is not None}
 
+    @property
+    def layout(self) -> dict:
+        """{signature: [(span path or None, ((kind, kernel name or None),
+        ...)), ...]}: each capture's nodes in the order the graph lists them
+        (``control.graph_nodes``), in runs under the path of program spans
+        open when they were recorded (``tracing.Layout.segments``); None for
+        a graph with conditional nodes."""
+        return {k: s.layout for k, s in self._state.items() if s.graph is not None}
+
     def __call__(self, *args, **kwargs):
+        if tracing.enabled and (out := self._traced(args, kwargs)) is not _UNTRACED:
+            return out
         leaves, spec = _leaves((args, kwargs))
         dev = _cuda_device(leaves)
         if dev is None:
@@ -170,9 +204,36 @@ class Staged:
                 self._capture(st, leaves, spec)
             return self._replay(st, leaves)
 
+    def _traced(self, args, kwargs):
+        """A replay with tracing on: ``_replay``'s steps with the clock read
+        at each boundary, recorded as ``staged.call`` and its four parts at
+        once (``tracing.parts``), so that tracing adds little to the path it
+        times. Any other call (CPU tensors, a warm-up, the capture) returns
+        ``_UNTRACED``, and ``__call__`` runs it as untraced."""
+        t0 = time.perf_counter_ns()
+        leaves, spec = _leaves((args, kwargs))
+        dev = _cuda_device(leaves)
+        st = None if dev is None else self._state.get(_key(leaves, spec))
+        if st is None or st.graph is None:
+            return _UNTRACED
+        t1 = time.perf_counter_ns()
+        self.replays += 1
+        with torch.cuda.device(dev):
+            with torch.no_grad():
+                for buf, x in zip(st.inputs, leaves):
+                    buf.copy_(x)
+            t2 = time.perf_counter_ns()
+            st.graph.replay()
+            t3 = time.perf_counter_ns()
+            out = pytree.tree_unflatten([None if x is None else x.detach().clone()
+                                         for x in st.outputs], st.out_spec)
+        tracing.parts("staged.call", _REPLAY_PARTS, (t0, t1, t2, t3, time.perf_counter_ns()))
+        return out
+
     def _eager(self, dev: torch.device, args, kwargs):
         """One warm-up call on the side stream, ordered after the caller's
         stream and before its next work."""
+        tracing.bump(self, "eager_calls")
         cur = torch.cuda.current_stream(dev)
         if dev not in self._side:
             self._side[dev] = torch.cuda.Stream(dev)
@@ -187,14 +248,18 @@ class Staged:
         return out
 
     def _capture(self, st: _Graph, leaves: list, spec) -> None:
+        tracing.bump(self, "captures")
         inputs = [x.detach().clone().requires_grad_(x.requires_grad) for x in leaves]
         args, kwargs = pytree.tree_unflatten(inputs, spec)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with control.graph(graph) as scope:
-            out = self.fn(*args, **kwargs)
+            stream = torch.cuda.current_stream()
+            with tracing.capture(lambda: control.capture_nodes(stream)) as layout:
+                out = self.fn(*args, **kwargs)
         graph.instantiate()
         st.outputs, st.out_spec = _leaves(out, none_ok=True)
         st.inputs, st.graph, st.nodes = inputs, graph, dict(scope.recorded)
+        st.layout = layout.segments(control.graph_nodes(graph))
 
     @staticmethod
     def _replay(st: _Graph, leaves: list):
