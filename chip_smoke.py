@@ -43,8 +43,8 @@ block-wide path). Phases, each of which fails the run if its check fails:
      computes it against the Python wrapper's, for K2 / K6 at n = 24, 34, 96,
      142, K5 at m = 5, 33, 36, 72, 88 and E1 at N = 2 to 240
      (``E1_PLAN_NS``: one warp against block-wide, either side of each
-     shared-memory bound), and three blocks of K6, K2 and K1 on an SM at
-     N=96 (the occupancy calculator); E1's plan at the main path's points
+     shared-memory bound), and at N=96 three blocks of K6 and of K2 on an
+     SM and four of K1 (the occupancy calculator); E1's plan at the main path's points
      (problems a block, threads, shared memory, layout) with problems an SM
      by the occupancy calculator (failing below the plan's own count) and
      the waves (``e1_occupancy``); ptxas's registers and
@@ -58,19 +58,25 @@ block-wide path). Phases, each of which fails the run if its check fails:
      (``admm_solve_plain``) on the same card inputs (``phase_2_k1``): at the
      flagship point; for all four prox kinds and the rho_sync=False,
      primal_check=False, max_iter (2 and 0) and warm_start_dual branches at
-     B=256, N = 8, 12 and 16 (four, two and two problems a warp); at every
+     every ``K1_BRANCH_POINTS`` (B=256 at N = 8, 12 and 16: four, two and
+     two problems a warp; B=512 at N = 40, 96 and 100, one on each
+     block-wide register instance, and N = 140, the two-plane kernel); at every
      one-warp edge ``K1_EDGE_NS`` (n = 1 to 33); on ragged batches (B=1027
      at N=8, B=1025 at N=16); at config 5's size (B=65,536 N=8, one launch);
-     and past one warp at N=96, B=512 (three warps per block) and N=34,
-     B=512 (two); K1 iterates against an explicit inverse at every n. Bar:
+     past one warp at N=96, B=512 (three warps per block) and N=34, B=512
+     (two); and at each block-wide register instance's edges
+     ``K1_BLOCK_EDGE_NS`` (its smallest and largest n, and the first n past
+     it), B=512, the non-negative QP and the disk; K1 iterates against an
+     explicit inverse at every n. Bar:
      bit for bit, every problem's l, iterations, ``converged`` and
      ``stalled`` equal (the printed line also gives max |dl| and the
      iterations); each solve's iterations and factorisations per problem
      (the first and one per rho change, counted by the plain version) at
      the flagship and at config 5's size; phase 1 prints K1's launch plans
-     at n = 1-33 (wrapper against library), each one-warp instance's
-     registers, spills and problems an SM, and fails if the flagship's
-     instance spills or takes two waves at B=4096 (``k1_occupancy``);
+     at n = 1-169 (wrapper against library), each one-warp and block-wide
+     instance's registers, spills and problems an SM, and fails if the
+     flagship's instance spills or takes two waves at B=4096, or a
+     block-wide register instance spills (``k1_occupancy``);
   2b. kernel K2 (``qcqp_kkt_bwd_fused_cuda``) against its plain version
      (``qcqp_kkt_bwd_fused_plain``) on the same card inputs, with l from K1
      and the cotangents g = 2 l and a random g: at the flagship point, at
@@ -557,6 +563,17 @@ def compare(name, out_k, out_p, tol=2e-5, exact=False):
 # 25, 32 | 33: four, two, one problem a warp, then block-wide) and n = 1, 2,
 # 7, 15
 K1_EDGE_NS = (1, 2, 7, 8, 9, 15, 16, 17, 24, 25, 32, 33)
+# K1's block-wide register instances' edges: each one's smallest and largest
+# n, and the first n past it (the next instance, or the two-plane kernel)
+K1_BLOCK_EDGE_NS = (33, 64, 65, 96, 97, 128, 129)
+# (B, N, seed) of phase 2's run over K1's prox kinds and branches: the
+# one-warp instances at N = 8, 12 and 16 (four, two and two problems a warp),
+# each register instance past one warp (N = 40, 96 and 100: kN = 64, 96 and
+# 128) and the two-plane kernel (N = 140)
+K1_BRANCH_POINTS = ((256, 8, 8), (256, 12, 1), (256, 16, 16), (512, 40, 40), (512, 96, 96),
+                    (512, 100, 100), (512, 140, 140))
+# where k1_occupancy gives K1's blocks an SM past one warp
+K1_BLOCK_NS = (33, 64, 96, 128, 169)
 
 
 def k1_branch_inputs(b, n, seed):
@@ -578,9 +595,10 @@ def phase_2_k1(dqt, cfg, flag, gate=True):
     (``admm_solve_plain``) on the same card inputs, bit for bit
     (``compare(exact=gate)``: every problem's l, iterations, ``converged``
     and ``stalled`` equal): the flagship (``flag``, B=4096 N=24, the disk);
-    the prox kinds and branches at B=256, N = 8, 12 and 16 (four, two
-    and two problems a warp: ``k1_branch_inputs``, seeds 8,
-    1, 16) at eps=1e-5 (the QP kinds) and 1e-6 (the disk): non-negative,
+    the prox kinds and branches at every ``K1_BRANCH_POINTS``: B=256 at
+    N = 8, 12 and 16 (four, two and two problems a warp), B=512 at N = 40,
+    96 and 100 (the register instances kN = 64, 96, 128) and N = 140 (the
+    two-plane kernel) (``k1_branch_inputs``) at eps=1e-5 (the QP kinds) and 1e-6 (the disk): non-negative,
     box, signed box, disk, rho_sync=False (the per-problem cpt gate),
     primal_check=False (the dual-only rule), max_iter=2 and 0, and
     warm_start_dual from a converged primal; every one-warp edge
@@ -588,7 +606,9 @@ def phase_2_k1(dqt, cfg, flag, gate=True):
     non-negative QP; ragged batches, B=1027 at N=8 and B=1025 at N=16 (a
     last warp with padding); config 5's size, examples_torch/
     sharded_batch.py's 65,536 problems at N=8 in one launch (eps=1e-7,
-    max_iter=1000); past one warp, B=512 at N=96 (three warps) and N=34.
+    max_iter=1000); past one warp, B=512 at N=96 (three warps) and N=34,
+    and at every block-wide edge ``K1_BLOCK_EDGE_NS`` at B=512, the disk at
+    the flagship's schedule and the non-negative QP (seeds 60 + n).
     Returns {"flagship": (K1's output, inverses a problem, max |dl|),
     "config 5": (args, K1's output, the plain version's output, inverses a
     problem, the plain version's ms), "N=96": (P, q, l_n, mu, K1's l)}."""
@@ -619,8 +639,7 @@ def phase_2_k1(dqt, cfg, flag, gate=True):
     # with rounding order (kernel FMAs vs eager ops): up to 4 iterations apart
     # on an H100, which measures rounding, not the algorithm.
     qp_cfg = dqt.QP_DEFAULTS.replace(eps=1e-5, max_iter=3000)
-    for n, seed in ((8, 8), (12, 1), (16, 16)):
-        b = 256
+    for b, n, seed in K1_BRANCH_POINTS:
         Pk, qk, lo, hi, vs, rad = k1_branch_inputs(b, n, seed)
         wsk = torch.zeros_like(qk)
         for name, kind, pa, c, qstop in [
@@ -670,6 +689,11 @@ def phase_2_k1(dqt, cfg, flag, gate=True):
     P17, q17, ln17, mu17 = cuda(*build_problems(512, 17, seed=15))
     held("disk B=512 N=34 (2 warps)", (P17, q17, torch.zeros_like(q17), PROX_DISK,
                                         ((ln17 * mu17).contiguous(),), cfg, True, False))
+    for n in K1_BLOCK_EDGE_NS:
+        Pk, qk, _, _, _, rad = k1_branch_inputs(512, n, 60 + n)
+        wsk = torch.zeros_like(qk)
+        held(f"block edge disk B=512 N={n}", (Pk, qk, wsk, PROX_DISK, (rad,), cfg, True, False))
+        held(f"block edge nonneg B=512 N={n}", (Pk, qk, wsk, PROX_NONNEG, (), qp_cfg))
     torch.cuda.synchronize()
     return out
 
@@ -3454,15 +3478,16 @@ E1_LAYOUTS = ("A and V^T in shared memory", "A in shared memory, V^T in the work
 
 def k1_occupancy(sms, ptxas, gate=True):
     """Phase 1: K1's launch plan (instance, problems a block, threads, shared
-    memory) at n = 1-33 as the wrapper and the built library compute it
+    memory) at n = 1-169 as the wrapper and the built library compute it
     (fails where they differ); for each one-warp instance its registers and
     spills (``ptxas``, ptxas_summary's line) and problems an SM by the
     occupancy calculator, with the waves at the main path's batches (the
-    flagship's B=4096 at N=24, config 5's B=65,536 at N=8); fails if the
+    flagship's B=4096 at N=24, config 5's B=65,536 at N=8); the same past
+    one warp at ``K1_BLOCK_NS``, with the waves at B=2048; fails if the
     flagship's instance spills or holds too few problems an SM for B=4096 in
-    one wave (with ``gate``; else it says so). A port without
-    ``launch_plan`` (before the one-warp instances) prints its blocks an SM
-    alone. Returns {n: problems an SM}."""
+    one wave, or a block-wide register instance spills (with ``gate``; else
+    it says so). A port without ``launch_plan`` (before the one-warp
+    instances) prints its blocks an SM alone. Returns {n: problems an SM}."""
     from diffqcqp_tpu_torch.kernels import admm_cuda as k1m
 
     per_sm = {}
@@ -3471,12 +3496,19 @@ def k1_occupancy(sms, ptxas, gate=True):
             per_sm[n] = k1m.c_blocks_per_sm(n)
         log(f"  K1 blocks (one problem each) an SM: {per_sm}")
         return per_sm
-    plans = {n: (k1m.launch_plan(n), k1m.c_launch_plan(n)) for n in range(1, 34)}
+    plans = {n: (k1m.launch_plan(n), k1m.c_launch_plan(n)) for n in range(1, 170)}
     log("  K1 launch plans (instance, problems a block, threads, smem bytes), wrapper = "
         "library: " + ", ".join(f"n={n} {py}{'' if py == c else f' != {c}'}"
-                                for n, (py, c) in plans.items()))
+                                for n, (py, c) in plans.items()
+                                if n <= 33 or n in K1_BLOCK_EDGE_NS + K1_BLOCK_NS))
     if any(py != c for py, c in plans.values()):
         raise AssertionError("K1's launch plan disagrees with the library's")
+
+    def faults(what):
+        if gate:
+            raise AssertionError(what)
+        log(f"  {what}")
+
     for n, b in ((8, 65536), (16, 4096), (24, B_FLAG), (32, 4096)):
         inst, probs = plans[n][0][:2]
         per_sm[n] = probs * k1m.c_blocks_per_sm(n)
@@ -3486,10 +3518,18 @@ def k1_occupancy(sms, ptxas, gate=True):
             f"{spill} bytes spilled; {per_sm[n]} problems an SM (occupancy calculator); "
             f"B={b} N={n}: {-(-b // max(per_sm[n] * sms, 1))} wave(s)")
         if n == 24 and (spill != "0" or per_sm[n] * sms < B_FLAG):
-            if gate:
-                raise AssertionError("K1's flagship instance spills or takes more than one "
-                                     "wave at B=4096")
-            log("  K1's flagship instance spills or takes more than one wave at B=4096")
+            faults("K1's flagship instance spills or takes more than one wave at B=4096")
+    for n in K1_BLOCK_NS:
+        inst, probs, threads, smem = plans[n][0]
+        per_sm[n] = probs * k1m.c_blocks_per_sm(n)
+        name = rf"admm_kernel_rows\[{inst},\d+\]" if inst else "admm_kernel"
+        m = re.search(rf"(?:^|\| ){name}: (\d+) registers, (\d+) bytes", ptxas)
+        regs, spill = (m.group(1), m.group(2)) if m else ("?", "?")
+        log(f"  K1 block-wide at n={n}: instance {inst} ({threads} threads, {smem} bytes of "
+            f"shared memory), {regs} registers, {spill} bytes spilled; {per_sm[n]} blocks an SM "
+            f"(occupancy calculator); B=2048: {-(-2048 // max(per_sm[n] * sms, 1))} wave(s)")
+        if inst and spill != "0":
+            faults(f"K1's block-wide register instance {inst} spills")
     return per_sm
 
 
@@ -4550,12 +4590,14 @@ def k1_run(root) -> int:
     large sizes; at a small B the events time the wrapper's host work): K1
     on the flagship's first B problems for B in ``K1_SWEEP_B`` (at B=132 one
     problem an SM, so no problem waits on another for the SM's pipes); at
-    B=132 and 4096 with every problem running exactly k iterations (eps=0,
-    no stall floor, max_iter=k) for k in ``K1_FIXED_K``, the set-up against
-    an iteration; the flagship's mean, p99 and maximum iterations; K1 at
-    config 5's size (B=65,536 N=8, ``sharded_example_problems``, eps=1e-7,
-    max_iter=1000), at B=2048 N=96 (phase 2e's QCQPs) and at config 6 (the
-    block-wide path). Prints one JSON line."""
+    B=132 and 4096, and on config 6's first 132 and all its 2048 problems
+    (the block-wide path at N=96), with every problem running exactly k
+    iterations (eps=0, no stall floor, max_iter=k) for k in ``K1_FIXED_K``,
+    the set-up against an iteration; the flagship's mean, p99 and maximum
+    iterations; K1 at config 5's size (B=65,536 N=8,
+    ``sharded_example_problems``, eps=1e-7, max_iter=1000), at B=2048 N=96
+    (phase 2e's QCQPs) and at config 6; and ``launches_by_instance`` of a
+    staged config-6 step's capture. Prints one JSON line."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import diffqcqp_tpu_torch as dqt
     from diffqcqp_tpu_torch.kernels import _build
@@ -4572,7 +4614,6 @@ def k1_run(root) -> int:
     log(f"k1 ({root}, {smi}): built admm.cu in {time.perf_counter() - t0:.1f} s; ptxas: {ptxas}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_sm = k1_occupancy(sms, ptxas, gate=False)
-    per_sm[96] = k1m.c_blocks_per_sm(96)
 
     cfg = flagship_cfg(dqt)
     P, q, l_n, mu = cuda(*build_problems(B_FLAG, NC_FLAG))
@@ -4598,34 +4639,58 @@ def k1_run(root) -> int:
                 time_cuda(fn, reps=5, calls=calls)[0])
 
     sweep = {b: ms(args(b)) for b in K1_SWEEP_B}
+    c6 = config6_classes(dqt)["qp"]
+
+    def args6(b, config=c6.cfg):
+        return (c6.P[:b].contiguous(), c6.q[:b].contiguous(), torch.zeros_like(c6.q[:b]),
+                c6.prox, c6.prox_args, config)
+
     fixed, fixed_iters = {}, {}
-    for b in (K1_SWEEP_B[0], B_FLAG):
-        for k in K1_FIXED_K:
-            ak = args(b, cfg.replace(eps=0.0, stall_tol=0.0, max_iter=k))
-            fixed_iters[f"B={b} k={k}"] = float(k1m.admm_solve_cuda(*ak)[1].iterations.double().mean())
-            fixed[f"B={b} k={k}"] = ms(ak)
+    for label, argf, config, batches in (("", args, cfg, (K1_SWEEP_B[0], B_FLAG)),
+                                         ("config 6 ", args6, c6.cfg, (K1_SWEEP_B[0], 2048))):
+        for b in batches:
+            for k in K1_FIXED_K:
+                ak = argf(b, config.replace(eps=0.0, stall_tol=0.0, max_iter=k))
+                key = f"{label}B={b} k={k}"
+                fixed_iters[key] = float(k1m.admm_solve_cuda(*ak)[1].iterations.double().mean())
+                fixed[key] = ms(ak)
     Pc, qc, lc, mc = sharded_example_problems(65536)
     a5 = (Pc, qc, torch.zeros_like(qc), k1m.PROX_DISK, ((lc * mc).contiguous(),),
           dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=1000), True, False)
     P96, q96, ln96, mu96 = cuda(*build_problems(2048, 48, seed=6))
     a96 = (P96, q96, torch.zeros_like(q96), k1m.PROX_DISK, ((ln96 * mu96).contiguous(),), cfg,
            True, False)
-    c6 = config6_classes(dqt)["qp"]
-    a6 = (c6.P, c6.q, torch.zeros_like(c6.q), c6.prox, c6.prox_args, c6.cfg)
+    a6 = args6(2048)
     large = {}
     for label, ax in (("config 5 B=65536 N=8", a5), ("QCQP B=2048 N=96", a96),
                       ("config 6 B=2048 N=96", a6)):
         large[label] = ms(ax, calls=5)
         large[label + " mean iterations"] = float(
             k1m.admm_solve_cuda(*ax)[1].iterations.double().mean())
+    # the launches a staged config-6 step records at its capture, by the
+    # launch plan's instance (a port before the count has none)
+    by_instance = None
+    if hasattr(k1m.admm_solve_cuda, "launches_by_instance"):
+        from diffqcqp_tpu_torch.utils.staging import WARMUP, staged
+
+        step = staged(lambda P_, q_: dqt.solve_qp_with_stats(P_, q_, config=c6.cfg,
+                                                             device="cuda"))
+        for _ in range(WARMUP):
+            step(c6.P, c6.q)
+        k1m.admm_solve_cuda.launches_by_instance.clear()
+        step(c6.P, c6.q)
+        torch.cuda.synchronize()
+        by_instance = dict(k1m.admm_solve_cuda.launches_by_instance)
     log(f"  K1 at the flagship's first B problems, (device ms, events ms): {sweep}\n"
         f"  K1 with every problem exactly k iterations, (device ms, events ms): {fixed} "
         f"(mean iterations "
-        f"{fixed_iters})\n  flagship iterations: {iters}\n  K1 at the large sizes: {large}")
+        f"{fixed_iters})\n  flagship iterations: {iters}\n  K1 at the large sizes: {large}\n"
+        f"  K1's launches by instance in a staged config-6 step's capture: {by_instance}")
     print(json.dumps({"tree": str(root), "package": dqt.__file__, "card": smi, "ptxas": ptxas,
                       "problems_per_sm": per_sm,
                       "flagship_iterations": iters, "k1_ms_by_b": sweep,
-                      "k1_ms_fixed_iterations": fixed, "k1_ms_large": large}), flush=True)
+                      "k1_ms_fixed_iterations": fixed, "k1_ms_large": large,
+                      "launches_by_instance": by_instance}), flush=True)
     return 0
 
 
@@ -4713,9 +4778,9 @@ def main() -> int:
     occ96 = {name: k26.c_blocks_per_sm(96, schur) for name, schur in (("K2", False), ("K6", True))}
     occ96["K1"] = k1m.c_blocks_per_sm(96)
     log(f"  blocks per SM at N=96 (occupancy calculator): {occ96}")
-    if any(py != c for _, py, c in plans) or min(occ96.values()) < 3:
+    if any(py != c for _, py, c in plans) or min(occ96["K2"], occ96["K6"]) < 3 or occ96["K1"] < 4:
         raise AssertionError("a launch plan disagrees with the library, or N=96 fits fewer "
-                             "than three blocks on an SM")
+                             "than three blocks of K2 or K6 or four of K1 on an SM")
     # the main path's launches at N=24: blocks per SM and the waves each takes,
     # ceil(B / (blocks per SM x SMs)); K2, K6 and K4 must take one (checked
     # after phase 4, so that a tree which fails it still prints its times)

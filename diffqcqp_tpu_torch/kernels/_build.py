@@ -18,7 +18,8 @@ or collecting its tests, needs no ``nvcc``.
 around a launch: inputs, shared memory and block size (against the
 kernel's own ``__launch_bounds__``) before it, the kernel's
 ``cudaGetLastError()`` code after it. ``count_launch`` then adds one to the
-wrapper's ``launches`` counter under the lock of ``utils/tracing.py``'s
+wrapper's ``launches`` counter (and to its count for the launch's kernel
+instance, where the wrapper keeps one) under the lock of ``utils/tracing.py``'s
 ``bump``, since the shards of a sharded solve (``parallel/sharding.py``)
 launch from several threads. ``builds`` counts the libraries this process
 compiled.
@@ -195,10 +196,14 @@ def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
         )
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (a kernel wrapper's launch counter),
-    under a lock (``utils/tracing.py::bump``): a bare ``+= 1`` from two
-    threads can lose one. It runs in Python where the wrapper launches, so
-    a launch recorded in a CUDA graph counts once, at capture, and the
-    graph's replays count nothing."""
+def count_launch(wrapper, instance=None) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch counter)
+    and, with ``instance``, to ``wrapper.launches_by_instance[instance]``
+    (the kernel instance that the launch plan picked), under a lock
+    (``utils/tracing.py::bump``): a bare ``+= 1`` from two threads can lose
+    one. It runs in Python where the wrapper launches, so a launch recorded
+    in a CUDA graph counts once, at capture, and the graph's replays count
+    nothing."""
     tracing.bump(wrapper, "launches")
+    if instance is not None:
+        tracing.bump(wrapper, "launches_by_instance", instance)

@@ -3,8 +3,9 @@
 ``admm_solve_cuda`` replaces ``diffqcqp_tpu/kernels/admm_pallas.py::
 admm_solve_pallas`` (kernel ``_admm_chol_kernel``). On a CUDA tensor it
 launches ``kernels/csrc/admm.cu`` (at n <= 32 one warp for one, two or four
-problems, ``launch_plan``; above, a block of a thread a row per problem; see
-the note at the top of that file) or raises; on a CPU tensor it runs
+problems, ``launch_plan``; above, a block of a thread a row per problem, with
+the row of the inverse in registers to n = 128; see the note at the top of
+that file) or raises; on a CPU tensor it runs
 ``admm_solve_plain``. There is no fallback from one to the other.
 
 ``admm_solve_plain`` repeats the kernel's arithmetic on whole batches in a
@@ -45,7 +46,7 @@ from .ldl import TINY
 
 __all__ = [
     "PROX_NONNEG", "PROX_BOX", "PROX_SIGNED_BOX", "PROX_DISK",
-    "ONE_WARP_MAX_N", "admm_solve_cuda", "admm_solve_plain", "c_launch_plan", "fits",
+    "ONE_WARP_MAX_N", "ROWS_MAX_N", "admm_solve_cuda", "admm_solve_plain", "c_launch_plan", "fits",
     "gj_inverse", "launch_plan", "prox_fn", "smem_bytes",
 ]
 
@@ -59,6 +60,10 @@ ONE_WARP_MAX_N = 32   # kOneWarpMaxN in csrc/admm.cu
 # the one-warp instances (WarpK1 in csrc/admm.cu): columns unrolled to kN,
 # kG problems a warp
 _WARP_INSTANCES = ((8, 4), (16, 2), (24, 1), (32, 1))
+# kRowsMaxN in csrc/admm.cu: up to here a block-wide register instance
+# (RowK1: kN = row_threads(n) threads, 64, 96 or 128), past it the
+# two-plane kernel
+ROWS_MAX_N = 128
 
 
 def prox_fn(prox_kind: int, prox_args: tuple):
@@ -356,13 +361,20 @@ def smem_bytes(n: int) -> int:
     tau_dec, the last rho move and the problem's results until they are
     stored, 4 kN for the prox's arguments and q by row, 5 (32 / kG) for a
     lane's loop state while an inverse is formed, and P in kN rows of
-    stride kN + 2; the inverse's rows are in registers. Above, as
+    stride kN + 2; the inverse's rows are in registers. At n <= 128 (one
+    block of kN = ``row_threads(n)`` threads, X's rows in registers): 8 kN +
+    8 floats of scratch (a solve's three published vectors, or two buffers
+    of the Gauss-Jordan steps' columns and pivots), 32 reduction slots (4 for
+    each of at most 8 warps), 4 kN for the prox's arguments and q, 4 kN for
+    a thread's parked loop state, then P in kN rows of stride kN + 2. Above, as
     ``smem_bytes`` in csrc/admm.cu computes it: two n x (n|1) matrices, five
-    n-vectors of broadcast/scratch slots, 32 reduction slots (4 for each of
-    at most 8 warps)."""
+    n-vectors of broadcast/scratch slots, 32 reduction slots."""
     if n <= ONE_WARP_MAX_N:
         N, G = _instance(n)
         return 4 * G * (8 * N + 16 + 5 * (32 // G) + N * (N + 2))
+    if n <= ROWS_MAX_N:
+        N = _build.row_threads(n)
+        return 4 * (16 * N + 40 + N * (N + 2))
     return 4 * (2 * n * (n | 1) + 5 * n + 32)
 
 
@@ -376,14 +388,16 @@ def launch_plan(n: int) -> tuple[int, int, int, int]:
     block) of K1 at size n, as csrc/admm.cu's dq_admm_plan computes them.
     At n <= 32 one warp, the instance its kN: n <= 8 four problems a warp
     (8 lanes each), n <= 16 two (16 lanes), n <= 24 and n <= 32 one; above,
-    instance 0, the block-wide kernel, one problem a block of
-    ``_build.row_threads(n)`` threads. Raises ValueError for n < 1."""
+    one problem a block of ``_build.row_threads(n)`` threads: to n = 128 the
+    register instance of that many threads (64, 96 or 128, its kN), past it
+    instance 0, the two-plane kernel. Raises ValueError for n < 1."""
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
     if n <= ONE_WARP_MAX_N:
         N, G = _instance(n)
         return N, G, 32, smem_bytes(n)
-    return 0, 1, _build.row_threads(n), smem_bytes(n)
+    threads = _build.row_threads(n)
+    return (threads if n <= ROWS_MAX_N else 0), 1, threads, smem_bytes(n)
 
 
 def c_launch_plan(n: int) -> tuple[int, int, int, int] | None:
@@ -451,6 +465,8 @@ def admm_solve_cuda(
     synchronisation) or this raises. ``admm_solve_cuda.launches`` counts the
     launches this wrapper issues or, inside a CUDA graph capture, records:
     a replay of the graph runs the kernel again and counts nothing.
+    ``admm_solve_cuda.launches_by_instance`` counts them by the launch
+    plan's instance ({instance: launches}; 0 for the two-plane kernel).
     """
     tensors = (P, q, warm_start) + tuple(prox_args)
     _check(P, q, warm_start, prox_kind, prox_args, cfg)
@@ -459,7 +475,7 @@ def admm_solve_cuda(
             P, q, warm_start, prox_kind, prox_args, cfg, qcqp_stopping, damp_both
         )
     B, n = q.shape
-    _, _, threads, smem = launch_plan(n)
+    instance, _, threads, smem = launch_plan(n)
     dev = _build.check_launch(tensors, threads, smem,
                               32 if n <= ONE_WARP_MAX_N else _build.ROW_BOUND)
 
@@ -493,8 +509,9 @@ def admm_solve_cuda(
             ptr(stall), B, ctypes.byref(prm), stream,
         )
     _build.check_rc(lib, rc, f"admm (B={B}, n={n})")
-    _build.count_launch(admm_solve_cuda)
+    _build.count_launch(admm_solve_cuda, instance)
     return l2, SolveStats(iters, resp, resd, rho, conv, stall)
 
 
 admm_solve_cuda.launches = 0
+admm_solve_cuda.launches_by_instance = {}

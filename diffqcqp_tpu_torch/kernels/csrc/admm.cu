@@ -8,16 +8,34 @@
 // residuals, the stopping rule with its stall floors, and the adaptive rho
 // (rho_sync or cpt gating) with a new inverse whenever rho changes.
 //
-// Design, two paths (dq_admm_plan picks one from n):
-//   * n >= 33, admm_kernel: one thread block per problem, one thread per
-//     coordinate row (blockDim = 32 * ceil(n / 32)). P and the inverse live
-//     in dynamic shared memory (2 n ld floats, ld = n | 1 odd so row and
-//     column walks are both bank-conflict free); per-problem scalars (rho,
-//     taus, counters, flags) and per-row vectors (l2, u, q_prox) live in
-//     registers. The inf-norm, 2-norm and Rayleigh-quotient reductions are
-//     warp butterflies (every lane ends with the same value) plus a small
-//     shared array across warps. Each block leaves its loop when its own
-//     problem converges or at max_iter.
+// Design, three paths (dq_admm_plan picks one from n alone):
+//   * 129 <= n <= 169, admm_kernel (the two-plane kernel): one thread block
+//     per problem, one thread per coordinate row (blockDim = 32 * ceil(n /
+//     32)). P and the inverse live in dynamic shared memory (2 n ld floats,
+//     ld = n | 1 odd so row and column walks are both bank-conflict free);
+//     per-problem scalars (rho, taus, counters, flags) and per-row vectors
+//     (l2, u, q_prox) live in registers. The inf-norm, 2-norm and
+//     Rayleigh-quotient reductions are warp butterflies (every lane ends
+//     with the same value) plus a small shared array across warps. Each
+//     block leaves its loop when its own problem converges or at max_iter.
+//   * 33 <= n <= 128, admm_kernel_rows<RowK1<kN, ...>>: the same block of
+//     kN = 32 ceil(n / 32) threads a problem (kN = 64, 96, 128), its
+//     reductions and its exit, with the one-warp path's treatment: every
+//     loop over columns unrolled to kN, thread r keeping its row of P in
+//     registers through the set-up and then building its row of X in
+//     registers (gj_inverse_rows; only the published pivot columns and
+//     pivots go through shared memory, in two buffers that the passes take
+//     in turn, so a pass needs no barrier of its own). An iteration reads
+//     its three published vectors as float4 (X rhs, X res) and double2
+//     (P l0) broadcasts; P stays in shared memory (stride kN + 2) for the
+//     float64 residual alone, and q, the prox's arguments and the loop
+//     state while an inverse is formed sit there too, so that kN = 96 fits
+//     the 168 registers of four blocks an SM without spilling. A row of 169
+//     floats does not fit a thread's 255 registers: past 128 the two-plane
+//     kernel runs. The two block-wide kernels differ only in where the rows
+//     live and when the inverse is formed: both take an iteration's step
+//     after the solve (the prox, the reduction, the stopping rule, the
+//     commit) from admm_step and the rho schedule from adapt_rho.
 //   * n <= 32, admm_kernel_warp<WarpK1<kN, kG, ...>>: one warp a block and
 //     kG problems a warp (four at n <= 8, two at n <= 16, else one), each on
 //     a segment of 32 / kG lanes, lane r owning row r; every loop over
@@ -40,8 +58,9 @@
 // solves by two triangular sweeps: 2n + 1 dependent steps, each a broadcast
 // then a multiply-add the next step waits on, and past one warp each
 // broadcast would be a __syncthreads (193 per iteration at N = 96). Here the
-// second plane holds the explicit inverse X = (P + (rho + mu) I)^{-1}
-// (gj_inverse: Gauss-Jordan, one barrier per column), and an iteration is
+// explicit inverse X = (P + (rho + mu) I)^{-1} is held (in the second plane,
+// or a row a thread in registers; gj_inverse: Gauss-Jordan, one barrier per
+// column), and an iteration is
 // refined_solve: l0 = X rhs, the residual rhs - (P + (rho + mu) I) l0
 // accumulated in double, and l = l0 + X res: three row-times-vector
 // products, three barriers (__syncwarp at one warp), no dependent chain
@@ -79,23 +98,31 @@
 //
 // What bounds it on this card: not bytes (P is read once, ~9.4 MB at
 // B = 4096, N = 24) nor FLOPs (a few MFLOP per problem), but latency inside
-// each problem: an iteration's three barriers and three n-long multiply-add
-// chains (four partial sums each), and the inverse at each (re)factorisation,
-// about once per problem at the benchmark configs: 5 n / 4 barriers and
-// ~3 n^2 / 4 shared-memory accesses per thread (gj_inverse). Measured at the
-// flagship on an H100 (chip_smoke.py k1, device time; PERF.md): with the
-// design before the one-warp path, one problem an SM (B = 132) already took
-// 51 % of the time of B = 4096, and the set-up (P's load, the power
-// iteration, the first inverse) 32 % of it, so each problem's chain set the
-// time more than the SM's shared-memory throughput did. The one-warp path
-// shortens that chain: registers in place of shared-memory round trips for
-// the rows of P and X (the set-up 2.6x shorter), a quarter of the loads for
-// a published vector, and at n <= 16 the idle lanes of a warp given to
-// other problems. An iteration alone then still takes more than half the
-// time it takes when 31 problems share an SM: its chain of instructions,
-// most of them the stopping rules', the prox's and the residual's
-// bookkeeping, sets it. Past one warp the design answers with occupancy: a
-// block of ~n^2 floats, and the schedulers interleave chains.
+// each problem and, past one warp, the shared-memory pipe: an iteration's
+// three barriers and three n-long multiply-add chains (four partial sums
+// each), and the inverse at each (re)factorisation, about once per problem
+// at the benchmark configs. Measured at the flagship on an H100
+// (chip_smoke.py k1, device time; PERF.md): with the design before the
+// one-warp path, one problem an SM (B = 132) already took 51 % of the time
+// of B = 4096, and the set-up (P's load, the power iteration, the first
+// inverse) 32 % of it, so each problem's chain set the time more than the
+// SM's shared-memory throughput did. The one-warp path shortens that chain:
+// registers in place of shared-memory round trips for the rows of P and X
+// (the set-up 2.6x shorter), a quarter of the loads for a published vector,
+// and at n <= 16 the idle lanes of a warp given to other problems. An
+// iteration alone then still takes more than half the time it takes when 31
+// problems share an SM: its chain of instructions, most of them the
+// stopping rules', the prox's and the residual's bookkeeping, sets it.
+// Past one warp every thread reads every published vector, and a 16-byte
+// broadcast still costs the SM's shared-memory pipe four cycles (eight
+// lanes a cycle): an iteration of the register path moves ~1.9 KB into each
+// thread's registers (X rhs and X res 384 B each, P's row 384 B, l0 in
+// double 768 B), ~5,800 of the pipe's cycles for the four problems an SM
+// at kN = 96, and an inverse pass ~1,150 a problem. At config 6 (B = 2048,
+// N = 96; chip_smoke.py k1, PERF.md) the register path took K1 from 1.43 to
+// 0.77 ms: the inverse ~0.35, an iteration 0.0105 ms across the batch, the
+// rest of the set-up (P's load and the power iteration's in-order chains)
+// 0.10. Fewer bytes a multiply-add need more rows a thread.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -335,6 +362,120 @@ __device__ float refined_solve(const dq::Blk& k, const float* sP, const float* s
   return l0 + row_dot(k, sX, x2);
 }
 
+// What an iteration of a block-wide kernel decided: the residuals (with the
+// rho they were computed with), whether the problem stops, and whether eps
+// certified both residuals.
+struct Step {
+  float rp, rd;
+  bool stop, certified;
+};
+
+// The iteration after the linear solve's l, for both block-wide kernels
+// (admm_kernel, admm_kernel_rows): the relaxation, the prox, the residuals'
+// block reduction and the stopping rule, then the commit of l2, u and qp
+// (qpn = q - mu l). arg(i) is this row's prox argument i: lo, hi and v_sign
+// for the box kinds, its disk's radius as argument 0.
+template <typename Arg>
+__device__ __forceinline__ Step admm_step(const dq::Blk& k, const AdmmParams& prm, float l,
+                                          float qpn, float rho, Arg arg, float& l2, float& u,
+                                          float& qp, float* s_red) {
+  const int r = k.r, nc = k.n / 2;
+  const float rr = prm.alpha * l + (1.0f - prm.alpha) * l2;
+  const float x = rr + u / rho;
+
+  // prox; the disk partner moves by shuffle, so every lane calls it
+  const float partner = __shfl_xor_sync(dq::kFullMask, x, 1);
+  float l2n = 0.f;
+  if (k.real) {
+    switch (prm.prox_kind) {
+      case kNonneg:
+        l2n = fmaxf(x, 0.f);
+        break;
+      case kBox:
+        l2n = fminf(fmaxf(x, arg(0)), arg(1));
+        break;
+      case kSignedBox: {
+        const float vs = arg(2);
+        l2n = vs * fminf(vs * fminf(fmaxf(x, arg(0)), arg(1)), 0.f);
+        break;
+      }
+      default: {
+        if (r < 2 * nc) {
+          const float rad = arg(0);
+          const float xa = (r & 1) ? partner : x;
+          const float xb = (r & 1) ? x : partner;
+          const float nrm = sqrtf(xa * xa + xb * xb);
+          const float scale = nrm > rad ? rad / fmaxf(nrm, dq::kTiny) : 1.f;
+          l2n = x * scale;
+        } else {
+          l2n = x;
+        }
+      }
+    }
+  }
+  const float un = u + rho * (rr - l2n);
+
+  const float4 red = block_reduce(
+      k, make_float4(fabsf(l2n - l2), fabsf(l2n - rr), fabsf(l2n), l * l), s_red);
+  const float delta = red.x, rp = red.y, l2inf = red.z;
+  const float rd = rho * delta;
+
+  const bool eps_ok = rd < prm.eps;
+  const float noise = prm.stall_floor * fmaxf(l2inf, 1.f);
+  const bool dual_ok = prm.stall_on ? (eps_ok || delta <= noise) : eps_ok;
+  bool newly, certified;
+  if (prm.primal_test) {
+    const float lnorm = sqrtf(red.w);
+    const bool prim_eps = rp < prm.eps + prm.eps_rel * lnorm;
+    const bool prim_ok = prm.stall_on ? (prim_eps || rp <= noise) : prim_eps;
+    newly = prim_ok && dual_ok;
+    certified = eps_ok && prim_eps;
+  } else {
+    newly = dual_ok;
+    certified = eps_ok;
+  }
+
+  // commit this iteration (the problem was active)
+  l2 = l2n;
+  u = un;
+  qp = qpn;
+  return {rp, rd, newly, certified};
+}
+
+// The adaptive rho after iteration it, which did not stop: rho_sync's period
+// or the per-problem cpt gate, the step damped when its direction flips.
+// True where rho changed, so that a new inverse is due.
+__device__ __forceinline__ bool adapt_rho(const AdmmParams& prm, int it, const Step& st,
+                                          float& rho, float& tau_inc, float& tau_dec,
+                                          int& rho_up, int& cpt) {
+  if (!prm.adaptive_rho) return false;
+  const float rp = st.rp, rd = st.rd;
+  const bool inc = rp > prm.mu_thresh * rd;
+  const bool dec = !inc && (rd > prm.mu_thresh * rp);
+  const bool gate = prm.rho_sync
+                        ? (it % prm.rho_update_period == 0 && it > 0)
+                        : (cpt % prm.rho_update_period == 0);
+  cpt += (inc || dec);
+  const bool app_inc = gate && inc, app_dec = gate && dec;
+  if (!(app_inc || app_dec)) return false;
+  const bool flip_inc = app_inc && rho_up == -1;
+  const bool flip_dec = app_dec && rho_up == 1;
+  const float damped_inc = 1.f + prm.damp * (tau_inc - 1.f);
+  const float damped_dec = 1.f + prm.damp * (tau_dec - 1.f);
+  if (prm.damp_both) {
+    if (flip_inc || flip_dec) {
+      tau_inc = damped_inc;
+      tau_dec = damped_dec;
+    }
+  } else {
+    if (flip_inc) tau_inc = damped_inc;
+    if (flip_dec) tau_dec = damped_dec;
+  }
+  rho = app_inc ? rho * tau_inc : rho / tau_dec;
+  rho_up = app_inc ? 1 : -1;
+  return true;
+}
+
 __global__ void __launch_bounds__(256)
 admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
             const float* __restrict__ ws, const float* __restrict__ pa,
@@ -385,13 +526,14 @@ admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
   const size_t vo = b * n + r;
   const float qv = k.real ? q[vo] : 0.f;
   float l2 = k.real ? ws[vo] : 0.f;
-  float lo = 0.f, hi = 0.f, vs = 0.f, rad = 0.f;
+  float lo = 0.f, hi = 0.f, vs = 0.f;   // lo is the disk's radius
   if (k.real && (prm.prox_kind == kBox || prm.prox_kind == kSignedBox)) {
     lo = pa[vo];
     hi = pb[vo];
     if (prm.prox_kind == kSignedBox) vs = pc[vo];
   }
-  if (prm.prox_kind == kDisk && r < 2 * nc) rad = pa[b * nc + (r >> 1)];
+  if (prm.prox_kind == kDisk && r < 2 * nc) lo = pa[b * nc + (r >> 1)];
+  const auto arg = [&](int i) { return i == 0 ? lo : (i == 1 ? hi : vs); };
   __syncthreads();
 
   const float mu = prm.mu_prox;
@@ -426,99 +568,20 @@ admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
   for (int it = 0; it < prm.max_iter; ++it) {
     const float rhs = rho * l2 - u - qp;
     const float l = refined_solve(k, sP, sX, rhs, rho + mu, s_v);
-    const float qpn = qv - mu * l;
-    const float rr = prm.alpha * l + (1.0f - prm.alpha) * l2;
-    const float x = rr + u / rho;
-
-    // prox; the disk partner moves by shuffle, so every lane calls it
-    const float partner = __shfl_xor_sync(dq::kFullMask, x, 1);
-    float l2n;
-    switch (prm.prox_kind) {
-      case kNonneg:
-        l2n = fmaxf(x, 0.f);
-        break;
-      case kBox:
-        l2n = fminf(fmaxf(x, lo), hi);
-        break;
-      case kSignedBox:
-        l2n = vs * fminf(vs * fminf(fmaxf(x, lo), hi), 0.f);
-        break;
-      default: {
-        if (r < 2 * nc) {
-          const float xa = (r & 1) ? partner : x;
-          const float xb = (r & 1) ? x : partner;
-          const float nrm = sqrtf(xa * xa + xb * xb);
-          const float scale = nrm > rad ? rad / fmaxf(nrm, dq::kTiny) : 1.f;
-          l2n = x * scale;
-        } else {
-          l2n = x;
-        }
-      }
-    }
-    if (!k.real) l2n = 0.f;
-    const float un = u + rho * (rr - l2n);
-
-    const float4 red = block_reduce(
-        k, make_float4(fabsf(l2n - l2), fabsf(l2n - rr), fabsf(l2n), l * l), s_red);
-    const float delta = red.x, rp = red.y, l2inf = red.z;
-    const float rd = rho * delta;
-
-    const bool eps_ok = rd < prm.eps;
-    const float noise = prm.stall_floor * fmaxf(l2inf, 1.f);
-    const bool dual_ok = prm.stall_on ? (eps_ok || delta <= noise) : eps_ok;
-    bool newly, certified;
-    if (prm.primal_test) {
-      const float lnorm = sqrtf(red.w);
-      const bool prim_eps = rp < prm.eps + prm.eps_rel * lnorm;
-      const bool prim_ok = prm.stall_on ? (prim_eps || rp <= noise) : prim_eps;
-      newly = prim_ok && dual_ok;
-      certified = eps_ok && prim_eps;
-    } else {
-      newly = dual_ok;
-      certified = eps_ok;
-    }
-
-    // commit this iteration (the problem was active); the recorded rho is
-    // the one the residuals were computed with, before any update below
-    l2 = l2n;
-    u = un;
-    qp = qpn;
-    resp = rp;
-    resd = rd;
+    const Step st = admm_step(k, prm, l, qv - mu * l, rho, arg, l2, u, qp, s_red);
+    // the recorded rho is the one the residuals were computed with, before
+    // any update below
+    resp = st.rp;
+    resd = st.rd;
     rho_rec = rho;
     ++iters;
-    if (newly) {
+    if (st.stop) {
       conv = true;
-      stall = !certified;
+      stall = !st.certified;
       break;
     }
-
-    if (prm.adaptive_rho) {
-      const bool inc = rp > prm.mu_thresh * rd;
-      const bool dec = !inc && (rd > prm.mu_thresh * rp);
-      const bool gate = prm.rho_sync
-                            ? (it % prm.rho_update_period == 0 && it > 0)
-                            : (cpt % prm.rho_update_period == 0);
-      cpt += (inc || dec);
-      const bool app_inc = gate && inc, app_dec = gate && dec;
-      if (app_inc || app_dec) {
-        const bool flip_inc = app_inc && rho_up == -1;
-        const bool flip_dec = app_dec && rho_up == 1;
-        const float damped_inc = 1.f + prm.damp * (tau_inc - 1.f);
-        const float damped_dec = 1.f + prm.damp * (tau_dec - 1.f);
-        if (prm.damp_both) {
-          if (flip_inc || flip_dec) {
-            tau_inc = damped_inc;
-            tau_dec = damped_dec;
-          }
-        } else {
-          if (flip_inc) tau_inc = damped_inc;
-          if (flip_dec) tau_dec = damped_dec;
-        }
-        rho = app_inc ? rho * tau_inc : rho / tau_dec;
-        rho_up = app_inc ? 1 : -1;
-        gj_inverse(k, sP, sX, rho + mu, s_v);
-      }
+    if (adapt_rho(prm, it, st, rho, tau_inc, tau_dec, rho_up, cpt)) {
+      gj_inverse(k, sP, sX, rho + mu, s_v);
     }
   }
 
@@ -1081,22 +1144,362 @@ int with_warp_kernel(int n, F f) {
   return f(admm_kernel_warp<Warp32>, Warp32{});
 }
 
-// Opt the block-wide kernel into smem bytes of dynamic shared memory where
-// that is above the default 48 KB; a CUDA error code.
-int allow_smem(size_t smem) {
+// ---------------------------------------------------------------------------
+// Past one warp with X's row in registers (admm_kernel_rows): one problem a
+// block of kN threads, thread r owning row r of it.
+// ---------------------------------------------------------------------------
+
+// The block-wide register instances: kN = 32 ceil(n / 32) threads, every loop
+// over columns unrolled to kN (n <= kN), at least kMinBlocks blocks an SM
+// (the register cap of __launch_bounds__).
+template <int N, int MinBlocks>
+struct RowK1 {
+  static constexpr int kN = N, kMinBlocks = MinBlocks;
+  static constexpr int kLd = N + 2;          // P's row stride, as WarpK1's
+  // floats of scratch: a solve's three published vectors (4 kN), or two
+  // buffers of the Gauss-Jordan steps' kN published float4 columns and four
+  // pivots, taken by the passes in turn (2 (4 kN + 4))
+  static constexpr int kScratch = 8 * N + 8;
+  // floats before P: the scratch, block_reduce's slots, the prox's arguments
+  // and q by row (4 kN: values read once an iteration or less, kept out of
+  // registers) and a thread's l2, u, q_prox and rho, parked while an
+  // inverse is formed (4 kN); P's plane after them starts on 16 bytes
+  static constexpr int kHead = kScratch + 4 * kMaxWarps + 8 * N;
+  static constexpr int kPlane = N * kLd;   // P, zero past row and column n
+  static_assert(N % 32 == 0 && N > 32 && N <= 32 * kMaxWarps, "whole warps, past one");
+};
+using Rows64 = RowK1<64, 8>;     // 33 <= n <= 64
+using Rows96 = RowK1<96, 4>;     // 65 <= n <= 96: config 6
+using Rows128 = RowK1<128, 2>;   // 97 <= n <= 128
+constexpr int kRowsMaxN = 128;   // above, the two-plane admm_kernel
+
+// (P v)_r from thread r's row of P in registers (the set-up), v published in
+// the scratch and read back as float4 broadcasts: matvec's one chain over
+// the columns in order, the first a product.
+template <int N>
+__device__ __forceinline__ float matvec_rows(const float (&p)[N], float v, int r, int n_in,
+                                             bool real, float* s) {
+  int n;   // opaque: the column tests are made here, not kept through the power iteration
+  asm volatile("mov.b32 %0, %1;" : "=r"(n) : "r"(n_in));
+  s[r] = v;
+  __syncthreads();
+  const float4* v4 = reinterpret_cast<const float4*>(s);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < N; c += 4) {
+    if (c < n) {
+      const float4 w = v4[c >> 2];
+      acc = c == 0 ? p[0] * w.x : fmaf(p[c], w.x, acc);
+      if (c + 1 < n) acc = fmaf(p[c + 1], w.y, acc);
+      if (c + 2 < n) acc = fmaf(p[c + 2], w.z, acc);
+      if (c + 3 < n) acc = fmaf(p[c + 3], w.w, acc);
+    }
+  }
+  __syncthreads();
+  return real ? acc : 0.f;
+}
+
+// refined_solve with thread r's row of X in registers (refined_solve_w's
+// arithmetic): the three published vectors in the scratch, zero past n,
+// read as float4 (X rhs, X res) and double2 (P l0) broadcasts, one barrier
+// each. Returns 0 past n.
+template <int N>
+__device__ __forceinline__ float refined_solve_rows(const float (&x)[N],
+                                                    const float* __restrict__ prow, float rhs,
+                                                    float shift, int r_in, bool real, float* s) {
+  int r;   // opaque, as in refined_solve_w
+  asm volatile("mov.b32 %0, %1;" : "=r"(r) : "r"(r_in));
+  float* x0 = s;
+  float* x2 = s + N;
+  double* x1 = reinterpret_cast<double*>(s + 2 * N);
+  x0[r] = real ? rhs : 0.f;
+  __syncthreads();
+  const float l0 = dot_reg<N>(x, x0);
+  x1[r] = real ? (double)l0 : 0.;
+  __syncthreads();
+  const double acc = dot_p64<N>(prow, x1) + (double)shift * (double)l0;
+  x2[r] = real ? (float)((double)rhs - acc) : 0.f;
+  __syncthreads();
+  return real ? l0 + dot_reg<N>(x, x2) : 0.f;
+}
+
+// gj_inverse with thread r's row in registers (gj_inverse_w's steps, passes
+// and roundings for a whole block): x <- row r of (P + shift I)^{-1} on the
+// threads that hold a row. Only the published columns (w4) and pivots go
+// through the scratch; a pass is kN float4 broadcasts and 4 kN multiply-adds
+// a thread, with no load or store of the row. The threads past n publish
+// zero columns and keep their x (zero), so a pass runs over all kN entries.
+// The passes take the scratch's two buffers in turn, so that a pass needs no
+// barrier of its own: the next pass writes the other buffer, and the one
+// after it this buffer only once every thread has passed the next pass's
+// first step. The passes are a loop, not unrolled: unrolled at kN = 96 they
+// are ~200 KB of code, which blocks at different stages evict from the
+// instruction cache, and the iteration spills around the inverse's calls (a
+// jump on the pass index in place of the selects below spills as well). So
+// a pass's four columns are read out of the row by a select on the pass
+// index, and written back by a select in its loop.
+template <int N>
+__device__ __forceinline__ void gj_inverse_rows(float (&x)[N], const float* __restrict__ prow,
+                                                float shift, int r_in, int n, float* s) {
+  int r;   // opaque, as in gj_inverse_w
+  asm volatile("mov.b32 %0, %1;" : "=r"(r) : "r"(r_in));
+  const bool real = r < n;
+  if (real) {
+    const float2* p2 = reinterpret_cast<const float2*>(prow);
+#pragma unroll
+    for (int c = 0; c < N; c += 2) {
+      const float2 p = p2[c >> 1];
+      x[c] = p.x + (c == r ? shift : 0.f);
+      x[c + 1] = p.y + (c + 1 == r ? shift : 0.f);
+    }
+  }
+  __syncthreads();   // the scratch held a solve's published vectors
+  constexpr int kBuf = 4 * N + 4;   // floats of one buffer: N float4 columns, then the pivots
+  if (!real) {
+    reinterpret_cast<float4*>(s)[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(s + kBuf)[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < n; c0 += kGJ) {
+    float4* w4 = reinterpret_cast<float4*>(s + ((c0 / kGJ) & 1) * kBuf);
+    float* piv = reinterpret_cast<float*>(w4 + N);
+    const int kb = min(kGJ, n - c0);
+    float v[kGJ], g[kGJ];
+#pragma unroll
+    for (int t = 0; t < kGJ; ++t) {
+      v[t] = x[t];
+      g[t] = 0.f;
+    }
+#pragma unroll
+    for (int j = kGJ; j < N; j += kGJ) {
+      if (j == c0) {
+#pragma unroll
+        for (int t = 0; t < kGJ; ++t) v[t] = x[j + t];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kGJ; ++t) {
+      if (t < kb) {
+        const int c = c0 + t;
+        if (real) {
+          reinterpret_cast<float*>(w4 + r)[t] = (r == c) ? 1.f : (r < c ? -v[t] : v[t]);
+          if (r == c) piv[t] = v[t];
+        }
+        __syncthreads();
+        if (real) {
+          const float pinv = __frcp_rn(fmaxf(piv[t], dq::kTiny));   // = 1 / p, rounded once
+          const bool p = r == c;
+          g[t] = p ? -pinv : v[t] * pinv;
+          const float a = p ? 0.f : 1.f;
+          if (!p) v[t] = 0.f;
+#pragma unroll
+          for (int u = 0; u < kGJ; ++u) {
+            if (u < kb) {
+              v[u] = fmaf(a, v[u], -(g[t] * reinterpret_cast<const float*>(w4 + c0 + u)[t]));
+            }
+          }
+        }
+      }
+    }
+    if (real) {
+      // the pass's pivot row (r = c0 + tp) drops the steps before tp; the
+      // pass's own columns took their updates in v
+      const int tp = r - c0;
+      const bool pivot = tp >= 0 && tp < kb;
+#pragma unroll
+      for (int t = 0; t < kGJ; ++t) {
+        if (pivot && t < tp) g[t] = 0.f;
+      }
+      const float m = pivot ? 0.f : 1.f;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float4 w = w4[j];
+        float y = x[j] * m;
+        y = fmaf(-g[0], w.x, y);
+        y = fmaf(-g[1], w.y, y);
+        y = fmaf(-g[2], w.z, y);
+        y = fmaf(-g[3], w.w, y);
+        x[j] = (j - (j & 3)) == c0 && (j & 3) < kb ? v[j & 3] : y;
+      }
+    }
+  }
+  __syncthreads();   // the scratch is the next solve's
+}
+
+// K1 at 33 <= n <= kRowsMaxN: admm_kernel's algorithm, stopping rules and
+// rounding, with the rows of P (in the set-up) and of X in registers. The
+// block leaves its loop when its problem stops, and thread 0 writes the
+// results then.
+template <typename W>
+__global__ void __launch_bounds__(W::kN, W::kMinBlocks)
+admm_kernel_rows(const float* __restrict__ P, const float* __restrict__ q,
+                 const float* __restrict__ ws, const float* __restrict__ pa,
+                 const float* __restrict__ pb, const float* __restrict__ pc,
+                 float* __restrict__ l2_out, int* __restrict__ iters_out,
+                 float* __restrict__ resp_out, float* __restrict__ resd_out,
+                 float* __restrict__ rho_out, uint8_t* __restrict__ conv_out,
+                 uint8_t* __restrict__ stall_out, const AdmmParams prm) {
+  constexpr int N = W::kN, LD = W::kLd;
+  extern __shared__ __align__(16) float smem[];   // float4 and double views inside
+  const int n = prm.n, nc = n / 2;
+  const int r = threadIdx.x;
+  const bool real = r < n;
+  const dq::Blk k{r, n, LD, false, real};
+  const size_t b = blockIdx.x;
+  float* s = smem;                         // the scratch
+  float* s_red = s + W::kScratch;          // 4 * kMaxWarps
+  float* pargs = s_red + 4 * kMaxWarps;    // lo, hi, v_sign, q by row; lo is the disk's radius
+  const auto arg = [&](int i) { return pargs[i * N + r]; };
+  // the thread's loop state while an inverse is formed: volatile, so that it
+  // is stored and loaded, and not live in registers through the passes
+  volatile float* park = pargs + 4 * N;
+  float* plane = smem + W::kHead;
+  const float* prow = plane + r * LD;
+
+  // P into shared memory, coalesced (in float4s where the rows are whole
+  // float4s and P is 16-byte aligned), zero past row and column n
+  {
+    if (n < N) {
+      for (int i = r; i < W::kPlane; i += N) plane[i] = 0.f;
+      __syncthreads();
+    }
+    const float* Pb = P + b * n * n;
+    if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(P) & 15) == 0) {
+      const int n4 = n >> 2;
+      const float4* Pb4 = reinterpret_cast<const float4*>(Pb);
+#pragma unroll 4
+      for (int idx = r; idx < n * n4; idx += N) {
+        const int i = idx / n4, j = (idx - i * n4) << 2;
+        const float4 v = Pb4[idx];
+        float2* d = reinterpret_cast<float2*>(plane + i * LD + j);
+        d[0] = make_float2(v.x, v.y);
+        d[1] = make_float2(v.z, v.w);
+      }
+    } else {
+#pragma unroll 4
+      for (int idx = r; idx < n * n; idx += N) {
+        const int i = idx / n, j = idx - i * n;
+        plane[i * LD + j] = Pb[idx];
+      }
+    }
+  }
+  const size_t vo = b * n + r;
+  const float qv = real ? q[vo] : 0.f;
+  float l2 = real ? ws[vo] : 0.f;
+  if (real) pargs[3 * N + r] = qv;
+  if (real && (prm.prox_kind == kBox || prm.prox_kind == kSignedBox)) {
+    pargs[r] = pa[vo];
+    pargs[N + r] = pb[vo];
+    if (prm.prox_kind == kSignedBox) pargs[2 * N + r] = pc[vo];
+  }
+  if (prm.prox_kind == kDisk && r < 2 * nc) pargs[r] = pa[b * nc + (r >> 1)];
+  __syncthreads();
+
+  const float mu = prm.mu_prox;
+  float x[N];           // P's row for the set-up, then X's
+  load_row<N>(x, prow, real);
+
+  // power iteration for L (fixed count), then rho0 and tau0
+  float v = real ? prm.v0 : 0.f;
+  for (int it = 0; it < prm.power_iters; ++it) {
+    const float av = matvec_rows<N>(x, v, r, n, real, s);
+    const float nrm = sqrtf(block_sum(k, av * av, s_red));
+    v = av / fmaxf(nrm, dq::kTiny);
+  }
+  const float pv = matvec_rows<N>(x, v, r, n, real, s);
+  const float L = fmaxf(block_sum(k, v * pv, s_red), mu);
+  const float ratio = L / mu;
+  float rho = sqrtf(mu * L) * (float)pow((double)ratio, (double)0.4f) * prm.rho0_scale;
+  const float tau0 = (float)pow((double)ratio, (double)0.15f);
+
+  // u0 = -(P ws + q) synthesises the dual warm start from the primal one
+  float u = 0.f;
+  if (prm.warm_start_dual) u = -(matvec_rows<N>(x, l2, r, n, real, s) + qv);
+
+  if (prm.max_iter <= 0 && r == 0) {   // the results of a problem that never iterates
+    iters_out[b] = 0;
+    resp_out[b] = INFINITY;
+    resd_out[b] = INFINITY;
+    rho_out[b] = rho;
+    conv_out[b] = 0;
+    stall_out[b] = 0;
+  }
+  float qp = qv;
+  float tau_inc = tau0, tau_dec = tau0;
+  int rho_up = 0, cpt = 0;
+  bool need = true;      // an inverse to form, at the top of the next iteration
+
+  for (int it = 0; it < prm.max_iter; ++it) {
+    // the first inverse, and a new one whenever rho changed: one call site,
+    // so the unrolled passes are compiled once
+    if (need) {
+      park[r] = l2;
+      park[N + r] = u;
+      park[2 * N + r] = qp;
+      park[3 * N + r] = rho;
+      gj_inverse_rows<N>(x, prow, rho + mu, r, n, s);
+      l2 = park[r];
+      u = park[N + r];
+      qp = park[2 * N + r];
+      rho = park[3 * N + r];
+      need = false;
+    }
+    const float rhs = rho * l2 - u - qp;
+    const float l = refined_solve_rows<N>(x, prow, rhs, rho + mu, r, real, s);
+    const Step st = admm_step(k, prm, l, (real ? pargs[3 * N + r] : 0.f) - mu * l, rho, arg,
+                              l2, u, qp, s_red);
+    // a problem that stops (or reaches max_iter) writes its results, with
+    // the rho the residuals were computed with
+    if (st.stop || it + 1 == prm.max_iter) {
+      if (r == 0) {
+        iters_out[b] = it + 1;
+        resp_out[b] = st.rp;
+        resd_out[b] = st.rd;
+        rho_out[b] = rho;
+        conv_out[b] = st.stop;
+        stall_out[b] = st.stop && !st.certified;
+      }
+      break;
+    }
+    need = adapt_rho(prm, it, st, rho, tau_inc, tau_dec, rho_up, cpt);
+  }
+
+  if (real) l2_out[vo] = l2;
+}
+
+// f(the register instance that takes size n, its RowK1); 33 <= n <= kRowsMaxN.
+template <typename F>
+int with_rows_kernel(int n, F f) {
+  if (n <= Rows64::kN) return f(admm_kernel_rows<Rows64>, Rows64{});
+  if (n <= Rows96::kN) return f(admm_kernel_rows<Rows96>, Rows96{});
+  return f(admm_kernel_rows<Rows128>, Rows128{});
+}
+
+// Opt a block-wide kernel into smem bytes of dynamic shared memory where that
+// is above the default 48 KB; a CUDA error code.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
+}
+
+// f(the kernel that takes size n) for a size past one warp.
+template <typename F>
+int with_block_kernel(int n, F f) {
+  if (n <= kRowsMaxN) return with_rows_kernel(n, [&](auto kernel, auto) { return f(kernel); });
+  return f(admm_kernel);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The launch at size n: the one-warp instance (its kN; 0 for the block-wide
-// kernel), the problems a block, threads a block and dynamic shared memory a
-// block (kernels/admm_cuda.py::launch_plan computes the same). Returns 0, or
-// 1 where n < 1.
+// The launch at size n: the instance (the kN of its one-warp or register
+// instance; 0 for the two-plane block-wide kernel), the problems a block,
+// threads a block and dynamic shared memory a block
+// (kernels/admm_cuda.py::launch_plan computes the same). Returns 0, or 1
+// where n < 1.
 int dq_admm_plan(int n, int* instance, int* problems, int* threads, long long* smem) {
   if (n <= kOneWarpMaxN) {
     with_warp_kernel(n, [&](auto, auto w) {
@@ -1105,6 +1508,15 @@ int dq_admm_plan(int n, int* instance, int* problems, int* threads, long long* s
       *problems = W::kG;
       *threads = 32;
       *smem = (long long)(sizeof(float) * W::kG * (W::kSeg + W::kPlane));
+      return 0;
+    });
+  } else if (n <= kRowsMaxN) {
+    with_rows_kernel(n, [&](auto, auto w) {
+      using W = decltype(w);
+      *instance = W::kN;
+      *problems = 1;
+      *threads = W::kN;
+      *smem = (long long)(sizeof(float) * (W::kHead + W::kPlane));
       return 0;
     });
   } else {
@@ -1125,22 +1537,27 @@ int dq_admm_blocks_per_sm(int n) {
   long long smem;
   dq_admm_plan(n, &instance, &problems, &threads, &smem);
   int blocks = 0;
-  int e = instance ? 0 : allow_smem((size_t)smem);
-  if (e == 0) {
-    e = instance ? with_warp_kernel(n, [&](auto kernel, auto) {
-      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
-                                                                (size_t)smem);
-    }) : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, admm_kernel, threads,
-                                                             (size_t)smem);
+  auto occupancy = [&](auto kernel) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                              (size_t)smem);
+  };
+  int e;
+  if (n <= kOneWarpMaxN) {
+    e = with_warp_kernel(n, [&](auto kernel, auto) { return occupancy(kernel); });
+  } else {
+    e = with_block_kernel(n, [&](auto kernel) {
+      const int a = allow_smem(kernel, (size_t)smem);
+      return a != 0 ? a : occupancy(kernel);
+    });
   }
   return e != 0 ? -e : blocks;
 }
 
 // Launch K1 on `stream` for B problems of size prm->n: ceil(B / kG) blocks
 // of the one-warp instance at n <= 32, else B blocks of the block-wide
-// kernel. All pointers are device pointers to contiguous float32 (uint8 for
-// the two flags, int32 for the iteration counts) allocated by the caller.
-// Returns cudaGetLastError().
+// kernel that takes n. All pointers are device pointers to contiguous
+// float32 (uint8 for the two flags, int32 for the iteration counts)
+// allocated by the caller. Returns cudaGetLastError().
 int dq_admm_solve_f32(const float* P, const float* q, const float* ws,
                       const float* pa, const float* pb, const float* pc,
                       float* l2_out, int* iters_out, float* resp_out,
@@ -1151,7 +1568,7 @@ int dq_admm_solve_f32(const float* P, const float* q, const float* ws,
   int instance, problems, threads;
   long long smem;
   dq_admm_plan(n, &instance, &problems, &threads, &smem);
-  if (instance) {
+  if (n <= kOneWarpMaxN) {
     if (B > 0) {
       with_warp_kernel(n, [&](auto kernel, auto) {
         kernel<<<(B + problems - 1) / problems, threads, (size_t)smem, (cudaStream_t)stream>>>(
@@ -1162,13 +1579,16 @@ int dq_admm_solve_f32(const float* P, const float* q, const float* ws,
     }
     return (int)cudaGetLastError();
   }
-  const int a = allow_smem((size_t)smem);
+  const int a = with_block_kernel(n, [&](auto kernel) {
+    const int e = allow_smem(kernel, (size_t)smem);
+    if (e == 0 && B > 0) {
+      kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
+          P, q, ws, pa, pb, pc, l2_out, iters_out, resp_out, resd_out, rho_out, conv_out,
+          stall_out, *prm);
+    }
+    return e;
+  });
   if (a != 0) return a;
-  if (B > 0) {
-    admm_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        P, q, ws, pa, pb, pc, l2_out, iters_out, resp_out, resd_out, rho_out,
-        conv_out, stall_out, *prm);
-  }
   return (int)cudaGetLastError();
 }
 

@@ -139,11 +139,16 @@ def dropped() -> int:
         return _dropped
 
 
-def bump(obj, attr: str) -> None:
-    """Add one to ``obj.attr``, a counter the object keeps, under the
-    recorder's lock."""
+def bump(obj, attr: str, key=None) -> None:
+    """Add one to ``obj.attr``, a counter the object keeps, or with ``key``
+    to ``obj.attr[key]`` (a dict of counters; a new key starts at 0), under
+    the recorder's lock."""
     with _lock:
-        setattr(obj, attr, getattr(obj, attr) + 1)
+        if key is None:
+            setattr(obj, attr, getattr(obj, attr) + 1)
+        else:
+            counts = getattr(obj, attr)
+            counts[key] = counts.get(key, 0) + 1
 
 
 def _thread() -> tuple[list, int]:

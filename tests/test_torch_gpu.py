@@ -360,3 +360,33 @@ def test_a_dead_staged_model_is_collected_before_a_capture_not_inside_it(card):
     finally:
         gc.enable()
 
+
+
+def test_k1_launch_plan_is_the_librarys(card):
+    """K1's launch plan as the built library computes it (dq_admm_plan) is
+    the wrapper's at every n the kernel takes."""
+    from diffqcqp_tpu_torch.kernels import admm_cuda
+
+    for n in range(1, 170):
+        assert admm_cuda.c_launch_plan(n) == admm_cuda.launch_plan(n)
+
+
+def test_staged_n96_step_records_k1s_register_instance(card):
+    """A staged QP step at N=96 records one K1 launch at its capture, of the
+    register instance 96 (``admm_solve_cuda.launches_by_instance``), and its
+    replay gives the eager step's l bit for bit."""
+    from diffqcqp_tpu_torch.kernels import admm_cuda
+
+    rng = np.random.default_rng(96)
+    s = rng.standard_normal((64, 96, 96)).astype(np.float32) / np.sqrt(96)
+    P = torch.tensor(s @ s.transpose(0, 2, 1) + 0.1 * np.eye(96), dtype=torch.float32, device=card)
+    q = torch.tensor(rng.standard_normal((64, 96)), dtype=torch.float32, device=card)
+    cfg = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho_update_period=24)
+    step = staged(lambda P_, q_: dqt.solve_qp_with_stats(P_, q_, config=cfg)[0])
+    for _ in range(WARMUP):
+        l_eager = step(P, q)
+    admm_cuda.admm_solve_cuda.launches_by_instance.clear()
+    l = step(P, q)
+    torch.cuda.synchronize(card)
+    assert admm_cuda.admm_solve_cuda.launches_by_instance == {96: 1}
+    assert torch.equal(l, l_eager)

@@ -28,8 +28,8 @@ def test_launch_plan_takes_the_smallest_instance(n):
         N, G = INSTANCES[next(k for k in INSTANCES if n <= k)]
         assert (inst, problems, threads) == (N, G, 32)
         assert G * N <= 32                   # a segment of 32 / G lanes holds N rows
-    else:
-        assert (inst, problems, threads) == (0, 1, _build.row_threads(n))
+    else:      # past one warp, the register instance of row_threads(n) threads
+        assert (inst, problems, threads) == (64, 1, _build.row_threads(n))
     assert smem == tk.smem_bytes(n)
     assert tk.fits(n)
 
@@ -62,8 +62,17 @@ def test_one_warp_shared_memory(n):
         assert tk.smem_bytes(n) == 3968
 
 
-def test_block_wide_shared_memory_is_unchanged():
-    for n in (33, 34, 96, 169):
+@pytest.mark.parametrize("n", [33, 34, 64, 65, 96, 97, 128, 129, 169])
+def test_block_wide_shared_memory_is_unchanged(n):
+    # the register instances' layout to n = 128 (kN = row_threads(n): two
+    # buffers of 4 kN + 4 floats of scratch, 32 reduction slots, 8 kN of
+    # values by row, P in kN rows of stride kN + 2;
+    # tests/test_torch_k1_rows.py), and past it the two-plane kernel's,
+    # unchanged
+    if n <= tk.ROWS_MAX_N:
+        N = _build.row_threads(n)
+        assert tk.smem_bytes(n) == 4 * (2 * (4 * N + 4) + 32 + 8 * N + N * (N + 2))
+    else:
         assert tk.smem_bytes(n) == 4 * (2 * n * (n | 1) + 5 * n + 32)
 
 
