@@ -21,6 +21,12 @@
                                      # checkout by default): its plans, phase
                                      # 2's K1 points and its times (``k1_run``);
                                      # no result line
+    python3 chip_smoke.py k2         # phase 1, then phase 2b, K6 fed K2's duals
+                                     # against K2 and K2's flagship numbers
+                                     # (``k2_run``); no result line
+    python3 chip_smoke.py sysid      # phase 1, then the mixed SystemID staged
+                                     # at config 4's size (``sysid_run``); no
+                                     # result line
 
 Builds the port's CUDA kernels from ``diffqcqp_tpu_torch/kernels/csrc`` and
 drives the port's paths: the friction-cone QCQP forward solve and the
@@ -1556,11 +1562,129 @@ def phase_2e(cases, rand_g, cfg):
     return errs[0]
 
 
+def phase_2b(cfg, flag, n96):
+    """K2 against its plain version on the card (phase 2b): ``flag`` and
+    ``n96`` are (P, q, K1's l, radius) at the flagship and at B=512 N=96;
+    the other points are built here. Returns (the block-wide edges' problems
+    by label, max |d dl| of each comparison, the flagship's with g = 2 l
+    first)."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import PROX_DISK, admm_solve_cuda
+    from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import (
+        qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_plain,
+    )
+
+    log("phase 2b: K2 against qcqp_kkt_bwd_fused_plain on the card")
+    f32_ulps = 8.0 * torch.finfo(torch.float32).eps
+    P2, q2, ln2, mu2 = build_problems(256, 6, seed=4)
+    rng = np.random.default_rng(4)
+    ln2 = np.where(rng.random(ln2.shape) < 0.3, 50.0 * ln2, ln2)   # strictly inside: inactive
+    ln2 = np.where(rng.random(ln2.shape) < 0.3, 0.0, ln2).astype(np.float32)
+    P2, q2, ln2, mu2 = cuda(P2, q2, ln2, mu2)
+    rad2 = (ln2 * mu2).contiguous()
+    l2 = admm_solve_cuda(P2, q2, torch.zeros_like(q2), PROX_DISK, (rad2,), cfg, True, False)[0]
+    # the block-wide path's edges: just past one warp, and the largest n
+    # the kernels took before they ran block-wide (``kkt_problems``)
+    edge = {label: cuda(*kkt_problems(256, nc_e, seed))
+            for label, nc_e, seed in (("N=32", 16, 12), ("N=34", 17, 13), ("N=142", 71, 14))}
+    errs_k2 = []     # the first is the flagship with the main path's g = 2 l
+    for name, (Pc, qc, lc, rc) in [
+        ("flagship B=4096 N=24", flag),
+        (f"B=256 N=12, {int((rad2 == 0).sum())} zero radii", (P2, q2, l2, rad2)),
+        ("B=512 N=96 (block-wide)", n96),
+        ("B=256 N=32 (one warp, the n <= 32 instance)", edge["N=32"]),
+        ("B=256 N=34 (block-wide, just past one warp)", edge["N=34"]),
+        ("B=256 N=142 (block-wide, large tiles)", edge["N=142"]),
+    ]:
+        for gname, g in (("g=2l", 2.0 * lc), ("random g", rand_g(lc))):
+            a2 = (Pc, qc, lc, g.contiguous(), rc, cfg.eps, cfg.act_eps, f32_ulps)
+            a64 = tuple(x.double() for x in a2[:5]) + a2[5:]
+            errs_k2.append(compare_k2(f"{name} {gname}", qcqp_kkt_bwd_fused_cuda(*a2),
+                                      qcqp_kkt_bwd_fused_plain(*a2),
+                                      qcqp_kkt_bwd_fused_plain(*a64)))
+    return edge, errs_k2
+
+
+def k2_run(dqt, smi, t_start):
+    """``chip_smoke.py k2``: K2's phases alone, after a change to it: phase
+    2b, phase 2e's K6 against K2 at the flagship, and K2's numbers at the
+    flagship (``k1_k2_times``)."""
+    from diffqcqp_tpu_torch.kernels.admm_cuda import PROX_DISK, admm_solve_cuda, admm_solve_plain
+
+    cfg = flagship_cfg(dqt)
+    P, q, l_n, mu = cuda(*build_problems(B_FLAG, NC_FLAG))
+    radius = (l_n * mu).contiguous()
+    args = (P, q, torch.zeros_like(q), PROX_DISK, (radius,), cfg, True, False)
+    out_k = admm_solve_cuda(*args)
+    factors = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    admm_solve_plain(*args, factors=factors)
+    Pb, qb, lnb, mub = cuda(*build_problems(512, 48, seed=2))
+    rb = (lnb * mub).contiguous()
+    lb = admm_solve_cuda(Pb, qb, torch.zeros_like(qb), PROX_DISK, (rb,), cfg, True, False)[0]
+    lk = out_k[0]
+    phase_2b(cfg, (P, q, lk, radius), (Pb, qb, lb, rb))
+    k6_against_k2(P, q, lk, radius, (2.0 * lk).contiguous(), cfg,
+                  8.0 * torch.finfo(torch.float32).eps)
+    k1_k2_times(P, q, radius, cfg, out_k, factors, smi)
+    torch.cuda.synchronize()
+    log(f"chip_smoke: K2 phases passed, {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
+def sysid_run(dqt, smi, t_start):
+    """``chip_smoke.py sysid``: ``SystemID(kind="mixed")`` at config 4's size
+    (2048 jobs of a QP and a 12-contact QCQP on shared S and q) staged on
+    the card: ``train_step`` captured once as one graph, its layout naming
+    ``sysid.params``, ``sysid.loss`` and ``sysid.update``, its losses and
+    parameters after six steps against a second model's eager steps, and
+    the time a step, staged and eager (CUDA events)."""
+    from diffqcqp_tpu_torch.models import system_id as sid
+
+    B, nc = 2048, 12
+    n = 2 * nc
+    g = torch.Generator().manual_seed(3)
+    S = torch.randn(B, n, n, generator=g) / n ** 0.5
+    q = torch.randn(B, n, generator=g) * 0.3
+    target = (torch.rand(B, n, generator=g) * 0.1).cuda()
+    qp_cfg = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0, rho_update_period=24)
+    qc_cfg = dqt.QCQP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho0_scale=2.0,
+                                       rho_update_period=24, power_iters=10)
+
+    def model():
+        m = sid.SystemID(kind="mixed", config=qc_cfg, qp_config=qp_cfg, device="cuda")
+        m.set_params(sid.QCQPSystemIDParams(S.cuda(), q.cuda(), torch.zeros(B, nc).cuda(),
+                                            torch.zeros(B, nc).cuda()))
+        return m
+
+    log(f"phase sysid: SystemID(kind='mixed') at B={B} jobs, N={n}, staged ({smi})")
+    staged_m, eager_m = model(), model()
+    for k in range(6):
+        ls = staged_m.train_step(target)
+        le = eager_m._train_step(target)
+        log(f"  step {k}: loss staged {float(ls):.9g} eager {float(le):.9g}")
+    st = staged_m._staged_step
+    layout = next(iter(st.layout.values()))
+    paths = sorted({p for p, _ in layout if p})
+    d = max(float((a - b).abs().max()) for a, b in zip(staged_m.params, eager_m.params))
+    log(f"  captures {st.captures}, graphs {len(st.graphs)}, eager calls {st.eager_calls}; "
+        f"layout paths {paths}; max |staged - eager| over the parameters {d:.3e}")
+    if (st.captures != 1 or len(st.graphs) != 1
+            or not {"sysid.params", "sysid.loss", "sysid.update"} <= set(paths) or d > 1e-6):
+        raise AssertionError("the mixed SystemID step is not one graph naming its spans, or its "
+                             "staged steps leave the eager ones")
+    ms_s, ts_s = time_cuda(lambda: staged_m.train_step(target), reps=5, calls=20)
+    ms_e, ts_e = time_cuda(lambda: eager_m._train_step(target), reps=3, calls=5)
+    log(f"  a step: staged {ms_s:.4f} ms (samples {[round(t, 4) for t in ts_s]}), eager "
+        f"{ms_e:.4f} ms (samples {[round(t, 4) for t in ts_e]})")
+    log(f"chip_smoke: sysid phase passed, {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def k6_against_k2(P, q, l, r, g, cfg, ulps):
     """K6 fed K2's own gamma (s and the strict mask from
     ``qcqp_strict_active`` on it) against K2 on the same problem, with phase
     2b's bars on the problems whose strict mask agrees: the two kernels share
-    steps 4-8, so they differ only where the slack is rounded differently."""
+    steps 4-8, and differ by K2's slack taken in double and its split of the
+    cotangent along C's columns (K6 solves the whole g in float)."""
     from diffqcqp_tpu_torch.diff import kkt
     from diffqcqp_tpu_torch.kernels.qcqp_bwd_cuda import (
         qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda, qcqp_kkt_bwd_fused_plain,
@@ -4820,6 +4944,10 @@ def main() -> int:
         return eigh_run(dqt, smi, t_start)
     if sys.argv[1:] == ["lockstep"]:
         return lockstep_run(dqt, smi, t_start)
+    if sys.argv[1:] == ["k2"]:
+        return k2_run(dqt, smi, t_start)
+    if sys.argv[1:] == ["sysid"]:
+        return sysid_run(dqt, smi, t_start)
 
     cfg = flagship_cfg(dqt)
 
@@ -4834,34 +4962,8 @@ def main() -> int:
     Pb, qb, lnb, mub, l96 = k1_2["N=96"]
 
     # ---- phase 2b: K2 against its plain version on the card
-    log("phase 2b: K2 against qcqp_kkt_bwd_fused_plain on the card")
     f32_ulps = 8.0 * torch.finfo(torch.float32).eps
-    P2, q2, ln2, mu2 = build_problems(256, 6, seed=4)
-    rng = np.random.default_rng(4)
-    ln2 = np.where(rng.random(ln2.shape) < 0.3, 50.0 * ln2, ln2)   # strictly inside: inactive
-    ln2 = np.where(rng.random(ln2.shape) < 0.3, 0.0, ln2).astype(np.float32)
-    P2, q2, ln2, mu2 = cuda(P2, q2, ln2, mu2)
-    rad2 = (ln2 * mu2).contiguous()
-    l2 = admm_solve_cuda(P2, q2, torch.zeros_like(q2), PROX_DISK, (rad2,), cfg, True, False)[0]
-    # the block-wide path's edges: just past one warp, and the largest n
-    # the kernels took before they ran block-wide (``kkt_problems``)
-    edge = {label: cuda(*kkt_problems(256, nc_e, seed))
-            for label, nc_e, seed in (("N=32", 16, 12), ("N=34", 17, 13), ("N=142", 71, 14))}
-    errs_k2 = []     # the first is the flagship with the main path's g = 2 l
-    for name, (Pc, qc, lc, rc) in [
-        ("flagship B=4096 N=24", (P, q, out_k[0], radius)),
-        (f"B=256 N=12, {int((rad2 == 0).sum())} zero radii", (P2, q2, l2, rad2)),
-        ("B=512 N=96 (block-wide)", (Pb, qb, l96, (lnb * mub).contiguous())),
-        ("B=256 N=32 (one warp, the n <= 32 instance)", edge["N=32"]),
-        ("B=256 N=34 (block-wide, just past one warp)", edge["N=34"]),
-        ("B=256 N=142 (block-wide, large tiles)", edge["N=142"]),
-    ]:
-        for gname, g in (("g=2l", 2.0 * lc), ("random g", rand_g(lc))):
-            a2 = (Pc, qc, lc, g.contiguous(), rc, cfg.eps, cfg.act_eps, f32_ulps)
-            a64 = tuple(x.double() for x in a2[:5]) + a2[5:]
-            errs_k2.append(compare_k2(f"{name} {gname}", qcqp_kkt_bwd_fused_cuda(*a2),
-                                      qcqp_kkt_bwd_fused_plain(*a2),
-                                      qcqp_kkt_bwd_fused_plain(*a64)))
+    edge, errs_k2 = phase_2b(cfg, (P, q, out_k[0], radius), (Pb, qb, l96, (lnb * mub).contiguous()))
     torch.cuda.synchronize()
 
     # ---- phase 2c: K4 against its plain version on the card

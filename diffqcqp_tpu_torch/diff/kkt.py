@@ -51,6 +51,12 @@ Two routes, as in the JAX package, chosen by ``_use_fused_kernel``:
     150), the Newton-Schulz inverse of D (``_spd_inverse_f32``) in float32
     past it, a Cholesky of D in float64.
 
+Every route but K6 splits g first along C's columns, g = C a + g_r, whose
+part C a has the exact answer dgamma = a / gamma, dl = 0 on a contact's rim,
+and solves for g_r alone (``split_cotangent``); every route forms gamma's
+sums and the strictly active contacts' slacks in float64. In float32 these
+keep the radius gradients of a contact on its rim to the solve's rounding.
+
 ``_solve_direct`` is the generic route's solve: kernel K5
 (``kernels/qr_solve_cuda.py``, batched Householder QR) for a float32 CUDA
 system of m <= 88 or wherever ``cfg.backend == 'pallas'``; else, for an SPD
@@ -87,7 +93,11 @@ from ..kernels.coord_bwd_cuda import (
     KIND_SIGNED_BOX,
     coord_kkt_bwd_fused_cuda,
 )
-from ..kernels.qcqp_bwd_cuda import qcqp_kkt_bwd_cuda, qcqp_kkt_bwd_fused_cuda
+from ..kernels.qcqp_bwd_cuda import (
+    qcqp_kkt_bwd_cuda,
+    qcqp_kkt_bwd_fused_cuda,
+    split_cotangent,
+)
 from ..kernels.qr_solve_cuda import qr_solve_cuda
 from ..ops.linalg import newton_schulz_inverse_adaptive, solve, spd_cholesky_solve
 
@@ -512,20 +522,26 @@ def qcqp_dual(
     r >= r_min; gamma_i = max(-(C^T(Pl+q))_i, 0) / (4 ||l_(i)||^2), the
     diagonal normal-equations solve (C's columns are disjoint per contact),
     projected onto gamma >= 0 as in the JAX package. ``eps`` / ``r_min``
-    (scalars or broadcastable tensors) default to ``cfg.eps``."""
+    (scalars or broadcastable tensors) default to ``cfg.eps``. P l + q and
+    the two per-contact sums are formed in float64 whatever l's dtype, as
+    K2 forms them: in float32 the sum P l + q cancels on a weakly binding
+    contact and gamma, and the radius gradients with it, lose digits; the
+    activity test stays in l's dtype."""
     B = l.shape[0]
     nc = radius.shape[-1]
     pts = l.reshape(B, nc, 2)
     e = cfg.eps if eps is None else eps
     rm = cfg.eps if r_min is None else r_min
     active = (radius - torch.linalg.vector_norm(pts, dim=-1) <= e) & (radius >= rm)
-    plq = _pl_plus_q(P, l, q).reshape(B, nc, 2)
-    num = -2.0 * torch.sum(pts * plq, dim=-1)
-    den = 4.0 * torch.sum(pts * pts, dim=-1)
+    wide = torch.float64
+    ptw = pts.to(wide)
+    plq = _pl_plus_q(P.to(wide), l.to(wide), q.to(wide)).reshape(B, nc, 2)
+    num = -2.0 * torch.sum(ptw * plq, dim=-1)
+    den = 4.0 * torch.sum(ptw * ptw, dim=-1)
     gamma = torch.where(
         active,
-        torch.clamp_min(num, 0.0) / torch.clamp_min(den, torch.finfo(l.dtype).tiny),
-        torch.zeros_like(num),
+        (torch.clamp_min(num, 0.0) / torch.clamp_min(den, torch.finfo(l.dtype).tiny)).to(l.dtype),
+        torch.zeros(num.shape, dtype=l.dtype, device=l.device),
     )
     return QCQPDuals(gamma=gamma, active=active)
 
@@ -535,7 +551,10 @@ def qcqp_strict_active(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Squared slacks s and the strict-complementarity mask: s > -s_tol,
     r > act_eps and gamma > act_eps, s_tol = max(act_eps, 8 eps_mach
-    (||l_(i)||^2 + r^2)) in l's dtype."""
+    (||l_(i)||^2 + r^2)), the test in l's dtype. On the strictly active
+    contacts, the only ones whose s the adjoint reads, s is formed in
+    float64 and rounded once, as K2 forms its slack: there ||l_(i)||^2 - r^2
+    cancels."""
     B = l.shape[0]
     nc = radius.shape[-1]
     pts = l.reshape(B, nc, 2)
@@ -543,7 +562,9 @@ def qcqp_strict_active(
     s = sq - radius * radius
     s_tol = torch.clamp_min(8.0 * torch.finfo(l.dtype).eps * (sq + radius * radius), cfg.act_eps)
     active = (s > -s_tol) & (radius > cfg.act_eps) & (gamma > cfg.act_eps)
-    return s, active
+    ptw, rw = pts.to(torch.float64), radius.to(torch.float64)
+    s_wide = (torch.sum(ptw * ptw, dim=-1) - rw * rw).to(l.dtype)
+    return torch.where(active, s_wide, s), active
 
 
 def _qcqp_kkt_blocks(P, l, gamma, am, nc: int, n: int):
@@ -557,24 +578,39 @@ def _qcqp_kkt_blocks(P, l, gamma, am, nc: int, n: int):
     return Ct, Bt, D
 
 
-def _qcqp_kkt_system(P, l, g, gamma, s, am):
-    """(S^T, [0; g]) of the QCQP's transposed system, assembled:
+def _qcqp_split(l, g, gamma, am):
+    """K2's split of the cotangent (``split_cotangent``: g = C a + g_r on the
+    strictly active contacts, whose part C a has the exact answer dgamma =
+    a / gamma, dl = 0 where s = 0) for the generic routes. Returns (g_r (B,
+    n), a / gamma (B, nc))."""
+    la, lb = l[:, 0::2], l[:, 1::2]
+    return split_cotangent(l, g, la * la + lb * lb, gamma, am)
+
+
+def _qcqp_kkt_system(P, l, g, gamma, s, am, ainv=None):
+    """(S^T, rhs) of the QCQP's transposed system, assembled:
     S^T = [[diag(s am + (1 - am)), C^T], [B^T, D]] from the raw duals gamma,
-    the squared slacks s and the strict mask am (0 / 1 in l's dtype)."""
+    the squared slacks s and the strict mask am (0 / 1 in l's dtype); rhs =
+    [0; g], or [-sigma ainv; g] for the rest g of a split cotangent
+    (``_qcqp_split``)."""
     B, n = l.shape
     nc = n // 2
     Ct, Bt, D = _qcqp_kkt_blocks(P, l, gamma, am, nc, n)
-    top = torch.cat([torch.diag_embed(s * am + (1.0 - am)), Ct], dim=-1)
+    sigma = s * am + (1.0 - am)
+    top = torch.cat([torch.diag_embed(sigma), Ct], dim=-1)
     ST = torch.cat([top, torch.cat([Bt, D], dim=-1)], dim=-2)
-    rhs = torch.cat([torch.zeros(B, nc, dtype=l.dtype, device=l.device), g], dim=-1)
-    return ST, rhs
+    head = torch.zeros(B, nc, dtype=l.dtype, device=l.device) if ainv is None else -sigma * ainv
+    return ST, torch.cat([head, g], dim=-1)
 
 
 def _qcqp_assembled_vjp(P, l, g, gamma, s, am, cfg: SolverConfig) -> QCQPVJP:
-    """S^T x = [0; g] assembled and solved by ``_solve_direct``."""
+    """g split as K2 splits it (``_qcqp_split``), then S^T x = [-sigma a /
+    gamma; g_r] assembled and solved by ``_solve_direct``: dl = x's, dgamma
+    = (a / gamma + x's) am."""
     nc = l.shape[-1] // 2
-    x = _solve_direct(*_qcqp_kkt_system(P, l, g, gamma, s, am), cfg)
-    return QCQPVJP(dl=x[:, nc:], dgamma=x[:, :nc] * am, gamma=gamma)
+    g_r, ainv = _qcqp_split(l, g, gamma, am)
+    x = _solve_direct(*_qcqp_kkt_system(P, l, g_r, gamma, s, am, ainv), cfg)
+    return QCQPVJP(dl=x[:, nc:], dgamma=(x[:, :nc] + ainv) * am, gamma=gamma)
 
 
 def _qcqp_schur_vjp(P, l, g, s, am, gamma) -> QCQPVJP:
@@ -586,21 +622,26 @@ def _qcqp_schur_vjp(P, l, g, s, am, gamma) -> QCQPVJP:
     with D = P + blockdiag(2 gamma_i I_2) SPD: one factor of D, nc + 1
     solves and an nc x nc system, never the (nc + n)^3 solve. In float32
     within K6's bound (n <= 150): kernel K6 (``qcqp_kkt_bwd_cuda``; its
-    plain version on a CPU tensor). Otherwise the JAX package's route: D^{-1}
-    by its Newton-Schulz inverse (``_spd_inverse_f32``) in float32 or a
-    batched Cholesky in any other dtype, and an LU (``ops.linalg.solve``) of
-    the nc x nc system."""
+    plain version on a CPU tensor), on the whole g. Otherwise the JAX
+    package's route on the rest g_r of g split as K2 splits it
+    (``_qcqp_split``; the top right-hand side -sigma a / gamma, dgamma =
+    a / gamma + the solve's): D^{-1} by its Newton-Schulz inverse
+    (``_spd_inverse_f32``) in float32 or a batched Cholesky in any other
+    dtype, and an LU (``ops.linalg.solve``) of the nc x nc system."""
     n = l.shape[-1]
     if l.dtype == torch.float32 and qcqp_bwd_cuda.fits(n):
         dgamma, dl = qcqp_kkt_bwd_cuda(*_kernel_args(_as_dense(P), l, g, gamma, s, am))
         return QCQPVJP(dl=dl, dgamma=dgamma, gamma=gamma)
     Ct, Bt, D = _qcqp_kkt_blocks(P, l, gamma, am, n // 2, n)
-    rhs = torch.cat([g[..., None], Bt], dim=-1)
+    g_r, ainv = _qcqp_split(l, g, gamma, am)
+    sigma = s * am + (1.0 - am)
+    rhs = torch.cat([g_r[..., None], Bt], dim=-1)
     X = _spd_inverse_f32(D) @ rhs if l.dtype == torch.float32 else spd_cholesky_solve(D, rhs)
-    y, W = X[..., 0], X[..., 1:]                # D^{-1} g, D^{-1} B^T
-    M = torch.diag_embed(s * am + (1.0 - am)) - Ct @ W
-    dgamma = solve(M, -(Ct @ y[..., None]))[..., 0] * am
-    return QCQPVJP(dl=y - (W @ dgamma[..., None])[..., 0], dgamma=dgamma, gamma=gamma)
+    y, W = X[..., 0], X[..., 1:]                # D^{-1} g_r, D^{-1} B^T
+    M = torch.diag_embed(sigma) - Ct @ W
+    dgamma = solve(M, -(Ct @ y[..., None]) - (sigma * ainv)[..., None])[..., 0] * am
+    dl = y - (W @ dgamma[..., None])[..., 0]
+    return QCQPVJP(dl=dl, dgamma=(dgamma + ainv) * am, gamma=gamma)
 
 
 def qcqp_vjp(

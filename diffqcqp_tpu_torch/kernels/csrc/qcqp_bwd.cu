@@ -4,20 +4,35 @@
 // K2 replaces diffqcqp_tpu/kernels/qcqp_bwd_pallas.py::_qcqp_bwd_fused_kernel
 // with its core _schur_core (wrapper qcqp_kkt_bwd_fused). Per problem, with
 // contact c owning rows 2c and 2c+1 (reference order) and radius r_c:
-//   1. Pl + q;
+//   1. Pl + q, in double;
 //   2. the duals in closed form: gamma_c = act * max(-2 <l_c, (Pl+q)_c>, 0) /
-//      max(4 |l_c|^2, 1e-30), act = (r - |l_c| <= eps) & (r >= eps);
+//      max(4 |l_c|^2, 1e-30), formed in double and rounded to float once,
+//      act = (r - |l_c| <= eps) & (r >= eps);
 //   3. the strict mask am = (s > -s_tol) & (r > act_eps) & (gamma > act_eps),
-//      s = |l_c|^2 - r^2, s_tol = max(act_eps, stall_ulps (|l_c|^2 + r^2));
+//      s = |l_c|^2 - r^2, s_tol = max(act_eps, stall_ulps (|l_c|^2 + r^2)),
+//      and Sigma's slack s, formed in double; the split of the cotangent g =
+//      C a + g_r, a_c = am_c <g_c, l_c> / (2 |l_c|^2) (see below);
 //   4. the LDL^T factor of D = P + blockdiag(2 gamma_c I_2), with the RAW
 //      gamma (only the recovery mask), as the TPU kernel builds it;
-//   5. W = D^{-1} [g | C], column c of C = 2 l_c * am_c on contact c's rows,
+//   5. W = D^{-1} [g_r | C], column c of C = 2 l_c * am_c on contact c's rows,
 //      its forward sweep starting at row 2c (its first non-zero);
 //   6. M = Sigma - C^T W_C diag(gamma am), Sigma = s am + (1 - am), and
-//      y = -C^T W_g;
+//      y = -C^T W_g - Sigma a / gamma;
 //   7. M dgamma = y by unpivoted Householder QR, then dgamma *= am;
-//   8. dl = W_g - W_C (gamma am dgamma).
+//   8. dl = W_g - W_C (gamma am dgamma), then dgamma = (a / gamma + dgamma) am.
 // Outputs dgamma (B, nc), dl (B, n) and the raw gamma (B, nc).
+//
+// Why steps 1-3 and the split. On a contact on its rim the part C a of g
+// has the exact solution dgamma = a / gamma, dl = 0 (Sigma = s = 0 there),
+// and the radius gradients 2 gamma r dgamma carry it: with g = 2 l, a = 1
+// and dL/dr = 2 r. Solved whole in float, M ~ C^T D^-1 C diag(gamma) and
+// y = -C^T D^-1 g round apart and the ratio loses ~1e-4 on weakly binding
+// contacts; a float P l + q cancels there and gamma loses as much; a float
+// |l_c|^2 - r^2 is all rounding. So P l + q, gamma's sums and s are taken in
+// double (every product of two floats is exact there: no contraction
+// changes their bits), and only g_r and Sigma's part go through the float
+// solve. The activity tests stay in float, as before. K6 takes gamma, s and
+// the mask as given and solves the whole g, as before.
 //
 // K6 replaces qcqp_bwd_pallas.py::_qcqp_bwd_kernel -> _schur_core (wrapper
 // qcqp_kkt_bwd_pallas): steps 4-8 alone, with the raw gamma, the squared
@@ -100,6 +115,51 @@
 
 namespace {
 
+// Steps 2-3 of K2 for row r's contact, from its lane and its partner lane
+// r ^ 1 (the same warp): (la, lb) are the even and odd rows' values on both
+// lanes of the pair, so both compute the same bits. Every product and sum is
+// rounded on its own (__fmul_rn / __fadd_rn, and in double the products of
+// two floats are exact), as the plain version's torch ops round them, so the
+// two classify the contacts alike: a binding contact's slack r - |l_c| sits
+// within an ulp of the activity eps, where one rounding decides.
+struct Contact {
+  float gam_raw;  // the raw recovered dual (D's shift)
+  float amf;      // the strict mask as 0 / 1
+  float sigma;    // s am + (1 - am), s = |l_c|^2 - r^2 formed in double
+  float ainv;     // a / gamma on a strictly active contact, else 0
+  float g_r;      // this row of g_r = g - C a
+};
+
+__device__ Contact contact_terms(float lv, double plq, float gv, float rad, bool odd, bool real,
+                                 float eps, float act_eps, float stall_ulps) {
+  const float lp = __shfl_xor_sync(dq::kFullMask, lv, 1);
+  const double pp = __shfl_xor_sync(dq::kFullMask, plq, 1);
+  const float gp = __shfl_xor_sync(dq::kFullMask, gv, 1);
+  const float la = odd ? lp : lv, lb = odd ? lv : lp;
+  const double pa = odd ? pp : plq, pb = odd ? plq : pp;
+  const float ga = odd ? gp : gv, gb = odd ? gv : gp;
+  const float sq = __fadd_rn(__fmul_rn(la, la), __fmul_rn(lb, lb));
+  const double law = la, lbw = lb;
+  const double sqw = __dadd_rn(__dmul_rn(law, law), __dmul_rn(lbw, lbw));
+  const bool act = (rad - sqrtf(sq) <= eps) && (rad >= eps);
+  const double num = fmax(-2.0 * __dadd_rn(__dmul_rn(law, pa), __dmul_rn(lbw, pb)), 0.0);
+  Contact c;
+  c.gam_raw = act ? __double2float_rn(__ddiv_rn(num, fmax(4.0 * sqw, 1e-30))) : 0.f;
+  const float rr = __fmul_rn(rad, rad);
+  const float s = __fsub_rn(sq, rr);
+  const float s_tol = fmaxf(act_eps, __fmul_rn(stall_ulps, __fadd_rn(sq, rr)));
+  const bool am = real && (s > -s_tol) && (rad > act_eps) && (c.gam_raw > act_eps);
+  c.amf = am ? 1.f : 0.f;
+  const double radw = rad;
+  c.sigma = am ? __double2float_rn(__dsub_rn(sqw, __dmul_rn(radw, radw))) : 1.f;
+  const float a = am ? __fdiv_rn(__fadd_rn(__fmul_rn(la, ga), __fmul_rn(lb, gb)),
+                                 fmaxf(2.f * sq, dq::kTiny))
+                     : 0.f;
+  c.ainv = am ? __fdiv_rn(a, c.gam_raw) : 0.f;
+  c.g_r = __fsub_rn(gv, __fmul_rn(__fmul_rn(2.f, lv), a));
+  return c;
+}
+
 // ---------------------------------------------------------------------------
 // One warp, n <= 32: one problem per 32-thread block, lane r owning row r.
 // ---------------------------------------------------------------------------
@@ -158,13 +218,14 @@ __device__ void load_row(const SmemW& sm, int n, int r, const float* __restrict_
 // Steps 4-8 for lane r (contact r >> 1). On entry a[] holds row r of P and
 // sm.s_gam / sm.s_am hold gamma am and am per contact (the factor's first
 // __syncwarp publishes them). Per lane: gam_raw, the raw gamma of its
-// contact (D's shift), its l and g, and its contact's am and sigma = s am +
-// (1 - am). Writes dl_b[r] (r < n) and dgamma_b[c] (c < nc), problem b's
-// rows of the outputs.
-template <typename T>
+// contact (D's shift), its l and g, and its contact's am, sigma = s am +
+// (1 - am) and, with kSplit (K2), ainv = a / gamma of the part of g taken
+// out (g is then g_r). Writes dl_b[r] (r < n) and dgamma_b[c] (c < nc),
+// problem b's rows of the outputs.
+template <typename T, bool kSplit>
 __device__ void schur_core_w(const SmemW& sm, int n, int r, float (&a)[T::kN], float gam_raw,
-                             float lv, float gv, float amf, float sigma, float* __restrict__ dl_b,
-                             float* __restrict__ dgamma_b) {
+                             float lv, float gv, float amf, float sigma, float ainv,
+                             float* __restrict__ dl_b, float* __restrict__ dgamma_b) {
   const int ld = n | 1, nc = n / 2, ldm = nc | 1;
   const int cown = r >> 1;
   const bool odd = r & 1, real = r < n;
@@ -194,8 +255,9 @@ __device__ void schur_core_w(const SmemW& sm, int n, int r, float (&a)[T::kN], f
       const float tp = __shfl_xor_sync(dq::kFullMask, t, 1);
       const float ct = 2.f * (odd ? tp + t : t + tp) * amf;
       if (real && !odd) {
+        const float y = kSplit ? __fsub_rn(-ct, __fmul_rn(sigma, ainv)) : -ct;
         sm.sM[c * ldm + cown] =
-            (c == nc) ? -ct : ((cown == c) ? sigma : 0.f) - ct * sm.s_gam[c < nc ? c : 0];
+            (c == nc) ? y : ((cown == c) ? sigma : 0.f) - ct * sm.s_gam[c < nc ? c : 0];
       }
     }
   }
@@ -213,7 +275,13 @@ __device__ void schur_core_w(const SmemW& sm, int n, int r, float (&a)[T::kN], f
     }
     dl_b[r] = dl;
   }
-  if (r < nc) dgamma_b[r] = sm.s_dg[r] * sm.s_am[r];
+  if (kSplit) {
+    if (real && !odd) {
+      dgamma_b[cown] = __fmul_rn(__fadd_rn(ainv, __fmul_rn(sm.s_dg[cown], amf)), amf);
+    }
+  } else if (r < nc) {
+    dgamma_b[r] = sm.s_dg[r] * sm.s_am[r];
+  }
 }
 
 // 32 blocks (one warp each) an SM: at most 64 registers a thread
@@ -241,46 +309,29 @@ qcqp_bwd_kernel(const float* __restrict__ P, const float* __restrict__ q,
   float a[T::kN];
   load_row<T::kN>(sm, n, r, P, b, a);     // its __syncwarp publishes s_x too
 
-  // 1. P l + q, accumulated from q over the columns in order
-  float plq = real ? q[vo] : 0.f;
+  // 1. P l + q in double, accumulated from q over the columns in order
+  double plq = real ? (double)q[vo] : 0.0;
 #pragma unroll
   for (int k = 0; k < T::kN; k += 4) {
     const float4 x4 = *reinterpret_cast<const float4*>(sm.s_x + k);
     const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if (k + e < n) plq = __fadd_rn(plq, __fmul_rn(a[k + e], xv[e]));
+      if (k + e < n) plq = __dadd_rn(plq, __dmul_rn((double)a[k + e], (double)xv[e]));
     }
   }
 
-  // 2-3. per-contact duals and mask; (la, lb) are the even and odd rows'
-  // values on both lanes of the pair, so both compute the same bits. Steps
-  // 1-3 round each product and sum on its own (__fmul_rn / __fadd_rn: no
-  // fused multiply-add), as the plain version's torch ops do, so the two
-  // classify the contacts alike: a binding contact's slack r - |l_c| sits
-  // within an ulp of the activity eps, where one rounding decides
-  const float lp = __shfl_xor_sync(dq::kFullMask, lv, 1);
-  const float pp = __shfl_xor_sync(dq::kFullMask, plq, 1);
-  const float la = odd ? lp : lv, lb = odd ? lv : lp;
-  const float pa = odd ? pp : plq, pb = odd ? plq : pp;
-  const float sq = __fadd_rn(__fmul_rn(la, la), __fmul_rn(lb, lb));
-  const bool act = (rad - sqrtf(sq) <= eps) && (rad >= eps);
-  const float num = fmaxf(-2.f * __fadd_rn(__fmul_rn(la, pa), __fmul_rn(lb, pb)), 0.f);
-  const float gam_raw = act ? num / fmaxf(4.f * sq, dq::kTiny) : 0.f;
-  const float rr = rad * rad;
-  const float s = sq - rr;
-  const float s_tol = fmaxf(act_eps, stall_ulps * (sq + rr));
-  const bool am = real && (s > -s_tol) && (rad > act_eps) && (gam_raw > act_eps);
-  const float amf = am ? 1.f : 0.f;
-  const float sigma = am ? s : 1.f;       // s am + (1 - am)
+  // 2-3. per-contact duals, mask, slack and split
+  const Contact ct = contact_terms(lv, plq, gv, rad, odd, real, eps, act_eps, stall_ulps);
   if (real && !odd) {
-    sm.s_gam[cown] = gam_raw * amf;
-    sm.s_am[cown] = amf;
-    gamma_out[b * nc + cown] = gam_raw;
+    sm.s_gam[cown] = ct.gam_raw * ct.amf;
+    sm.s_am[cown] = ct.amf;
+    gamma_out[b * nc + cown] = ct.gam_raw;
   }
 
   // 4-8.
-  schur_core_w<T>(sm, n, r, a, gam_raw, lv, gv, amf, sigma, dl_out + b * n, dgamma_out + b * nc);
+  schur_core_w<T, true>(sm, n, r, a, ct.gam_raw, lv, ct.g_r, ct.amf, ct.sigma, ct.ainv,
+                        dl_out + b * n, dgamma_out + b * nc);
 }
 
 template <typename T>
@@ -310,7 +361,8 @@ qcqp_schur_kernel(const float* __restrict__ P, const float* __restrict__ l,
   float a[T::kN];
   load_row<T::kN>(sm, n, r, P, b, a);
 
-  schur_core_w<T>(sm, n, r, a, gam_raw, lv, gv, amf, sigma, dl_out + b * n, dgamma_out + b * nc);
+  schur_core_w<T, false>(sm, n, r, a, gam_raw, lv, gv, amf, sigma, 0.f, dl_out + b * n,
+                         dgamma_out + b * nc);
 }
 
 // ---------------------------------------------------------------------------
@@ -388,9 +440,11 @@ __device__ void load_mw(const SmemMW& sm, int n, const float* __restrict__ P,
 
 // Steps 4-8 with the whole block: on entry (after a barrier) sm.sA holds D
 // = P + diag(2 gamma_raw) in its lower triangle, sX holds [g | C] and the
-// per-contact slots are filled. Writes dl_b (n) and dgamma_b (nc).
-template <typename T>
-__device__ void schur_core_mw(const SmemMW& sm, int n, float* __restrict__ dl_b,
+// per-contact slots are filled. With kSplit (K2) sX holds [g_r | C], y's
+// column of sM holds Sigma a / gamma per contact, and ainv is a / gamma of
+// thread t's contact t >> 1. Writes dl_b (n) and dgamma_b (nc).
+template <typename T, bool kSplit>
+__device__ void schur_core_mw(const SmemMW& sm, int n, float ainv, float* __restrict__ dl_b,
                               float* __restrict__ dgamma_b) {
   const int ld = n | 1, ldx = n + 1, nc = n / 2, ldm = nc | 1;
   const int t = threadIdx.x;
@@ -407,8 +461,9 @@ __device__ void schur_core_mw(const SmemMW& sm, int n, float* __restrict__ dl_b,
     const float t0 = sm.s_x[2 * i] * wc[2 * i];
     const float t1 = sm.s_x[2 * i + 1] * wc[2 * i + 1];
     const float ct = 2.f * (t0 + t1) * sm.s_am[i];
+    const float y = kSplit ? __fsub_rn(-ct, sm.sM[c * ldm + i]) : -ct;
     sm.sM[c * ldm + i] =
-        (c == nc) ? -ct : ((i == c) ? sm.s_sig[i] : 0.f) - ct * sm.s_gam[c];
+        (c == nc) ? y : ((i == c) ? sm.s_sig[i] : 0.f) - ct * sm.s_gam[c];
   }
   __syncthreads();
 
@@ -424,7 +479,14 @@ __device__ void schur_core_mw(const SmemMW& sm, int n, float* __restrict__ dl_b,
     }
     dl_b[r] = dl;
   }
-  for (int c = t; c < nc; c += blockDim.x) dgamma_b[c] = sm.s_dg[c] * sm.s_am[c];
+  if (kSplit) {
+    if (t < n && !(t & 1)) {
+      const int c = t >> 1;
+      dgamma_b[c] = __fmul_rn(__fadd_rn(ainv, __fmul_rn(sm.s_dg[c], sm.s_am[c])), sm.s_am[c]);
+    }
+  } else {
+    for (int c = t; c < nc; c += blockDim.x) dgamma_b[c] = sm.s_dg[c] * sm.s_am[c];
+  }
 }
 
 template <typename T>
@@ -435,7 +497,7 @@ qcqp_bwd_kernel_mw(const float* __restrict__ P, const float* __restrict__ q,
                    float* __restrict__ dl_out, float* __restrict__ gamma_out, int n,
                    float eps, float act_eps, float stall_ulps) {
   extern __shared__ float smem[];
-  const int ld = n | 1, ldx = n + 1, nc = n / 2;
+  const int ld = n | 1, ldx = n + 1, nc = n / 2, ldm = nc | 1;
   const SmemMW sm = carve_mw(smem, n);
   const int r = threadIdx.x;
   const bool real = r < n;
@@ -447,41 +509,35 @@ qcqp_bwd_kernel_mw(const float* __restrict__ P, const float* __restrict__ q,
   const float rad = real ? radius[b * nc + cown] : 0.f;
   __syncthreads();
 
-  // 1. P l + q, accumulated from q over the columns in order (row r of P is
-  // column r of sA)
+  // 1. P l + q in double, accumulated from q over the columns in order (row
+  // r of P is column r of sA)
   const float lv = real ? sm.s_x[r] : 0.f;
-  float plq = real ? q[b * n + r] : 0.f;
+  const float gv = real ? sm.sX[r] : 0.f;
+  double plq = real ? (double)q[b * n + r] : 0.0;
   if (real) {
-    for (int c = 0; c < n; ++c) plq = __fadd_rn(plq, __fmul_rn(sm.sA[c * ld + r], sm.s_x[c]));
+    for (int c = 0; c < n; ++c) {
+      plq = __dadd_rn(plq, __dmul_rn((double)sm.sA[c * ld + r], (double)sm.s_x[c]));
+    }
   }
 
-  // 2-3. per-contact duals and mask, as the one-warp kernel computes them
-  const float lp = __shfl_xor_sync(dq::kFullMask, lv, 1);
-  const float pp = __shfl_xor_sync(dq::kFullMask, plq, 1);
-  const float la = odd ? lp : lv, lb = odd ? lv : lp;
-  const float pa = odd ? pp : plq, pb = odd ? plq : pp;
-  const float sq = __fadd_rn(__fmul_rn(la, la), __fmul_rn(lb, lb));
-  const bool act = (rad - sqrtf(sq) <= eps) && (rad >= eps);
-  const float num = fmaxf(-2.f * __fadd_rn(__fmul_rn(la, pa), __fmul_rn(lb, pb)), 0.f);
-  const float gam_raw = act ? num / fmaxf(4.f * sq, dq::kTiny) : 0.f;
-  const float rr = rad * rad;
-  const float s = sq - rr;
-  const float s_tol = fmaxf(act_eps, stall_ulps * (sq + rr));
-  const bool am = real && (s > -s_tol) && (rad > act_eps) && (gam_raw > act_eps);
-  const float amf = am ? 1.f : 0.f;
+  // 2-3. per-contact duals, mask, slack and split, as the one-warp kernel
+  // computes them
+  const Contact ct = contact_terms(lv, plq, gv, rad, odd, real, eps, act_eps, stall_ulps);
   if (real) {
-    sm.sA[r * ld + r] = sm.sA[r * ld + r] + 2.f * gam_raw;  // only this thread read P_rr
-    sm.sX[(cown + 1) * ldx + r] = 2.f * lv * amf;
+    sm.sA[r * ld + r] = sm.sA[r * ld + r] + 2.f * ct.gam_raw;  // only this thread read P_rr
+    sm.sX[(cown + 1) * ldx + r] = 2.f * lv * ct.amf;
+    sm.sX[r] = ct.g_r;
     if (!odd) {
-      sm.s_gam[cown] = gam_raw * amf;
-      sm.s_am[cown] = amf;
-      sm.s_sig[cown] = am ? s : 1.f;
-      gamma_out[b * nc + cown] = gam_raw;
+      sm.s_gam[cown] = ct.gam_raw * ct.amf;
+      sm.s_am[cown] = ct.amf;
+      sm.s_sig[cown] = ct.sigma;
+      sm.sM[nc * ldm + cown] = __fmul_rn(ct.sigma, ct.ainv);   // y's start, step 6
+      gamma_out[b * nc + cown] = ct.gam_raw;
     }
   }
   __syncthreads();
 
-  schur_core_mw<T>(sm, n, dl_out + b * n, dgamma_out + b * nc);
+  schur_core_mw<T, true>(sm, n, ct.ainv, dl_out + b * n, dgamma_out + b * nc);
 }
 
 template <typename T>
@@ -512,7 +568,7 @@ qcqp_schur_kernel_mw(const float* __restrict__ P, const float* __restrict__ l,
   }
   __syncthreads();
 
-  schur_core_mw<T>(sm, n, dl_out + b * n, dgamma_out + b * nc);
+  schur_core_mw<T, false>(sm, n, 0.f, dl_out + b * n, dgamma_out + b * nc);
 }
 
 // Dynamic shared memory one block needs for a problem of size n, for either

@@ -16,8 +16,10 @@ Both run one warp per problem at n <= 32 (``ONE_WARP_MAX_N``) and a block of
 ``MW_MAX_N``); ``launch_plan`` gives each launch's geometry.
 
 The plain versions repeat the kernels' arithmetic on whole batches in eager
-PyTorch, in any dtype: K2's P l + q accumulated over columns and its
-per-contact duals and strict mask, then, shared by both
+PyTorch, in any dtype: K2's P l + q accumulated over columns in float64,
+its per-contact duals and slacks (float64, rounded once), strict mask and
+split of the cotangent along C's columns (``split_cotangent``, which the
+generic routes of ``diff/kkt.py`` take too), then, shared by both
 (``_schur_core_plain``), the LDL^T factor of D = P + diag(2 gamma_raw)
 (``kernels/ldl.py``), the nc + 1 solves (column c of C starting at row 2c),
 M and y, the Householder QR and back substitution
@@ -46,6 +48,7 @@ __all__ = [
     "qcqp_kkt_bwd_fused_cuda",
     "qcqp_kkt_bwd_fused_plain",
     "qcqp_kkt_bwd_plain",
+    "split_cotangent",
     "fits",
     "launch_plan",
     "smem_bytes",
@@ -80,14 +83,17 @@ def _schur_core_plain(
     gam_raw: torch.Tensor,
     am: torch.Tensor,
     sigma: torch.Tensor,
+    ainv: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Steps 4-8 of K2 and K6 (csrc/qcqp_bwd.cu's schur_core): the LDL^T
     factor of D = P + diag(2 gam_raw) (``kernels/ldl.py``), W = D^{-1} [g | C]
     (column c of C starting at row 2c), M and y, the Householder QR and back
     substitution (``householder_solve``, in the order of the kernels' QR at
     this n: ``qr_group``), and dl. ``am`` is the (B, nc) strict mask as 0 /
-    1 in l's dtype, ``sigma`` = s am + (1 - am). Returns (dgamma (B, nc), dl
-    (B, n))."""
+    1 in l's dtype, ``sigma`` = s am + (1 - am). ``ainv`` (K2's, B x nc) is
+    a / gamma of the part C a of the cotangent that K2 takes out of g
+    before the call (``split_cotangent``): y then starts from -sigma ainv, and
+    dgamma = (ainv + the solve's) am. Returns (dgamma (B, nc), dl (B, n))."""
     nc = l.shape[-1] // 2
     gam = gam_raw * am
 
@@ -105,13 +111,35 @@ def _schur_core_plain(
         torch.where(eye[c], sigma, torch.zeros_like(sigma)) - _ct(l, Wc[c], am) * gam[:, c : c + 1]
         for c in range(nc)
     ]
-    Ab = torch.stack(cols + [-_ct(l, Wg, am)], dim=-1)
+    y = -_ct(l, Wg, am)
+    if ainv is not None:
+        y = y - sigma * ainv
+    Ab = torch.stack(cols + [y], dim=-1)
     dgamma = householder_solve(Ab, qr_group(l.shape[-1])) * am
 
     dl = Wg
     for c in range(nc):
         dl = dl - Wc[c] * (gam[:, c : c + 1] * dgamma[:, c : c + 1])
+    if ainv is not None:
+        dgamma = (ainv + dgamma) * am
     return dgamma, dl
+
+
+def split_cotangent(l: torch.Tensor, g: torch.Tensor, sq: torch.Tensor, gam_raw: torch.Tensor,
+                    am: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's split of the cotangent, g = C a + g_r: on each strictly active
+    contact a_c = <g_c, l_c> / (2 |l_c|^2), the part of g along C's column
+    2 l_c (0 elsewhere). The part C a has the exact solution dgamma = a /
+    gamma, dl = 0 where the slack s is 0, so only g_r and s's part go
+    through the float32 Schur solve: a contact on its rim keeps the exact
+    dL/dr = 2 gamma r dgamma. Returns (g_r (B, n), ainv = a / gamma (B, nc))."""
+    on = am > 0
+    a = torch.where(on, (l[:, 0::2] * g[:, 0::2] + l[:, 1::2] * g[:, 1::2])
+                    / torch.clamp_min(2.0 * sq, TINY), torch.zeros_like(sq))
+    g_r = g - 2.0 * l * torch.repeat_interleave(a, 2, dim=-1)
+    ainv = torch.where(on, a / torch.where(on, gam_raw, torch.ones_like(gam_raw)),
+                       torch.zeros_like(a))
+    return g_r, ainv
 
 
 def qcqp_kkt_bwd_fused_plain(
@@ -126,22 +154,34 @@ def qcqp_kkt_bwd_fused_plain(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's plain PyTorch version over a whole batch, in the inputs' dtype
     and on their device. Returns (dgamma (B, nc), dl (B, n), gamma (B, nc)),
-    gamma being the raw recovered duals."""
-    plq = q
+    gamma being the raw recovered duals.
+
+    P l + q, <l_c, (P l + q)_c>, |l_c|^2 and the slack s = |l_c|^2 - r^2
+    that sigma takes are formed in float64 (each product of two float32
+    numbers is exact there, and the sums add in the kernel's order), then
+    gamma and sigma are rounded to l's dtype; the activity tests stay in l's
+    dtype. The cotangent is split (``split_cotangent``) before the Schur solve."""
+    wide = torch.float64
+    plq = q.to(wide)
     for k in range(l.shape[-1]):
-        plq = plq + P[:, :, k] * l[:, k : k + 1]
+        plq = plq + P[:, :, k].to(wide) * l[:, k : k + 1].to(wide)
 
     la, lb = l[:, 0::2], l[:, 1::2]
+    law, lbw = la.to(wide), lb.to(wide)
     sq = la * la + lb * lb
+    sqw = law * law + lbw * lbw
     act = (radius - torch.sqrt(sq) <= eps) & (radius >= eps)
-    num = torch.clamp_min(-2.0 * (la * plq[:, 0::2] + lb * plq[:, 1::2]), 0.0)
-    gam_raw = torch.where(act, num / torch.clamp_min(4.0 * sq, TINY), torch.zeros_like(num))
+    num = torch.clamp_min(-2.0 * (law * plq[:, 0::2] + lbw * plq[:, 1::2]), 0.0)
+    gam_raw = torch.where(act, (num / torch.clamp_min(4.0 * sqw, TINY)).to(l.dtype),
+                          torch.zeros_like(la))
     rr = radius * radius
     s = sq - rr
     s_tol = torch.clamp_min(stall_ulps * (sq + rr), act_eps)
     am = ((s > -s_tol) & (radius > act_eps) & (gam_raw > act_eps)).to(l.dtype)
-    sigma = torch.where(am > 0, s, torch.ones_like(s))
-    dgamma, dl = _schur_core_plain(P, l, g, gam_raw, am, sigma)
+    rw = radius.to(wide)
+    sigma = torch.where(am > 0, (sqw - rw * rw).to(l.dtype), torch.ones_like(s))
+    g_r, ainv = split_cotangent(l, g, sq, gam_raw, am)
+    dgamma, dl = _schur_core_plain(P, l, g_r, gam_raw, am, sigma, ainv)
     return dgamma, dl, gam_raw
 
 

@@ -10,8 +10,9 @@ port records with it, on the CPU:
     in the same order either way; a call that is no replay records nothing;
   * a capture's layout, with the capture, the node count and the finished
     graph's nodes patched: the solve's spans come in order, each over the
-    nodes recorded inside it, and the layout is None where the graph holds
-    a conditional node.
+    nodes recorded inside it, a mixed ``SystemID`` step's layout names its
+    ``sysid.params``, ``sysid.loss`` and ``sysid.update``, and the layout is
+    None where the graph holds a conditional node.
 
 The layout against a device trace is ``portbench/tests/test_portbench_spans.py``'s;
 on the card, ``portbench/spans.py`` reads it.
@@ -272,6 +273,25 @@ def test_a_capture_records_the_layout_of_the_solves_spans(monkeypatch, tracing_o
     assert s.captures == 1 and tracing.active is False
     names = {r.name for r in tracing.spans()}
     assert names == (set(fwd + bwd) if tracing_on else set())
+
+
+def test_a_staged_mixed_system_id_step_names_its_spans(monkeypatch):
+    """The mixed kind's step (``models/system_id.py::mixed_step``, staged as
+    ``SystemID.train_step`` stages it) records the parameter maps, the loss
+    and Adam's update as spans of the graph's layout, beside the solves'."""
+    from diffqcqp_tpu_torch.models import system_id as sid
+
+    _patched_capture(monkeypatch, lambda n: [("kernel", None)] * n)
+    m = sid.SystemID(kind="mixed", device="cpu")
+    m.init_qcqp(torch.Generator().manual_seed(0), batch=2, nc=2)
+    s = staging.Staged(m._train_step)
+    st = staging._Graph()
+    leaves, spec = staging._leaves(((torch.rand(2, 4, generator=torch.Generator()),), {}))
+    s._capture(st, leaves, spec)
+    paths = [p for p, _ in st.layout if p is not None]
+    assert {"sysid.params", "sysid.loss", "sysid.update"} <= set(paths)
+    assert paths.index("sysid.params") < paths.index("solve.k1") < paths.index("sysid.loss")
+    assert paths.index("sysid.loss") < paths.index("adjoint.vjp") < paths.index("sysid.update")
 
 
 def test_a_capture_with_a_conditional_node_has_no_layout(monkeypatch):
