@@ -27,6 +27,10 @@
     python3 chip_smoke.py sysid      # phase 1, then the mixed SystemID staged
                                      # at config 4's size (``sysid_run``); no
                                      # result line
+    python3 chip_smoke.py glue       # phase 2g (G1 and G2 against the PyTorch
+                                     # formulas they replaced, bit for bit),
+                                     # then both timed against the formulas
+                                     # (``glue_run``); no result line
 
 Builds the port's CUDA kernels from ``diffqcqp_tpu_torch/kernels/csrc`` and
 drives the port's paths: the friction-cone QCQP forward solve and the
@@ -145,6 +149,9 @@ block-wide path). Phases, each of which fails the run if its check fails:
      V^T - P||_F / ||P||_F, max |V^T V - I| and |lam - lam_eigh| / ||P||_2,
      each <= 50 N u (u the dtype's unit roundoff); ascending; a non-finite
      problem all NaN, the others finite;
+  2g. kernels G1 (``symmetrize_cuda``, forward and adjoint) and G2
+     (``grad_p_cuda``) bit for bit the PyTorch formulas they replaced, at
+     B=2048 N=96 and B=4096 N=24 in float32 and float64 (``phase_2g``);
   3. the slice through ``solve_qcqp_with_stats`` (launch counters zeroed
      just before, read just after): K1 launched, every problem converged,
      every contact feasible, and max |dl| <= 1e-4 against the plain version
@@ -373,7 +380,8 @@ block-wide path). Phases, each of which fails the run if its check fails:
      steps (phase 3c's loss), config 6's step, the QCQP step at B=2048 N=96
      and those two generic calls: past the warm-up calls, the capture records
      exactly the eager step's kernels (K1 1 with K2 1 or K4 1; K5 1; K6 1; no
-     other), a replay counts none, a profiled replay runs the same kernels
+     other; at the flagship and config 6 also G1's forward, G1's adjoint
+     and G2 once each, read from their counters), a replay counts none, a profiled replay runs the same kernels
      once each, and the replay's l, stats and gradients equal the eager step's
      bit for bit on the inputs and on q + 1e-5; the flagship's graph (bucket
      4096) replayed for B=4000 and 3000 padded by ``pad_to_bucket``, bit for
@@ -3002,6 +3010,36 @@ def refused_under_capture(label, fn, capture=True):
         raise AssertionError(f"{label}: the guard did not refuse the capture")
 
 
+class InstanceCounter:
+    """``launches`` of one instance of a wrapper's ``launches_by_instance``,
+    settable as ``launched`` zeroes a counter."""
+
+    def __init__(self, wrapper, instance):
+        self.wrapper, self.instance = wrapper, instance
+
+    @property
+    def launches(self):
+        return self.wrapper.launches_by_instance.get(self.instance, 0)
+
+    @launches.setter
+    def launches(self, value):
+        self.wrapper.launches_by_instance[self.instance] = value
+
+
+def glue_counters():
+    """{G: the counter of that kernel's launches}: G1's forward and adjoint
+    instances and G2."""
+    from diffqcqp_tpu_torch.kernels.glue_cuda import grad_p_cuda, symmetrize_cuda
+
+    return {"G1 forward": InstanceCounter(symmetrize_cuda, "forward"),
+            "G1 adjoint": InstanceCounter(symmetrize_cuda, "adjoint"), "G2": grad_p_cuda}
+
+
+# a train step's glue on a dense P: P symmetrised (G1), the adjoint of that
+# (G1's adjoint instance) and grad_P (G2), one launch each
+GLUE_STEP = {"G1 forward": 1, "G1 adjoint": 1, "G2": 1}
+
+
 def staged_check(label, kernels, step, xs, want, perturb=1):
     """Phase 3n's checks of one step staged as a CUDA graph
     (``utils.staged``): past its warm-up calls, the capture records exactly
@@ -3103,7 +3141,7 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
     solve_qc = dqt.solve_qcqp_with_stats
     flag_step = grad_step(solve_qc, cfg, 4)
     paths = {       # label: (step, inputs, launches at capture, problems)
-        "flagship QCQP step B=4096 N=24": (flag_step, flag, {"K1": 1, "K2": 1}, B),
+        "flagship QCQP step B=4096 N=24": (flag_step, flag, {"K1": 1, "K2": 1, **GLUE_STEP}, B),
         "config 10 QP step B=4096 N=24": (
             grad_step(dqt.solve_qp_with_stats, c10.cfg, 2, rand_g(c10.q)), (c10.P, c10.q),
             {"K1": 1, "K4": 1}, c10.q.shape[0]),
@@ -3114,7 +3152,8 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
             grad_step(dqt.solve_signed_box_qp_with_stats, c9s.cfg, 4, rand_g(c9s.q)),
             (c9s.P, c9s.q, *c9s.params), {"K1": 1, "K4": 1}, c9s.q.shape[0]),
         "config 6 step B=2048 N=96": (grad_step(dqt.solve_qp_with_stats, c6q.cfg, 2),
-                                      (c6q.P, c6q.q), {"K1": 1, "K4": 1}, c6q.q.shape[0]),
+                                      (c6q.P, c6q.q), {"K1": 1, "K4": 1, **GLUE_STEP},
+                                      c6q.q.shape[0]),
         "QCQP step B=2048 N=96": (grad_step(solve_qc, cfg, 4), qc96, {"K1": 1, "K2": 1},
                                   qc96[1].shape[0]),
     }
@@ -3175,9 +3214,11 @@ def phase_3n(dqt, kernels, flag, cfg, families, c6, qc96, sysid, sysid_cfgs, b_g
     if any(why is None for why in reads_g.values()):
         raise AssertionError("a route that reads the host eagerly does not")
 
-    launches, pairs, staged_steps = {}, [], {}
+    # the flagship's and config 6's captures also count G1 and G2
+    launches, pairs, staged_steps, glue = {}, [], {}, glue_counters()
     for label, (step, xs, want, problems) in paths.items():
-        s, launches[label] = staged_check(label, kernels, step, xs, want)
+        counters = {**kernels, **glue} if glue.keys() & want.keys() else kernels
+        s, launches[label] = staged_check(label, counters, step, xs, want)
         staged_steps[label] = s
         pairs.append((label, lambda step=step, xs=xs: step(*xs), lambda s=s, xs=xs: s(*xs),
                       problems))
@@ -4702,6 +4743,88 @@ K1_SWEEP_B = (132, 528, 1056, 2112, 4096)
 K1_FIXED_K = (0, 8, 16, 32)
 
 
+GLUE_POINTS = ((2048, 96), (4096, 24))    # config 6's size and the flagship's
+
+
+def glue_cases(b, n, dtype=torch.float32, seed=23):
+    """G1 (forward and adjoint) and G2 at batch b, size n: [(label, the
+    kernel, the PyTorch formula it replaced)] on random inputs."""
+    from diffqcqp_tpu_torch.kernels import glue_cuda as G
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    P, Gc = (torch.randn((b, n, n), generator=gen, dtype=dtype, device=dev) for _ in range(2))
+    dl, l = (torch.randn((b, n), generator=gen, dtype=dtype, device=dev) for _ in range(2))
+    return [("G1 forward", lambda: G.symmetrize_cuda(P), lambda: 0.5 * (P + P.transpose(-1, -2))),
+            ("G1 adjoint", lambda: G.symmetrize_cuda(Gc, True),
+             lambda: G.symmetrize_plain(Gc, True)),
+            ("G2", lambda: G.grad_p_cuda(dl, l), lambda: G.grad_p_plain(dl, l))]
+
+
+def phase_2g():
+    """Phase 2g: G1 and G2 against the PyTorch formulas they replaced, bit
+    for bit, at ``GLUE_POINTS`` in float32 and float64."""
+    for b, n in GLUE_POINTS:
+        for dtype in (torch.float32, torch.float64):
+            same = {label: torch.equal(kernel(), formula())
+                    for label, kernel, formula in glue_cases(b, n, dtype)}
+            log(f"  B={b} N={n} {dtype}: bit for bit {same}")
+            if not all(same.values()):
+                raise AssertionError(f"glue: B={b} N={n} {dtype}: a kernel differs from its "
+                                     f"formula: {same}")
+    torch.cuda.synchronize()
+
+
+def glue_run() -> int:
+    """G1 (P's symmetrisation and its adjoint) and G2 (grad_P) alone at
+    ``GLUE_POINTS``: phase 2g's bits, then each timed against the PyTorch
+    formula it replaced, as 20 calls recorded in one CUDA graph (CUDA
+    events over 10 replays, and torch.profiler's device time), beside its
+    bound at HBM_BYTES_PER_S (G1 reads and writes B N N entries, G2 reads dl
+    and l and writes B N N) and a plain copy of P."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"glue: card {smi}")
+    phase_2g()
+    for b, n in GLUE_POINTS:
+        pass_ms = 1e3 * b * n * n * 4 / HBM_BYTES_PER_S
+        bounds = {"G1 forward": 2 * pass_ms, "G1 adjoint": 2 * pass_ms,
+                  "G2": pass_ms + 1e3 * 2 * b * n * 4 / HBM_BYTES_PER_S, "copy of P": 2 * pass_ms}
+        P = torch.randn((b, n, n), device="cuda:0")
+        for label, kernel, formula in glue_cases(b, n) + [("copy of P", P.clone, None)]:
+            for name, fn in (("kernel", kernel), ("torch", formula)):
+                if fn is None:
+                    continue
+                ev_ms, prof_ms = graph_times(fn)
+                log(f"  B={b} N={n} {label} {name}: {ev_ms:.4f} ms ev, {prof_ms:.4f} ms prof; "
+                    f"bound {bounds[label]:.4f} ms ({100 * bounds[label] / prof_ms:.1f} %)")
+    log("glue: passed")
+    return 0
+
+
+def graph_times(fn, calls=20, replays=10):
+    """(ms a call by CUDA events, ms a call of profiler device time) of
+    ``fn`` recorded ``calls`` times in one CUDA graph, over ``replays``
+    replays: the device time alone, without the host's launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    rows = device_time_by_kernel(graph.replay, calls=replays)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (calls * replays), sum(r[1] for r in rows) / calls
+
+
 def k1_run(root) -> int:
     """``python3 chip_smoke.py k1 [ROOT]``: K1 alone, from the port at ROOT
     (default: this checkout; a parent commit unpacked beside it compares the
@@ -4852,6 +4975,8 @@ def main() -> int:
         return eager_run(sys.argv[2])
     if sys.argv[1:2] == ["k1"] and len(sys.argv) <= 3:
         return k1_run(sys.argv[2] if len(sys.argv) == 3 else pathlib.Path(__file__).parent)
+    if sys.argv[1:] == ["glue"]:
+        return glue_run()
     t_start = time.perf_counter()
     import diffqcqp_tpu_torch as dqt
     from diffqcqp_tpu_torch.diff import kkt
@@ -5058,6 +5183,10 @@ def main() -> int:
     log("phase 2p: E1 (eigh_cuda) against jacobi_eigh_plain on the card")
     errs_e1, rotations_e1 = phase_2p(eigh_points(P))
     e1_dev = e1_device_times(P)
+
+    # ---- phase 2g: G1 and G2 against their plain versions on the card
+    log("phase 2g: G1 (symmetrize_cuda) and G2 (grad_p_cuda) against the formulas on the card")
+    phase_2g()
 
     # ---- phase 3: the slice through the public entry point
     log("phase 3: solve_qcqp_with_stats at B=4096 N=24")

@@ -63,6 +63,7 @@ import torch
 from .config import QCQP_DEFAULTS, QP_DEFAULTS, SolverConfig, check_supported
 from .diff.kkt import box_vjp, qcqp_radius_factors, qcqp_vjp, qp_vjp, signed_box_vjp
 from .kernels import admm_cuda
+from .kernels.glue_cuda import grad_p_cuda
 from .kernels.admm_cuda import (
     PROX_BOX,
     PROX_DISK,
@@ -295,11 +296,12 @@ def _qcqp(P, q, l_n, mu, ws, cfg: SolverConfig):
 
 def _grad_P(dl: torch.Tensor, l: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     """Symmetrised grad_P = -(dl l^T + l dl^T) / 2, the exact VJP of a solver
-    that sees only the symmetric part of P; for a diagonal P its diagonal,
+    that sees only the symmetric part of P (one pass on the card,
+    ``kernels/glue_cuda.py::grad_p_cuda``); for a diagonal P its diagonal,
     -dl * l."""
     if P.ndim == 2:
         return -dl * l
-    return -0.5 * (dl[:, :, None] * l[:, None, :] + l[:, :, None] * dl[:, None, :])
+    return grad_p_cuda(dl, l)
 
 
 def _bound_grads(r, n: int):

@@ -61,11 +61,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# flags of one source on top of NVCC_FLAGS: K1 and E1 contract no product and
-# sum into a fused multiply-add (only K1's explicit fmaf / fma calls are
-# fused), so that their plain versions' torch ops round as they do
-# (csrc/admm.cu, csrc/jacobi_eigh.cu)
-SOURCE_FLAGS = {"admm": ("-fmad=false",), "jacobi_eigh": ("-fmad=false",)}
+# flags of one source on top of NVCC_FLAGS: K1, E1, G1 and G2 contract no
+# product and sum into a fused multiply-add (only K1's explicit fmaf / fma
+# calls are fused), so that their plain versions' torch ops round as they do
+# (csrc/admm.cu, csrc/jacobi_eigh.cu, csrc/glue.cu)
+SOURCE_FLAGS = {"admm": ("-fmad=false",), "jacobi_eigh": ("-fmad=false",),
+                "glue": ("-fmad=false",)}
 
 builds = 0      # libraries compiled by this process
 

@@ -26,6 +26,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.glue_cuda import symmetrize
+
 __all__ = ["Canon", "canon_problem", "canon_like", "fields_from_numpy", "fold_vmapped",
            "unfold_vmapped"]
 
@@ -119,9 +121,10 @@ def canon_problem(P, q, device=None) -> Canon:
     qf = qf.to(common)
 
     # the quadratic form only sees the symmetric part of P; the kernel reads
-    # P as symmetric, so symmetrise here (as the JAX package does)
+    # P as symmetric, so symmetrise here (as the JAX package does), in one
+    # pass on the card (G1), whose adjoint is one pass too
     if Pf.ndim == 3:
-        Pf = 0.5 * (Pf + Pf.transpose(-1, -2))
+        Pf = symmetrize(Pf)
 
     def restore(x: torch.Tensor) -> torch.Tensor:
         if column:

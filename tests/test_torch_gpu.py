@@ -390,3 +390,108 @@ def test_staged_n96_step_records_k1s_register_instance(card):
     torch.cuda.synchronize(card)
     assert admm_cuda.admm_solve_cuda.launches_by_instance == {96: 1}
     assert torch.equal(l, l_eager)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("b", [1, 2048])
+@pytest.mark.parametrize("n", [8, 24, 33, 96, 170])
+def test_glue_kernels_are_their_plain_versions_bit_for_bit(card, n, b, dtype):
+    """G1 (forward and adjoint) and G2 give their plain versions' bits on
+    the card, for a contiguous P, a batch-broadcast one (batch stride 0)
+    and a transposed view, and G1's output is exactly symmetric; each call
+    counts one launch."""
+    from diffqcqp_tpu_torch.kernels import glue_cuda as G
+
+    gen = torch.Generator(device=card).manual_seed(n * 7 + b)
+    X = torch.randn((b, n, n), generator=gen, dtype=dtype, device=card)
+    inputs = {"contiguous": X, "broadcast": X[:1].expand(b, n, n), "transposed": X.mT}
+    before = dict(G.symmetrize_cuda.launches_by_instance)
+    for name, x in inputs.items():
+        for adjoint in (False, True):
+            y = G.symmetrize_cuda(x, adjoint)
+            assert y.is_contiguous() and torch.equal(y, G.symmetrize_plain(x, adjoint)), (name,
+                                                                                           adjoint)
+            assert torch.equal(y, y.mT)
+    after = G.symmetrize_cuda.launches_by_instance
+    assert all(after[k] - before.get(k, 0) == 3 for k in ("forward", "adjoint"))
+    dl = torch.randn((b, n), generator=gen, dtype=dtype, device=card)
+    l = torch.randn((b, n), generator=gen, dtype=dtype, device=card)
+    launches = G.grad_p_cuda.launches
+    g = G.grad_p_cuda(dl, l)
+    torch.cuda.synchronize(card)
+    assert G.grad_p_cuda.launches == launches + 1
+    assert torch.equal(g, G.grad_p_plain(dl, l)) and torch.equal(g, g.mT)
+
+
+def _qp_train_step(P, q):
+    """config 6's QP training step: the solve and the gradients of sum(l^2)
+    for P and q."""
+    xs = [x.detach().requires_grad_() for x in (P, q)]
+    cfg = dqt.QP_DEFAULTS.replace(eps=1e-7, max_iter=400, rho_update_period=24)
+    l, _ = dqt.solve_qp_with_stats(*xs, config=cfg)
+    return (l, *torch.autograd.grad((l * l).sum(), xs))
+
+
+@pytest.mark.parametrize("n", [24, 96])
+def test_staged_qp_train_step_records_one_pass_of_each_glue_kernel(card, monkeypatch, n):
+    """A staged QP train step records one G1 forward, one G1 adjoint and one
+    G2 launch at its capture, and its l, dP and dq equal, bit for bit, those
+    of the eager step with the PyTorch formulas the kernels replaced
+    (0.5 * (P + P^T) differentiated by autograd, -0.5 * (dl l^T + l dl^T))."""
+    from diffqcqp_tpu_torch import api
+    from diffqcqp_tpu_torch.kernels import glue_cuda as G
+    from diffqcqp_tpu_torch.utils import shapes
+
+    rng = np.random.default_rng(n)
+    s = rng.standard_normal((256, n, n)).astype(np.float32) / np.sqrt(n)
+    skew = 0.01 * rng.standard_normal((256, n, n)).astype(np.float32)
+    P = torch.tensor(s @ s.transpose(0, 2, 1) + 0.1 * np.eye(n) + skew, dtype=torch.float32,
+                     device=card)
+    q = torch.tensor(rng.standard_normal((256, n)), dtype=torch.float32, device=card)
+    step = staged(_qp_train_step)
+    for _ in range(WARMUP):
+        step(P, q)
+    G.symmetrize_cuda.launches_by_instance.clear()
+    launches = G.grad_p_cuda.launches
+    got = step(P, q)
+    torch.cuda.synchronize(card)
+    assert G.symmetrize_cuda.launches_by_instance == {"forward": 1, "adjoint": 1}
+    assert G.grad_p_cuda.launches == launches + 1
+    monkeypatch.setattr(shapes, "symmetrize", G.symmetrize_plain)
+    monkeypatch.setattr(api, "grad_p_cuda", G.grad_p_plain)
+    want = _qp_train_step(P, q)
+    torch.cuda.synchronize(card)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_glue_kernels_past_a_blocks_width(card, dtype):
+    """At N = 1100 (G1 as tile pairs, G2 with more runs a row than a block
+    has threads) both kernels give their plain versions' bits."""
+    from diffqcqp_tpu_torch.kernels import glue_cuda as G
+
+    gen = torch.Generator(device=card).manual_seed(1100)
+    X = torch.randn((3, 1100, 1100), generator=gen, dtype=dtype, device=card)
+    for adjoint in (False, True):
+        assert torch.equal(G.symmetrize_cuda(X, adjoint), G.symmetrize_plain(X, adjoint))
+    dl, l = (torch.randn((3, 1100), generator=gen, dtype=dtype, device=card) for _ in range(2))
+    assert torch.equal(G.grad_p_cuda(dl, l), G.grad_p_plain(dl, l))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_glue_kernels_take_unaligned_inputs_and_refuse_other_dtypes(card, dtype):
+    """G2 at N=96 on dl and l that start off a 16-byte boundary (its
+    one-element runs) gives its plain version's bits; both CUDA wrappers
+    raise on float16 rather than run a formula."""
+    from diffqcqp_tpu_torch.kernels import glue_cuda as G
+
+    gen = torch.Generator(device=card).manual_seed(96)
+    b, n = 2048, 96
+    buf = torch.randn((2, b * n + 1), generator=gen, dtype=dtype, device=card)
+    dl, l = (x[1:].view(b, n) for x in buf)
+    assert dl.data_ptr() % 16 != 0
+    assert torch.equal(G.grad_p_cuda(dl, l), G.grad_p_plain(dl, l))
+    with pytest.raises(TypeError):
+        G.symmetrize_cuda(torch.zeros((2, 8, 8), dtype=torch.float16, device=card))
+    with pytest.raises(TypeError):
+        G.grad_p_cuda(dl.half(), l.half())
